@@ -1,0 +1,57 @@
+"""Parameter and carry conversion between the JAX package and the port.
+
+The JAX package's parameter tree (nested dicts/lists of ``w/b``,
+``wx/wh/b``, ``w0``, ``classifier.u/b``) maps one to one onto the port's
+:class:`~repro_torch.core.models.ParamTree`.  Both directions take and give
+numpy arrays, so this module imports neither ``jax`` nor ``repro``: the
+caller converts with ``jax.tree.map(np.asarray, params)`` first.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.core.models import ParamTree
+
+
+def _numpy_tree(tree: Any) -> Any:
+    if isinstance(tree, dict):
+        return {k: _numpy_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_numpy_tree(v) for v in tree]
+    return torch.from_numpy(np.array(tree, copy=True))
+
+
+def params_from_jax(tree: dict) -> ParamTree:
+    """A JAX parameter tree as numpy arrays -> the port's ``ParamTree`` (on
+    the CPU; move it with ``.to(device)``).  Works for all three models."""
+    return ParamTree(_numpy_tree(tree))
+
+
+def params_to_numpy(params: ParamTree) -> dict[str, np.ndarray]:
+    """``state_dict`` keys (``layers.0.gcn.w`` ...) -> numpy arrays."""
+    return {k: v.detach().cpu().numpy()
+            for k, v in params.state_dict().items()}
+
+
+def carries_from_jax(tree: Any, device="cpu") -> Any:
+    """JAX carries as numpy (tuples / lists of arrays) -> tensors of the
+    same nesting (tuples stay tuples, lists stay lists)."""
+    if isinstance(tree, tuple):
+        return tuple(carries_from_jax(v, device) for v in tree)
+    if isinstance(tree, list):
+        return [carries_from_jax(v, device) for v in tree]
+    return torch.from_numpy(np.array(tree, copy=True)).to(device)
+
+
+def carries_to_numpy(carries: Any) -> Any:
+    """The port's carries -> numpy arrays of the same nesting, the form
+    ``jax.tree.map(np.asarray, carries)`` gives for the JAX package's."""
+    if isinstance(carries, tuple):
+        return tuple(carries_to_numpy(v) for v in carries)
+    if isinstance(carries, list):
+        return [carries_to_numpy(v) for v in carries]
+    return carries.detach().cpu().numpy()

@@ -1,0 +1,13 @@
+"""Hand-written Hopper kernels of the port and their plain versions.
+
+Each kernel has a wrapper (``ops.py``) that checks its inputs, launches the
+CUDA kernel on the current stream for CUDA tensors and counts the launch,
+and a plain PyTorch version (``ref.py``) that the wrapper runs for CPU
+tensors.  Sources are in ``repro_torch/csrc``; ``build.py`` compiles them.
+"""
+
+from repro_torch.kernels.mproduct import ops as mproduct_ops
+from repro_torch.kernels.segment_spmm import ops as segment_spmm_ops
+
+#: every kernel the serving path launches, in build order
+ALL = (segment_spmm_ops.KERNEL, mproduct_ops.KERNEL)

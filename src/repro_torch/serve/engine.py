@@ -1,0 +1,263 @@
+"""``ServeEngine`` — online dyngnn inference against resident state.
+
+Port of ``repro.serve.engine`` for the dyngnn family.  Live CTDG events
+stream in through :class:`~repro_torch.serve.ingest.OnlineIngester`; each
+closed window's delta item is staged to the card (pinned,
+``non_blocking``), applied into the ``DeltaApplier`` ring on the device,
+and one state-advance rolls the temporal carries forward in place; the
+window's node embeddings ``z_t`` stay cached on the device (the warm-state
+cache).  Queries — node scoring or link prediction — are micro-batched
+reads against that cache: no re-encoding, no model re-run.  After window t
+the served scores equal the JAX package's on the same events and
+parameters to <=1e-5 on the CPU (``tests/test_torch_serve.py``).
+
+The lm and recsys families raise ``NotImplementedError`` until ROADMAP
+Queue 1, item 9 ports them.
+"""
+
+from __future__ import annotations
+
+import copy
+
+import numpy as np
+import torch
+
+from repro_torch import obs, resolve_device, sanitize
+from repro_torch.core import models as mdl
+from repro_torch.serve.batching import QueryBatcher
+from repro_torch.serve.config import ServeConfig, ServeResult
+from repro_torch.serve.ingest import OnlineIngester
+from repro_torch.serve.state import (fresh_carries, make_advance_step,
+                                     make_link_query_step,
+                                     make_node_query_step)
+from repro_torch.stream.encoder import StreamReport
+from repro_torch.stream.prefetch import DeltaApplier, stage_item
+
+_NOT_PORTED = ("serving the {} family is not ported to PyTorch yet: "
+               "ROADMAP Queue 1, item 9")
+
+
+def _resolve(config: ServeConfig) -> mdl.DynGNNConfig:
+    """-> the dyngnn model config from the explicit model or the registry."""
+    if config.model is not None:
+        m = config.model
+        if isinstance(m, mdl.DynGNNConfig):
+            return m
+        kind = type(m).__name__
+        if kind in ("LMConfig", "DINConfig"):
+            raise NotImplementedError(_NOT_PORTED.format(
+                "lm" if kind == "LMConfig" else "recsys"))
+        raise ValueError(f"cannot serve a model config of type {kind}; "
+                         "expected DynGNNConfig")
+    from repro_torch.configs import registry
+    arch = registry.get_arch(config.arch)
+    return arch.make_smoke_config()
+
+
+class ServeEngine:
+    """One serving session: resolved model + resident state + counters.
+
+    ``params`` (a :class:`~repro_torch.core.models.ParamTree`, e.g. from
+    ``repro_torch.convert.params_from_jax``) defaults to a seed-keyed fresh
+    init; the engine keeps its own copy on ``device``.  ``device``
+    defaults to ``"cuda"`` and raises without a CUDA device unless
+    ``"cpu"`` is asked for.
+    """
+
+    def __init__(self, config: ServeConfig, params=None,
+                 keep_history: bool = False,
+                 device: str | torch.device = "cuda"):
+        config.validate()
+        self.device = resolve_device(device)
+        self.config = config
+        self.family = "dyngnn"
+        self.model = cfg = _resolve(config)
+        if config.ingest is None:
+            raise ValueError(
+                "dyngnn serving needs ServeConfig.ingest (an IngestSpec "
+                "describing the live event-stream discretization)")
+        self.report = StreamReport()
+        self._result = ServeResult(family=self.family, arch=config.arch)
+        # scope the shared registry to this session: result() reports
+        # the delta against this baseline as ServeResult.metrics
+        self._metrics_base = obs.metrics_snapshot()
+        self._spans_base = obs.get_tracer().recorded
+        # NB: the §5.4 smoothing transforms read FUTURE windows; a live
+        # stream serves the raw alive-edge snapshots.
+        if params is None:
+            gen = torch.Generator().manual_seed(config.seed)
+            params = mdl.init_params(gen, cfg)
+        self.params = copy.deepcopy(params).to(self.device)
+        # Resident state (carries, warm z) is single-owner by design:
+        # every method touching it enters this guard, so concurrent
+        # callers get an immediate RuntimeError (counted on ServeResult)
+        # instead of interleaved in-place state-advances.
+        self._guard = sanitize.ThreadAffinityGuard("ServeEngine")
+        self.carries = fresh_carries(cfg, self.params)
+        self.ingester = OnlineIngester(config.ingest, cfg.num_nodes,
+                                       report=self.report,
+                                       keep_history=keep_history)
+        self.applier = DeltaApplier(config.ingest.max_edges, self.device)
+        self._advance = make_advance_step(cfg)
+        node_step, link_step = make_node_query_step(), make_link_query_step()
+        self.z: torch.Tensor | None = None    # warm-state cache (N, F')
+        self._node_batcher = QueryBatcher(
+            lambda ids: node_step(self.params, self._warm_z(),
+                                  self._to_device(ids)).cpu().numpy(),
+            config.batch_sizes, config.queue_depth)
+        self._link_batcher = QueryBatcher(
+            lambda pairs: link_step(self.params, self._warm_z(),
+                                    self._to_device(pairs)).cpu().numpy(),
+            config.batch_sizes, config.queue_depth)
+
+    def _to_device(self, rows: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(rows.astype(np.int64)).to(self.device)
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _warm_z(self) -> torch.Tensor:
+        if self.z is None:
+            raise ValueError("no resident state yet: ingest events and "
+                             "advance() at least one window before querying")
+        return self.z
+
+    def ingest(self, stream) -> int:
+        """Push live CTDG events into the open-window buffer."""
+        with self._guard:
+            with obs.stopwatch("serve.ingest", cat="serve") as sw:
+                n = self.ingester.push(stream)
+            self._result.ingest_seconds += sw.seconds
+            self._result.events_ingested = n
+            # push() returns the running total -> gauge, not counter
+            obs.gauge("serve.events_ingested", n)
+            return n
+
+    def advance(self, windows: int = 1) -> torch.Tensor:
+        """Close ``windows`` time windows and roll the resident state.
+
+        Each window: encode the delta on the host, stage it to the device,
+        reconstruct the padded edge list in the ring, one state-advance
+        (carries rolled in place), refresh the warm ``z`` cache.  With the
+        tracer on, the four phases are spans (``serve.encode`` /
+        ``.stage`` / ``.apply`` / ``.step``), fenced so each measures its
+        device work.  Queries
+        still queued against the OLD state are flushed first — the cache
+        is never invalidated under a pending request.
+        """
+        with self._guard:
+            self._node_batcher.flush()
+            self._link_batcher.flush()
+            with obs.stopwatch("serve.advance", cat="serve",
+                               windows=windows) as sw:
+                for _ in range(windows):
+                    t_idx = self.ingester.next_window
+                    with obs.span("serve.window", cat="serve", t=t_idx):
+                        with obs.span("serve.encode", cat="serve"):
+                            item, frame = self.ingester.close_window()
+                        with obs.span("serve.stage", cat="serve") as sp:
+                            item, frame = sp.fence(
+                                stage_item((item, frame), self.device))
+                        with obs.span("serve.apply", cat="serve") as sp:
+                            edges, mask, vals = sp.fence(
+                                self.applier.consume(item))
+                        with obs.span("serve.step", cat="serve") as sp:
+                            self.z, self.carries = sp.fence(self._advance(
+                                self.params, self.carries, frame, edges,
+                                mask, vals, t_idx))
+                    obs.inc("serve.windows_advanced")
+                self._sync()
+            self._result.ingest_seconds += sw.seconds
+            self._result.windows_advanced = self.ingester.next_window
+            self._result.resyncs = self.report.resyncs
+            return self.z
+
+    def advance_all(self) -> torch.Tensor:
+        """Close every remaining configured window (bounded specs)."""
+        spec = self.config.ingest
+        if not spec.num_windows:
+            raise ValueError("advance_all() needs a bounded IngestSpec "
+                             "(num_windows set); open-ended streams "
+                             "advance(1) as windows elapse")
+        return self.advance(spec.num_windows - self.ingester.next_window)
+
+    def submit_nodes(self, ids):
+        """Queue a node-scoring request (micro-batched; see flush())."""
+        with self._guard:
+            self._warm_z()
+            return self._node_batcher.submit(np.asarray(ids))
+
+    def submit_links(self, pairs):
+        """Queue a link-prediction request for (src, dst) pairs."""
+        with self._guard:
+            self._warm_z()
+            return self._link_batcher.submit(np.asarray(pairs))
+
+    def flush(self) -> None:
+        """Score everything queued (both query types)."""
+        with self._guard:
+            self._node_batcher.flush()
+            self._link_batcher.flush()
+
+    def query_nodes(self, ids) -> np.ndarray:
+        """Synchronous node scores (B, C) against resident state."""
+        with self._guard:
+            self._warm_z()
+            return self._node_batcher.query(np.asarray(ids))
+
+    def query_links(self, pairs) -> np.ndarray:
+        """Synchronous link logits (B, C) against resident state."""
+        with self._guard:
+            self._warm_z()
+            return self._link_batcher.query(np.asarray(pairs))
+
+    def cold_query_nodes(self, ids) -> np.ndarray:
+        """The no-resident-state baseline: re-encode the WHOLE ingested
+        history, re-run the model over every window, then score.
+
+        Needs ``keep_history=True``.  This is what each query would cost
+        without the warm cache."""
+        cfg = self.model
+        applier = DeltaApplier(self.config.ingest.max_edges, self.device)
+        carries = fresh_carries(cfg, self.params)
+        advance = make_advance_step(cfg)
+        z = None
+        for t, (item, frame) in enumerate(self.ingester.replay()):
+            item, frame = stage_item((item, frame), self.device)
+            edges, mask, vals = applier.consume(item)
+            z, carries = advance(self.params, carries, frame, edges, mask,
+                                 vals, t)
+        if z is None:
+            raise ValueError("no windows closed yet")
+        with torch.inference_mode():
+            return mdl.classify(self.params,
+                                z[self._to_device(np.asarray(ids))]
+                                ).cpu().numpy()
+
+    def result(self) -> ServeResult:
+        """Session counters so far (flushes pending queries)."""
+        r = self._result
+        with self._guard:
+            self._node_batcher.flush()
+            self._link_batcher.flush()
+        r.guard_trips = self._guard.trips
+        r.queries = (self._node_batcher.stats.queries
+                     + self._link_batcher.stats.queries)
+        r.query_batches = (self._node_batcher.stats.batches
+                           + self._link_batcher.stats.batches)
+        r.query_seconds = (self._node_batcher.stats.seconds
+                           + self._link_batcher.stats.seconds)
+        r.query_latencies_ms = (self._node_batcher.stats.latencies_ms
+                                + self._link_batcher.stats.latencies_ms)
+        r.events_ingested = self.ingester.events_ingested
+        r.resyncs = self.report.resyncs
+        trc = obs.get_tracer()
+        r.metrics = obs.metrics().delta(self._metrics_base)
+        r.metrics["spans"] = trc.summary(trc.spans_since(self._spans_base))
+        return r
+
+
+def serve(config: ServeConfig, params=None, **kwargs) -> ServeEngine:
+    """``serve(ServeConfig(arch=...))`` -> ready engine."""
+    return ServeEngine(config, params=params, **kwargs)
