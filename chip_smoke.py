@@ -27,11 +27,40 @@ which exits non-zero on failure:
 4. the same 16 windows replayed through a ``device="cpu"`` engine — where
    the wrappers run the plain versions — and its embeddings and
    last-window queries held to the card's; then small-graph serving of
-   all three models, card against CPU, after every window.
+   all three models, card against CPU, after every window;
+5. the LM path: Yi-6B at full width (32 layers, d 4096, 32 query heads
+   over 4 KV heads, D 128, bf16, random weights drawn on the card from a
+   seed) served through ``ServeEngine(device="cuda").generate()``: one
+   wave of 8 prompts of 4,096 tokens (prefill takes the query-chunked
+   path), 64 greedy tokens; every kernel's count is zeroed just before
+   and read just after (32 layers x 63 decode steps = 2,016 launches of
+   ``flash_decode``, none of the dyngnn kernels); prefill ms, decode ms
+   per step (fenced spans), tokens/s, peak device memory; then one decode
+   step alone and under ``torch.profiler``;
+6. ``flash_decode`` held to its plain version at the path's shape (B 8,
+   S 4,160, ragged ``cache_len`` with 1 and S), at ``decode_32k``'s
+   (S 32,768) and ``long_500k``'s (B 1, S 524,288) lengths, at D 64 and
+   D 256 with G 1 (MiniCPM, Gemma), at G 2 (a head tile of 8, 6 masked)
+   and with a ``cache_len = 0`` row, each in bf16 and f32; at each, the
+   check is shown to reject zeros and the kernel's output with one
+   split's rows dropped; each timed beside its bound, its plain version
+   and ``scaled_dot_product_attention`` (a yardstick the port never
+   calls);
+7. Yi-6B's full widths at 2 layers in f32, card (kernel) against a
+   ``device="cpu"`` engine's parameters (plain version): prefill logits
+   and 8 teacher-forced decode steps' logits.
 
 Tolerances: segment SpMM 1e-4 (abs and rel; fp32 sums in another order
 than the plain ``index_add_``), banded TTM 1e-5 (abs and rel; the same
-fp32 window sum), served scores 1e-4 (the whole stack, two layers).
+fp32 window sum), served scores 1e-4 (the whole stack, two layers);
+flash decode, against the plain version's fp32 result, batch row by batch
+row: 1e-4 abs and rel in f32 (``tests/test_kernels.py``'s), and in bf16
+1e-2 x the row's max |plain|, no absolute term (2.56 times the worst
+rounding of a bf16 output, 2^-8 of its size; the output shrinks as
+1 / sqrt(cache rows), so a fixed term would pass zeros at long caches); LM logits 1e-4 (abs and rel; fp32 sums
+of 4,096- and 11,008-long products taken in another order, TF32 off).
+Kernel times are device time only (each call queued behind a device
+sleep); ``wrapper_ms`` is the wrapper's host time plus device time.
 
 Prints the card line, the per-phase numbers, one JSON line of the kernels
 and, last, ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -54,11 +83,17 @@ SRC = ROOT / "src"
 TOL_SPMM = 1e-4
 TOL_TTM = 1e-5
 TOL_SCORES = 1e-4
+TOL_FD = {"float32": 1e-4, "bfloat16": 1e-2}
+TOL_LOGITS = 1e-4
 
 NUM_EVENTS = 3_400_000       # ~2.0 M alive edges at the last window
 NUM_WINDOWS = 16
 BLOCK_SIZE = 8
 QUERY_REPS = 30
+
+LM_BATCH = 8
+LM_PROMPT = 4096
+LM_TOKENS = 64
 
 
 def log(msg: str) -> None:
@@ -77,7 +112,13 @@ def card_line() -> str:
 
 class Timer:
     """Median CUDA-event time of ``fn`` over repeated calls, with the L2
-    cache flushed before each call (the main path finds its inputs cold)."""
+    cache flushed before each call (the main path finds its inputs cold).
+
+    By default each call is queued behind a ~0.6 ms device sleep, so the
+    host time a wrapper spends before its launch is hidden: the reading is
+    device time only.  With ``host=True`` the device is idle when the
+    start event is recorded, so the reading is the wrapper's host time
+    before its launch plus the device time."""
 
     def __init__(self, torch, reps: int = 20):
         self.torch = torch
@@ -85,13 +126,17 @@ class Timer:
         self._flush = torch.empty(64 << 20, dtype=torch.uint8,
                                   device="cuda")
 
-    def __call__(self, fn) -> float:
+    def __call__(self, fn, host: bool = False) -> float:
         torch = self.torch
         for _ in range(3):
             fn()
         times = []
         for _ in range(self.reps):
             self._flush.zero_()
+            if host:
+                torch.cuda.synchronize()
+            else:
+                torch.cuda._sleep(1_000_000)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -146,6 +191,14 @@ def percentiles(ms: list[float]) -> str:
             f"p95 {sorted(ms)[int(0.95 * (len(ms) - 1))]:.3f} ms")
 
 
+def check_launches(path: str, launches: dict, want: dict) -> None:
+    log(f"[{path}] launches on the path: {launches}")
+    for name, n in want.items():
+        if launches[name] != n:
+            raise SystemExit(f"kernel {name}: {launches[name]} launches on "
+                             f"the {path} path, expected {n}")
+
+
 def main_path(torch, kernels, obs, n_nodes: int, max_edges: int):
     """Phase 2: the full-width serving run on the kernel path."""
     import numpy as np
@@ -164,11 +217,9 @@ def main_path(torch, kernels, obs, n_nodes: int, max_edges: int):
                                 NUM_WINDOWS)
     launches = {k.name: k.launches for k in kernels}
     obs.configure(enabled=False)
-    log(f"[serve] launches on the main path: {launches}")
-    for k in kernels:
-        if k.launches != 2 * NUM_WINDOWS:
-            raise SystemExit(f"kernel {k.name}: {k.launches} launches on "
-                             f"the main path, expected {2 * NUM_WINDOWS}")
+    check_launches("serve", launches, {"segment_spmm": 2 * NUM_WINDOWS,
+                                       "banded_ttm": 2 * NUM_WINDOWS,
+                                       "flash_decode": 0})
     alive = int(eng.applier.current[1].sum())
     r = eng.result()
     log(f"[serve] windows={r.windows_advanced} alive edges at the last "
@@ -264,7 +315,9 @@ def check_spmm(torch, eng, timer):
             "F": f, "edges": int(e.shape[0]), "nnz": nnz,
             "ms": timer(lambda x=x: ops.segment_spmm_csr(x, row_ptr, col,
                                                          wc)),
-            "wrapper_ms": timer(lambda x=x: ops.segment_spmm(x, e, w, n)),
+            "with_csr_ms": timer(lambda x=x: ops.segment_spmm(x, e, w, n)),
+            "wrapper_ms": timer(lambda x=x: ops.segment_spmm(x, e, w, n),
+                                host=True),
             "plain_ms": timer(lambda x=x: ref.segment_spmm_csr_ref(
                 x, row_ptr, col, wc)),
             "library_ms": timer(lambda x=x, csr=csr: torch.sparse.mm(csr,
@@ -272,7 +325,8 @@ def check_spmm(torch, eng, timer):
             "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
             "library_max_abs_err": lib_err}
         log(f"[kernel] segment_spmm F={f}: kernel {row['ms']:.4f} ms "
-            f"(with CSR build {row['wrapper_ms']:.4f}), plain "
+            f"(with CSR build {row['with_csr_ms']:.4f}; wrapper, host + "
+            f"device {row['wrapper_ms']:.4f}), plain "
             f"{row['plain_ms']:.4f}, torch.sparse.mm {row['library_ms']:.4f}"
             f", bound {b_ms:.4f} ({b_by}), max|err| {err:.2e}")
         results.append(row)
@@ -323,12 +377,15 @@ def check_ttm(torch, n: int, window: int, timer):
     res = {
         "shape": list(x.shape), "t_offset": main_off,
         "ms": timer(lambda: ops.banded_ttm(x, window, main_off)),
+        "wrapper_ms": timer(lambda: ops.banded_ttm(x, window, main_off),
+                            host=True),
         "plain_ms": timer(lambda: ref.banded_ttm_ref(x, window, main_off)),
         "library_ms": timer(lambda: m @ x),
         "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err_all,
         "library_max_abs_err": lib_err, "offsets": rows}
     log(f"[kernel] banded_ttm {tuple(x.shape)}: kernel {res['ms']:.4f} ms,"
-        f" plain {res['plain_ms']:.4f}, dense band matmul "
+        f" wrapper (host + device) {res['wrapper_ms']:.4f}, plain "
+        f"{res['plain_ms']:.4f}, dense band matmul "
         f"{res['library_ms']:.4f}, bound {b_ms:.4f} ({b_by}), max|err| "
         f"{err_all:.2e} over t_offset {[r['t_offset'] for r in rows]}")
     return res
@@ -452,6 +509,320 @@ def small_parity(torch):
             f"{windows} windows, max |diff| {err:.2e}")
 
 
+# ------------------------------------------------------------- LM path -----
+
+def lm_path(torch, kernels, obs):
+    """Phase 5: Yi-6B at full width through ``ServeEngine.generate``."""
+    import numpy as np
+
+    from repro_torch.configs import yi_6b
+    from repro_torch.kernels.build import reset_counts
+    from repro_torch.serve import ServeConfig, ServeEngine
+
+    cfg = yi_6b.make_config()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng = ServeEngine(ServeConfig(model=cfg, batch_sizes=(LM_BATCH,),
+                                  prompt_len=LM_PROMPT,
+                                  max_tokens=LM_TOKENS), device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(eng.params))
+    log(f"[lm] {cfg.name}: {n_params:,} parameters ({cfg.dtype}) drawn on "
+        f"the card in {time.perf_counter() - t0:.2f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    if n_params != cfg.param_count():
+        raise SystemExit(f"lm: {n_params} parameters, the config says "
+                         f"{cfg.param_count()}")
+    torch.cuda.reset_peak_memory_stats()
+    tracer = obs.configure(enabled=True)     # fenced prefill/decode spans
+    reset_counts(kernels)
+    tokens = eng.generate()
+    launches = {k.name: k.launches for k in kernels}
+    obs.configure(enabled=False)
+    steps = LM_TOKENS - 1
+    check_launches("lm", launches, {"segment_spmm": 0, "banded_ttm": 0,
+                                    "flash_decode": cfg.num_layers * steps})
+    r = eng.result()
+    if tokens.shape != (LM_BATCH, LM_TOKENS) or not (
+            (tokens >= 0) & (tokens < cfg.padded_vocab)).all():
+        raise SystemExit(f"lm: bad tokens {tokens.shape}, range "
+                         f"[{tokens.min()}, {tokens.max()}]")
+    spans = {}
+    for sp in tracer.spans():
+        spans.setdefault(sp.name, []).append(sp.dur_s * 1e3)
+    prefill_ms = spans["serve.prefill"][0]
+    decode_ms = spans["serve.decode"]
+    if len(decode_ms) != steps:
+        raise SystemExit(f"lm: {len(decode_ms)} decode spans, expected "
+                         f"{steps}")
+    wall = r.query_seconds
+    stats = {
+        "prefill_ms": prefill_ms,
+        "decode_ms_p50": statistics.median(decode_ms),
+        "decode_ms_p95": sorted(decode_ms)[int(0.95 * (steps - 1))],
+        "decode_tokens_per_s": LM_BATCH * steps / (sum(decode_ms) / 1e3),
+        "tokens_per_s": tokens.size / wall, "generate_s": wall,
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "launches": launches["flash_decode"]}
+    log(f"[lm] generate: B={LM_BATCH}, prompt {LM_PROMPT}, {LM_TOKENS} "
+        f"tokens, {wall:.3f} s -> {stats['tokens_per_s']:.1f} tokens/s "
+        f"(fenced spans)")
+    log(f"[lm] prefill {prefill_ms:.1f} ms; decode per step p50 "
+        f"{stats['decode_ms_p50']:.3f} ms, p95 {stats['decode_ms_p95']:.3f}"
+        f" ms over {steps} steps -> {stats['decode_tokens_per_s']:.1f} "
+        f"decode tokens/s")
+    log(f"[lm] peak device memory {stats['peak_gib']:.2f} GiB; tokens in "
+        f"[0, {cfg.padded_vocab}): {tokens.shape}, first row "
+        f"{np.asarray(tokens[0, :8]).tolist()}")
+    return eng, stats
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def profile_decode(torch, eng):
+    """One Yi-6B decode step at the path's shape: warm steady time, then
+    one step under ``torch.profiler`` (device busy, idle share, top ops)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import lm
+
+    cfg, params = eng.model, eng.params
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    prompts = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
+                            generator=gen, device="cuda")
+    logits, cache = lm.prefill(cfg, params, prompts, LM_PROMPT + LM_TOKENS)
+    tok = torch.argmax(logits, -1)
+
+    def step():
+        nonlocal cache, tok
+        lg, cache = lm.decode_step(cfg, params, cache, tok)
+        tok = torch.argmax(lg, -1)
+
+    walls = []
+    for _ in range(8):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    steady = statistics.median(walls[2:])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    by_name: dict[str, list[float]] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    busy = sum(sum(v) for v in by_name.values())
+    if busy <= 0:
+        raise SystemExit("profile: the trace holds no device time")
+    fd = sum(sum(v) for n, v in by_name.items() if "flash_decode" in n)
+    weight_bytes = sum(t.nbytes for t in _leaves(params))
+    # the K/V rows the profiled step reads, in bf16
+    kv_bytes = 2 * cfg.num_layers * int(cache["len"].sum()) \
+        * cfg.num_kv_heads * cfg.head_dim * 2
+    bound = (weight_bytes + kv_bytes) / 3.35e12 * 1e3
+    res = {"steady_ms": steady, "wall_ms": wall_us / 1e3,
+           "busy_ms": busy / 1e3, "idle_share": 1 - busy / wall_us,
+           "flash_decode_ms": fd / 1e3, "bound_ms": bound,
+           "activities": sum(map(len, by_name.values()))}
+    log(f"[profile-lm] decode step (warm, host clock + sync): median "
+        f"{steady:.3f} ms over {len(walls) - 2}; bound {bound:.3f} ms "
+        f"({weight_bytes / 1e9:.2f} GB of weights + "
+        f"{kv_bytes / 1e9:.2f} GB of K/V at 3.35 TB/s)")
+    log(f"[profile-lm] one step under the profiler: wall "
+        f"{res['wall_ms']:.3f} ms, device busy {res['busy_ms']:.3f} ms, "
+        f"idle share {res['idle_share']:.3f}, {res['activities']} device "
+        f"activities, flash_decode {res['flash_decode_ms']:.3f} ms")
+    for name, v in sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:12]:
+        log(f"[profile-lm]   {sum(v) / 1e3:8.3f} ms  x{len(v):<4d} "
+            f"{name[:90]}")
+    return res
+
+
+def fd_excess(dtype: str, got, want32) -> tuple[float, float]:
+    """-> (max |kernel - plain fp32|, the largest ratio of a batch row's
+    max |diff| to that row's limit; the check passes at <= 1).  A row's
+    limit is, in f32, TOL_FD abs + rel x the row's max |plain|; in bf16,
+    TOL_FD x the row's max |plain|, scaled to the output alone: the output
+    shrinks as 1 / sqrt(cache rows), so a fixed absolute term, or one
+    scaled to another row's larger output, would pass zeros."""
+    diff = (got - want32).abs().flatten(1).amax(1)
+    peak = want32.abs().flatten(1).amax(1)
+    limit = TOL_FD[dtype] * (peak if dtype == "bfloat16" else 1.0 + peak)
+    return float(diff.max()), float((diff / limit).max())
+
+
+def dropped_split_lens(lens: list[int], s: int, splits: int) -> list[int]:
+    """``cache_len`` with one split's share of each sequence's rows taken
+    off its end (at least one row kept; rows with ``cache_len <= 0`` keep
+    their meaning): the kernel run on these is the kernel with a split
+    dropped."""
+    out = []
+    for x in lens:
+        n = min(x, s)
+        out.append(x if x <= 0 else max(n - -(-n // splits), 1))
+    return out
+
+
+def check_flash_decode(torch, timer):
+    """Phase 6: the kernel against its plain version, and timed.  Each
+    case also shows that its check rejects two faulty outputs made on the
+    card: zeros, and the kernel's own output with one split's rows
+    dropped."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_decode import ops, ref
+
+    s_path = LM_PROMPT + LM_TOKENS
+    cases = [  # name, B, Hq, KVH, D, S, cache_len
+        ("path", 8, 32, 4, 128, s_path, [LM_PROMPT + 32] * 8),
+        ("path ragged", 8, 32, 4, 128, s_path,
+         [1, s_path, 4097, 2000, 3000, 17, 4100, 9999]),
+        ("decode_32k", 8, 32, 4, 128, 32768,
+         [32768, 1, 30000, 16384, 32767, 5000, 20000, 32768]),
+        ("long_500k", 1, 32, 4, 128, 524288, [524288]),
+        ("D64 G1", 8, 36, 36, 64, s_path, [LM_PROMPT + 32] * 8),
+        ("D256 G1", 8, 16, 16, 256, s_path, [LM_PROMPT + 32] * 8),
+        ("G2", 2, 8, 4, 128, 300, [300, 123]),
+        ("cache_len 0", 2, 32, 4, 128, s_path, [0, s_path]),
+    ]
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rows, err_all = [], 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[-1]
+        for name, b, hq, kvh, d, s, lens in cases:
+            q = torch.randn((b, hq, d), generator=gen, device="cuda"
+                            ).to(dtype)
+            k = torch.randn((b, s, kvh, d), generator=gen, device="cuda"
+                            ).to(dtype)
+            v = torch.randn((b, s, kvh, d), generator=gen, device="cuda"
+                            ).to(dtype)
+            cl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+            got = ops.decode_attention(q, k, v, cl).float()
+            want = ref.flash_decode_ref(q, k, v, cl)
+            # the plain version's fp32 result before its cast to q's type
+            want32 = want if dtype == torch.float32 else \
+                ref.flash_decode_ref(q.float(), k.float(), v.float(), cl)
+            torch.cuda.synchronize()
+            err, ratio = fd_excess(dname, got, want32)
+            if not ratio <= 1.0:
+                raise SystemExit(f"flash_decode {name} {dname}: kernel "
+                                 f"disagrees with its plain version: max "
+                                 f"|diff| {err:.3e}, {ratio:.3f} x a row's "
+                                 "limit")
+            err_all = max(err_all, err)
+            pl = ops.plan(b, s, hq, kvh, ops._sm_count(0))
+            cut = torch.tensor(dropped_split_lens(lens, s, pl[1]),
+                               dtype=torch.int32, device="cuda")
+            faults = {
+                "zeros": fd_excess(dname, torch.zeros_like(got), want32)[1],
+                "a split dropped": fd_excess(dname, ops.decode_attention(
+                    q, k, v, cut).float(), want32)[1]}
+            for fault, fratio in faults.items():
+                if fratio <= 1.0:
+                    raise SystemExit(
+                        f"flash_decode {name} {dname}: the check would "
+                        f"pass a kernel that wrote {fault} ({fratio:.3f} x "
+                        "a row's limit)")
+            # the yardstick: SDPA over (B, KVH, S, D) views with a length
+            # mask (all-masked rows give NaN there, so its error is taken
+            # over rows with cache_len >= 1)
+            kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+            n_rows = [min(x, s) if x > 0 else s for x in lens]
+            mask = (torch.arange(s, device="cuda")[None, :]
+                    < torch.tensor(n_rows, device="cuda")[:, None]
+                    )[:, None, None, :]
+
+            def lib(q=q, kt=kt, vt=vt, mask=mask):
+                return F.scaled_dot_product_attention(
+                    q[:, :, None, :], kt, vt, attn_mask=mask,
+                    enable_gqa=True)[:, :, 0]
+
+            ok = torch.tensor([x > 0 for x in lens], device="cuda")
+            lib_err = float((lib() - want).float()[ok].abs().max())
+            esize = q.element_size()
+            nbytes = 2 * q.nbytes + cl.nbytes \
+                + 2 * sum(n_rows) * kvh * d * esize
+            b_ms, b_by = bound_ms(nbytes, 4.0 * sum(n_rows) * hq * d)
+
+            def kern(q=q, k=k, v=v, cl=cl):
+                return ops.decode_attention(q, k, v, cl)
+
+            row = {
+                "case": name, "dtype": dname,
+                "B": b, "Hq": hq, "KVH": kvh, "D": d, "S": s,
+                "cache_len": lens,
+                "ms": timer(kern), "wrapper_ms": timer(kern, host=True),
+                "plain_ms": timer(lambda q=q, k=k, v=v, cl=cl:
+                                  ref.flash_decode_ref(q, k, v, cl)),
+                "library_ms": timer(lib),
+                "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
+                "err_over_limit": ratio,
+                "max_abs_err_vs_plain_in_dtype": float(
+                    (got - want.float()).abs().max()),
+                "fault_over_limit": faults, "library_max_abs_err": lib_err,
+                "plan": pl}
+            log(f"[kernel] flash_decode {name} {dname} (B {b}, Hq {hq}, "
+                f"KVH {kvh}, D {d}, S {s}, plan {row['plan']}): kernel "
+                f"{row['ms']:.4f} ms (wrapper, host + device "
+                f"{row['wrapper_ms']:.4f}), plain {row['plain_ms']:.4f}, "
+                f"sdpa {row['library_ms']:.4f}, bound {b_ms:.4f} ({b_by})")
+            log(f"[kernel]   max|err| {err:.3e}, {ratio:.3f} x a row's "
+                f"limit; faults rejected at x limit: zeros "
+                f"{faults['zeros']:.1f}, a split dropped "
+                f"{faults['a split dropped']:.1f}; sdpa max|err| "
+                f"{lib_err:.2e}")
+            rows.append(row)
+            del q, k, v, got, want, want32, kt, vt, lib, kern
+    return rows, err_all
+
+
+def lm_parity(torch):
+    """Phase 7: Yi-6B's full widths at 2 layers in f32, the card's kernel
+    path against the CPU's plain path on the same parameters."""
+    import dataclasses
+
+    from repro_torch.configs import yi_6b
+    from repro_torch.models import lm
+    from repro_torch.serve import ServeConfig, ServeEngine
+
+    cfg = dataclasses.replace(yi_6b.make_config(), num_layers=2,
+                              dtype=torch.float32)
+    sc = ServeConfig(model=cfg, batch_sizes=(2,), prompt_len=256,
+                     max_tokens=8)
+    gpu = ServeEngine(sc, device="cuda")
+    cpu = ServeEngine(sc, params=gpu.params, device="cpu")
+    gen = torch.Generator().manual_seed(4)
+    toks = torch.randint(0, cfg.vocab_size, (2, 256 + 8), generator=gen)
+    max_len = 256 + 8
+    glog, gcache = lm.prefill(cfg, gpu.params, toks[:, :256].cuda(),
+                              max_len)
+    clog, ccache = lm.prefill(cfg, cpu.params, toks[:, :256], max_len)
+    errs = [check_close("lm prefill logits", glog.cpu(), clog, TOL_LOGITS)]
+    for t in range(256, 256 + 8):
+        glog, gcache = lm.decode_step(cfg, gpu.params, gcache,
+                                      toks[:, t].cuda())
+        clog, ccache = lm.decode_step(cfg, cpu.params, ccache, toks[:, t])
+        errs.append(check_close(f"lm decode step {t - 255} logits",
+                                glog.cpu(), clog, TOL_LOGITS))
+    limit = TOL_LOGITS * (1.0 + float(clog.abs().max()))
+    log(f"[parity-lm] yi-6b widths, 2 layers, f32, B 2, prompt 256: card "
+        f"(kernel) vs CPU (plain) logits max |diff| prefill {errs[0]:.2e},"
+        f" decode steps {max(errs[1:]):.2e} (limit ~{limit:.2e})")
+
+
 # ---------------------------------------------------------------- main -----
 
 def main() -> int:
@@ -501,6 +872,14 @@ def main() -> int:
     phase("profile", profile_step, torch, eng)
     phase("plain-path parity", plain_parity, eng, events)
     phase("small-graph parity", small_parity, torch)
+    del eng, events
+    lm_eng, lm_stats = phase("lm path", lm_path, torch, kernels, obs)
+    lm_prof = phase("lm profile", profile_decode, torch, lm_eng)
+    del lm_eng
+    torch.cuda.empty_cache()
+    fd_rows, fd_err = phase("flash_decode check", check_flash_decode, torch,
+                            timer)
+    phase("lm parity", lm_parity, torch)
 
     spmm_main = next(r for r in spmm_rows if r["F"] == 6)  # layer 1
     report = {"kernels": [
@@ -520,7 +899,16 @@ def main() -> int:
          "max_abs_err": ttm["max_abs_err"], "ms": ttm["ms"],
          "plain_ms": ttm["plain_ms"], "bound_ms": ttm["bound_ms"],
          "bound_by": ttm["bound_by"], "library_ms": ttm["library_ms"],
-         "detail": ttm}]}
+         "detail": ttm},
+        {"name": "flash_decode", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_decode.cu",
+         "replaces": "src/repro/kernels/flash_decode/flash_decode.py:69",
+         "launches": lm_stats["launches"], "max_abs_err": fd_err,
+         "ms": fd_rows[0]["ms"], "plain_ms": fd_rows[0]["plain_ms"],
+         "bound_ms": fd_rows[0]["bound_ms"],
+         "bound_by": fd_rows[0]["bound_by"],
+         "library_ms": fd_rows[0]["library_ms"], "shapes": fd_rows,
+         "lm_path": lm_stats, "decode_profile": lm_prof}]}
     log("[done] kernels launched on the main path and checked against "
         "their plain versions: " + ", ".join(k.name for k in kernels))
     log(json.dumps(report))

@@ -1,1 +1,1 @@
-"""Architecture registry of the port (dyngnn archs only)."""
+"""Architecture registry of the port (dyngnn and dense LM archs)."""

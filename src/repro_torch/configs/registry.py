@@ -1,7 +1,8 @@
 """Architecture registry of the port: ``arch=<id>`` selects a config.
 
 Port of ``repro.configs.registry`` for the dyngnn archs (``tmgcn``,
-``cdgcn``, ``evolvegcn``, ``paper_dyngnn``).  The seed's lm, recsys and
+``cdgcn``, ``evolvegcn``, ``paper_dyngnn``) and the dense LM archs
+(``yi-6b``, ``gemma-7b``, ``minicpm-2b``).  The seed's MoE LM, recsys and
 static-GNN archs are known by name and family only: asking for one raises
 ``NotImplementedError`` until ROADMAP Queue 1, item 9 ports them.
 """
@@ -16,18 +17,22 @@ from typing import Any, Callable
 @dataclass(frozen=True)
 class ArchSpec:
     arch_id: str
-    family: str            # dyngnn; lm | gnn | recsys: ROADMAP Queue 1, item 9
+    family: str            # dyngnn | lm; gnn | recsys: ROADMAP Queue 1, item 9
     make_config: Callable[[], Any]
     make_smoke_config: Callable[[], Any]
 
 
 _REGISTRY: dict[str, ArchSpec] = {}
 
-ARCH_MODULES = ["repro_torch.configs.paper_dyngnn"]
+ARCH_MODULES = [
+    "repro_torch.configs.yi_6b",
+    "repro_torch.configs.gemma_7b",
+    "repro_torch.configs.minicpm_2b",
+    "repro_torch.configs.paper_dyngnn",
+]
 
 #: archs of the JAX package the port does not serve yet -> their family
 NOT_PORTED = {
-    "yi-6b": "lm", "gemma-7b": "lm", "minicpm-2b": "lm",
     "olmoe-1b-7b": "lm", "moonshot-v1-16b-a3b": "lm",
     "gatedgcn": "gnn", "pna": "gnn", "schnet": "gnn",
     "equiformer-v2": "gnn", "din": "recsys",

@@ -6,8 +6,9 @@ and a plain PyTorch version (``ref.py``) that the wrapper runs for CPU
 tensors.  Sources are in ``repro_torch/csrc``; ``build.py`` compiles them.
 """
 
+from repro_torch.kernels.flash_decode import ops as flash_decode_ops
 from repro_torch.kernels.mproduct import ops as mproduct_ops
 from repro_torch.kernels.segment_spmm import ops as segment_spmm_ops
 
-#: every kernel the serving path launches, in build order
-ALL = (segment_spmm_ops.KERNEL, mproduct_ops.KERNEL)
+#: every kernel of the port, in build order
+ALL = (segment_spmm_ops.KERNEL, mproduct_ops.KERNEL, flash_decode_ops.KERNEL)

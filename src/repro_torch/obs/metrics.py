@@ -8,6 +8,7 @@ feeds:
 * ``serve.windows_advanced`` — windows closed by ``ServeEngine.advance``;
 * ``serve.events_ingested`` — running total of ingested events (gauge);
 * ``serve.queries`` / ``serve.query_rows`` — requests / rows scored;
+* ``serve.tokens_generated`` — tokens of ``ServeEngine.generate`` waves;
 * ``stream.resyncs`` — encoder pad overflows -> full-frame resync;
 * ``sanitize.guard_trips`` — ThreadAffinityGuard rejections.
 

@@ -1,16 +1,19 @@
 """Serve configuration: the one declarative description of a serving run.
 
-The port's copy of ``repro.serve.config``, for the dyngnn family (the lm
-and recsys knobs wait for ROADMAP Queue 1, item 9).  The config separates
+The port's copy of ``repro.serve.config``, for the dyngnn and lm families
+(the recsys family waits for ROADMAP Queue 1, item 9).  The config
+separates
 
 * the MODEL — an arch id from the registry (``arch="paper_dyngnn"``)
   and/or an explicit config object (``model=``, which wins; a
-  :class:`repro_torch.core.models.DynGNNConfig`);
+  :class:`repro_torch.core.models.DynGNNConfig` or a
+  :class:`repro_torch.models.lm.LMConfig`);
 * the INGEST discretization (:class:`IngestSpec`) — how the
   live CTDG event stream bins into time windows and how the delta
   encoder pads its payloads;
 * the QUERY path — static padded micro-batch buckets and the bounded
-  request queue.
+  request queue;
+* the lm GENERATE wave — prompt length and tokens generated per request.
 
 ``ServeEngine`` answers queries against resident temporal state;
 ``ServeResult`` carries the latency / throughput / ingest counters.
@@ -135,15 +138,18 @@ class ServeConfig:
     traffic runs a handful of query shapes.  ``queue_depth`` bounds the
     pending-request queue (backpressure: a submit into a full queue
     flushes first).  ``seed`` drives param init when no trained state is
-    supplied.
+    supplied, and the lm family's synthetic prompts.
     """
 
     arch: str | None = None
     model: Any = None                       # explicit config object (wins)
-    ingest: IngestSpec | None = None
+    ingest: IngestSpec | None = None        # dyngnn family only
     batch_sizes: tuple[int, ...] = (1, 8, 64)
     queue_depth: int = 64
     seed: int = 0
+    # lm-family knobs (prefill + greedy decode)
+    prompt_len: int = 32
+    max_tokens: int = 64
 
     def validate(self) -> None:
         if self.arch is None and self.model is None:
@@ -157,6 +163,9 @@ class ServeConfig:
                              f"got {self.batch_sizes}")
         if self.queue_depth < 1:
             raise ValueError("ServeConfig.queue_depth must be >= 1")
+        if self.prompt_len < 1 or self.max_tokens < 1:
+            raise ValueError("ServeConfig.prompt_len/max_tokens must be "
+                             ">= 1")
         if self.ingest is not None:
             self.ingest.validate()
 
@@ -177,6 +186,7 @@ class ServeResult:
     resyncs: int = 0                        # delta-pad overflow resyncs
     queries: int = 0
     query_batches: int = 0
+    tokens_generated: int = 0               # lm family
     guard_trips: int = 0                    # rejected concurrent entries
     ingest_seconds: float = 0.0
     query_seconds: float = 0.0

@@ -1,18 +1,24 @@
-"""``ServeEngine`` — online dyngnn inference against resident state.
+"""``ServeEngine`` — online inference against resident state.
 
-Port of ``repro.serve.engine`` for the dyngnn family.  Live CTDG events
-stream in through :class:`~repro_torch.serve.ingest.OnlineIngester`; each
-closed window's delta item is staged to the card (pinned,
-``non_blocking``), applied into the ``DeltaApplier`` ring on the device,
-and one state-advance rolls the temporal carries forward in place; the
-window's node embeddings ``z_t`` stay cached on the device (the warm-state
-cache).  Queries — node scoring or link prediction — are micro-batched
-reads against that cache: no re-encoding, no model re-run.  After window t
-the served scores equal the JAX package's on the same events and
-parameters to <=1e-5 on the CPU (``tests/test_torch_serve.py``).
+Port of ``repro.serve.engine`` for the dyngnn and lm families.
 
-The lm and recsys families raise ``NotImplementedError`` until ROADMAP
-Queue 1, item 9 ports them.
+* dyngnn — live CTDG events stream in through
+  :class:`~repro_torch.serve.ingest.OnlineIngester`; each closed window's
+  delta item is staged to the card (pinned, ``non_blocking``), applied
+  into the ``DeltaApplier`` ring on the device, and one state-advance
+  rolls the temporal carries forward in place; the window's node
+  embeddings ``z_t`` stay cached on the device (the warm-state cache).
+  Queries — node scoring or link prediction — are micro-batched reads
+  against that cache: no re-encoding, no model re-run.  After window t the
+  served scores equal the JAX package's on the same events and parameters
+  to <=1e-5 on the CPU (``tests/test_torch_serve.py``).
+* lm — prefill + greedy KV-cache decode behind ``generate()``; each
+  decode step's attention runs the ``flash_decode`` CUDA kernel on the
+  card.  The tokens equal the JAX engine's for the same parameters and
+  seed on the CPU (``tests/test_torch_lm.py``).
+
+The recsys family raises ``NotImplementedError`` until ROADMAP Queue 1,
+item 9 ports it.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ import torch
 
 from repro_torch import obs, resolve_device, sanitize
 from repro_torch.core import models as mdl
+from repro_torch.models import lm
 from repro_torch.serve.batching import QueryBatcher
 from repro_torch.serve.config import ServeConfig, ServeResult
 from repro_torch.serve.ingest import OnlineIngester
@@ -37,31 +44,41 @@ _NOT_PORTED = ("serving the {} family is not ported to PyTorch yet: "
                "ROADMAP Queue 1, item 9")
 
 
-def _resolve(config: ServeConfig) -> mdl.DynGNNConfig:
-    """-> the dyngnn model config from the explicit model or the registry."""
+def _resolve(config: ServeConfig):
+    """-> (family, model config) from the registry and/or explicit model;
+    an arch id resolves to its smoke config."""
     if config.model is not None:
         m = config.model
         if isinstance(m, mdl.DynGNNConfig):
-            return m
+            return "dyngnn", m
+        if isinstance(m, lm.LMConfig):
+            return "lm", m
         kind = type(m).__name__
-        if kind in ("LMConfig", "DINConfig"):
-            raise NotImplementedError(_NOT_PORTED.format(
-                "lm" if kind == "LMConfig" else "recsys"))
+        if kind == "DINConfig":
+            raise NotImplementedError(_NOT_PORTED.format("recsys"))
         raise ValueError(f"cannot serve a model config of type {kind}; "
-                         "expected DynGNNConfig")
+                         "expected DynGNNConfig or LMConfig")
     from repro_torch.configs import registry
     arch = registry.get_arch(config.arch)
-    return arch.make_smoke_config()
+    return arch.family, arch.make_smoke_config()
+
+
+def _tree_to(tree, device: torch.device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
 
 
 class ServeEngine:
     """One serving session: resolved model + resident state + counters.
 
-    ``params`` (a :class:`~repro_torch.core.models.ParamTree`, e.g. from
-    ``repro_torch.convert.params_from_jax``) defaults to a seed-keyed fresh
-    init; the engine keeps its own copy on ``device``.  ``device``
-    defaults to ``"cuda"`` and raises without a CUDA device unless
-    ``"cpu"`` is asked for.
+    ``params`` defaults to a seed-keyed fresh init on ``device``.  For
+    dyngnn it is a :class:`~repro_torch.core.models.ParamTree` (e.g. from
+    ``repro_torch.convert.params_from_jax``), of which the engine keeps its
+    own copy; for lm the nested dict of ``init_lm_params`` (e.g. from
+    ``repro_torch.convert.lm_params_from_jax``), moved to ``device``.
+    ``device`` defaults to ``"cuda"`` and raises without a CUDA device
+    unless ``"cpu"`` is asked for.
     """
 
     def __init__(self, config: ServeConfig, params=None,
@@ -70,18 +87,32 @@ class ServeEngine:
         config.validate()
         self.device = resolve_device(device)
         self.config = config
-        self.family = "dyngnn"
-        self.model = cfg = _resolve(config)
-        if config.ingest is None:
-            raise ValueError(
-                "dyngnn serving needs ServeConfig.ingest (an IngestSpec "
-                "describing the live event-stream discretization)")
+        self.family, self.model = _resolve(config)
         self.report = StreamReport()
         self._result = ServeResult(family=self.family, arch=config.arch)
         # scope the shared registry to this session: result() reports
         # the delta against this baseline as ServeResult.metrics
         self._metrics_base = obs.metrics_snapshot()
         self._spans_base = obs.get_tracer().recorded
+        self._rng = np.random.default_rng(config.seed)
+        if self.family == "dyngnn":
+            self._init_dyngnn(params, keep_history)
+        else:
+            self._init_lm(params)
+
+    def _family_guard(self, method: str, *families: str) -> None:
+        if self.family not in families:
+            raise ValueError(
+                f"{method}() serves the {'/'.join(families)} family; this "
+                f"engine is serving family={self.family!r}")
+
+    # ------------------------------------------------------------ dyngnn ---
+    def _init_dyngnn(self, params, keep_history: bool) -> None:
+        config, cfg = self.config, self.model
+        if config.ingest is None:
+            raise ValueError(
+                "dyngnn serving needs ServeConfig.ingest (an IngestSpec "
+                "describing the live event-stream discretization)")
         # NB: the §5.4 smoothing transforms read FUTURE windows; a live
         # stream serves the raw alive-edge snapshots.
         if params is None:
@@ -125,6 +156,7 @@ class ServeEngine:
 
     def ingest(self, stream) -> int:
         """Push live CTDG events into the open-window buffer."""
+        self._family_guard("ingest", "dyngnn")
         with self._guard:
             with obs.stopwatch("serve.ingest", cat="serve") as sw:
                 n = self.ingester.push(stream)
@@ -146,6 +178,7 @@ class ServeEngine:
         still queued against the OLD state are flushed first — the cache
         is never invalidated under a pending request.
         """
+        self._family_guard("advance", "dyngnn")
         with self._guard:
             self._node_batcher.flush()
             self._link_batcher.flush()
@@ -175,6 +208,7 @@ class ServeEngine:
 
     def advance_all(self) -> torch.Tensor:
         """Close every remaining configured window (bounded specs)."""
+        self._family_guard("advance_all", "dyngnn")
         spec = self.config.ingest
         if not spec.num_windows:
             raise ValueError("advance_all() needs a bounded IngestSpec "
@@ -184,30 +218,35 @@ class ServeEngine:
 
     def submit_nodes(self, ids):
         """Queue a node-scoring request (micro-batched; see flush())."""
+        self._family_guard("submit_nodes", "dyngnn")
         with self._guard:
             self._warm_z()
             return self._node_batcher.submit(np.asarray(ids))
 
     def submit_links(self, pairs):
         """Queue a link-prediction request for (src, dst) pairs."""
+        self._family_guard("submit_links", "dyngnn")
         with self._guard:
             self._warm_z()
             return self._link_batcher.submit(np.asarray(pairs))
 
     def flush(self) -> None:
         """Score everything queued (both query types)."""
+        self._family_guard("flush", "dyngnn")
         with self._guard:
             self._node_batcher.flush()
             self._link_batcher.flush()
 
     def query_nodes(self, ids) -> np.ndarray:
         """Synchronous node scores (B, C) against resident state."""
+        self._family_guard("query_nodes", "dyngnn")
         with self._guard:
             self._warm_z()
             return self._node_batcher.query(np.asarray(ids))
 
     def query_links(self, pairs) -> np.ndarray:
         """Synchronous link logits (B, C) against resident state."""
+        self._family_guard("query_links", "dyngnn")
         with self._guard:
             self._warm_z()
             return self._link_batcher.query(np.asarray(pairs))
@@ -218,6 +257,7 @@ class ServeEngine:
 
         Needs ``keep_history=True``.  This is what each query would cost
         without the warm cache."""
+        self._family_guard("cold_query_nodes", "dyngnn")
         cfg = self.model
         applier = DeltaApplier(self.config.ingest.max_edges, self.device)
         carries = fresh_carries(cfg, self.params)
@@ -235,23 +275,76 @@ class ServeEngine:
                                 z[self._to_device(np.asarray(ids))]
                                 ).cpu().numpy()
 
-    def result(self) -> ServeResult:
-        """Session counters so far (flushes pending queries)."""
+    # ---------------------------------------------------------------- lm ---
+    def _init_lm(self, params) -> None:
+        cfg = self.model
+        if params is None:
+            gen = torch.Generator(device=self.device).manual_seed(
+                self.config.seed)
+            params = lm.init_lm_params(gen, cfg)
+        self.params = _tree_to(params, self.device)
+
+    def generate(self, prompts=None, batch_size: int | None = None
+                 ) -> np.ndarray:
+        """Prefill + greedy decode one request wave -> generated tokens
+        (B, max_tokens) int32.  ``prompts`` defaults to a synthetic
+        (batch_size, prompt_len) wave from the seeded generator, the same
+        draw as the JAX engine's.  With the tracer on, the prefill and each
+        decode step are fenced spans (``serve.prefill``, ``serve.decode``).
+        """
+        self._family_guard("generate", "lm")
+        cfg, sc = self.model, self.config
+        if prompts is None:
+            b = batch_size or sc.batch_sizes[-1]
+            prompts = self._rng.integers(0, cfg.vocab_size,
+                                         (b, sc.prompt_len))
+        prompts = torch.as_tensor(np.asarray(prompts, dtype=np.int64),
+                                  device=self.device)
+        max_len = sc.prompt_len + sc.max_tokens
+        with obs.stopwatch("serve.generate", cat="serve",
+                           batch=int(prompts.shape[0])) as sw:
+            with obs.span("serve.prefill", cat="serve") as sp:
+                logits, cache = sp.fence(lm.prefill(cfg, self.params,
+                                                    prompts, max_len))
+                tok = torch.argmax(logits, -1)
+            out = [tok]
+            for _ in range(sc.max_tokens - 1):
+                with obs.span("serve.decode", cat="serve") as sp:
+                    logits, cache = sp.fence(lm.decode_step(
+                        cfg, self.params, cache, tok))
+                    tok = torch.argmax(logits, -1)
+                out.append(tok)
+            tokens = torch.stack(out, dim=1).to(torch.int32).cpu().numpy()
+        dt = sw.seconds
         r = self._result
-        with self._guard:
-            self._node_batcher.flush()
-            self._link_batcher.flush()
-        r.guard_trips = self._guard.trips
-        r.queries = (self._node_batcher.stats.queries
-                     + self._link_batcher.stats.queries)
-        r.query_batches = (self._node_batcher.stats.batches
-                           + self._link_batcher.stats.batches)
-        r.query_seconds = (self._node_batcher.stats.seconds
-                           + self._link_batcher.stats.seconds)
-        r.query_latencies_ms = (self._node_batcher.stats.latencies_ms
-                                + self._link_batcher.stats.latencies_ms)
-        r.events_ingested = self.ingester.events_ingested
-        r.resyncs = self.report.resyncs
+        r.queries += int(prompts.shape[0])
+        r.query_batches += 1
+        r.tokens_generated += tokens.size
+        r.query_seconds += dt
+        r.query_latencies_ms.append(dt * 1e3)
+        obs.inc("serve.queries", int(prompts.shape[0]))
+        obs.inc("serve.tokens_generated", tokens.size)
+        return tokens
+
+    # ------------------------------------------------------------ result ---
+    def result(self) -> ServeResult:
+        """Session counters so far (flushes pending dyngnn queries)."""
+        r = self._result
+        if self.family == "dyngnn":
+            with self._guard:
+                self._node_batcher.flush()
+                self._link_batcher.flush()
+            r.guard_trips = self._guard.trips
+            r.queries = (self._node_batcher.stats.queries
+                         + self._link_batcher.stats.queries)
+            r.query_batches = (self._node_batcher.stats.batches
+                               + self._link_batcher.stats.batches)
+            r.query_seconds = (self._node_batcher.stats.seconds
+                               + self._link_batcher.stats.seconds)
+            r.query_latencies_ms = (self._node_batcher.stats.latencies_ms
+                                    + self._link_batcher.stats.latencies_ms)
+            r.events_ingested = self.ingester.events_ingested
+            r.resyncs = self.report.resyncs
         trc = obs.get_tracer()
         r.metrics = obs.metrics().delta(self._metrics_base)
         r.metrics["spans"] = trc.summary(trc.spans_since(self._spans_base))

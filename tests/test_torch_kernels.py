@@ -5,7 +5,8 @@ CSR / band the CUDA kernel would get; the JAX side runs the Pallas kernel
 in interpret mode and through its dense oracle.  The CUDA kernels
 themselves are held to these plain versions on the card by
 ``chip_smoke.py``.  Tolerances are the reference's own:
-segment SpMM 1e-4 (``tests/test_kernels.py:39``), M-product 1e-5 (``:85``).
+segment SpMM 1e-4 (``tests/test_kernels.py:39``), M-product 1e-5 (``:85``),
+flash decode 1e-4 in f32 and 2e-2 in bf16 (``:129``, ``:143``).
 """
 
 import jax.numpy as jnp
@@ -14,16 +15,21 @@ import pytest
 import torch
 
 from repro.core import temporal as jtemporal
+from repro.kernels.flash_decode import ops as jfd_ops
 from repro.kernels.mproduct import mproduct as jmp
 from repro.kernels.mproduct import ops as jmp_ops
 from repro.kernels.segment_spmm import ops as jspmm_ops
 from repro_torch.core import temporal
+from repro_torch import kernels as kmod
 from repro_torch.kernels import build
+from repro_torch.kernels.flash_decode import ops as fd_ops
 from repro_torch.kernels.mproduct import ops as mp_ops
 from repro_torch.kernels.segment_spmm import ops as spmm_ops
 
 SPMM_TOL = 1e-4
 MP_TOL = 1e-5
+FD_TOL = 1e-4
+FD_TOL_BF16 = 2e-2
 
 
 def _graph(seed, n, e, f):
@@ -140,6 +146,94 @@ def test_plain_m_product_matches_jax_plain_path(t_offset):
     assert np.isfinite(got).all()
 
 
+def _decode_inputs(seed, b, hq, kvh, d, s, lens=None):
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(b, hq, d)).astype(np.float32)
+    k = rng.normal(size=(b, s, kvh, d)).astype(np.float32)
+    v = rng.normal(size=(b, s, kvh, d)).astype(np.float32)
+    clen = (rng.integers(1, s, size=(b,)) if lens is None
+            else np.asarray(lens)).astype(np.int32)
+    return q, k, v, clen
+
+
+@pytest.mark.parametrize("b,hq,kvh,d,s,blk", [
+    (2, 8, 2, 64, 1024, 256), (1, 4, 4, 128, 512, 128),
+    (4, 16, 4, 64, 2048, 512), (2, 8, 8, 64, 256, 128)])
+def test_flash_decode_matches_pallas_and_oracle(b, hq, kvh, d, s, blk):
+    """The reference's own four shapes: the wrapper's plain version against
+    the Pallas kernel (interpret mode) and its oracle."""
+    q, k, v, clen = _decode_inputs(b * s, b, hq, kvh, d, s)
+    got = fd_ops.decode_attention(*map(torch.from_numpy, (q, k, v, clen)))
+    args = tuple(map(jnp.asarray, (q, k, v, clen)))
+    pallas = jfd_ops.decode_attention(*args, kv_block=blk, interpret=True)
+    for want in (pallas, jfd_ops.flash_decode_ref(*args)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=FD_TOL, atol=FD_TOL)
+
+
+def test_flash_decode_bf16_matches_pallas_and_oracle():
+    q, k, v, _ = _decode_inputs(9, 2, 4, 2, 64, 512)
+    clen = np.array([100, 500], np.int32)
+    bf = [jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)]
+    got = fd_ops.decode_attention(
+        *[torch.from_numpy(np.array(a).view(np.int16)).view(torch.bfloat16)
+          for a in bf], torch.from_numpy(clen))
+    assert got.dtype == torch.bfloat16
+    jlen = jnp.asarray(clen)
+    for want in (jfd_ops.decode_attention(*bf, jlen, kv_block=128,
+                                          interpret=True),
+                 jfd_ops.flash_decode_ref(*bf, jlen)):
+        np.testing.assert_allclose(got.to(torch.float32).numpy(),
+                                   np.asarray(want, dtype=np.float32),
+                                   rtol=FD_TOL_BF16, atol=FD_TOL_BF16)
+
+
+@pytest.mark.parametrize("s,lens", [(700, [0, 1, 700, 350]),
+                                    (4160, [4097, 1, 0, 9000]),
+                                    (37, [37, 36, 2, 1])])
+def test_flash_decode_ragged_s_and_edge_lengths(s, lens):
+    """Against the oracle: S not a multiple of any KV block, cache_len 0
+    (the uniform mean of V over all S rows, as the -1e30 mask gives),
+    1, S and above S (clamped)."""
+    q, k, v, clen = _decode_inputs(s, len(lens), 8, 2, 32, s, lens)
+    got = fd_ops.decode_attention(*map(torch.from_numpy, (q, k, v, clen)))
+    want = jfd_ops.flash_decode_ref(*map(jnp.asarray, (q, k, v, clen)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=FD_TOL,
+                               atol=FD_TOL)
+    assert np.isfinite(got.numpy()).all()
+    if 0 in lens:
+        row = lens.index(0)
+        mean_v = v[row].mean(axis=0)                   # (KVH, D)
+        np.testing.assert_allclose(
+            got.numpy()[row].reshape(2, 4, 32),
+            np.broadcast_to(mean_v[:, None], (2, 4, 32)), rtol=FD_TOL,
+            atol=FD_TOL)
+
+
+@pytest.mark.parametrize("b,s,hq,kvh,want", [
+    (8, 4160, 32, 4, (8, 8)),          # Yi-6B decode: 32 x 8 = 256 CTAs
+    (8, 32768, 32, 4, (8, 8)),         # decode_32k
+    (1, 524288, 32, 4, (8, 66)),       # long_500k: 4 x 66 = 264 CTAs
+    (8, 4160, 36, 36, (1, 1)),         # MiniCPM (G = 1): 288 CTAs
+    (8, 4160, 16, 16, (1, 2)),         # Gemma (G = 1)
+    (2, 100, 4, 2, (8, 2)),            # G = 2 in a tile of 8; short cache
+    (1, 64, 48, 2, (8, 1)),            # G = 24: three head groups
+])
+def test_flash_decode_plan_fills_the_card_in_one_wave(b, s, hq, kvh, want):
+    tile, splits = fd_ops.plan(b, s, hq, kvh, sm_count=132)
+    assert (tile, splits) == want
+    ctas = b * kvh * -(-(hq // kvh) // tile) * splits
+    assert splits == 1 or ctas <= 2 * 132
+    assert ctas > 132 or splits == -(-s // fd_ops.MIN_ROWS_PER_SPLIT)
+
+
+def test_flash_decode_wrapper_refuses_other_devices():
+    q = torch.zeros((1, 4, 32), device="meta")
+    k = torch.zeros((1, 8, 2, 32), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        fd_ops.decode_attention(q, k, k, torch.ones(1, dtype=torch.int32))
+
+
 def test_kernel_load_without_cuda_raises():
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA device")
@@ -152,4 +246,5 @@ def test_kernel_library_name_follows_source_and_flags():
     assert k.lib_path.parent == build.BUILD_DIR
     assert k.lib_path == spmm_ops.KERNEL.lib_path
     assert k.lib_path != mp_ops.KERNEL.lib_path
+    assert len({kk.lib_path for kk in kmod.ALL}) == len(kmod.ALL) == 3
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS

@@ -33,6 +33,7 @@ from repro_torch import convert, obs, sanitize
 from repro_torch.configs import registry
 from repro_torch.core import ctdg
 from repro_torch.core import models as tm
+from repro_torch.kernels.flash_decode import ops as fd_ops
 from repro_torch.kernels.mproduct import ops as mp_ops
 from repro_torch.kernels.segment_spmm import ops as spmm_ops
 from repro_torch.serve import (IngestSpec, QueryBatcher, ServeConfig,
@@ -226,7 +227,7 @@ def test_unported_families_and_wires_raise():
     with pytest.raises(NotImplementedError, match="Queue 1, item 9"):
         registry.get_arch("din")
     with pytest.raises(NotImplementedError, match="Queue 1, item 9"):
-        ServeEngine(ServeConfig(arch="yi-6b"), device="cpu")
+        ServeEngine(ServeConfig(arch="olmoe-1b-7b"), device="cpu")
     cfg = registry.get_arch("paper_dyngnn").make_config()
     assert (cfg.model, cfg.feat_in, cfg.hidden, cfg.out_dim,
             cfg.num_layers, cfg.window) == ("tmgcn", 2, 6, 6, 2, 5)
@@ -287,6 +288,6 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         DeltaApplier(64)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         stage_item(np.zeros(3, np.float32))
-    for kernel in (spmm_ops.KERNEL, mp_ops.KERNEL):
+    for kernel in (spmm_ops.KERNEL, mp_ops.KERNEL, fd_ops.KERNEL):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             kernel.load()
