@@ -15,15 +15,21 @@ which exits non-zero on failure:
    16 windows of a 3.4 M-event synthetic CTDG stream — through
    ``repro_torch.serve.ServeEngine(device="cuda")``, whose kernel wrappers
    launch the CUDA kernels because the tensors lie on the card; every
-   kernel's launch count is zeroed just before and read just after (2
-   layers x 16 windows = 32 launches of each kernel); then node queries
-   at batch 1, 8, 64 and link queries on 64 pairs;
+   kernel's launch count and the CSR build count are zeroed just before
+   and read just after (2 layers x 16 windows = 32 launches of each
+   kernel, 16 CSR builds: one per snapshot); then node queries at batch
+   1, 8, 64 and link queries on 64 pairs;
 3. each kernel held to its plain PyTorch version (``ref.py``, called by
    name) on the card at the main path's shapes (the last window's graph;
-   segment SpMM also at F = 9 and 32, which run the kernel's loop over
-   feature chunks of 8), and timed beside its bound, its plain version and one PyTorch
-   library call computing the same function (a yardstick the port never
-   calls);
+   segment SpMM at the path's F = 2 and 6 and at F = 9 and 32, which run
+   its generic instance (scalar and float4), then on a fully skewed
+   graph, each shown to reject zeros and the kernel run with each row's
+   last edge dropped),
+   and timed beside its bound, its plain version, one PyTorch library
+   call computing the same function (a yardstick the port never calls)
+   and the previous design (kept in the sources, reached by no wrapper);
+   the state-advance step timed in turns with the previous path (a CSR
+   build per layer, the thread-per-row kernel), then profiled;
 4. the same 16 windows replayed through a ``device="cpu"`` engine — where
    the wrappers run the plain versions — and its embeddings and
    last-window queries held to the card's; then small-graph serving of
@@ -36,16 +42,18 @@ which exits non-zero on failure:
    and read just after (32 layers x 63 decode steps = 2,016 launches of
    ``flash_decode``, none of the dyngnn kernels); prefill ms, decode ms
    per step (fenced spans), tokens/s, peak device memory; then one decode
-   step alone and under ``torch.profiler``;
+   step alone and under ``torch.profiler``, each in turns with the
+   previous ``flash_decode``;
 6. ``flash_decode`` held to its plain version at the path's shape (B 8,
    S 4,160, ragged ``cache_len`` with 1 and S), at ``decode_32k``'s
    (S 32,768) and ``long_500k``'s (B 1, S 524,288) lengths, at D 64 and
-   D 256 with G 1 (MiniCPM, Gemma), at G 2 (a head tile of 8, 6 masked)
-   and with a ``cache_len = 0`` row, each in bf16 and f32; at each, the
-   check is shown to reject zeros and the kernel's output with one
-   split's rows dropped; each timed beside its bound, its plain version
-   and ``scaled_dot_product_attention`` (a yardstick the port never
-   calls);
+   D 256 with G 1 (MiniCPM, Gemma), at G 2 (a head tile of 16, 14
+   padded), with a ``cache_len = 0`` row and at D 64 with G 4, each in
+   bf16 (G > 1 on the tensor-core instance) and f32 (CUDA cores); at
+   each, the check is shown to reject zeros and the kernel's output with
+   one split's rows dropped; each timed beside its bound, its plain
+   version, ``scaled_dot_product_attention`` (a yardstick the port never
+   calls) and the previous design (wrapper and CUDA-core kernel);
 7. Yi-6B's full widths at 2 layers in f32, card (kernel) against a
    ``device="cpu"`` engine's parameters (plain version): prefill logits
    and 8 teacher-forced decode steps' logits.
@@ -69,12 +77,14 @@ without the repository around it, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import statistics
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -113,6 +123,12 @@ def card_line() -> str:
 class Timer:
     """Median CUDA-event time of ``fn`` over repeated calls, with the L2
     cache flushed before each call (the main path finds its inputs cold).
+    The flush reads 64 MB, so L2 is left full of clean lines, as the ops
+    before a kernel on the path leave it (weights read by the projections,
+    say).  ``flush="write"`` zeroes 64 MB instead, as this script's timer
+    once did: the timed call then also writes the flush's dirty lines
+    back, which no caller on the path makes it do; it is kept to compare
+    with readings taken that way.
 
     By default each call is queued behind a ~0.6 ms device sleep, so the
     host time a wrapper spends before its launch is hidden: the reading is
@@ -123,16 +139,22 @@ class Timer:
     def __init__(self, torch, reps: int = 20):
         self.torch = torch
         self.reps = reps
-        self._flush = torch.empty(64 << 20, dtype=torch.uint8,
+        self._read = torch.ones(16 << 20, dtype=torch.float32,
+                                device="cuda")
+        self._write = torch.empty(64 << 20, dtype=torch.uint8,
                                   device="cuda")
 
-    def __call__(self, fn, host: bool = False) -> float:
+    def __call__(self, fn, host: bool = False, flush: str = "read"
+                 ) -> float:
         torch = self.torch
         for _ in range(3):
             fn()
         times = []
         for _ in range(self.reps):
-            self._flush.zero_()
+            if flush == "read":
+                self._read.sum()
+            else:
+                self._write.zero_()
             if host:
                 torch.cuda.synchronize()
             else:
@@ -153,6 +175,34 @@ def bound_ms(nbytes: float, flops: float, peak_flops: float = 67e12,
     67 TFLOP/s): the larger of bytes / bandwidth and ops / peak."""
     t_b, t_f = nbytes / bw * 1e3, flops / peak_flops * 1e3
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
+
+
+@contextlib.contextmanager
+def patched(obj, name: str, value):
+    """``obj.name = value`` inside the block (the previous designs, timed on
+    the path beside the kernels in one run)."""
+    old = getattr(obj, name)
+    setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        setattr(obj, name, old)
+
+
+def alternating_walls(torch, variants: dict, rounds: int, warm: int = 1
+                      ) -> dict:
+    """Host-clock ms of each variant's call (ending in a sync), the
+    variants taken in turns so the host's drift falls on all alike ->
+    {name: median over rounds - warm}."""
+    walls = {k: [] for k in variants}
+    for _ in range(rounds):
+        for k, fn in variants.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls[k].append((time.perf_counter() - t0) * 1e3)
+    return {k: statistics.median(v[warm:]) for k, v in walls.items()}
 
 
 # ------------------------------------------------------------ serving ------
@@ -205,6 +255,7 @@ def main_path(torch, kernels, obs, n_nodes: int, max_edges: int):
 
     from repro_torch.core.ctdg import synthetic_ctdg
     from repro_torch.kernels.build import reset_counts
+    from repro_torch.kernels.segment_spmm import ops as spmm_ops
 
     t0 = time.perf_counter()
     events = synthetic_ctdg(n_nodes, NUM_EVENTS, delete_frac=0.2, seed=0)
@@ -213,13 +264,21 @@ def main_path(torch, kernels, obs, n_nodes: int, max_edges: int):
     torch.cuda.reset_peak_memory_stats()
     tracer = obs.configure(enabled=True)     # fenced phase spans
     reset_counts(kernels)
+    spmm_ops.csr_builds = 0
     eng, advance_ms = serve_run("cuda", None, n_nodes, events, max_edges,
                                 NUM_WINDOWS)
     launches = {k.name: k.launches for k in kernels}
+    builds = spmm_ops.csr_builds
     obs.configure(enabled=False)
     check_launches("serve", launches, {"segment_spmm": 2 * NUM_WINDOWS,
                                        "banded_ttm": 2 * NUM_WINDOWS,
                                        "flash_decode": 0})
+    log(f"[serve] CSR builds on the path: {builds} (one per snapshot; "
+        f"{launches['segment_spmm']} segment_spmm launches read them)")
+    if builds != NUM_WINDOWS:
+        raise SystemExit(f"segment_spmm: {builds} CSR builds in "
+                         f"{NUM_WINDOWS} windows, expected {NUM_WINDOWS}")
+    launches["csr_builds"] = builds
     alive = int(eng.applier.current[1].sum())
     r = eng.result()
     log(f"[serve] windows={r.windows_advanced} alive edges at the last "
@@ -275,13 +334,61 @@ def check_close(name: str, got, want, tol: float) -> float:
     return err
 
 
+def spmm_faults(name: str, ops, x, row_ptr, col, w, want
+                ) -> dict:
+    """Show that the segment SpMM check rejects two faulty outputs made on
+    the card: zeros, and the kernel run with each row's last edge dropped
+    (its weight set to 0) -> {fault: max |diff| over the limit}."""
+    last = row_ptr[1:] - 1
+    last = last[row_ptr[1:] > row_ptr[:-1]].long()
+    w_cut = w.clone()
+    w_cut[last] = 0.0
+    limit = TOL_SPMM * (1.0 + float(want.abs().max()))
+    faults = {
+        "zeros": float(want.abs().max()) / limit,
+        "last edge dropped": float((ops.segment_spmm_csr(
+            x, row_ptr, col, w_cut) - want).abs().max()) / limit}
+    for fault, ratio in faults.items():
+        if ratio <= 1.0:
+            raise SystemExit(f"segment_spmm {name}: the check would pass a "
+                             f"kernel that wrote {fault} ({ratio:.3f} x "
+                             "its limit)")
+    return faults
+
+
+def previous_spmm(ops):
+    """The previous design of segment SpMM, for timing beside the kernel:
+    the thread-per-row kernel (kept in ``csrc/segment_spmm.cu``, reached
+    by no wrapper), on a prebuilt CSR and with the per-call CSR build its
+    wrapper made."""
+    import torch
+
+    def on_csr(x, row_ptr, col, w):
+        out = torch.empty_like(x)
+        ops.KERNEL.launch_uncounted(ops.ROWTHREAD_SYMBOL, x.device,
+                                    x.data_ptr(), row_ptr.data_ptr(),
+                                    col.data_ptr(), w.data_ptr(),
+                                    out.data_ptr(), x.shape[0], x.shape[1])
+        return out
+
+    def with_build(x, edges, w, n):
+        return on_csr(x, *ops.build_csr(edges, w, n))
+
+    return on_csr, with_build
+
+
 def check_spmm(torch, eng, timer):
-    """Segment SpMM on the last window's graph (with self-loops)."""
+    """Segment SpMM on the last window's graph (with self-loops), at the
+    path's F = 2 (layer 1) and 6 (layer 2) and the generic instance's
+    F = 9 and 32, then on a fully skewed graph; each held to the plain
+    version, shown to reject two faulty outputs, and timed beside the
+    previous design."""
     from repro_torch.graph import segment
     from repro_torch.kernels.segment_spmm import ops, ref
     from repro_torch.stream.train_loop import (make_self_loops,
                                                slice_weights_with_loops)
 
+    old_csr, old_build = previous_spmm(ops)
     n = eng.model.num_nodes
     edges, mask = eng.applier.current
     # snapshot policy: every valid lane's value is 1, so values == mask
@@ -297,56 +404,93 @@ def check_spmm(torch, eng, timer):
     nnz = int(row_ptr[-1])
     results = []
     err_all = 0.0
+    build_ms = timer(lambda: ops.build_csr(e, w, n))
     for f, x in ((2, deg.contiguous()),
                  (6, torch.randn((n, 6), generator=gen, device="cuda")),
                  (9, torch.randn((n, 9), generator=gen, device="cuda")),
                  (32, torch.randn((n, 32), generator=gen, device="cuda"))):
         got = ops.segment_spmm_csr(x, row_ptr, col, wc)
         want = ref.segment_spmm_csr_ref(x, row_ptr, col, wc)
+        old = old_csr(x, row_ptr, col, wc)
         torch.cuda.synchronize()
         err = check_close(f"segment_spmm F={f}", got, want, TOL_SPMM)
+        old_err = check_close(f"segment_spmm (previous design) F={f}", old,
+                              want, TOL_SPMM)
+        faults = spmm_faults(f"F={f}", ops, x, row_ptr, col, wc,
+                             want)
         err_all = max(err_all, err)
         csr = torch.sparse_csr_tensor(row_ptr, col[:nnz], wc[:nnz],
                                       size=(n, n), check_invariants=False)
         lib_err = float((torch.sparse.mm(csr, x) - want).abs().max())
         nbytes = (x.nbytes + row_ptr.nbytes + nnz * 8 + got.nbytes)
         b_ms, b_by = bound_ms(nbytes, 2.0 * nnz * f)
+
+        def kern(x=x):
+            return ops.segment_spmm_csr(x, row_ptr, col, wc)
+
         row = {
             "F": f, "edges": int(e.shape[0]), "nnz": nnz,
-            "ms": timer(lambda x=x: ops.segment_spmm_csr(x, row_ptr, col,
-                                                         wc)),
+            "ms": timer(kern), "wrapper_ms": timer(kern, host=True),
             "with_csr_ms": timer(lambda x=x: ops.segment_spmm(x, e, w, n)),
-            "wrapper_ms": timer(lambda x=x: ops.segment_spmm(x, e, w, n),
-                                host=True),
+            "with_csr_wrapper_ms": timer(
+                lambda x=x: ops.segment_spmm(x, e, w, n), host=True),
+            "old_ms": timer(lambda x=x: old_csr(x, row_ptr, col, wc)),
+            "old_with_csr_wrapper_ms": timer(
+                lambda x=x: old_build(x, e, w, n), host=True),
+            "csr_build_ms": build_ms,
             "plain_ms": timer(lambda x=x: ref.segment_spmm_csr_ref(
                 x, row_ptr, col, wc)),
             "library_ms": timer(lambda x=x, csr=csr: torch.sparse.mm(csr,
                                                                      x)),
+            "ms_write_flush": timer(kern, flush="write"),
+            "old_ms_write_flush": timer(lambda x=x: old_csr(
+                x, row_ptr, col, wc), flush="write"),
             "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
+            "old_max_abs_err": old_err, "fault_over_limit": faults,
             "library_max_abs_err": lib_err}
         log(f"[kernel] segment_spmm F={f}: kernel {row['ms']:.4f} ms "
-            f"(with CSR build {row['with_csr_ms']:.4f}; wrapper, host + "
-            f"device {row['wrapper_ms']:.4f}), plain "
-            f"{row['plain_ms']:.4f}, torch.sparse.mm {row['library_ms']:.4f}"
-            f", bound {b_ms:.4f} ({b_by}), max|err| {err:.2e}")
+            f"(wrapper, host + device {row['wrapper_ms']:.4f}; with its "
+            f"CSR build {row['with_csr_ms']:.4f}, wrapper "
+            f"{row['with_csr_wrapper_ms']:.4f}), previous design "
+            f"{row['old_ms']:.4f} (with its per-call build, wrapper "
+            f"{row['old_with_csr_wrapper_ms']:.4f}), CSR build "
+            f"{build_ms:.4f}, plain {row['plain_ms']:.4f}, torch.sparse.mm "
+            f"{row['library_ms']:.4f}, bound {b_ms:.4f} ({b_by}); with "
+            f"a write flush: kernel {row['ms_write_flush']:.4f}, previous "
+            f"design {row['old_ms_write_flush']:.4f}")
+        log(f"[kernel]   max|err| {err:.2e} (previous design {old_err:.2e}); "
+            f"faults rejected at x limit: zeros {faults['zeros']:.1f}, last"
+            f" edge dropped {faults['last edge dropped']:.1f}")
         results.append(row)
-    # fully skewed: every edge into one destination, pad lanes at (0, 0)
+    # fully skewed: every edge into one destination, pad lanes at (0, 0);
+    # weights in [0.5, 1), so the one dropped edge of the fault below
+    # stands out of a row summed over 32 K edges
     m = 1 << 16
     src = torch.randint(0, n, (m,), generator=gen, device="cuda")
     sk = torch.stack([src, torch.full_like(src, 7)], 1).to(torch.int32)
-    sw = torch.rand((m,), generator=gen, device="cuda")
+    sw = 0.5 + 0.5 * torch.rand((m,), generator=gen, device="cuda")
     sw[m // 2:] = 0.0
     sk[m // 2:] = 0
-    x = torch.randn((n, 6), generator=gen, device="cuda")
-    got = ops.segment_spmm(x, sk, sw, n)
-    want = ref.segment_spmm_csr_ref(x, *ops.build_csr(sk, sw, n))
-    torch.cuda.synchronize()
-    skew_err = check_close("segment_spmm skewed", got, want, TOL_SPMM)
-    limit = TOL_SPMM * (1.0 + float(want.abs().max()))
-    log(f"[kernel] segment_spmm skewed ({m} lanes into one row, half of "
-        f"them zero-weight pads): max|err| {skew_err:.2e} <= {limit:.2e} "
-        f"({TOL_SPMM} abs + {TOL_SPMM} x max|plain|)")
-    return results, err_all, skew_err
+    s_csr = ops.build_csr(sk, sw, n)
+    skew_err, skew_rows = 0.0, []
+    for f in (2, 6, 9, 32):
+        x = torch.randn((n, f), generator=gen, device="cuda")
+        got = ops.segment_spmm(x, sk, sw, n)
+        want = ref.segment_spmm_csr_ref(x, *s_csr)
+        torch.cuda.synchronize()
+        err = check_close(f"segment_spmm skewed F={f}", got, want, TOL_SPMM)
+        faults = spmm_faults(f"skewed F={f}", ops, x, *s_csr, want)
+        skew_err = max(skew_err, err)
+        row = {"F": f, "max_abs_err": err, "fault_over_limit": faults,
+               "ms": timer(lambda x=x: ops.segment_spmm_csr(x, *s_csr)),
+               "old_ms": timer(lambda x=x: old_csr(x, *s_csr))}
+        skew_rows.append(row)
+        log(f"[kernel] segment_spmm skewed F={f} ({m} lanes into one row, "
+            f"half of them zero-weight pads): max|err| {err:.2e}, faults "
+            f"rejected at x limit: zeros {faults['zeros']:.1f}, last edge "
+            f"dropped {faults['last edge dropped']:.1f}; kernel "
+            f"{row['ms']:.4f} ms, previous design {row['old_ms']:.4f}")
+    return results, err_all, skew_err, skew_rows
 
 
 def check_ttm(torch, n: int, window: int, timer):
@@ -400,7 +544,9 @@ def profile_step(torch, eng):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.core import models as mdl
     from repro_torch.graph import segment
+    from repro_torch.kernels.segment_spmm import ops as spmm_ops
 
     n = eng.model.num_nodes
     edges, mask = eng.applier.current
@@ -412,15 +558,23 @@ def profile_step(torch, eng):
         return eng._advance(eng.params, carries, frame, edges, mask, mask,
                             NUM_WINDOWS)
 
-    walls = []
-    for _ in range(6):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        step()
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
-    log(f"[profile] state-advance step (warm, host clock + sync): median "
-        f"{statistics.median(walls[1:]):.2f} ms over {len(walls) - 1}")
+    # the previous path: no shared CSR (each layer's wrapper builds its own)
+    # and the thread-per-row kernel
+    old_csr, _ = previous_spmm(spmm_ops)
+    no_shared = types.SimpleNamespace(build_csr=lambda *a: None)
+
+    def previous_step():
+        with patched(mdl, "spmm_ops", no_shared), \
+                patched(spmm_ops, "segment_spmm_csr", old_csr):
+            return step()
+
+    check_close("state-advance step, previous path vs this one",
+                previous_step()[0], step()[0], TOL_SCORES)
+    walls = alternating_walls(torch, {"step": step,
+                                      "previous": previous_step}, 7)
+    log(f"[profile] state-advance step (warm, host clock + sync, median of "
+        f"6, in turns): {walls['step']:.3f} ms; on the previous path (a CSR "
+        f"build per layer, thread-per-row kernel) {walls['previous']:.3f} ms")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -444,6 +598,10 @@ def profile_step(torch, eng):
         f"device activities")
     for name, v in sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:12]:
         log(f"[profile]   {sum(v) / 1e3:8.3f} ms  x{len(v):<3d} {name[:90]}")
+    return {"steady_ms": walls["step"],
+            "previous_steady_ms": walls["previous"],
+            "wall_ms": wall_us / 1e3, "busy_ms": busy / 1e3,
+            "idle_share": 1 - busy / wall_us}
 
 
 # ------------------------------------------------------- plain parity ------
@@ -591,7 +749,9 @@ def profile_decode(torch, eng):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.kernels.flash_decode import ops as fd_ops
     from repro_torch.models import lm
+    from repro_torch.nn import attention
 
     cfg, params = eng.model, eng.params
     gen = torch.Generator(device="cuda").manual_seed(5)
@@ -605,29 +765,37 @@ def profile_decode(torch, eng):
         lg, cache = lm.decode_step(cfg, params, cache, tok)
         tok = torch.argmax(lg, -1)
 
-    walls = []
-    for _ in range(8):
+    old_fd = previous_decode_attention(torch, fd_ops)
+
+    def previous_step():
+        with patched(attention, "decode_attention", old_fd):
+            step()
+
+    walls = alternating_walls(torch, {"step": step,
+                                      "previous": previous_step}, 8, warm=2)
+    steady = walls["step"]
+
+    def profiled(fn):
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        step()
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
-    steady = statistics.median(walls[2:])
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        step()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    by_name: dict[str, list[float]] = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
-    busy = sum(sum(v) for v in by_name.values())
-    if busy <= 0:
-        raise SystemExit("profile: the trace holds no device time")
-    fd = sum(sum(v) for n, v in by_name.items() if "flash_decode" in n)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        by_name: dict[str, list[float]] = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                by_name.setdefault(e.name, []).append(
+                    e.time_range.elapsed_us())
+        busy = sum(sum(v) for v in by_name.values())
+        if busy <= 0:
+            raise SystemExit("profile: the trace holds no device time")
+        fd = sum(sum(v) for n, v in by_name.items() if "flash_decode" in n)
+        return wall_us, busy, fd, by_name
+
+    wall_us, busy, fd, by_name = profiled(step)
+    _, old_busy, old_fd_us, _ = profiled(previous_step)
     weight_bytes = sum(t.nbytes for t in _leaves(params))
     # the K/V rows the profiled step reads, in bf16
     kv_bytes = 2 * cfg.num_layers * int(cache["len"].sum()) \
@@ -636,15 +804,22 @@ def profile_decode(torch, eng):
     res = {"steady_ms": steady, "wall_ms": wall_us / 1e3,
            "busy_ms": busy / 1e3, "idle_share": 1 - busy / wall_us,
            "flash_decode_ms": fd / 1e3, "bound_ms": bound,
-           "activities": sum(map(len, by_name.values()))}
-    log(f"[profile-lm] decode step (warm, host clock + sync): median "
-        f"{steady:.3f} ms over {len(walls) - 2}; bound {bound:.3f} ms "
+           "activities": sum(map(len, by_name.values())),
+           "previous_steady_ms": walls["previous"],
+           "previous_busy_ms": old_busy / 1e3,
+           "previous_flash_decode_ms": old_fd_us / 1e3}
+    log(f"[profile-lm] decode step (warm, host clock + sync, median of 6, "
+        f"in turns): {steady:.3f} ms; with the previous flash_decode "
+        f"{walls['previous']:.3f} ms; bound {bound:.3f} ms "
         f"({weight_bytes / 1e9:.2f} GB of weights + "
         f"{kv_bytes / 1e9:.2f} GB of K/V at 3.35 TB/s)")
     log(f"[profile-lm] one step under the profiler: wall "
         f"{res['wall_ms']:.3f} ms, device busy {res['busy_ms']:.3f} ms, "
         f"idle share {res['idle_share']:.3f}, {res['activities']} device "
-        f"activities, flash_decode {res['flash_decode_ms']:.3f} ms")
+        f"activities, flash_decode {res['flash_decode_ms']:.3f} ms; with "
+        f"the previous flash_decode: device busy "
+        f"{res['previous_busy_ms']:.3f} ms, flash_decode "
+        f"{res['previous_flash_decode_ms']:.3f} ms")
     for name, v in sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:12]:
         log(f"[profile-lm]   {sum(v) / 1e3:8.3f} ms  x{len(v):<4d} "
             f"{name[:90]}")
@@ -676,6 +851,52 @@ def dropped_split_lens(lens: list[int], s: int, splits: int) -> list[int]:
     return out
 
 
+def previous_decode_attention(torch, ops):
+    """The previous design of ``decode_attention``, for timing beside the
+    kernel: its wrapper's host path as it was (every check on every call,
+    three allocations, the device switch) and its partial kernel on CUDA
+    cores (head tile 8 for G > 1; still in ``csrc/flash_decode.cu``, which
+    f32 runs), not counted."""
+
+    def call(q, k, v, cache_len):
+        b, hq, d = q.shape
+        s, kvh = k.shape[1], k.shape[2]
+        if q.dim() != 3 or k.dim() != 4 or k.shape != v.shape:
+            raise ValueError("flash_decode: bad shapes")
+        if k.shape[0] != b or k.shape[3] != d or s < 1 or hq % kvh != 0:
+            raise ValueError("flash_decode: k does not fit q")
+        if d % 8 != 0 or d > 256:
+            raise ValueError("flash_decode: bad D")
+        for t, dt in ((q, q.dtype), (k, q.dtype), (v, q.dtype),
+                      (cache_len, torch.int32)):
+            if t.device != q.device or t.dtype != dt or \
+                    not t.is_contiguous():
+                raise ValueError("flash_decode: bad tensor")
+            if t.data_ptr() % 16:
+                raise ValueError("flash_decode: misaligned")
+        if cache_len.shape != (b,):
+            raise ValueError("flash_decode: bad cache_len")
+        g = hq // kvh
+        tile = 1 if g == 1 else 8
+        splits = max(1, min(2 * ops._sm_count(q.device.index or 0)
+                            // (b * kvh * -(-g // tile)),
+                            -(-s // ops.MIN_ROWS_PER_SPLIT)))
+        part_ml = torch.empty((b, hq, splits, 2), dtype=torch.float32,
+                              device=q.device)
+        part_acc = torch.empty((b, hq, splits, d), dtype=torch.float32,
+                               device=q.device)
+        out = torch.empty_like(q)
+        with torch.cuda.device(q.device):
+            ops.KERNEL.launch_uncounted(
+                ops.KERNEL.symbol, q.device, q.data_ptr(), k.data_ptr(),
+                v.data_ptr(), cache_len.data_ptr(), part_ml.data_ptr(),
+                part_acc.data_ptr(), out.data_ptr(), b, s, hq, kvh, d, tile,
+                splits, int(q.dtype == torch.bfloat16))
+        return out
+
+    return call
+
+
 def check_flash_decode(torch, timer):
     """Phase 6: the kernel against its plain version, and timed.  Each
     case also shows that its check rejects two faulty outputs made on the
@@ -697,7 +918,9 @@ def check_flash_decode(torch, timer):
         ("D256 G1", 8, 16, 16, 256, s_path, [LM_PROMPT + 32] * 8),
         ("G2", 2, 8, 4, 128, 300, [300, 123]),
         ("cache_len 0", 2, 32, 4, 128, s_path, [0, s_path]),
+        ("D64 G4", 2, 16, 4, 64, 1000, [1000, 77]),
     ]
+    old_fd = previous_decode_attention(torch, ops)
     gen = torch.Generator(device="cuda").manual_seed(3)
     rows, err_all = [], 0.0
     for dtype in (torch.bfloat16, torch.float32):
@@ -723,7 +946,17 @@ def check_flash_decode(torch, timer):
                                  f"|diff| {err:.3e}, {ratio:.3f} x a row's "
                                  "limit")
             err_all = max(err_all, err)
-            pl = ops.plan(b, s, hq, kvh, ops._sm_count(0))
+            old_got = old_fd(q, k, v, cl).float()
+            torch.cuda.synchronize()
+            old_err, old_ratio = fd_excess(dname, old_got, want32)
+            if not old_ratio <= 1.0:
+                raise SystemExit(f"flash_decode {name} {dname}: the previous "
+                                 f"design disagrees ({old_ratio:.3f} x a "
+                                 "row's limit)")
+            pl = ops.plan(b, s, hq, kvh, d, dtype == torch.bfloat16,
+                          ops._sm_count(0))
+            instance = "tensor cores" if pl[0] == ops.TC_HEADS \
+                else "CUDA cores"
             cut = torch.tensor(dropped_split_lens(lens, s, pl[1]),
                                dtype=torch.int32, device="cuda")
             faults = {
@@ -760,32 +993,47 @@ def check_flash_decode(torch, timer):
             def kern(q=q, k=k, v=v, cl=cl):
                 return ops.decode_attention(q, k, v, cl)
 
+            def old(q=q, k=k, v=v, cl=cl):
+                return old_fd(q, k, v, cl)
+
             row = {
                 "case": name, "dtype": dname,
                 "B": b, "Hq": hq, "KVH": kvh, "D": d, "S": s,
-                "cache_len": lens,
+                "cache_len": lens, "instance": instance,
                 "ms": timer(kern), "wrapper_ms": timer(kern, host=True),
+                "old_ms": timer(old), "old_wrapper_ms": timer(old,
+                                                              host=True),
                 "plain_ms": timer(lambda q=q, k=k, v=v, cl=cl:
                                   ref.flash_decode_ref(q, k, v, cl)),
                 "library_ms": timer(lib),
+                "ms_write_flush": timer(kern, flush="write"),
+                "old_ms_write_flush": timer(old, flush="write"),
+                "library_ms_write_flush": timer(lib, flush="write"),
                 "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
                 "err_over_limit": ratio,
                 "max_abs_err_vs_plain_in_dtype": float(
                     (got - want.float()).abs().max()),
                 "fault_over_limit": faults, "library_max_abs_err": lib_err,
-                "plan": pl}
+                "old_err_over_limit": old_ratio, "plan": pl}
             log(f"[kernel] flash_decode {name} {dname} (B {b}, Hq {hq}, "
-                f"KVH {kvh}, D {d}, S {s}, plan {row['plan']}): kernel "
-                f"{row['ms']:.4f} ms (wrapper, host + device "
-                f"{row['wrapper_ms']:.4f}), plain {row['plain_ms']:.4f}, "
-                f"sdpa {row['library_ms']:.4f}, bound {b_ms:.4f} ({b_by})")
+                f"KVH {kvh}, D {d}, S {s}, plan {row['plan']}, {instance})"
+                f": kernel {row['ms']:.4f} ms (wrapper, host + device "
+                f"{row['wrapper_ms']:.4f}), previous design "
+                f"{row['old_ms']:.4f}"
+                f" (wrapper {row['old_wrapper_ms']:.4f}), plain "
+                f"{row['plain_ms']:.4f}, sdpa {row['library_ms']:.4f}, bound "
+                f"{b_ms:.4f} ({b_by}); with a write flush: kernel "
+                f"{row['ms_write_flush']:.4f}, previous design "
+                f"{row['old_ms_write_flush']:.4f}, sdpa "
+                f"{row['library_ms_write_flush']:.4f}")
             log(f"[kernel]   max|err| {err:.3e}, {ratio:.3f} x a row's "
-                f"limit; faults rejected at x limit: zeros "
+                f"limit (previous design {old_ratio:.3f}); faults rejected at "
+                "x limit: zeros "
                 f"{faults['zeros']:.1f}, a split dropped "
                 f"{faults['a split dropped']:.1f}; sdpa max|err| "
                 f"{lib_err:.2e}")
             rows.append(row)
-            del q, k, v, got, want, want32, kt, vt, lib, kern
+            del q, k, v, got, want, want32, kt, vt, lib, kern, old, old_got
     return rows, err_all
 
 
@@ -865,11 +1113,11 @@ def main() -> int:
     eng, events, launches = phase("main path", main_path, torch, kernels,
                                   obs, n_nodes, max_edges)
     timer = Timer(torch)
-    spmm_rows, spmm_err, skew_err = phase("segment_spmm check", check_spmm,
-                                          torch, eng, timer)
+    spmm_rows, spmm_err, skew_err, skew_rows = phase(
+        "segment_spmm check", check_spmm, torch, eng, timer)
     ttm = phase("banded_ttm check", check_ttm, torch, n_nodes,
                 eng.model.window, timer)
-    phase("profile", profile_step, torch, eng)
+    step_prof = phase("profile", profile_step, torch, eng)
     phase("plain-path parity", plain_parity, eng, events)
     phase("small-graph parity", small_parity, torch)
     del eng, events
@@ -881,7 +1129,7 @@ def main() -> int:
                             timer)
     phase("lm parity", lm_parity, torch)
 
-    spmm_main = next(r for r in spmm_rows if r["F"] == 6)  # layer 1
+    spmm_main = next(r for r in spmm_rows if r["F"] == 6)  # layer 2
     report = {"kernels": [
         {"name": "segment_spmm", "route": "cuda",
          "source": "src/repro_torch/csrc/segment_spmm.cu",
@@ -891,7 +1139,9 @@ def main() -> int:
          "bound_ms": spmm_main["bound_ms"],
          "bound_by": spmm_main["bound_by"],
          "library_ms": spmm_main["library_ms"], "shapes": spmm_rows,
-         "skewed_max_abs_err": skew_err},
+         "skewed_max_abs_err": skew_err, "skewed": skew_rows,
+         "csr_builds": launches["csr_builds"],
+         "state_advance": step_prof},
         {"name": "banded_ttm", "route": "cuda",
          "source": "src/repro_torch/csrc/banded_ttm.cu",
          "replaces": "src/repro/kernels/mproduct/mproduct.py:54",

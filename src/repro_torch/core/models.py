@@ -25,6 +25,7 @@ from torch import nn
 
 from repro_torch.core import gcn as gcnlib
 from repro_torch.core import temporal
+from repro_torch.kernels.segment_spmm import ops as spmm_ops
 
 
 @dataclass(frozen=True)
@@ -134,21 +135,26 @@ def _identity(v: torch.Tensor) -> torch.Tensor:
 
 def spatial_stage(cfg: DynGNNConfig, layer_params, x: torch.Tensor,
                   edges: torch.Tensor, edge_weights: torch.Tensor,
-                  carry: Any) -> tuple[torch.Tensor, Any]:
+                  carry: Any, csrs: list | None = None
+                  ) -> tuple[torch.Tensor, Any]:
     """The per-snapshot stage of one layer.
 
     x: (Ts, N, d_in) slice; edges: (Ts, E, 2); returns (Ts, N, d_mid).
     EvolveGCN folds the whole layer here (its LSTM runs over weights) and
-    returns the updated weight carry.
+    returns the updated weight carry.  ``csrs``: each snapshot's prebuilt
+    CSR (``forward_slice`` builds them once for all layers), else built
+    here.
     """
     num_nodes = x.shape[1]
+    if csrs is None:
+        csrs = [None] * x.shape[0]
     if cfg.model == "evolvegcn":
         w_prev, state = carry
         ws, w_last, st_last = temporal.evolve_weights_from(
             layer_params["evolve"], w_prev, state, x.shape[0])
         y = torch.stack([
             torch.relu(gcnlib.spatial_aggregate(
-                x[t], edges[t], edge_weights[t], num_nodes) @ ws[t])
+                x[t], edges[t], edge_weights[t], num_nodes, csrs[t]) @ ws[t])
             for t in range(x.shape[0])])
         return y, (w_last, st_last)
 
@@ -157,7 +163,7 @@ def spatial_stage(cfg: DynGNNConfig, layer_params, x: torch.Tensor,
         gcnlib.gcn_apply(layer_params["gcn"], x[t], edges[t],
                          edge_weights[t], num_nodes,
                          concat_skip=cfg.model == "cdgcn",
-                         activation=act)
+                         activation=act, csr=csrs[t])
         for t in range(x.shape[0])])
     if cfg.model == "tmgcn":
         y = torch.relu(y)
@@ -184,14 +190,20 @@ def forward_slice(cfg: DynGNNConfig, params: ParamTree, x: torch.Tensor,
                   carries: list, t_offset: int
                   ) -> tuple[torch.Tensor, list]:
     """Full model over a contiguous timeline slice: x (Ts, N, F),
-    edges (Ts, E, 2), edge_weights (Ts, E) -> (z (Ts, N, F'), carries)."""
+    edges (Ts, E, 2), edge_weights (Ts, E) -> (z (Ts, N, F'), carries).
+
+    Every layer aggregates over the same snapshots, so each snapshot's CSR
+    is built once here, before the layer loop, not once per layer."""
     evolve = cfg.model == "evolvegcn"
+    num_nodes = x.shape[1]
+    csrs = [spmm_ops.build_csr(edges[t], edge_weights[t], num_nodes)
+            for t in range(x.shape[0])]
     new_carries = []
     h = x
     for l in range(cfg.num_layers):
         lp = params["layers"][l]
         h, c_sp = spatial_stage(cfg, lp, h, edges, edge_weights,
-                                carries[l] if evolve else None)
+                                carries[l] if evolve else None, csrs)
         h, c_tm = temporal_stage(cfg, lp, h,
                                  None if evolve else carries[l], t_offset)
         new_carries.append(c_sp if evolve else c_tm)

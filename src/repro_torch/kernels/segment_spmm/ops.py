@@ -1,15 +1,18 @@
 """``segment_spmm``: the GCN aggregate ``A_tilde @ x`` on the CSR kernel.
 
 Port of ``repro.kernels.segment_spmm.ops.segment_spmm`` (TPU kernel
-``bucketed_segment_sum``).  The wrapper builds a destination-sorted CSR
-once per call on the input's device (stable sort by destination, row
-pointers by binary search of the sorted keys) and hands it to the CUDA kernel
-``csrc/segment_spmm.cu``, which fuses the gather of ``x[src] * w`` with the
-per-row sum.  Zero-weight lanes — the padding convention; ``apply_delta``
-parks every padded lane at edge (0, 0) — are sorted into a dump row N that
-the kernel never visits, so up to a million pad lanes never pile onto
-destination 0.  The CSR has no per-block edge budget, so nothing can
-overflow.
+``bucketed_segment_sum``).  :func:`build_csr` makes a destination-sorted
+CSR on the input's device (stable sort by destination, row pointers by
+binary search of the sorted keys); :func:`segment_spmm_csr` hands a CSR to
+the CUDA kernel ``csrc/segment_spmm.cu``, which fuses the gather of
+``x[src] * w`` with the per-row sum.  The model builds each snapshot's
+CSR once and reuses it in every layer (``core.models.forward_slice``);
+:func:`segment_spmm` keeps the JAX wrapper's signature and builds its own.
+``csr_builds`` counts the builds, beside ``KERNEL.launches``.  Zero-weight
+lanes — the padding convention; ``apply_delta`` parks every padded lane at
+edge (0, 0) — are sorted into a dump row N that the kernel never visits, so
+up to a million pad lanes never pile onto destination 0.  The CSR has no
+per-block edge budget, so nothing can overflow.
 
 On a CPU tensor the wrapper runs the plain PyTorch version (``ref.py``) on
 the same CSR; on a CUDA tensor it launches the kernel or raises.
@@ -27,6 +30,13 @@ from repro_torch.kernels.segment_spmm.ref import segment_spmm_csr_ref
 KERNEL = Kernel("segment_spmm", "segment_spmm.cu", "segment_spmm_csr_f32",
                 [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int])
 
+#: the previous design (a thread per row) in the same library; no wrapper
+#: calls it, ``chip_smoke.py`` times it beside the kernel
+ROWTHREAD_SYMBOL = "segment_spmm_csr_f32_rowthread"
+
+#: CSRs built by :func:`build_csr` since the last reset (a plain count)
+csr_builds = 0
+
 
 def build_csr(edges: torch.Tensor, edge_weights: torch.Tensor,
               num_nodes: int
@@ -39,6 +49,8 @@ def build_csr(edges: torch.Tensor, edge_weights: torch.Tensor,
     come from a binary search of the sorted keys, so nothing here waits
     for the device (``bincount`` would read its maximum back to the host).
     """
+    global csr_builds
+    csr_builds += 1
     key = torch.where(edge_weights != 0, edges[:, 1].to(torch.int32),
                       num_nodes)
     key_sorted, order = torch.sort(key, stable=True)

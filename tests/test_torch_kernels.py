@@ -210,21 +210,114 @@ def test_flash_decode_ragged_s_and_edge_lengths(s, lens):
             atol=FD_TOL)
 
 
-@pytest.mark.parametrize("b,s,hq,kvh,want", [
-    (8, 4160, 32, 4, (8, 8)),          # Yi-6B decode: 32 x 8 = 256 CTAs
-    (8, 32768, 32, 4, (8, 8)),         # decode_32k
-    (1, 524288, 32, 4, (8, 66)),       # long_500k: 4 x 66 = 264 CTAs
-    (8, 4160, 36, 36, (1, 1)),         # MiniCPM (G = 1): 288 CTAs
-    (8, 4160, 16, 16, (1, 2)),         # Gemma (G = 1)
-    (2, 100, 4, 2, (8, 2)),            # G = 2 in a tile of 8; short cache
-    (1, 64, 48, 2, (8, 1)),            # G = 24: three head groups
+@pytest.mark.parametrize("b,s,hq,kvh,d,want_bf16,want_f32", [
+    # Yi-6B decode: 32 x 8 = 256 CTAs, one head group of 8 padded to 16
+    (8, 4160, 32, 4, 128, (16, 8), (8, 8)),
+    (8, 32768, 32, 4, 128, (16, 8), (8, 8)),         # decode_32k
+    (1, 524288, 32, 4, 128, (16, 66), (8, 66)),      # long_500k: 264 CTAs
+    (8, 4160, 36, 36, 64, (1, 1), (1, 1)),           # MiniCPM (G = 1)
+    (8, 4160, 16, 16, 256, (1, 2), (1, 2)),          # Gemma (G = 1)
+    (2, 100, 4, 2, 128, (16, 2), (8, 2)),            # G = 2; short cache
+    (1, 64, 48, 2, 128, (16, 1), (8, 1)),            # G = 24: 2 or 3 groups
+    (2, 1000, 16, 4, 64, (16, 16), (8, 16)),         # G = 4 at D 64
+    (2, 700, 16, 2, 96, (16, 11), (8, 11)),          # D 96, padded to 128
+    (4, 4160, 32, 4, 256, (8, 16), (8, 16)),         # D > 128: CUDA cores
 ])
-def test_flash_decode_plan_fills_the_card_in_one_wave(b, s, hq, kvh, want):
-    tile, splits = fd_ops.plan(b, s, hq, kvh, sm_count=132)
-    assert (tile, splits) == want
-    ctas = b * kvh * -(-(hq // kvh) // tile) * splits
-    assert splits == 1 or ctas <= 2 * 132
-    assert ctas > 132 or splits == -(-s // fd_ops.MIN_ROWS_PER_SPLIT)
+def test_flash_decode_plan_fills_the_card_in_one_wave(b, s, hq, kvh, d,
+                                                      want_bf16, want_f32):
+    """The instance by type, G and D (tensor cores: bf16, G > 1,
+    D <= 128), and splits that fill the card in one wave."""
+    for bf16, want in ((True, want_bf16), (False, want_f32)):
+        tile, splits = fd_ops.plan(b, s, hq, kvh, d, bf16, sm_count=132)
+        assert (tile, splits) == want
+        ctas = b * kvh * -(-(hq // kvh) // tile) * splits
+        assert splits == 1 or ctas <= fd_ops.CTAS_PER_SM * 132
+        assert ctas > 132 or splits == -(-s // fd_ops.MIN_ROWS_PER_SPLIT)
+
+
+@pytest.mark.parametrize("d", [64, 96, 128])
+def test_flash_decode_tc_instance_fits_two_ctas_per_sm(d):
+    """The tensor-core instance's ring fits a CTA's 227 KB of shared
+    memory, and two CTAs (each with the 1 KB the SM reserves) fit the
+    SM's 228 KB, so ``plan``'s two CTAs per SM are resident at once."""
+    smem = fd_ops.tc_smem_bytes(d)
+    assert smem <= 232_448
+    assert fd_ops.CTAS_PER_SM * (smem + 1024) <= 233_472
+    assert fd_ops.tc_smem_bytes(128) == 3 * 2 * 64 * 136 * 2
+
+
+def _tc_emulation(q, k, v, cache_len, splits, p_precision):
+    """fp32 emulation of the tensor-core instance on bf16 inputs: exact
+    bf16 products summed in fp32, scores in log2 units, a 64-row tile
+    per online-softmax rescale, p rounded to bf16 or split hi + lo before
+    the PV product, the splits merged, the output rounded to bf16."""
+    qf, kf, vf = (t.to(torch.float64).to(torch.float32) for t in (q, k, v))
+    b, hq, d = q.shape
+    s, kvh = k.shape[1], k.shape[2]
+    g = hq // kvh
+    scale = np.float32(np.log2(np.e) / np.sqrt(d))
+    out = torch.zeros((b, hq, d))
+    for bi in range(b):
+        n = int(cache_len[bi])
+        none = n <= 0
+        n = s if none else min(n, s)
+        per = -(-n // splits)
+        parts = []
+        for sp in range(splits):
+            lo, hi = min(sp * per, n), min(sp * per + per, n)
+            m = torch.full((hq,), -1e30)
+            l = torch.zeros(hq)
+            acc = torch.zeros((hq, d))
+            for t0 in range(lo, hi, 64):
+                rows = slice(t0, min(t0 + 64, hi))
+                kk = kf[bi, rows].repeat_interleave(g, dim=1)   # (r, hq, d)
+                vv = vf[bi, rows].repeat_interleave(g, dim=1)
+                sc = torch.einsum("hd,rhd->hr", qf[bi], kk) * scale
+                if none:
+                    sc = torch.full_like(sc, -1e30)
+                mn = torch.maximum(m, sc.max(1).values)
+                corr = torch.exp2(m - mn)
+                p = torch.exp2(sc - mn[:, None])
+                l = l * corr + p.sum(1)
+                hi_p = p.to(torch.bfloat16).float()
+                if p_precision == "bf16":
+                    p_used = hi_p
+                else:
+                    p_used = hi_p + (p - hi_p).to(torch.bfloat16).float()
+                acc = acc * corr[:, None] + torch.einsum("hr,rhd->hd",
+                                                         p_used, vv)
+                m = mn
+            parts.append((m, l, acc))
+        mx = torch.stack([p[0] for p in parts]).max(0).values
+        wts = [torch.exp2(p[0] - mx) for p in parts]
+        num = sum(p[2] * w[:, None] for p, w in zip(parts, wts))
+        den = sum(p[1] * w for p, w in zip(parts, wts))
+        out[bi] = num / den[:, None]
+    return out.to(torch.bfloat16).float()
+
+
+@pytest.mark.parametrize("b,hq,kvh,d,s,lens,splits", [
+    (2, 16, 2, 128, 300, [300, 123], 3),
+    (2, 8, 4, 64, 700, [1, 650], 4),
+    (1, 32, 4, 128, 1500, [1500], 8),
+    (2, 16, 2, 128, 200, [0, 200], 2),
+])
+def test_flash_decode_bf16_card_check_rehearsal(b, hq, kvh, d, s, lens,
+                                                splits):
+    """The card's bf16 check, rehearsed on the CPU: the tensor-core
+    instance's arithmetic (p split hi + lo) stays within half of
+    chip_smoke.py's limit (1e-2 x each batch row's max |plain fp32|, no
+    absolute term), and so would p rounded to bf16; zeros fail it."""
+    q, k, v, clen = _decode_inputs(d + s, b, hq, kvh, d, s, lens)
+    qb, kb, vb = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
+    cl = torch.from_numpy(clen)
+    want = fd_ops.flash_decode_ref(qb.float(), kb.float(), vb.float(), cl)
+    limit = 1e-2 * want.abs().flatten(1).amax(1)
+    for precision in ("hi+lo", "bf16"):
+        got = _tc_emulation(qb, kb, vb, cl, splits, precision)
+        ratio = float(((got - want).abs().flatten(1).amax(1) / limit).max())
+        assert ratio <= 0.5, (precision, ratio)
+    assert float((want.abs().flatten(1).amax(1) / limit).min()) >= 10
 
 
 def test_flash_decode_wrapper_refuses_other_devices():

@@ -22,6 +22,7 @@ from repro_torch import convert
 from repro_torch.core import gcn, temporal
 from repro_torch.core import models as tm
 from repro_torch.graph import segment
+from repro_torch.kernels.segment_spmm import ops as spmm_ops
 
 TOL = 1e-5
 N, T, E = 24, 4, 90
@@ -71,6 +72,50 @@ def test_forward_slice_matches_jax(model, use_pallas):
         np.testing.assert_allclose(logits,
                                    np.asarray(jm.classify(params, jz)),
                                    rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("model", ["tmgcn", "cdgcn", "evolvegcn"])
+def test_forward_slice_builds_each_snapshots_csr_once(model, monkeypatch):
+    """Both layers aggregate over one CSR per snapshot: T builds and
+    T x layers products for a T-step slice; the result is the one the
+    per-call build gives (held to JAX above)."""
+    aggregated = []
+
+    def counted(x, row_ptr, col, w):
+        aggregated.append(row_ptr.data_ptr())
+        return spmm_ops.segment_spmm_csr_ref(x, row_ptr, col, w)
+
+    cfg = tm.DynGNNConfig(model=model, num_nodes=N, window=3)
+    params = tm.init_params(torch.Generator().manual_seed(1), cfg)
+    x, edges, w = map(torch.from_numpy, _inputs(8))
+    with torch.no_grad():
+        want, _ = tm.forward_slice(cfg, params, x, edges, w,
+                                   tm.init_carries(cfg, params), 0)
+        monkeypatch.setattr(spmm_ops, "segment_spmm_csr", counted)
+        monkeypatch.setattr(spmm_ops, "csr_builds", 0)
+        got, _ = tm.forward_slice(cfg, params, x, edges, w,
+                                  tm.init_carries(cfg, params), 0)
+    assert spmm_ops.csr_builds == T
+    assert len(aggregated) == T * cfg.num_layers
+    # layer l of snapshot t reads the CSR that layer 0 of t read
+    assert aggregated[T:] == aggregated[:T] * (cfg.num_layers - 1)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+
+
+@pytest.mark.parametrize("concat_skip", [False, True])
+def test_gcn_apply_on_a_prebuilt_csr_matches_jax(concat_skip):
+    x, edges, w = _inputs(9, feat=3)
+    p = jgcn.init_gcn_params(jax.random.PRNGKey(6), 3, 6)
+    tp = convert.params_from_jax(jax.tree.map(np.asarray, p))
+    want = jgcn.gcn_apply(p, jnp.asarray(x[0]), jnp.asarray(edges[0]),
+                          jnp.asarray(w[0]), N, concat_skip=concat_skip)
+    te, tw = torch.from_numpy(edges[0]), torch.from_numpy(w[0])
+    with torch.no_grad():
+        got = gcn.gcn_apply(tp, torch.from_numpy(x[0]), te, tw, N,
+                            concat_skip=concat_skip,
+                            csr=spmm_ops.build_csr(te, tw, N))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL,
+                               atol=TOL)
 
 
 @pytest.mark.parametrize("model", ["tmgcn", "cdgcn", "evolvegcn"])

@@ -147,6 +147,22 @@ def test_model_path_runs_through_the_kernel_wrappers(monkeypatch):
 
 
 @pytest.mark.parametrize("model", ["tmgcn", "cdgcn", "evolvegcn"])
+def test_serving_window_builds_one_csr_per_snapshot(model, monkeypatch):
+    """A window is one snapshot: its CSR is built once and both layers'
+    aggregates read it (on the card: 16 builds and 32 launches in 16
+    windows)."""
+    stream = ctdg.synthetic_ctdg(N, 300, delete_frac=0.25, seed=5)
+    cfg = tm.DynGNNConfig(model=model, num_nodes=N, window=3)
+    eng = ServeEngine(ServeConfig(model=cfg, ingest=IngestSpec(
+        **_spec_kw(stream))), device="cpu")
+    eng.ingest(stream)
+    for k in range(1, 4):
+        monkeypatch.setattr(spmm_ops, "csr_builds", 0)
+        eng.advance(1)
+        assert spmm_ops.csr_builds == 1, f"window {k}"
+
+
+@pytest.mark.parametrize("model", ["tmgcn", "cdgcn", "evolvegcn"])
 def test_fresh_carries_match_jax_and_own_their_memory(model):
     jcfg = jm.DynGNNConfig(model=model, num_nodes=N, window=3)
     params = jm.init_params(jax.random.PRNGKey(2), jcfg)
