@@ -34,6 +34,25 @@ which exits non-zero on failure:
    the wrappers run the plain versions — and its embeddings and
    last-window queries held to the card's; then small-graph serving of
    all three models, card against CPU, after every window;
+4a. the training path: ``paper_dyngnn`` (TM-GCN) at the full config's
+   widths trained through ``repro_torch.run.Engine(device="cuda")`` — a
+   synthetic trace at N = 755,200 with T = 32 steps (cut from epinions'
+   512; density 1.25, M-transform smoothed, ~2.1 M edge slots), 10 AdamW
+   steps of the blocked-checkpoint trainer (nb 4), then link-prediction
+   evaluation; every kernel's count is zeroed just before the fit and
+   read just after (per step: 160 ``segment_spmm`` — 64 forward, 64 in
+   the checkpoint recompute, 32 backward on the transposed CSR; 12
+   ``banded_ttm``; 8 ``banded_ttm_t``; 0 ``flash_decode``; 64 CSR
+   builds for the run), losses, fenced ``train.step`` spans, peak device
+   memory beside ``activation_memory_estimate``, one step profiled;
+4b. both backward kernels held to their plain versions at the path's
+   shapes, each shown to reject zeros and a dropped edge / band row, and
+   timed beside bound, plain version and library call (``segment_spmm``
+   on the transposed CSR at F = 6; ``banded_ttm_t`` at (12, N x 6) with
+   t_offset -4 and +4 and at (32, N x 6));
+4c. one training step's loss and every gradient, card against a
+   ``device="cpu"`` run from the same parameters, for all three models at
+   N = 65,536, T = 16, nb 4;
 5. the LM path: Yi-6B at full width (32 layers, d 4096, 32 query heads
    over 4 KV heads, D 128, bf16, random weights drawn on the card from a
    seed) served through ``ServeEngine(device="cuda").generate()``: one
@@ -59,8 +78,10 @@ which exits non-zero on failure:
    and 8 teacher-forced decode steps' logits.
 
 Tolerances: segment SpMM 1e-4 (abs and rel; fp32 sums in another order
-than the plain ``index_add_``), banded TTM 1e-5 (abs and rel; the same
-fp32 window sum), served scores 1e-4 (the whole stack, two layers);
+than the plain ``index_add_``), banded TTM and its transpose 1e-5 (abs
+and rel; the same fp32 window sum), served scores 1e-4 (the whole stack,
+two layers); training loss and gradients 1e-4 x each leaf's max |value|
+(sums over T x N ~ 1 M node-steps in another order);
 flash decode, against the plain version's fp32 result, batch row by batch
 row: 1e-4 abs and rel in f32 (``tests/test_kernels.py``'s), and in bf16
 1e-2 x the row's max |plain|, no absolute term (2.56 times the worst
@@ -73,6 +94,8 @@ sleep); ``wrapper_ms`` is the wrapper's host time plus device time.
 Prints the card line, the per-phase numbers, one JSON line of the kernels
 and, last, ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without the repository around it, it exits non-zero and prints no result.
+``--only serve,train,lm`` runs the build and the named groups of phases
+(1–4, 4a–4c, 5–7) and prints no result line.
 """
 
 from __future__ import annotations
@@ -100,6 +123,13 @@ NUM_EVENTS = 3_400_000       # ~2.0 M alive edges at the last window
 NUM_WINDOWS = 16
 BLOCK_SIZE = 8
 QUERY_REPS = 30
+
+TRAIN_T = 32                 # cut from the epinions trace's 512 steps
+TRAIN_DENSITY = 1.25         # smoothed snapshots + self-loops ~ 2.1 M slots
+TRAIN_STEPS = 10
+TRAIN_NB = 4                 # the full config's checkpoint_blocks
+TOL_GRAD = 1e-4
+PARITY_N, PARITY_T = 65_536, 16
 
 LM_BATCH = 8
 LM_PROMPT = 4096
@@ -205,6 +235,31 @@ def alternating_walls(torch, variants: dict, rounds: int, warm: int = 1
     return {k: statistics.median(v[warm:]) for k, v in walls.items()}
 
 
+def device_profile(torch, fn) -> tuple[float, float, dict]:
+    """``fn()`` once under ``torch.profiler`` -> (wall us, device busy us,
+    {device activity name: [us, ...]}).  Device activities only (kernels,
+    copies, sets): one stream, so their durations add up to the device's
+    busy time without overlap."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    by_name: dict[str, list[float]] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    busy = sum(sum(v) for v in by_name.values())
+    if busy <= 0:
+        raise SystemExit("profile: the trace holds no device time")
+    return wall_us, busy, by_name
+
+
 # ------------------------------------------------------------ serving ------
 
 def serve_run(device: str, params, n: int, events, max_edges: int,
@@ -272,6 +327,7 @@ def main_path(torch, kernels, obs, n_nodes: int, max_edges: int):
     obs.configure(enabled=False)
     check_launches("serve", launches, {"segment_spmm": 2 * NUM_WINDOWS,
                                        "banded_ttm": 2 * NUM_WINDOWS,
+                                       "banded_ttm_t": 0,
                                        "flash_decode": 0})
     log(f"[serve] CSR builds on the path: {builds} (one per snapshot; "
         f"{launches['segment_spmm']} segment_spmm launches read them)")
@@ -493,6 +549,26 @@ def check_spmm(torch, eng, timer):
     return results, err_all, skew_err, skew_rows
 
 
+def band_cost(t: int, nf: int, window: int, t_offset: int
+              ) -> tuple[float, float]:
+    """Bytes and operations of M (or M^T) applied to a (t, nf) f32 tensor:
+    the rows before global step 1 lie in no band and are never read; every
+    output row is written; one multiply-add per band entry and column."""
+    first = min(t, max(0, -t_offset))
+    nnz = sum(r - max(0, r - window + 1, first) + 1 for r in range(first, t))
+    return float((t - first + t) * nf * 4), float(nnz * nf)
+
+
+def band_matrix(torch, t: int, window: int, t_offset: int):
+    """The dense (t, t) M of ``banded_ttm`` on the card (a yardstick)."""
+    m = torch.zeros((t, t), device="cuda")
+    for r in range(t):
+        g = r + t_offset + 1
+        for k in range(max(0, r - window + 1, -t_offset), r + 1):
+            m[r, k] = 1.0 / min(window, g)
+    return m
+
+
 def check_ttm(torch, n: int, window: int, timer):
     """Banded TTM at the serving shape (T = w = 5, NF = N * 6)."""
     from repro_torch.kernels.mproduct import ops, ref
@@ -510,14 +586,10 @@ def check_ttm(torch, n: int, window: int, timer):
         err_all = max(err_all, err)
         rows.append({"t_offset": off, "max_abs_err": err})
     # dense band as a yardstick: M (T x T) @ X (T x NF)
-    m = torch.zeros((t, t), device="cuda")
-    for r in range(t):
-        g = r + main_off + 1
-        for k in range(max(0, r - window + 1, -main_off), r + 1):
-            m[r, k] = 1.0 / min(window, g)
+    m = band_matrix(torch, t, window, main_off)
     lib_err = float((m @ x - ref.banded_ttm_ref(x, window, main_off)
                      ).abs().max())
-    b_ms, b_by = bound_ms(2 * x.nbytes, float(x.numel() * window))
+    b_ms, b_by = bound_ms(*band_cost(t, x.shape[1], window, main_off))
     res = {
         "shape": list(x.shape), "t_offset": main_off,
         "ms": timer(lambda: ops.banded_ttm(x, window, main_off)),
@@ -541,9 +613,6 @@ def profile_step(torch, eng):
     """The state-advance step alone, on the last window's graph: steady
     time over a few repeats, then one step under ``torch.profiler`` for
     device time by kernel and the device's idle share of the step."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.core import models as mdl
     from repro_torch.graph import segment
     from repro_torch.kernels.segment_spmm import ops as spmm_ops
@@ -575,23 +644,7 @@ def profile_step(torch, eng):
     log(f"[profile] state-advance step (warm, host clock + sync, median of "
         f"6, in turns): {walls['step']:.3f} ms; on the previous path (a CSR "
         f"build per layer, thread-per-row kernel) {walls['previous']:.3f} ms")
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        step()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-
-    # device activities only (kernels, copies, sets): one stream, so their
-    # durations add up to the device's busy time without overlap
-    by_name: dict[str, list[float]] = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
-    busy = sum(sum(v) for v in by_name.values())
-    if busy <= 0:
-        raise SystemExit("profile: the trace holds no device time")
+    wall_us, busy, by_name = device_profile(torch, step)
     log(f"[profile] one step under the profiler: wall {wall_us / 1e3:.2f} "
         f"ms, device busy {busy / 1e3:.2f} ms, idle share "
         f"{1 - busy / wall_us:.3f}, {sum(map(len, by_name.values()))} "
@@ -667,6 +720,294 @@ def small_parity(torch):
             f"{windows} windows, max |diff| {err:.2e}")
 
 
+# ------------------------------------------------------------ training -----
+
+def train_path(torch, kernels, obs, n_nodes: int):
+    """The training path: ``paper_dyngnn`` (TM-GCN) at the full config's
+    widths through ``repro_torch.run.Engine(device="cuda")`` — 10 AdamW
+    steps of the blocked-checkpoint trainer (nb 4) over a T = 32 synthetic
+    trace at N = 755,200, then link-prediction evaluation."""
+    import numpy as np
+
+    from repro_torch.configs import registry
+    from repro_torch.core import checkpoint as ckpt
+    from repro_torch.kernels.build import reset_counts
+    from repro_torch.kernels.segment_spmm import ops as spmm_ops
+    from repro_torch.run import (Engine, ExecutionPlan, RunConfig,
+                                 SyntheticTrace)
+
+    cfg = registry.get_arch("paper_dyngnn").make_config()
+    data = SyntheticTrace(num_nodes=n_nodes, num_steps=TRAIN_T,
+                          density=TRAIN_DENSITY, churn=0.1,
+                          smoothing_mode="mproduct", window=cfg.window,
+                          seed=0)
+    t0 = time.perf_counter()
+    eng = Engine(RunConfig(model=cfg, data=data,
+                           plan=ExecutionPlan(num_steps=TRAIN_STEPS),
+                           log_fn=log), device="cuda")
+    rr = eng.resolve()
+    pipe, nb = rr.pipeline, rr.cfg.checkpoint_blocks
+    log(f"[train] {cfg.model}: trace N={n_nodes}, T={TRAIN_T}, density "
+        f"{TRAIN_DENSITY} + M-transform (w {cfg.window}) + self-loops, made "
+        f"on the host in {time.perf_counter() - t0:.1f} s: max_edges "
+        f"{pipe.max_edges} (DATASETS['epinions']: 2,097,152), graph-diff "
+        f"bytes {pipe.transfer_bytes()['ratio']:.3f} of naive")
+    t0 = time.perf_counter()
+    batch = pipe.batch
+    torch.cuda.synchronize()
+    batch_bytes = sum(t.nbytes for t in (batch.edges, batch.edge_weights,
+                                         batch.edge_mask, batch.frames))
+    log(f"[train] padded batch {batch_bytes / 1e9:.3f} GB on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+    tracer = obs.configure(enabled=True)     # fenced train.step spans
+    reset_counts(kernels)
+    spmm_ops.csr_builds = 0
+    t0 = time.perf_counter()
+    res = eng.fit()
+    fit_s = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in kernels}
+    builds = spmm_ops.csr_builds
+    obs.configure(enabled=False)
+    peak = torch.cuda.max_memory_allocated()
+    layers, t = cfg.num_layers, TRAIN_T
+    # per step: the aggregate forward (L T), again in each block's
+    # recompute (L T) and backward for every layer but the first (T); the
+    # M-product forward (L nb), in the recompute up to the block's last
+    # saved tensor, layer 2's relu (nb: early stop), backward (L nb)
+    check_launches("train", launches, {
+        "segment_spmm": TRAIN_STEPS * (2 * layers * t + t),
+        "banded_ttm": TRAIN_STEPS * (layers * nb + nb),
+        "banded_ttm_t": TRAIN_STEPS * layers * nb,
+        "flash_decode": 0})
+    log(f"[train] CSR builds: {builds} (a forward and a transposed CSR per "
+        "snapshot, once per run)")
+    if builds != 2 * t:
+        raise SystemExit(f"train: {builds} CSR builds, expected {2 * t}")
+    launches["csr_builds"] = builds
+    losses = res.losses
+    if len(losses) != TRAIN_STEPS or not np.isfinite(losses).all():
+        raise SystemExit(f"train: bad losses {losses}")
+    spans = tracer.spans()
+    step_ms = [sp.dur_s * 1e3 for sp in spans if sp.name == "train.step"]
+    build_ms = [sp.dur_s * 1e3 for sp in spans
+                if sp.name == "train.csr_build"]
+    if len(step_ms) != TRAIN_STEPS or len(build_ms) != 1:
+        raise SystemExit(f"train: {len(step_ms)} train.step spans, "
+                         f"{len(build_ms)} train.csr_build spans")
+    est = ckpt.activation_memory_estimate(rr.cfg, pipe.max_edges, nb)
+    csr_bytes = sum(x.nbytes for pair in batch.csr_pairs() for c in pair
+                    for x in c)
+    log("[train] losses: " + ", ".join(f"{v:.5f}" for v in losses))
+    log(f"[train] fit {fit_s:.2f} s; train.step (fenced spans): first "
+        f"{step_ms[0]:.1f} ms (of which the 2 T CSR builds, fenced, "
+        f"{build_ms[0]:.1f} ms), median of the rest "
+        f"{statistics.median(step_ms[1:]):.1f} ms, median of all "
+        f"{statistics.median(step_ms):.1f} ms")
+    log(f"[train] peak device memory {peak / 2**30:.3f} GiB "
+        f"({peak / 1e9:.3f} GB): batch {batch_bytes / 1e9:.3f} GB, CSR "
+        f"pairs {csr_bytes / 1e9:.3f} GB; activation_memory_estimate(nb "
+        f"{nb}) total {est['total'] / 1e9:.3f} GB (intra-block "
+        f"{est['intra_block'] / 1e9:.3f}, checkpoints "
+        f"{est['checkpoint'] / 1e9:.3f})")
+    t0 = time.perf_counter()
+    acc = eng.evaluate(res)
+    log(f"[train] link-pred acc {acc:.3f} ({time.perf_counter() - t0:.1f} "
+        "s)")
+
+    step_fn = rr.cache["eager_step"]
+    labels = torch.from_numpy(rr.ds.labels).cuda()
+    state = {"params": res.state.params, "opt": res.state.opt_state}
+
+    def one_step():
+        state["params"], state["opt"], _ = step_fn(
+            state["params"], state["opt"], batch, labels)
+
+    walls = alternating_walls(torch, {"step": one_step}, 4)
+    wall_us, busy, by_name = device_profile(torch, one_step)
+    prof = {"steady_ms": walls["step"], "wall_ms": wall_us / 1e3,
+            "busy_ms": busy / 1e3, "idle_share": 1 - busy / wall_us,
+            "activities": sum(map(len, by_name.values()))}
+    log(f"[profile-train] warm step (host clock + sync, median of 3) "
+        f"{prof['steady_ms']:.1f} ms; one step under the profiler: wall "
+        f"{prof['wall_ms']:.1f} ms, device busy {prof['busy_ms']:.1f} ms, "
+        f"idle share {prof['idle_share']:.3f}, {prof['activities']} device "
+        "activities")
+    for name, v in sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:12]:
+        log(f"[profile-train]   {sum(v) / 1e3:8.3f} ms  x{len(v):<4d} "
+            f"{name[:90]}")
+    stats = {"losses": losses, "step_ms": step_ms,
+             "step_ms_median": statistics.median(step_ms),
+             "step_ms_median_after_first": statistics.median(step_ms[1:]),
+             "csr_build_ms": build_ms[0],
+             "fit_s": fit_s, "peak_bytes": peak, "batch_bytes": batch_bytes,
+             "csr_bytes": csr_bytes, "activation_estimate": est,
+             "max_edges": pipe.max_edges, "link_pred_acc": acc,
+             "launches": launches, "profile": prof}
+    return batch, stats
+
+
+def check_backward(torch, batch, n: int, window: int, timer):
+    """The kernels at the train path's shapes, held to their plain
+    versions, each shown to reject two faulty outputs, and timed beside its
+    bound, its plain version and its library call: ``segment_spmm`` on the
+    last snapshot's transposed CSR at F = 6 (the backward); ``banded_ttm``
+    (forward and recompute) at the blocks' (bsize + w - 1, N x 6) with
+    t_offset -4 (block 0) and +4 (block 1; blocks 2 and 3 read the same
+    full band at +12, +20); and ``banded_ttm_t`` (the backward) at those two
+    and at (T, N x 6)."""
+    from repro_torch.kernels.mproduct import ops as mp_ops
+    from repro_torch.kernels.mproduct import ref as mp_ref
+    from repro_torch.kernels.segment_spmm import ops, ref
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    row_ptr, col, w = batch.csr_pairs()[-1][1]
+    nnz = int(row_ptr[-1])
+    dy = torch.randn((n, 6), generator=gen, device="cuda")
+    got = ops.segment_spmm_csr(dy, row_ptr, col, w)
+    want = ref.segment_spmm_csr_ref(dy, row_ptr, col, w)
+    torch.cuda.synchronize()
+    err = check_close("segment_spmm on the transposed CSR F=6", got, want,
+                      TOL_SPMM)
+    faults = spmm_faults("transposed F=6", ops, dy, row_ptr, col, w, want)
+    lib = torch.sparse_csr_tensor(row_ptr, col[:nnz], w[:nnz], size=(n, n),
+                                  check_invariants=False)
+    b_ms, b_by = bound_ms(dy.nbytes + row_ptr.nbytes + nnz * 8 + got.nbytes,
+                          2.0 * nnz * 6)
+
+    def kern():
+        return ops.segment_spmm_csr(dy, row_ptr, col, w)
+
+    spmm = {"F": 6, "nnz": nnz, "ms": timer(kern),
+            "wrapper_ms": timer(kern, host=True),
+            "plain_ms": timer(lambda: ref.segment_spmm_csr_ref(
+                dy, row_ptr, col, w)),
+            "library_ms": timer(lambda: torch.sparse.mm(lib, dy)),
+            "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
+            "fault_over_limit": faults}
+    log(f"[kernel] segment_spmm backward (transposed CSR, {nnz} edges) F=6:"
+        f" kernel {spmm['ms']:.4f} ms (wrapper {spmm['wrapper_ms']:.4f}), "
+        f"plain {spmm['plain_ms']:.4f}, torch.sparse.mm on A^T "
+        f"{spmm['library_ms']:.4f}, bound {b_ms:.4f} ({b_by}); max|err| "
+        f"{err:.2e}; faults rejected at x limit: zeros "
+        f"{faults['zeros']:.1f}, last edge dropped "
+        f"{faults['last edge dropped']:.1f}")
+
+    bsize = TRAIN_T // TRAIN_NB
+    blocks = ((bsize + window - 1, -(window - 1)),    # block 0
+              (bsize + window - 1, bsize - (window - 1)))  # block 1
+    fwd = band_rows(torch, gen, "banded_ttm", mp_ops.banded_ttm,
+                    mp_ref.banded_ttm_ref, False, blocks, n, window, timer)
+    rows = band_rows(torch, gen, "banded_ttm_t", mp_ops.banded_ttm_t,
+                     mp_ref.banded_ttm_t_ref, True, blocks + ((TRAIN_T, 0),),
+                     n, window, timer)
+    return spmm, fwd, rows
+
+
+def band_rows(torch, gen, name: str, kernel, plain, transposed: bool,
+              cases, n: int, window: int, timer) -> list[dict]:
+    """``kernel`` against ``plain`` on (t, N x 6) at each (t, t_offset) of
+    ``cases``, shown to reject zeros and a dropped band row, and timed
+    beside its bound, its plain version and the dense band (``M @ X``, or
+    ``M^T @ dY`` when ``transposed``)."""
+    rows = []
+    for t, off in cases:
+        x = torch.randn((t, n * 6), generator=gen, device="cuda")
+        got = kernel(x, window, off)
+        want = plain(x, window, off)
+        torch.cuda.synchronize()
+        err = check_close(f"{name} ({t}, {n * 6}) t_offset={off}", got,
+                          want, TOL_TTM)
+        limit = TOL_TTM * (1.0 + float(want.abs().max()))
+        cut = x.clone()
+        cut[t // 2] = 0.0           # the band's row t // 2 dropped
+        faults = {"zeros": float(want.abs().max()) / limit,
+                  "a band row dropped": float((kernel(
+                      cut, window, off) - want).abs().max()) / limit}
+        for fault, ratio in faults.items():
+            if ratio <= 1.0:
+                raise SystemExit(f"{name} t_offset={off}: the check would "
+                                 f"pass a kernel that wrote {fault} "
+                                 f"({ratio:.3f} x its limit)")
+        m = band_matrix(torch, t, window, off)
+        if transposed:
+            m = m.T.contiguous()
+        b_ms, b_by = bound_ms(*band_cost(t, n * 6, window, off))
+
+        def kern(x=x, off=off):
+            return kernel(x, window, off)
+
+        row = {"shape": [t, n * 6], "t_offset": off, "ms": timer(kern),
+               "wrapper_ms": timer(kern, host=True),
+               "plain_ms": timer(lambda x=x, off=off: plain(x, window, off)),
+               "library_ms": timer(lambda x=x, m=m: m @ x),
+               "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
+               "library_max_abs_err": float((m @ x - want).abs().max()),
+               "fault_over_limit": faults}
+        log(f"[kernel] {name} ({t}, {n * 6}) t_offset={off}: kernel "
+            f"{row['ms']:.4f} ms (wrapper {row['wrapper_ms']:.4f}), plain "
+            f"{row['plain_ms']:.4f}, dense band {'M^T' if transposed else 'M'}"
+            f" @ X {row['library_ms']:.4f}, bound {b_ms:.4f} ({b_by}); "
+            f"max|err| {err:.2e}; faults rejected at x limit: zeros "
+            f"{faults['zeros']:.1f}, a band row dropped "
+            f"{faults['a band row dropped']:.1f}")
+        rows.append(row)
+        del x, got, want, cut, m
+    return rows
+
+
+def train_parity(torch):
+    """One training step's loss and gradients, card (kernels) against CPU
+    (plain versions), from the same parameters, for all three models at
+    N = 65,536, T = 16, nb 4, at the full config's widths."""
+    import copy
+
+    from repro_torch.configs import registry
+    from repro_torch.core import checkpoint as ckpt
+    from repro_torch.core import models as tm
+    from repro_torch.core.dtdg import build_batch
+    from repro_torch.data.dyngnn import synthetic_dataset
+
+    out = {}
+    for model, smooth in (("tmgcn", "mproduct"), ("cdgcn", "none"),
+                          ("evolvegcn", "edgelife")):
+        cfg = dataclasses.replace(registry.get_arch(model).make_config(),
+                                  num_nodes=PARITY_N, num_steps=PARITY_T,
+                                  checkpoint_blocks=TRAIN_NB)
+        ds = synthetic_dataset(PARITY_N, PARITY_T, density=TRAIN_DENSITY,
+                               smoothing_mode=smooth, window=cfg.window,
+                               seed=1)
+        params = tm.init_params(torch.Generator().manual_seed(7), cfg)
+        names = [k for k, _ in params.named_parameters()]
+        res = {}
+        for dev in ("cuda", "cpu"):
+            b = build_batch(ds.snapshots, ds.frames, PARITY_N,
+                            values=ds.values, device=dev)
+            p = copy.deepcopy(params).to(dev)
+            loss = ckpt.blocked_node_loss(
+                cfg, p, b, torch.from_numpy(ds.labels).to(dev))
+            grads = torch.autograd.grad(loss, list(p.parameters()))
+            res[dev] = (loss.item(), [g.cpu() for g in grads])
+        (lg, gg), (lc, gc) = res["cuda"], res["cpu"]
+        worst = abs(lg - lc) / (TOL_GRAD * abs(lc))
+        for name, a, b in zip(names, gg, gc, strict=True):
+            ratio = float((a - b).abs().max()) / (
+                TOL_GRAD * max(float(b.abs().max()), 1e-30))
+            if not ratio <= 1.0:
+                raise SystemExit(f"train parity {model}: gradient {name} "
+                                 f"card vs CPU at {ratio:.3f} x its limit")
+            worst = max(worst, ratio)
+        if not worst <= 1.0:
+            raise SystemExit(f"train parity {model}: loss {lg} vs {lc}")
+        out[model] = {"loss_cuda": lg, "loss_cpu": lc,
+                      "worst_over_limit": worst}
+        log(f"[parity-train] {model} N={PARITY_N} T={PARITY_T} nb "
+            f"{TRAIN_NB}: loss card {lg:.7f} / CPU {lc:.7f}; loss and "
+            f"{len(names)} gradients within {worst:.3f} of their limits "
+            f"({TOL_GRAD} x each leaf's max |value|)")
+    return out
+
+
 # ------------------------------------------------------------- LM path -----
 
 def lm_path(torch, kernels, obs):
@@ -699,6 +1040,7 @@ def lm_path(torch, kernels, obs):
     obs.configure(enabled=False)
     steps = LM_TOKENS - 1
     check_launches("lm", launches, {"segment_spmm": 0, "banded_ttm": 0,
+                                    "banded_ttm_t": 0,
                                     "flash_decode": cfg.num_layers * steps})
     r = eng.result()
     if tokens.shape != (LM_BATCH, LM_TOKENS) or not (
@@ -746,9 +1088,6 @@ def _leaves(tree):
 def profile_decode(torch, eng):
     """One Yi-6B decode step at the path's shape: warm steady time, then
     one step under ``torch.profiler`` (device busy, idle share, top ops)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.kernels.flash_decode import ops as fd_ops
     from repro_torch.models import lm
     from repro_torch.nn import attention
@@ -776,21 +1115,7 @@ def profile_decode(torch, eng):
     steady = walls["step"]
 
     def profiled(fn):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
-        by_name: dict[str, list[float]] = {}
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
-                by_name.setdefault(e.name, []).append(
-                    e.time_range.elapsed_us())
-        busy = sum(sum(v) for v in by_name.values())
-        if busy <= 0:
-            raise SystemExit("profile: the trace holds no device time")
+        wall_us, busy, by_name = device_profile(torch, fn)
         fd = sum(sum(v) for n, v in by_name.items() if "flash_decode" in n)
         return wall_us, busy, fd, by_name
 
@@ -1073,7 +1398,34 @@ def lm_parity(torch):
 
 # ---------------------------------------------------------------- main -----
 
-def main() -> int:
+GROUPS = ("serve", "train", "lm")
+
+
+def kernel_entry(name: str, source: str, replaces: str, launches: dict,
+                 row: dict, **extra) -> dict:
+    """One kernel's line of the report: its launches on each path driven
+    (and their sum), and the main shape's numbers from ``row``."""
+    entry = {"name": name, "route": "cuda", "source": source,
+             "replaces": replaces,
+             "launches": sum(v.get(name, 0) for v in launches.values()),
+             "launches_by_path": {p: v.get(name, 0)
+                                  for p, v in launches.items()}}
+    for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms"):
+        entry[key] = row[key]
+    entry.update(extra)
+    return entry
+
+
+def main(argv: list[str] | None = None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    groups = GROUPS
+    if argv[:1] == ["--only"] and len(argv) == 2:
+        groups = tuple(argv[1].split(","))
+    if argv and (groups == GROUPS or not set(groups) <= set(GROUPS)):
+        print(f"usage: chip_smoke.py [--only {','.join(GROUPS)}]",
+              file=sys.stderr)
+        return 2
     if not (SRC / "repro_torch" / "csrc").is_dir():
         print("chip_smoke: run it from the root of a checkout (no "
               "src/repro_torch here)", file=sys.stderr)
@@ -1110,58 +1462,81 @@ def main() -> int:
         return out
 
     n_nodes, _, max_edges = DATASETS["epinions"]
-    eng, events, launches = phase("main path", main_path, torch, kernels,
-                                  obs, n_nodes, max_edges)
     timer = Timer(torch)
-    spmm_rows, spmm_err, skew_err, skew_rows = phase(
-        "segment_spmm check", check_spmm, torch, eng, timer)
-    ttm = phase("banded_ttm check", check_ttm, torch, n_nodes,
-                eng.model.window, timer)
-    step_prof = phase("profile", profile_step, torch, eng)
-    phase("plain-path parity", plain_parity, eng, events)
-    phase("small-graph parity", small_parity, torch)
-    del eng, events
-    lm_eng, lm_stats = phase("lm path", lm_path, torch, kernels, obs)
-    lm_prof = phase("lm profile", profile_decode, torch, lm_eng)
-    del lm_eng
-    torch.cuda.empty_cache()
-    fd_rows, fd_err = phase("flash_decode check", check_flash_decode, torch,
-                            timer)
-    phase("lm parity", lm_parity, torch)
+    launches, report = {}, []
+    if "serve" in groups:
+        eng, events, launches["serve"] = phase(
+            "main path", main_path, torch, kernels, obs, n_nodes, max_edges)
+        spmm_rows, spmm_err, skew_err, skew_rows = phase(
+            "segment_spmm check", check_spmm, torch, eng, timer)
+        ttm = phase("banded_ttm check", check_ttm, torch, n_nodes,
+                    eng.model.window, timer)
+        step_prof = phase("profile", profile_step, torch, eng)
+        phase("plain-path parity", plain_parity, eng, events)
+        phase("small-graph parity", small_parity, torch)
+        del eng, events
+        torch.cuda.empty_cache()
+    if "train" in groups:
+        batch, train_stats = phase("train path", train_path, torch,
+                                   kernels, obs, n_nodes)
+        launches["train"] = train_stats["launches"]
+        spmm_bwd, ttm_train_rows, ttm_t_rows = phase(
+            "train-shape kernel checks", check_backward, torch, batch,
+            n_nodes, 5, timer)
+        del batch
+        torch.cuda.empty_cache()
+        train_par = phase("train parity", train_parity, torch)
+    if "lm" in groups:
+        lm_eng, lm_stats = phase("lm path", lm_path, torch, kernels, obs)
+        launches["lm"] = {"flash_decode": lm_stats["launches"]}
+        lm_prof = phase("lm profile", profile_decode, torch, lm_eng)
+        del lm_eng
+        torch.cuda.empty_cache()
+        fd_rows, fd_err = phase("flash_decode check", check_flash_decode,
+                                torch, timer)
+        phase("lm parity", lm_parity, torch)
 
-    spmm_main = next(r for r in spmm_rows if r["F"] == 6)  # layer 2
-    report = {"kernels": [
-        {"name": "segment_spmm", "route": "cuda",
-         "source": "src/repro_torch/csrc/segment_spmm.cu",
-         "replaces": "src/repro/kernels/segment_spmm/segment_spmm.py:55",
-         "launches": launches["segment_spmm"], "max_abs_err": spmm_err,
-         "ms": spmm_main["ms"], "plain_ms": spmm_main["plain_ms"],
-         "bound_ms": spmm_main["bound_ms"],
-         "bound_by": spmm_main["bound_by"],
-         "library_ms": spmm_main["library_ms"], "shapes": spmm_rows,
-         "skewed_max_abs_err": skew_err, "skewed": skew_rows,
-         "csr_builds": launches["csr_builds"],
-         "state_advance": step_prof},
-        {"name": "banded_ttm", "route": "cuda",
-         "source": "src/repro_torch/csrc/banded_ttm.cu",
-         "replaces": "src/repro/kernels/mproduct/mproduct.py:54",
-         "launches": launches["banded_ttm"],
-         "max_abs_err": ttm["max_abs_err"], "ms": ttm["ms"],
-         "plain_ms": ttm["plain_ms"], "bound_ms": ttm["bound_ms"],
-         "bound_by": ttm["bound_by"], "library_ms": ttm["library_ms"],
-         "detail": ttm},
-        {"name": "flash_decode", "route": "cuda",
-         "source": "src/repro_torch/csrc/flash_decode.cu",
-         "replaces": "src/repro/kernels/flash_decode/flash_decode.py:69",
-         "launches": lm_stats["launches"], "max_abs_err": fd_err,
-         "ms": fd_rows[0]["ms"], "plain_ms": fd_rows[0]["plain_ms"],
-         "bound_ms": fd_rows[0]["bound_ms"],
-         "bound_by": fd_rows[0]["bound_by"],
-         "library_ms": fd_rows[0]["library_ms"], "shapes": fd_rows,
-         "lm_path": lm_stats, "decode_profile": lm_prof}]}
-    log("[done] kernels launched on the main path and checked against "
-        "their plain versions: " + ", ".join(k.name for k in kernels))
-    log(json.dumps(report))
+    if "serve" in groups:
+        spmm_main = next(r for r in spmm_rows if r["F"] == 6)  # layer 2
+        spmm_main = dict(spmm_main, max_abs_err=spmm_err)
+        extra = {"shapes": spmm_rows, "skewed_max_abs_err": skew_err,
+                 "skewed": skew_rows,
+                 "csr_builds": launches["serve"]["csr_builds"],
+                 "state_advance": step_prof}
+        if "train" in groups:
+            extra["backward"] = spmm_bwd
+            extra["csr_builds_train"] = launches["train"]["csr_builds"]
+        report.append(kernel_entry(
+            "segment_spmm", "src/repro_torch/csrc/segment_spmm.cu",
+            "src/repro/kernels/segment_spmm/segment_spmm.py:55", launches,
+            spmm_main, **extra))
+        report.append(kernel_entry(
+            "banded_ttm", "src/repro_torch/csrc/banded_ttm.cu",
+            "src/repro/kernels/mproduct/mproduct.py:54", launches, ttm,
+            detail=ttm, **({"train_shapes": ttm_train_rows}
+                           if "train" in groups else {})))
+    if "train" in groups:
+        ttm_t_main = ttm_t_rows[1]          # block 1: (12, N x 6), +4
+        report.append(kernel_entry(
+            "banded_ttm_t", "src/repro_torch/csrc/banded_ttm.cu",
+            "src/repro/kernels/mproduct/mproduct.py:54 (its backward; the "
+            "TPU package has none)", launches,
+            dict(ttm_t_main, max_abs_err=max(r["max_abs_err"]
+                                             for r in ttm_t_rows)),
+            shapes=ttm_t_rows, train_path=train_stats,
+            train_parity=train_par))
+    if "lm" in groups:
+        report.append(kernel_entry(
+            "flash_decode", "src/repro_torch/csrc/flash_decode.cu",
+            "src/repro/kernels/flash_decode/flash_decode.py:69", launches,
+            dict(fd_rows[0], max_abs_err=fd_err), shapes=fd_rows,
+            lm_path=lm_stats, decode_profile=lm_prof))
+    log("[done] kernels launched on the paths driven and checked against "
+        "their plain versions: " + ", ".join(k["name"] for k in report))
+    log(json.dumps({"kernels": report}))
+    if groups != GROUPS:
+        log(f"[done] partial run ({','.join(groups)}): no result line")
+        return 0
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

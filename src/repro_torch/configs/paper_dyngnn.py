@@ -24,11 +24,13 @@ DATASETS = {
 def _mk(model: str):
     def make_config():
         return DynGNNConfig(model=model, feat_in=2, hidden=6, out_dim=6,
-                            num_layers=2, window=5, num_classes=2)
+                            num_layers=2, window=5, num_classes=2,
+                            checkpoint_blocks=4)
 
     def make_smoke_config():
-        return DynGNNConfig(model=model, num_nodes=64, feat_in=2, hidden=6,
-                            out_dim=6, num_layers=2, window=3, num_classes=2)
+        return DynGNNConfig(model=model, num_nodes=64, num_steps=16,
+                            feat_in=2, hidden=6, out_dim=6, num_layers=2,
+                            window=3, num_classes=2, checkpoint_blocks=2)
 
     return make_config, make_smoke_config
 

@@ -36,6 +36,13 @@ class SnapshotDelta:
     values: np.ndarray      # (E_max,) f32 — values of the new snapshot
     num_edges: int          # valid edge count of the new snapshot
 
+    @property
+    def payload_bytes(self) -> int:
+        """Bytes actually shipped (valid lanes only, like the paper counts)."""
+        d = int(self.drop_mask.sum())
+        a = int(self.add_mask.sum())
+        return d * 4 + a * 8 + self.num_edges * 4
+
 
 @dataclass
 class FullSnapshot:
@@ -43,6 +50,15 @@ class FullSnapshot:
     mask: np.ndarray    # (E_max,)
     values: np.ndarray  # (E_max,)
     num_edges: int
+
+    @property
+    def payload_bytes(self) -> int:
+        return self.num_edges * 8 + self.num_edges * 4
+
+
+def naive_bytes(snapshots: list[np.ndarray]) -> int:
+    """Baseline: full (indices, values) per snapshot (paper's `Base`)."""
+    return sum(s.shape[0] * 12 for s in snapshots)
 
 
 def apply_delta(prev_edges: torch.Tensor, prev_mask: torch.Tensor,

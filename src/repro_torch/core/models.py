@@ -11,8 +11,11 @@ ops.  Parameters live in :class:`ParamTree`, an ``nn.Module`` whose
 ``state_dict`` keys mirror the JAX parameter tree (``layers.0.gcn.w``,
 ``classifier.u``, ...) and which is indexed like the JAX dicts
 (``params["layers"][0]["gcn"]["w"]``), so the functions below read as
-their JAX counterparts do.  Training (losses, backward kernels) waits for
-ROADMAP Queue 1, item 1.
+their JAX counterparts do.  ``forward`` / ``node_loss`` are the unblocked
+training forward and loss; ``repro_torch.core.checkpoint`` runs the same
+``forward_slice`` per timeline block.  Gradients flow through both kernels:
+the aggregate's backward is the segment-SpMM kernel on each snapshot's
+transposed CSR, the M-product's the transposed band (``banded_ttm_t``).
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from torch import nn
 
 from repro_torch.core import gcn as gcnlib
 from repro_torch.core import temporal
+from repro_torch.core.dtdg import DTDGBatch
 from repro_torch.kernels.segment_spmm import ops as spmm_ops
 
 
@@ -32,12 +36,14 @@ from repro_torch.kernels.segment_spmm import ops as spmm_ops
 class DynGNNConfig:
     model: str = "tmgcn"            # cdgcn | evolvegcn | tmgcn
     num_nodes: int = 1024
+    num_steps: int = 16             # training trace length T (serving: any)
     feat_in: int = 2                # paper: in/out degree features
     hidden: int = 6                 # paper: intermediate feature length 6
     out_dim: int = 6                # embedding length F'
     num_layers: int = 2
     window: int = 5                 # M-product / RNN window w
     num_classes: int = 2
+    checkpoint_blocks: int = 1      # nb (1 = no checkpointing); training
     # no use_pallas counterpart: the kernel wrappers pick the CUDA kernel
     # or its plain version from the tensors' device
 
@@ -135,26 +141,24 @@ def _identity(v: torch.Tensor) -> torch.Tensor:
 
 def spatial_stage(cfg: DynGNNConfig, layer_params, x: torch.Tensor,
                   edges: torch.Tensor, edge_weights: torch.Tensor,
-                  carry: Any, csrs: list | None = None
-                  ) -> tuple[torch.Tensor, Any]:
+                  carry: Any, csrs: list) -> tuple[torch.Tensor, Any]:
     """The per-snapshot stage of one layer.
 
     x: (Ts, N, d_in) slice; edges: (Ts, E, 2); returns (Ts, N, d_mid).
     EvolveGCN folds the whole layer here (its LSTM runs over weights) and
-    returns the updated weight carry.  ``csrs``: each snapshot's prebuilt
-    CSR (``forward_slice`` builds them once for all layers), else built
-    here.
+    returns the updated weight carry.  ``csrs``: each snapshot's (CSR,
+    transposed CSR or None) pair, built once for all layers by
+    ``forward_slice``'s caller or by ``forward_slice``.
     """
     num_nodes = x.shape[1]
-    if csrs is None:
-        csrs = [None] * x.shape[0]
     if cfg.model == "evolvegcn":
         w_prev, state = carry
         ws, w_last, st_last = temporal.evolve_weights_from(
             layer_params["evolve"], w_prev, state, x.shape[0])
         y = torch.stack([
             torch.relu(gcnlib.spatial_aggregate(
-                x[t], edges[t], edge_weights[t], num_nodes, csrs[t]) @ ws[t])
+                x[t], edges[t], edge_weights[t], num_nodes, *csrs[t])
+                @ ws[t])
             for t in range(x.shape[0])])
         return y, (w_last, st_last)
 
@@ -163,7 +167,7 @@ def spatial_stage(cfg: DynGNNConfig, layer_params, x: torch.Tensor,
         gcnlib.gcn_apply(layer_params["gcn"], x[t], edges[t],
                          edge_weights[t], num_nodes,
                          concat_skip=cfg.model == "cdgcn",
-                         activation=act, csr=csrs[t])
+                         activation=act, csr=csrs[t][0], csr_t=csrs[t][1])
         for t in range(x.shape[0])])
     if cfg.model == "tmgcn":
         y = torch.relu(y)
@@ -187,17 +191,23 @@ def temporal_stage(cfg: DynGNNConfig, layer_params, y: torch.Tensor,
 
 def forward_slice(cfg: DynGNNConfig, params: ParamTree, x: torch.Tensor,
                   edges: torch.Tensor, edge_weights: torch.Tensor,
-                  carries: list, t_offset: int
+                  carries: list, t_offset: int, csrs: list | None = None
                   ) -> tuple[torch.Tensor, list]:
     """Full model over a contiguous timeline slice: x (Ts, N, F),
     edges (Ts, E, 2), edge_weights (Ts, E) -> (z (Ts, N, F'), carries).
 
     Every layer aggregates over the same snapshots, so each snapshot's CSR
-    is built once here, before the layer loop, not once per layer."""
+    is built once, before the layer loop, not once per layer.  ``csrs``:
+    per snapshot, the forward and the transposed CSR, which the gradient
+    needs — training passes ``DTDGBatch.csr_pairs()``, built once per run
+    and read again by every recomputed block.  Without them the forward
+    CSRs are built here and the slice cannot be differentiated (serving:
+    one CSR a snapshot)."""
     evolve = cfg.model == "evolvegcn"
     num_nodes = x.shape[1]
-    csrs = [spmm_ops.build_csr(edges[t], edge_weights[t], num_nodes)
-            for t in range(x.shape[0])]
+    if csrs is None:
+        csrs = [(spmm_ops.build_csr(edges[t], edge_weights[t], num_nodes),
+                 None) for t in range(x.shape[0])]
     new_carries = []
     h = x
     for l in range(cfg.num_layers):
@@ -210,9 +220,40 @@ def forward_slice(cfg: DynGNNConfig, params: ParamTree, x: torch.Tensor,
     return h, new_carries
 
 
+# --------------------------------------------------------- full model -------
+
+def forward(cfg: DynGNNConfig, params: ParamTree,
+            batch: DTDGBatch) -> torch.Tensor:
+    """Embeddings Z: (T, N, out_dim) — plain (non-blocked) forward."""
+    carries = init_carries(cfg, params, dtype=batch.frames.dtype,
+                           device=batch.frames.device)
+    z, _ = forward_slice(cfg, params, batch.frames, batch.edges,
+                         batch.edge_weights, carries, 0, batch.csr_pairs())
+    return z
+
+
 def classify(params: ParamTree, z: torch.Tensor) -> torch.Tensor:
     """Per-(t, u) logits via the shared projection U (§2.2)."""
     return z @ params["classifier"]["u"] + params["classifier"]["b"]
+
+
+def nll_loss(logits: torch.Tensor, labels: torch.Tensor,
+             label_mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean cross-entropy of (..., C) logits against integer labels."""
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    nll = -torch.gather(logp, -1, labels.long()[..., None])[..., 0]
+    if label_mask is not None:
+        return torch.sum(nll * label_mask) / torch.clamp(label_mask.sum(),
+                                                         min=1.0)
+    return torch.mean(nll)
+
+
+def node_loss(cfg: DynGNNConfig, params: ParamTree, batch: DTDGBatch,
+              labels: torch.Tensor,
+              label_mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Cross-entropy vertex classification over all (t, u)."""
+    return nll_loss(classify(params, forward(cfg, params, batch)), labels,
+                    label_mask)
 
 
 def link_logits(params: ParamTree, z_t: torch.Tensor,

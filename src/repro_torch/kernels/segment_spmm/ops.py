@@ -16,6 +16,11 @@ per-block edge budget, so nothing can overflow.
 
 On a CPU tensor the wrapper runs the plain PyTorch version (``ref.py``) on
 the same CSR; on a CUDA tensor it launches the kernel or raises.
+
+Training differentiates through :class:`SegmentSpmmFn`: with
+``Y = A_tilde @ X`` and ``A_tilde[dst, src] = w``, ``dX = A_tilde^T @ dY``,
+the same kernel on the transposed CSR (:func:`build_csr_pair` builds both).
+The edge weights come from the topology and get no gradient.
 """
 
 from __future__ import annotations
@@ -86,6 +91,32 @@ def segment_spmm_csr(x: torch.Tensor, row_ptr: torch.Tensor,
     KERNEL.launch(x.device, x.data_ptr(), row_ptr.data_ptr(),
                   col.data_ptr(), w.data_ptr(), out.data_ptr(), n, f)
     return out
+
+
+def build_csr_pair(edges: torch.Tensor, edge_weights: torch.Tensor,
+                   num_nodes: int) -> tuple[tuple, tuple]:
+    """-> (forward CSR, transposed CSR) of one snapshot: ``A_tilde`` and
+    ``A_tilde^T`` (the (src, dst) columns swapped); two builds."""
+    return (build_csr(edges, edge_weights, num_nodes),
+            build_csr(edges.flip(1), edge_weights, num_nodes))
+
+
+class SegmentSpmmFn(torch.autograd.Function):
+    """``A_tilde @ x`` on the snapshot's CSR; its gradient ``A_tilde^T @ dy``
+    on the transposed CSR, launched only when x needs one (a first layer's
+    input, the frames, does not)."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, csr: tuple, csr_t: tuple
+                ) -> torch.Tensor:
+        ctx.csr_t = csr_t        # topology of the batch: no saved activation
+        return segment_spmm_csr(x.contiguous(), *csr)
+
+    @staticmethod
+    def backward(ctx, dy: torch.Tensor):
+        dx = segment_spmm_csr(dy.contiguous(), *ctx.csr_t) \
+            if ctx.needs_input_grad[0] else None
+        return dx, None, None
 
 
 def segment_spmm(x: torch.Tensor, edges: torch.Tensor,

@@ -1,0 +1,29 @@
+"""``repro_torch.run`` — the declarative training API of the port.
+
+    from repro_torch.run import (Engine, ExecutionPlan, RunConfig,
+                                 SyntheticTrace)
+
+    run = RunConfig(
+        model=DynGNNConfig(model="tmgcn", num_nodes=128, num_steps=16),
+        data=SyntheticTrace(num_nodes=128, num_steps=16,
+                            smoothing_mode="mproduct", window=3),
+        plan=ExecutionPlan(mode="eager", num_steps=20), seed=0)
+    result = Engine(run).fit()        # on the card; device="cpu" on a host
+
+Port of ``repro.run`` for the single-device eager schedule (the blocked
+trainer of paper §3.1); the other schedules raise ``NotImplementedError``
+naming their ROADMAP item.
+"""
+
+from repro_torch.run.config import (CheckpointSpec, ResolvedRun, RunConfig,
+                                    RunResult)
+from repro_torch.run.data import (DataSource, InMemoryDTDG, SyntheticTrace,
+                                  pad_dataset)
+from repro_torch.run.engine import Engine
+from repro_torch.run.plan import ExecutionPlan
+
+__all__ = [
+    "CheckpointSpec", "DataSource", "Engine", "ExecutionPlan",
+    "InMemoryDTDG", "ResolvedRun", "RunConfig", "RunResult",
+    "SyntheticTrace", "pad_dataset",
+]

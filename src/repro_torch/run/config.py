@@ -1,0 +1,78 @@
+"""Run configuration: the one declarative description of a training run
+(port of ``repro.run.config``).
+
+``RunConfig`` holds the model config, a :class:`DataSource`, an
+:class:`ExecutionPlan`, the optimizer, checkpointing, logging and the
+parameter-init ``seed``.  ``Engine.resolve()`` turns it into a
+:class:`ResolvedRun`, the bundle the workers consume; ``Engine.fit()``
+returns a :class:`RunResult`.  Checkpointing (``CheckpointSpec``; the
+reference's ``ckpt/``) is not ported yet: a run that asks for it is
+refused (ROADMAP Queue 1, item 8).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Callable
+
+import torch
+
+from repro_torch.core.models import DynGNNConfig
+from repro_torch.data.dyngnn import DTDGDataset, DTDGPipeline
+from repro_torch.optim.adamw import AdamWConfig
+from repro_torch.run.data import DataSource
+from repro_torch.run.plan import ExecutionPlan
+from repro_torch.train.trainer import TrainState
+
+
+@dataclass(frozen=True)
+class CheckpointSpec:
+    """Where/how often to checkpoint (refused until ROADMAP Queue 1,
+    item 8 ports ``ckpt/``)."""
+
+    directory: str
+    every: int = 50
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    model: DynGNNConfig
+    data: DataSource
+    plan: ExecutionPlan = ExecutionPlan()
+    optimizer: AdamWConfig | None = None      # None = schedule default
+    checkpoint: CheckpointSpec | None = None
+    seed: int = 0                             # param-init generator seed
+    log_every: int = 10
+    log_fn: Callable[[str], None] = print
+
+
+@dataclass
+class ResolvedRun:
+    """Everything the eager worker needs, resolved once.  ``cache`` holds
+    the step function so repeated ``fit()`` calls reuse it."""
+
+    config: RunConfig
+    cfg: DynGNNConfig               # model config w/ resolved N and T
+    ds: DTDGDataset
+    pipeline: DTDGPipeline
+    plan: ExecutionPlan
+    opt_cfg: AdamWConfig | None
+    seed: int
+    log_every: int
+    log_fn: Callable[[str], None]
+    device: torch.device
+    cache: dict = field(default_factory=dict)
+
+
+@dataclass
+class RunResult:
+    """What ``Engine.fit()`` returns: the final state, the per-step loss
+    stream, the graph-diff byte accounting (``transfer_report``) and the
+    ``repro_torch.obs`` counter delta plus span summary of the fit
+    (``metrics``).  The reference's fields for the other schedules (stream,
+    shard, rescale, sample and budget reports) arrive with them."""
+
+    state: TrainState
+    losses: list[float]
+    transfer_report: dict | None = None
+    metrics: dict | None = None     # obs counter delta + span summary

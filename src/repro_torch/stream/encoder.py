@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import warnings
 from dataclasses import dataclass, field
+from typing import Iterator
 
 import numpy as np
 
@@ -266,3 +267,39 @@ class IncrementalEncoder:
                     "on StreamReport, not warned)", stacklevel=2)
                 self._warned = True
             return self._full_resync(snap, vals)
+
+
+def iter_encode_stream(snapshots: list[np.ndarray],
+                       values: list[np.ndarray] | None,
+                       num_nodes: int, max_edges: int, block_size: int,
+                       stats: DeltaStats | None = None,
+                       on_overflow: str = "resync",
+                       report: StreamReport | None = None,
+                       wire: str = "none") -> Iterator:
+    """Lazily encode the trace (the form the prefetch thread consumes).
+
+    A loop over :class:`IncrementalEncoder` (which documents the
+    ``on_overflow`` and ``wire`` modes) with stats-sized delta pads
+    measured from the trace when not provided.
+    """
+    if stats is None:
+        stats = measure_stats(snapshots, num_nodes, block_size, max_edges)
+    inc = IncrementalEncoder(num_nodes, max_edges, block_size,
+                             stats.max_drops, stats.max_adds,
+                             on_overflow=on_overflow, report=report,
+                             wire=wire)
+    for i, snap in enumerate(snapshots):
+        yield inc.encode(snap, values[i] if values is not None else None)
+
+
+def encode_stream_fast(snapshots: list[np.ndarray],
+                       values: list[np.ndarray] | None,
+                       num_nodes: int, max_edges: int, block_size: int,
+                       stats: DeltaStats | None = None,
+                       on_overflow: str = "resync",
+                       report: StreamReport | None = None,
+                       wire: str = "none") -> list:
+    """The whole trace encoded at once: ``list(iter_encode_stream(...))``."""
+    return list(iter_encode_stream(snapshots, values, num_nodes, max_edges,
+                                   block_size, stats, on_overflow, report,
+                                   wire=wire))

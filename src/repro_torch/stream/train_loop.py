@@ -4,7 +4,9 @@ Port of the forward half of ``repro.stream.train_loop``: the device
 reconstructs the padded edge list (``apply_delta``), appends self-loops,
 recomputes the Laplacian weights from the reconstructed topology, and runs
 the layer stack over a timeline slice, rolling the temporal carries.  The
-per-snapshot training steps (loss + AdamW) wait for ROADMAP Queue 1, item 1.
+serving engine runs it; the streamed per-snapshot trainer (loss + AdamW
+over the delta stream, ``train_streamed``) waits for ROADMAP Queue 1,
+item 6.  The blocked trainer over a padded batch is ``repro_torch.run``.
 """
 
 from __future__ import annotations

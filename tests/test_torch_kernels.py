@@ -339,5 +339,8 @@ def test_kernel_library_name_follows_source_and_flags():
     assert k.lib_path.parent == build.BUILD_DIR
     assert k.lib_path == spmm_ops.KERNEL.lib_path
     assert k.lib_path != mp_ops.KERNEL.lib_path
-    assert len({kk.lib_path for kk in kmod.ALL}) == len(kmod.ALL) == 3
+    assert len({kk.lib_path for kk in kmod.ALL}) == len(kmod.ALL) == 4
+    # the backward band shares the forward's source, not its library
+    assert mp_ops.KERNEL_T.source == mp_ops.KERNEL.source
+    assert mp_ops.KERNEL_T.lib_path != mp_ops.KERNEL.lib_path
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS

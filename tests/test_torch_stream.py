@@ -97,6 +97,18 @@ def test_encoder_items_byte_identical_and_stats():
                 _assert_items_equal(ours.encode(snap), theirs.encode(snap))
         assert rep.resync_steps == jrep.resync_steps
         assert (rep.resyncs > 0) == (pad == 8)
+    # the whole-trace encoders (the training pipeline's byte accounting)
+    vals = [np.arange(len(sn), dtype=np.float32) for sn in snaps]
+    for v in (None, vals):
+        ours = list(enc.iter_encode_stream(snaps, v, N, max_edges, 4))
+        theirs = jenc.encode_stream_fast(snaps, v, N, max_edges, 4)
+        assert len(ours) == len(theirs) == len(snaps)
+        for a, b in zip(ours, theirs):
+            _assert_items_equal(a, b)
+            assert a.payload_bytes == b.payload_bytes
+        for a, b in zip(enc.encode_stream_fast(snaps, v, N, max_edges, 4,
+                                               stats), theirs):
+            _assert_items_equal(a, b)
 
 
 def test_encoder_rejects_unported_wire():
