@@ -44,12 +44,24 @@ which exits non-zero on failure:
    the checkpoint recompute, 32 backward on the transposed CSR; 12
    ``banded_ttm``; 8 ``banded_ttm_t``; 0 ``flash_decode``; 64 CSR
    builds for the run), losses, fenced ``train.step`` spans, peak device
-   memory beside ``activation_memory_estimate``, one step profiled;
+   memory beside ``activation_memory_estimate``; then the warm step timed
+   in turns with the previous M-product path (patched in: the band over
+   [prefix, slice] with a zero-filled full-size gradient and the previous
+   transposed kernel, the new prefix a cat of all rows), and one step of
+   each profiled, its device time by kind (fills, copies, adds, GEMMs,
+   each kernel);
 4b. both backward kernels held to their plain versions at the path's
    shapes, each shown to reject zeros and a dropped edge / band row, and
    timed beside bound, plain version and library call (``segment_spmm``
-   on the transposed CSR at F = 6; ``banded_ttm_t`` at (12, N x 6) with
-   t_offset -4 and +4 and at (32, N x 6));
+   on the transposed CSR at F = 6; ``banded_ttm_t`` on the kept rows'
+   gradient dZ (T_s, N x 6) at (8, lead 4) with t_offset -4 (block 0:
+   slice rows only) and +4, at (32, lead 0) and at the full config's
+   block (128, lead 4), each also in turns with the previous path — dZ
+   copied into a zero-filled full-size gradient, then the previous
+   kernel — and, at small shapes, every instance the launcher builds: w
+   1-9, T_s 1-12, lead 0 and w - 1, t_offset -7..+9, 4 and 1 columns a
+   thread, with and without the prefix's rows); the forward ``banded_ttm`` likewise at (12, N x 6) with
+   t_offset -4 and +4, at (32, N x 6) and at (132, N x 6);
 4c. one training step's loss and every gradient, card against a
    ``device="cpu"`` run from the same parameters, for all three models at
    N = 65,536, T = 16, nb 4;
@@ -125,6 +137,7 @@ BLOCK_SIZE = 8
 QUERY_REPS = 30
 
 TRAIN_T = 32                 # cut from the epinions trace's 512 steps
+FULL_T = 512                 # the full config's T: its blocks are timed
 TRAIN_DENSITY = 1.25         # smoothed snapshots + self-loops ~ 2.1 M slots
 TRAIN_STEPS = 10
 TRAIN_NB = 4                 # the full config's checkpoint_blocks
@@ -174,29 +187,43 @@ class Timer:
         self._write = torch.empty(64 << 20, dtype=torch.uint8,
                                   device="cuda")
 
+    def _once(self, fn, host: bool, flush: str) -> float:
+        torch = self.torch
+        if flush == "read":
+            self._read.sum()
+        else:
+            self._write.zero_()
+        if host:
+            torch.cuda.synchronize()
+        else:
+            torch.cuda._sleep(1_000_000)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end)
+
     def __call__(self, fn, host: bool = False, flush: str = "read"
                  ) -> float:
-        torch = self.torch
         for _ in range(3):
             fn()
-        times = []
+        return statistics.median(self._once(fn, host, flush)
+                                 for _ in range(self.reps))
+
+    def turns(self, fns: dict) -> dict:
+        """Device time of each of ``fns``, the calls taken in turns (a,
+        b, a, b, ...) so the card's drift falls on all alike ->
+        {name: median ms}."""
+        for fn in fns.values():
+            for _ in range(3):
+                fn()
+        times = {k: [] for k in fns}
         for _ in range(self.reps):
-            if flush == "read":
-                self._read.sum()
-            else:
-                self._write.zero_()
-            if host:
-                torch.cuda.synchronize()
-            else:
-                torch.cuda._sleep(1_000_000)
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn()
-            end.record()
-            end.synchronize()
-            times.append(start.elapsed_time(end))
-        return statistics.median(times)
+            for k, fn in fns.items():
+                times[k].append(self._once(fn, False, "read"))
+        return {k: statistics.median(v) for k, v in times.items()}
 
 
 def bound_ms(nbytes: float, flops: float, peak_flops: float = 67e12,
@@ -258,6 +285,30 @@ def device_profile(torch, fn) -> tuple[float, float, dict]:
     if busy <= 0:
         raise SystemExit("profile: the trace holds no device time")
     return wall_us, busy, by_name
+
+
+#: device activities by kind, first match wins (substrings of the names)
+KINDS = (("banded_ttm_t", ("banded_ttm_t",)),
+         ("banded_ttm", ("banded_ttm_kernel",)),
+         ("segment_spmm", ("spmm",)),
+         ("flash_decode", ("flash_decode",)),
+         ("GEMMs", ("gemm", "xmma", "cutlass")),
+         ("stack / cat copies", ("CatArrayBatchedCopy",)),
+         ("other copies", ("copy", "Memcpy")),
+         ("fills", ("FillFunctor", "Memset")),
+         ("gradient adds", ("CUDAFunctor_add",)))
+
+
+def by_kind(by_name: dict) -> dict:
+    """{device activity name: [us]} -> {kind: {"ms", "count"}}; what no
+    kind names is "other"."""
+    out = {k: {"ms": 0.0, "count": 0} for k, _ in KINDS + (("other", ()),)}
+    for name, v in by_name.items():
+        kind = next((k for k, subs in KINDS if any(x in name for x in subs)),
+                    "other")
+        out[kind]["ms"] += sum(v) / 1e3
+        out[kind]["count"] += len(v)
+    return out
 
 
 # ------------------------------------------------------------ serving ------
@@ -549,14 +600,20 @@ def check_spmm(torch, eng, timer):
     return results, err_all, skew_err, skew_rows
 
 
-def band_cost(t: int, nf: int, window: int, t_offset: int
-              ) -> tuple[float, float]:
-    """Bytes and operations of M (or M^T) applied to a (t, nf) f32 tensor:
-    the rows before global step 1 lie in no band and are never read; every
-    output row is written; one multiply-add per band entry and column."""
-    first = min(t, max(0, -t_offset))
-    nnz = sum(r - max(0, r - window + 1, first) + 1 for r in range(first, t))
-    return float((t - first + t) * nf * 4), float(nnz * nf)
+def band_cost(t_s: int, nf: int, window: int, t_offset: int,
+              lead: int = 0, first: int = 0) -> tuple[float, float]:
+    """Bytes and operations of M (or M^T) over a (lead + t_s, nf) f32
+    tensor of which the last t_s rows are read (the kept rows, for M^T)
+    and rows first .. lead + t_s - 1 written: a read row counts when it
+    lies in some written band (at or after global step 1 and row first);
+    one multiply-add per band entry and column.  lead = first = 0 is the
+    forward's M X."""
+    rows = lead + t_s
+    lo = max(first, -t_offset, 0)
+    nnz = sum(t - max(lo, t - window + 1) + 1
+              for t in range(max(lead, lo), rows))
+    read = max(0, rows - max(lead, lo))
+    return float((read + rows - first) * nf * 4), float(nnz * nf)
 
 
 def band_matrix(torch, t: int, window: int, t_offset: int):
@@ -731,6 +788,7 @@ def train_path(torch, kernels, obs, n_nodes: int):
 
     from repro_torch.configs import registry
     from repro_torch.core import checkpoint as ckpt
+    from repro_torch.core import models as mdl
     from repro_torch.kernels.build import reset_counts
     from repro_torch.kernels.segment_spmm import ops as spmm_ops
     from repro_torch.run import (Engine, ExecutionPlan, RunConfig,
@@ -823,19 +881,43 @@ def train_path(torch, kernels, obs, n_nodes: int):
         state["params"], state["opt"], _ = step_fn(
             state["params"], state["opt"], batch, labels)
 
-    walls = alternating_walls(torch, {"step": one_step}, 4)
-    wall_us, busy, by_name = device_profile(torch, one_step)
-    prof = {"steady_ms": walls["step"], "wall_ms": wall_us / 1e3,
-            "busy_ms": busy / 1e3, "idle_share": 1 - busy / wall_us,
-            "activities": sum(map(len, by_name.values()))}
-    log(f"[profile-train] warm step (host clock + sync, median of 3) "
-        f"{prof['steady_ms']:.1f} ms; one step under the profiler: wall "
-        f"{prof['wall_ms']:.1f} ms, device busy {prof['busy_ms']:.1f} ms, "
-        f"idle share {prof['idle_share']:.3f}, {prof['activities']} device "
-        "activities")
-    for name, v in sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:12]:
-        log(f"[profile-train]   {sum(v) / 1e3:8.3f} ms  x{len(v):<4d} "
-            f"{name[:90]}")
+    prev_stage = previous_temporal_stage(torch)
+
+    def previous_step():
+        with patched(mdl, "temporal_stage", prev_stage):
+            one_step()
+
+    walls = alternating_walls(torch, {"step": one_step,
+                                      "previous": previous_step}, 7)
+    prof = {"steady_ms": walls["step"],
+            "previous_steady_ms": walls["previous"]}
+    log(f"[profile-train] warm step (host clock + sync, median of 6, in "
+        f"turns): {walls['step']:.1f} ms; on the previous M-product path "
+        f"(zero-filled full-size gradient, the loop kernel, 12-row prefix "
+        f"cats) {walls['previous']:.1f} ms")
+    kinds = {}
+    for key, fn in (("step", one_step), ("previous", previous_step)):
+        wall_us, busy, by_name = device_profile(torch, fn)
+        kinds[key] = by_kind(by_name)
+        prof[key] = {"wall_ms": wall_us / 1e3, "busy_ms": busy / 1e3,
+                     "idle_share": 1 - busy / wall_us,
+                     "activities": sum(map(len, by_name.values())),
+                     "by_kind": kinds[key]}
+        log(f"[profile-train] one {key} step under the profiler: wall "
+            f"{wall_us / 1e3:.1f} ms, device busy {busy / 1e3:.1f} ms, idle "
+            f"share {1 - busy / wall_us:.3f}, "
+            f"{prof[key]['activities']} device activities")
+        if key == "step":
+            for name, v in sorted(by_name.items(),
+                                  key=lambda kv: -sum(kv[1]))[:12]:
+                log(f"[profile-train]   {sum(v) / 1e3:8.3f} ms  "
+                    f"x{len(v):<4d} {name[:90]}")
+    log("[profile-train] device time by kind, ms (launches): this path | "
+        "previous M-product path")
+    for kind in kinds["step"]:
+        a, b = kinds["step"][kind], kinds["previous"][kind]
+        log(f"[profile-train]   {kind:20s} {a['ms']:8.3f} ({a['count']:4d}) | "
+            f"{b['ms']:8.3f} ({b['count']:4d})")
     stats = {"losses": losses, "step_ms": step_ms,
              "step_ms_median": statistics.median(step_ms),
              "step_ms_median_after_first": statistics.median(step_ms[1:]),
@@ -845,6 +927,55 @@ def train_path(torch, kernels, obs, n_nodes: int):
              "max_edges": pipe.max_edges, "link_pred_acc": acc,
              "launches": launches, "profile": prof}
     return batch, stats
+
+
+def previous_band_t(torch, dz, window: int, t_offset: int, lead: int,
+                    write_lead: bool = True):
+    """The previous path's gradient of the kept rows: dZ copied into a
+    zero-filled (lead + T_s, NF) gradient (the slice's backward), then the
+    previous design of the transposed band over all of it (a thread per
+    column, each element loaded and divided w times; kept in
+    ``csrc/banded_ttm.cu``, reached by no wrapper)."""
+    from repro_torch.kernels.mproduct import ops as mp_ops
+
+    t_s, nf = dz.shape
+    dy = torch.zeros((lead + t_s, nf), device=dz.device)
+    dy[lead:] = dz
+    dx = torch.empty_like(dy)
+    mp_ops.KERNEL_T.launch_uncounted(
+        mp_ops.LOOP_T_SYMBOL, dy.device, dy.data_ptr(), dx.data_ptr(),
+        lead + t_s, nf, int(window), int(t_offset), 0, 0)
+    return dx if write_lead else dx[lead:]
+
+
+def previous_temporal_stage(torch):
+    """TM-GCN's temporal stage as the previous path ran it, for timing the
+    train step beside this one: cat [prefix, y], the band over all rows
+    and the slice's rows kept, so the gradient is the previous transposed
+    path over a zero-filled full-size dY; the new prefix a cat of all
+    rows."""
+    from repro_torch.kernels.mproduct import ops as mp_ops
+
+    class PreviousBandFn(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, window, t_offset):
+            ctx.window, ctx.t_offset = window, t_offset
+            return mp_ops.banded_ttm(x, window, t_offset)
+
+        @staticmethod
+        def backward(ctx, dy):
+            return (previous_band_t(torch, dy.contiguous(), ctx.window,
+                                    ctx.t_offset, 0), None, None)
+
+    def stage(cfg, layer_params, y, carry, t_offset):
+        w1 = cfg.window - 1
+        full = torch.cat([carry, y], dim=0)
+        z = PreviousBandFn.apply(full.reshape(full.shape[0], -1),
+                                 cfg.window, t_offset - w1)
+        return (z.reshape(full.shape)[w1:],
+                torch.cat([carry, y], dim=0)[-w1:])
+
+    return stage
 
 
 def check_backward(torch, batch, n: int, window: int, timer):
@@ -893,67 +1024,190 @@ def check_backward(torch, batch, n: int, window: int, timer):
         f"{faults['zeros']:.1f}, last edge dropped "
         f"{faults['last edge dropped']:.1f}")
 
-    bsize = TRAIN_T // TRAIN_NB
-    blocks = ((bsize + window - 1, -(window - 1)),    # block 0
-              (bsize + window - 1, bsize - (window - 1)))  # block 1
-    fwd = band_rows(torch, gen, "banded_ttm", mp_ops.banded_ttm,
-                    mp_ref.banded_ttm_ref, False, blocks, n, window, timer)
-    rows = band_rows(torch, gen, "banded_ttm_t", mp_ops.banded_ttm_t,
-                     mp_ref.banded_ttm_t_ref, True, blocks + ((TRAIN_T, 0),),
-                     n, window, timer)
-    return spmm, fwd, rows
+    bsize, w1 = TRAIN_T // TRAIN_NB, window - 1
+    full_bsize = FULL_T // TRAIN_NB
+    # (rows, t_offset of row 0): block 0, block 1 (blocks 2 and 3 read
+    # the same full band at +12, +20), the whole T, and block 1 of the full
+    # config's T = 512
+    fwd = band_rows(torch, gen, n, window, timer, (
+        (bsize + w1, -w1), (bsize + w1, bsize - w1), (TRAIN_T, 0),
+        (full_bsize + w1, full_bsize - w1)))
+    # (T_s, lead, t_offset, write_lead): the gradient of block 0's kept
+    # rows (its prefix, the zero initial carry, needs none), of block 1's
+    # (prefix and slice), of the whole T, and of the full config's block 1
+    rows = band_t_rows(torch, gen, n, window, timer, (
+        (bsize, w1, -w1, False), (bsize, w1, bsize - w1, True),
+        (TRAIN_T, 0, 0, True), (full_bsize, w1, full_bsize - w1, True)))
+    return spmm, fwd, rows, band_t_sweep(torch, gen)
 
 
-def band_rows(torch, gen, name: str, kernel, plain, transposed: bool,
-              cases, n: int, window: int, timer) -> list[dict]:
-    """``kernel`` against ``plain`` on (t, N x 6) at each (t, t_offset) of
-    ``cases``, shown to reject zeros and a dropped band row, and timed
-    beside its bound, its plain version and the dense band (``M @ X``, or
-    ``M^T @ dY`` when ``transposed``)."""
+def band_faults(name: str, want, limit: float, kernel, x, row: int
+                ) -> dict:
+    """Show that a band check rejects zeros and the kernel run with input
+    row ``row`` dropped -> {fault: max |diff| over the limit}."""
+    cut = x.clone()
+    cut[row] = 0.0
+    faults = {"zeros": float(want.abs().max()) / limit,
+              "a band row dropped": float((kernel(cut) - want).abs().max())
+              / limit}
+    for fault, ratio in faults.items():
+        if ratio <= 1.0:
+            raise SystemExit(f"{name}: the check would pass a kernel that "
+                             f"wrote {fault} ({ratio:.3f} x its limit)")
+    return faults
+
+
+def band_rows(torch, gen, n: int, window: int, timer, cases) -> list[dict]:
+    """``banded_ttm`` against its plain version on (t, N x 6) at each
+    (t, t_offset) of ``cases``, shown to reject zeros and a dropped band
+    row, and timed beside its bound, its plain version and the dense band
+    ``M @ X``."""
+    from repro_torch.kernels.mproduct import ops, ref
+
     rows = []
     for t, off in cases:
         x = torch.randn((t, n * 6), generator=gen, device="cuda")
-        got = kernel(x, window, off)
-        want = plain(x, window, off)
+        got = ops.banded_ttm(x, window, off)
+        want = ref.banded_ttm_ref(x, window, off)
         torch.cuda.synchronize()
-        err = check_close(f"{name} ({t}, {n * 6}) t_offset={off}", got,
-                          want, TOL_TTM)
-        limit = TOL_TTM * (1.0 + float(want.abs().max()))
-        cut = x.clone()
-        cut[t // 2] = 0.0           # the band's row t // 2 dropped
-        faults = {"zeros": float(want.abs().max()) / limit,
-                  "a band row dropped": float((kernel(
-                      cut, window, off) - want).abs().max()) / limit}
-        for fault, ratio in faults.items():
-            if ratio <= 1.0:
-                raise SystemExit(f"{name} t_offset={off}: the check would "
-                                 f"pass a kernel that wrote {fault} "
-                                 f"({ratio:.3f} x its limit)")
+        name = f"banded_ttm ({t}, {n * 6}) t_offset={off}"
+        err = check_close(name, got, want, TOL_TTM)
+        faults = band_faults(name, want, TOL_TTM * (
+            1.0 + float(want.abs().max())), lambda v: ops.banded_ttm(
+                v, window, off), x, t // 2)
+        del got
         m = band_matrix(torch, t, window, off)
-        if transposed:
-            m = m.T.contiguous()
         b_ms, b_by = bound_ms(*band_cost(t, n * 6, window, off))
 
         def kern(x=x, off=off):
-            return kernel(x, window, off)
+            return ops.banded_ttm(x, window, off)
 
         row = {"shape": [t, n * 6], "t_offset": off, "ms": timer(kern),
                "wrapper_ms": timer(kern, host=True),
-               "plain_ms": timer(lambda x=x, off=off: plain(x, window, off)),
+               "plain_ms": timer(lambda x=x, off=off: ref.banded_ttm_ref(
+                   x, window, off)),
                "library_ms": timer(lambda x=x, m=m: m @ x),
                "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
                "library_max_abs_err": float((m @ x - want).abs().max()),
                "fault_over_limit": faults}
-        log(f"[kernel] {name} ({t}, {n * 6}) t_offset={off}: kernel "
-            f"{row['ms']:.4f} ms (wrapper {row['wrapper_ms']:.4f}), plain "
-            f"{row['plain_ms']:.4f}, dense band {'M^T' if transposed else 'M'}"
-            f" @ X {row['library_ms']:.4f}, bound {b_ms:.4f} ({b_by}); "
-            f"max|err| {err:.2e}; faults rejected at x limit: zeros "
-            f"{faults['zeros']:.1f}, a band row dropped "
+        log(f"[kernel] {name}: kernel {row['ms']:.4f} ms (wrapper "
+            f"{row['wrapper_ms']:.4f}), plain {row['plain_ms']:.4f}, dense "
+            f"band M @ X {row['library_ms']:.4f}, bound {b_ms:.4f} ({b_by},"
+            f" {b_ms / row['ms']:.1%}); max|err| {err:.2e}; faults rejected"
+            f" at x limit: zeros {faults['zeros']:.1f}, a band row dropped "
             f"{faults['a band row dropped']:.1f}")
         rows.append(row)
-        del x, got, want, cut, m
+        del x, want, m
+        torch.cuda.empty_cache()
     return rows
+
+
+def band_t_rows(torch, gen, n: int, window: int, timer, cases
+                ) -> list[dict]:
+    """``banded_ttm_t`` on the kept rows' gradient dZ (T_s, N x 6) at each
+    (T_s, lead, t_offset, write_lead) of ``cases``: held to its plain
+    version, shown to reject zeros and a dropped dZ row, and timed beside
+    its bound (the kept-rows contract's bytes), its plain version, the
+    dense ``M[lead:, first:]^T @ dZ`` and, in turns with the kernel, the
+    previous path (zero-filled full-size gradient + the loop kernel)."""
+    from repro_torch.kernels.mproduct import ops, ref
+
+    rows = []
+    for t_s, lead, off, write_lead in cases:
+        first = 0 if write_lead else lead
+        dz = torch.randn((t_s, n * 6), generator=gen, device="cuda")
+
+        def kern(v=dz, lead=lead, off=off, wl=write_lead):
+            return ops.banded_ttm_t(v, window, off, lead, wl)
+
+        got = kern()
+        want = ref.banded_ttm_t_ref(dz, window, off, lead, write_lead)
+        old = previous_band_t(torch, dz, window, off, lead, write_lead)
+        torch.cuda.synchronize()
+        name = (f"banded_ttm_t dZ ({t_s}, {n * 6}) lead {lead} t_offset="
+                f"{off}{'' if write_lead else ', slice rows only'}")
+        err = check_close(name, got, want, TOL_TTM)
+        check_close(name + " (previous path)", old, want, TOL_TTM)
+        faults = band_faults(name, want, TOL_TTM * (
+            1.0 + float(want.abs().max())), kern, dz, t_s // 2)
+        del got, old
+        m = band_matrix(torch, lead + t_s, window, off)[lead:, first:]
+        m = m.T.contiguous()
+        b_ms, b_by = bound_ms(*band_cost(t_s, n * 6, window, off, lead,
+                                         first))
+        both = timer.turns({
+            "ms": kern,
+            "previous_path_ms": lambda v=dz, lead=lead, off=off,
+            wl=write_lead: previous_band_t(torch, v, window, off, lead, wl)})
+        row = {"shape": [t_s, n * 6], "lead": lead, "t_offset": off,
+               "write_lead": write_lead, **both,
+               "wrapper_ms": timer(kern, host=True),
+               "plain_ms": timer(lambda v=dz, lead=lead, off=off,
+                                 wl=write_lead: ref.banded_ttm_t_ref(
+                                     v, window, off, lead, wl)),
+               "library_ms": timer(lambda v=dz, m=m: m @ v),
+               "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
+               "library_max_abs_err": float((m @ dz - want).abs().max()),
+               "fault_over_limit": faults}
+        log(f"[kernel] {name}: kernel {row['ms']:.4f} ms (wrapper "
+            f"{row['wrapper_ms']:.4f}; previous path, in turns, "
+            f"{row['previous_path_ms']:.4f}), plain {row['plain_ms']:.4f}, "
+            f"dense M^T @ dZ {row['library_ms']:.4f}, bound {b_ms:.4f} "
+            f"({b_by}, {b_ms / row['ms']:.1%}); max|err| {err:.2e}; faults "
+            f"rejected at x limit: zeros {faults['zeros']:.1f}, a band row "
+            f"dropped {faults['a band row dropped']:.1f}")
+        rows.append(row)
+        del dz, want, m
+        torch.cuda.empty_cache()
+    return rows
+
+
+def band_t_sweep(torch, gen) -> dict:
+    """``banded_ttm_t`` against its plain version at small shapes that
+    reach every instance the launcher builds: w 1-8 (the unrolled window)
+    and 9 (the loop), each with 4 columns a thread (NF 36) and one (NF 13,
+    and NF 12 with dZ one float off 16-byte alignment); T_s 1-12, lead 0
+    and w - 1, t_offset -7..+9, with and without the prefix's rows.
+    Exits if any case differs by more than ``TOL_TTM``."""
+    from repro_torch.kernels.mproduct import ops, ref
+
+    inputs = {}
+    for nf, skew in ((36, 0), (13, 0), (12, 1)):
+        base = torch.randn(12 * nf + skew, generator=gen, device="cuda")
+        inputs[f"NF {nf}" + (" misaligned" if skew else "")] = \
+            base[skew:].view(12, nf)
+    cases, errs, scale = [], [], []
+    for label, dz_all in inputs.items():
+        for w in range(1, 10):
+            for t_s in range(1, 13):
+                dz = dz_all[:t_s]
+                for lead in sorted({0, w - 1}):
+                    for off in range(-7, 10):
+                        for wl in (True, False):
+                            got = ops.banded_ttm_t(dz, w, off, lead, wl)
+                            want = ref.banded_ttm_t_ref(dz, w, off, lead,
+                                                        wl)
+                            cases.append((label, w, t_s, lead, off, wl))
+                            errs.append((got - want).abs().max())
+                            scale.append(want.abs().max())
+    errs, scale = torch.stack(errs).cpu(), torch.stack(scale).cpu()
+    # check_close's limit, TOL_TTM x (1 + max |want|), case by case
+    bad = (~(errs <= TOL_TTM * (1.0 + scale))).nonzero().flatten()
+    if len(bad):
+        label, w, t_s, lead, off, wl = cases[int(bad[0])]
+        raise SystemExit(
+            f"banded_ttm_t sweep: {len(bad)} of {len(cases)} cases disagree"
+            f" with the plain version, first {label} w {w} T_s {t_s} lead "
+            f"{lead} t_offset {off} write_lead {wl}: max |diff| "
+            f"{float(errs[bad[0]]):.3e}")
+    out = {"cases": len(cases), "max_abs_err": float(errs.max()),
+           "nonzero_cases": int((scale > 0).sum())}
+    log(f"[kernel] banded_ttm_t sweep: {out['cases']} cases (w 1-9, T_s "
+        f"1-12, lead 0 and w - 1, t_offset -7..+9, with and without the "
+        f"prefix's rows; {', '.join(inputs)}), max|err| "
+        f"{out['max_abs_err']:.2e} (limit {TOL_TTM:.0e} x (1 + max "
+        f"|want|)); {out['nonzero_cases']} cases with a nonzero result")
+    return out
 
 
 def train_parity(torch):
@@ -1480,7 +1734,7 @@ def main(argv: list[str] | None = None) -> int:
         batch, train_stats = phase("train path", train_path, torch,
                                    kernels, obs, n_nodes)
         launches["train"] = train_stats["launches"]
-        spmm_bwd, ttm_train_rows, ttm_t_rows = phase(
+        spmm_bwd, ttm_train_rows, ttm_t_rows, ttm_t_sweep = phase(
             "train-shape kernel checks", check_backward, torch, batch,
             n_nodes, 5, timer)
         del batch
@@ -1516,14 +1770,14 @@ def main(argv: list[str] | None = None) -> int:
             detail=ttm, **({"train_shapes": ttm_train_rows}
                            if "train" in groups else {})))
     if "train" in groups:
-        ttm_t_main = ttm_t_rows[1]          # block 1: (12, N x 6), +4
+        ttm_t_main = ttm_t_rows[1]     # block 1: dZ (8, N x 6), lead 4, +4
         report.append(kernel_entry(
             "banded_ttm_t", "src/repro_torch/csrc/banded_ttm.cu",
             "src/repro/kernels/mproduct/mproduct.py:54 (its backward; the "
             "TPU package has none)", launches,
             dict(ttm_t_main, max_abs_err=max(r["max_abs_err"]
                                              for r in ttm_t_rows)),
-            shapes=ttm_t_rows, train_path=train_stats,
+            shapes=ttm_t_rows, sweep=ttm_t_sweep, train_path=train_stats,
             train_parity=train_par))
     if "lm" in groups:
         report.append(kernel_entry(

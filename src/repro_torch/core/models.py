@@ -174,6 +174,18 @@ def spatial_stage(cfg: DynGNNConfig, layer_params, x: torch.Tensor,
     return y, carry
 
 
+def _new_prefix(carry: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """The last w - 1 frames of [carry, y]: a copy of y's last rows when y
+    has w - 1 of them (a copy, not a view, so the carry does not keep the
+    block's whole y alive under checkpointing)."""
+    w1 = carry.shape[0]
+    if w1 == 0:
+        return carry
+    if y.shape[0] >= w1:
+        return y[-w1:].clone()
+    return torch.cat([carry, y], dim=0)[-w1:]
+
+
 def temporal_stage(cfg: DynGNNConfig, layer_params, y: torch.Tensor,
                    carry: Any, t_offset: int) -> tuple[torch.Tensor, Any]:
     """The per-vertex timeline stage of one layer. y: (Ts, N, d_mid)."""
@@ -183,9 +195,7 @@ def temporal_stage(cfg: DynGNNConfig, layer_params, y: torch.Tensor,
         return y, carry  # already folded into the spatial stage
     if cfg.model == "tmgcn":
         z = temporal.m_product_with_prefix(y, carry, cfg.window, t_offset)
-        new_prefix = torch.cat([carry, y], dim=0)[-(cfg.window - 1):] \
-            if cfg.window > 1 else carry
-        return z, new_prefix
+        return z, _new_prefix(carry, y)
     raise ValueError(cfg.model)
 
 

@@ -92,12 +92,10 @@ def m_product_with_prefix(x: torch.Tensor, prefix: torch.Tensor,
     """M-product over a timeline slice given the (w-1)-frame prefix carry.
 
     prefix: (w-1, N, F) — the last w-1 frames before x[0] (zeros at t=0).
-    Returns Y for the slice only: (T_slice, N, F).
+    Returns Y for the slice only: (T_slice, N, F).  The gradient reaches
+    prefix and x from one transposed-band launch over the slice's rows.
     """
-    w1 = prefix.shape[0]
-    full = torch.cat([prefix, x], dim=0)
-    y = m_product(full, window, t_offset=t_offset - w1)
-    return y[w1:]
+    return mp_ops.MProductWithPrefixFn.apply(prefix, x, window, t_offset)
 
 
 # -------------------------------------------------------- EvolveGCN ---------

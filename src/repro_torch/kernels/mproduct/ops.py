@@ -8,16 +8,22 @@ runtime argument.  The kernel is ``csrc/banded_ttm.cu``.  On a CPU tensor
 the wrapper runs the plain PyTorch version (``ref.py``); on a CUDA tensor
 it launches the kernel or raises.
 
-Training differentiates through :class:`BandedTTMFn`, whose gradient
-``dX = M^T dY`` is the kernel ``banded_ttm_t_f32`` in the same source (its
-own :class:`Kernel` and launch count; plain version ``ref.banded_ttm_t_ref``):
-dX[k] = sum over t in [k, min(T - 1, k + w - 1)] of dY[t] / min(w, t +
-t_offset + 1), for rows k >= -t_offset only.
+Training differentiates through :class:`MProductWithPrefixFn` (the
+M-product over ``[prefix, slice]``, keeping the slice's rows; ``m_product``
+is it over an empty prefix).  It takes its gradient from
+``banded_ttm_t``, the kernel ``banded_ttm_t_f32`` of the same source (its
+own :class:`Kernel` and launch count; plain version
+``ref.banded_ttm_t_ref``), which reads only the kept rows' gradient dZ and
+writes the prefix's and the slice's gradients as one buffer:
+dX[k] = sum over kept rows t in [max(k, lead), min(lead + T_s - 1,
+k + w - 1)] of dZ[t - lead] / min(w, t + t_offset + 1), for rows
+k >= -t_offset only.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -27,63 +33,98 @@ from repro_torch.kernels.mproduct.ref import banded_ttm_ref, banded_ttm_t_ref
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
              ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
 KERNEL = Kernel("banded_ttm", "banded_ttm.cu", "banded_ttm_f32", _ARGTYPES)
-#: the transposed band (the backward); one library of its own
+#: the transposed band over the kept rows (the backward); one library of
+#: its own.  Arguments: the forward's, then ``lead`` and the first output
+#: row written.
 KERNEL_T = Kernel("banded_ttm_t", "banded_ttm.cu", "banded_ttm_t_f32",
-                  _ARGTYPES)
+                  _ARGTYPES + [ctypes.c_int, ctypes.c_int])
+#: the previous design of the transposed band (a thread per column that
+#: loads and divides each element w times), same arguments; no wrapper
+#: calls it (``chip_smoke.py`` times it through ``launch_uncounted``)
+LOOP_T_SYMBOL = "banded_ttm_t_f32_v1"
 
 
-def _run(kernel: Kernel, plain, x: torch.Tensor, window: int,
-         t_offset: int) -> torch.Tensor:
-    """The plain version on a CPU tensor, the kernel on a CUDA one."""
+def _on_card(kernel: Kernel, x: torch.Tensor, window: int) -> bool:
+    """False for a CPU tensor (the plain version serves it); True for a
+    CUDA tensor the kernel takes; raises on anything else."""
     if window < 1:
         raise ValueError(f"{kernel.name}: window must be >= 1, got {window}")
     if x.device.type == "cpu":
-        return plain(x, window, t_offset)
+        return False
     if x.device.type != "cuda":
         raise ValueError(f"{kernel.name}: unsupported device {x.device}")
     if x.dim() != 2 or x.dtype != torch.float32 or not x.is_contiguous():
         raise ValueError(f"{kernel.name}: x must be a contiguous 2-D "
                          f"float32 tensor, got {x.dtype} {tuple(x.shape)}")
-    t, nf = x.shape
-    out = torch.empty_like(x)
-    kernel.launch(x.device, x.data_ptr(), out.data_ptr(), t, nf,
-                  int(window), int(t_offset))
-    return out
+    return True
 
 
 def banded_ttm(x: torch.Tensor, window: int, t_offset: int = 0
                ) -> torch.Tensor:
     """x (T, NF) f32 -> (T, NF): the band of M applied along axis 0."""
-    return _run(KERNEL, banded_ttm_ref, x, window, t_offset)
+    if not _on_card(KERNEL, x, window):
+        return banded_ttm_ref(x, window, t_offset)
+    t, nf = x.shape
+    out = torch.empty_like(x)
+    KERNEL.launch(x.device, x.data_ptr(), out.data_ptr(), t, nf,
+                  int(window), int(t_offset))
+    return out
 
 
-def banded_ttm_t(dy: torch.Tensor, window: int, t_offset: int = 0
-                 ) -> torch.Tensor:
-    """dy (T, NF) f32 -> (T, NF): the transposed band, M^T dy."""
-    return _run(KERNEL_T, banded_ttm_t_ref, dy, window, t_offset)
+def banded_ttm_t(dz: torch.Tensor, window: int, t_offset: int = 0,
+                 lead: int = 0, write_lead: bool = True) -> torch.Tensor:
+    """The transposed band over kept rows: dz (T_s, NF) f32 is the gradient
+    of rows lead .. lead + T_s - 1 of M's output over a (lead + T_s)-row
+    tensor whose row 0 has global index ``t_offset``; returns
+    M^T [0; dz], (lead + T_s, NF), or its last T_s rows alone when not
+    ``write_lead``.  ``lead = 0``: M^T dz."""
+    if lead < 0:
+        raise ValueError(f"banded_ttm_t: lead must be >= 0, got {lead}")
+    if not _on_card(KERNEL_T, dz, window):
+        return banded_ttm_t_ref(dz, window, t_offset, lead, write_lead)
+    t_s, nf = dz.shape
+    first = 0 if write_lead else lead
+    out = torch.empty((lead + t_s - first, nf), dtype=dz.dtype,
+                      device=dz.device)
+    KERNEL_T.launch(dz.device, dz.data_ptr(), out.data_ptr(), t_s, nf,
+                    int(window), int(t_offset), int(lead), first)
+    return out
 
 
-class BandedTTMFn(torch.autograd.Function):
-    """``M x_1 X`` on a (T, NF) tensor; its gradient ``M^T dY`` through the
-    transposed kernel.  The band has no parameters."""
+class MProductWithPrefixFn(torch.autograd.Function):
+    """The M-product over ``[prefix, x]`` ((lead, N, F), lead w - 1 or 0,
+    and (T_s, N, F)), keeping x's rows; ``t_offset`` is the global index of x[0].  Its
+    backward is one ``banded_ttm_t`` launch on the kept rows' gradient,
+    which writes the prefix's and x's gradients as two views of one
+    buffer (x's alone when the prefix needs none).  It saves no tensor."""
 
     @staticmethod
-    def forward(ctx, x: torch.Tensor, window: int, t_offset: int
-                ) -> torch.Tensor:
-        ctx.window, ctx.t_offset = window, t_offset
-        return banded_ttm(x, window, t_offset)
+    def forward(ctx, prefix: torch.Tensor, x: torch.Tensor, window: int,
+                t_offset: int) -> torch.Tensor:
+        lead, t_s = prefix.shape[0], x.shape[0]
+        ctx.window, ctx.t_offset, ctx.lead = window, t_offset, lead
+        ctx.prefix_shape, ctx.x_shape = prefix.shape, x.shape
+        nf = math.prod(x.shape[1:])
+        full = torch.cat([prefix.reshape(lead, nf), x.reshape(t_s, nf)])
+        return banded_ttm(full, window, t_offset - lead)[lead:].view(
+            x.shape)
 
     @staticmethod
-    def backward(ctx, dy: torch.Tensor):
-        dx = banded_ttm_t(dy.contiguous(), ctx.window, ctx.t_offset) \
-            if ctx.needs_input_grad[0] else None
-        return dx, None, None
+    def backward(ctx, dz: torch.Tensor):
+        lead, (t_s, *_) = ctx.lead, ctx.x_shape
+        with_prefix = ctx.needs_input_grad[0]
+        g = banded_ttm_t(dz.reshape(t_s, -1).contiguous(), ctx.window,
+                         ctx.t_offset - lead, lead, with_prefix)
+        if not with_prefix:
+            return None, g.view(ctx.x_shape), None, None
+        return (g[:lead].view(ctx.prefix_shape), g[lead:].view(ctx.x_shape),
+                None, None)
 
 
 def m_product(x: torch.Tensor, window: int, t_offset: int = 0
               ) -> torch.Tensor:
     """TM-GCN temporal op on a (T, N, F) tensor through ``banded_ttm``
-    (differentiable: the backward is ``banded_ttm_t``)."""
-    t = x.shape[0]
-    y = BandedTTMFn.apply(x.reshape(t, -1).contiguous(), window, t_offset)
-    return y.reshape(x.shape)
+    (differentiable: the backward is ``banded_ttm_t``): the M-product over
+    an empty prefix."""
+    prefix = x.new_empty((0,) + tuple(x.shape[1:]))
+    return MProductWithPrefixFn.apply(prefix, x, window, t_offset)

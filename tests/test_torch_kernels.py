@@ -9,6 +9,7 @@ segment SpMM 1e-4 (``tests/test_kernels.py:39``), M-product 1e-5 (``:85``),
 flash decode 1e-4 in f32 and 2e-2 in bf16 (``:129``, ``:143``).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -124,6 +125,31 @@ def test_m_product_sliced_with_prefix_equals_full(use_pallas):
         jnp.asarray(x[s:].numpy()), jnp.asarray(x[s - (w - 1):s].numpy()),
         w, s, use_pallas=use_pallas)
     np.testing.assert_allclose(sl.numpy(), np.asarray(ref), rtol=MP_TOL,
+                               atol=MP_TOL)
+
+
+@pytest.mark.parametrize("t_s,w,t_offset,lead", [
+    (8, 5, -4, 4), (8, 5, 4, 4), (32, 5, 0, 0), (12, 3, 7, 2),
+    (3, 6, -2, 5), (1, 8, 9, 7), (5, 9, 2, 8)])
+def test_banded_ttm_t_kept_rows_matches_the_oracle_vjp(t_s, w, t_offset,
+                                                       lead):
+    """The transposed band over the kept rows against the VJP of the JAX
+    package's dense oracle over all lead + T_s rows, with cotangent
+    [0 (lead rows); dZ]; alone, the slice's rows."""
+    rng = np.random.default_rng(t_s * 7 + w + lead)
+    n, f = 5, 3
+    dz = rng.normal(size=(t_s, n, f)).astype(np.float32)
+    _, vjp = jax.vjp(lambda v: jmp_ops.banded_ttm_ref(v, w, t_offset),
+                     jnp.zeros((lead + t_s, n, f), jnp.float32))
+    (want,) = vjp(jnp.concatenate([jnp.zeros((lead, n, f), jnp.float32),
+                                   jnp.asarray(dz)]))
+    want = np.asarray(want).reshape(lead + t_s, -1)
+    flat = torch.from_numpy(dz.reshape(t_s, -1))
+    got = mp_ops.banded_ttm_t(flat, w, t_offset, lead)
+    np.testing.assert_allclose(got.numpy(), want, rtol=MP_TOL, atol=MP_TOL)
+    part = mp_ops.banded_ttm_t(flat, w, t_offset, lead, write_lead=False)
+    assert part.shape == (t_s, n * f)
+    np.testing.assert_allclose(part.numpy(), want[lead:], rtol=MP_TOL,
                                atol=MP_TOL)
 
 

@@ -4,7 +4,7 @@ Sizes are ``tests/test_run_api.py``'s: N = 48, T = 16, window 3, nb 2.
 Inputs come from numpy seeds (the synthetic traces, copied byte-identical)
 and parameters cross over with ``convert.params_from_jax``.  On CPU tensors
 the kernel wrappers run their plain versions, and the autograd functions
-(``SegmentSpmmFn``, ``BandedTTMFn``) route the backward through the same
+(``SegmentSpmmFn``, ``MProductWithPrefixFn``) route the backward through the same
 wrappers the card uses, so:
 
 * the two backwards equal the dense transposes (``A_tilde^T dY``,
@@ -36,6 +36,7 @@ from repro.core import checkpoint as jckpt
 from repro.core import dtdg as jdtdg
 from repro.core import models as jm
 from repro.core import smoothing as jsmooth
+from repro.core import temporal as jtemporal
 from repro.data import dyngnn as jdata
 from repro.graph import pad as jpad
 from repro.optim import adamw as jadamw
@@ -190,7 +191,7 @@ def test_banded_ttm_fn_backward_is_the_transposed_band(t, w, t_offset):
     dy = rng.normal(size=(t, 7)).astype(np.float32)
     m = _band_matrix(t, w, t_offset)
     x.requires_grad_(True)
-    y = mp_ops.BandedTTMFn.apply(x, w, t_offset)
+    y = mp_ops.m_product(x, w, t_offset)
     (dx,) = torch.autograd.grad(y, x, torch.from_numpy(dy))
     np.testing.assert_allclose(y.detach().numpy(), m @ x.detach().numpy(),
                                atol=1e-6, rtol=1e-6)
@@ -221,6 +222,118 @@ def test_m_product_gradient_reaches_the_prefix_carry(t_offset):
                                rtol=1e-6)
 
 
+@pytest.mark.parametrize("w", range(1, 9))
+def test_banded_ttm_t_kept_rows_is_the_dense_transpose(w):
+    """The plain transposed band over the kept rows, M[lead:]^T dZ, against
+    the dense band for T_s 1-12 (w > T_s included), t_offset -7 to +9,
+    with and without the lead rows written."""
+    rng = np.random.default_rng(w)
+    for t_s in range(1, 13):
+        dz = rng.normal(size=(t_s, 3)).astype(np.float32)
+        for t_offset in range(-7, 10):
+            for lead in sorted({0, w - 1}):
+                m = _band_matrix(lead + t_s, w, t_offset)[lead:]
+                want = m.T @ dz
+                got = mp_ref.banded_ttm_t_ref(torch.from_numpy(dz), w,
+                                              t_offset, lead)
+                np.testing.assert_allclose(got.numpy(), want, atol=1e-6,
+                                           rtol=1e-6)
+                part = mp_ref.banded_ttm_t_ref(torch.from_numpy(dz), w,
+                                               t_offset, lead,
+                                               write_lead=False)
+                assert part.shape == (t_s, 3)
+                np.testing.assert_allclose(part.numpy(), want[lead:],
+                                           atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("t_s,t_offset", [(6, 0), (6, 2), (6, 4), (6, 9),
+                                          (2, 9), (1, 5), (3, 12)])
+def test_m_product_with_prefix_gradients_match_jax(t_s, t_offset):
+    """Gradients into the prefix and the slice against ``jax.grad`` of the
+    JAX package's ``m_product_with_prefix``.  Prefix rows before global
+    step 1 are zeros on the path (the zero initial carry); the JAX
+    cumulative-sum form still sends them a gradient, which nothing reads,
+    where the band sends none: those rows are held to zero instead."""
+    w, n, f = 5, 4, 3
+    rng = np.random.default_rng(100 + t_s * 13 + t_offset)
+    prefix = rng.normal(size=(w - 1, n, f)).astype(np.float32)
+    early = max(0, w - 1 - t_offset)      # prefix rows before step 1
+    prefix[:early] = 0.0
+    x = rng.normal(size=(t_s, n, f)).astype(np.float32)
+    dz = rng.normal(size=(t_s, n, f)).astype(np.float32)
+
+    def jloss(xv, pv):
+        return jnp.sum(jtemporal.m_product_with_prefix(xv, pv, w, t_offset)
+                       * dz)
+
+    jgx, jgp = jax.grad(jloss, argnums=(0, 1))(jnp.asarray(x),
+                                                jnp.asarray(prefix))
+    tp = torch.from_numpy(prefix).requires_grad_(True)
+    tx = torch.from_numpy(x).requires_grad_(True)
+    z = temporal.m_product_with_prefix(tx, tp, w, t_offset)
+    np.testing.assert_allclose(
+        z.detach().numpy(),
+        np.asarray(jtemporal.m_product_with_prefix(
+            jnp.asarray(x), jnp.asarray(prefix), w, t_offset)),
+        atol=GRAD_TOL)
+    gp, gx = torch.autograd.grad(z, (tp, tx), torch.from_numpy(dz))
+    np.testing.assert_allclose(gx.numpy(), np.asarray(jgx), atol=GRAD_TOL)
+    np.testing.assert_allclose(gp[early:].numpy(), np.asarray(jgp)[early:],
+                               atol=GRAD_TOL)
+    assert not gp[:early].any()
+
+
+@pytest.mark.parametrize("prefix_grad", [True, False])
+def test_m_product_backward_hands_the_band_only_the_kept_rows(
+        monkeypatch, prefix_grad):
+    """One transposed-band call per M-product backward, on the slice's
+    (T_s, NF) gradient: no zero-filled (T_s + w - 1, NF) gradient is
+    made; the lead rows are written only when the prefix needs them."""
+    calls = []
+    plain = mp_ops.banded_ttm_t_ref
+
+    def spy(dz, window, t_offset, lead, write_lead):
+        calls.append((tuple(dz.shape), lead, write_lead))
+        return plain(dz, window, t_offset, lead, write_lead)
+
+    monkeypatch.setattr(mp_ops, "banded_ttm_t_ref", spy)
+    w, t_s, n, f = 5, 8, 6, 3
+    rng = np.random.default_rng(5)
+    prefix = torch.from_numpy(rng.normal(size=(w - 1, n, f)).astype(
+        np.float32)).requires_grad_(prefix_grad)
+    x = torch.from_numpy(rng.normal(size=(t_s, n, f)).astype(
+        np.float32)).requires_grad_(True)
+    z = temporal.m_product_with_prefix(x, prefix, w, 4)
+    z.backward(torch.ones_like(z))
+    assert calls == [((t_s, n * f), w - 1, prefix_grad)]
+    assert x.grad.shape == x.shape
+    assert (prefix.grad is not None) == prefix_grad
+
+
+@pytest.mark.parametrize("t_s", [1, 2, 3, 4, 5, 8])
+def test_new_prefix_matches_the_jax_carry(t_s):
+    """TM-GCN's temporal stage: the output and the next block's (w-1)-frame
+    prefix equal the JAX package's for T_s below and above w - 1; at
+    T_s >= w - 1 the prefix is a copy of y's last rows, sharing no
+    storage with y."""
+    w, n, f, t_offset = 5, 4, 3, 9
+    rng = np.random.default_rng(t_s)
+    y = rng.normal(size=(t_s, n, f)).astype(np.float32)
+    carry = rng.normal(size=(w - 1, n, f)).astype(np.float32)
+    jcfg = jm.DynGNNConfig(model="tmgcn", num_nodes=n, window=w)
+    jz, jcarry = jm.temporal_stage(jcfg, {}, 0, jnp.asarray(y),
+                                   jnp.asarray(carry), t_offset)
+    ty = torch.from_numpy(y)
+    z, new = tm.temporal_stage(tm.DynGNNConfig(model="tmgcn", num_nodes=n,
+                                               window=w), {}, ty,
+                               torch.from_numpy(carry), t_offset)
+    np.testing.assert_allclose(z.numpy(), np.asarray(jz), atol=GRAD_TOL)
+    np.testing.assert_array_equal(new.numpy(), np.asarray(jcarry))
+    if t_s >= w - 1:
+        assert new.untyped_storage().data_ptr() != \
+            ty.untyped_storage().data_ptr()
+
+
 def test_banded_ttm_t_kernel_refuses_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("checks the refusal on a host without CUDA")
@@ -228,6 +341,8 @@ def test_banded_ttm_t_kernel_refuses_without_cuda():
         mp_ops.KERNEL_T.load()
     with pytest.raises(ValueError, match="unsupported device"):
         mp_ops.banded_ttm_t(torch.zeros((3, 4), device="meta"), 2)
+    with pytest.raises(ValueError, match="lead must be >= 0"):
+        mp_ops.banded_ttm_t(torch.zeros((3, 4)), 2, 0, lead=-1)
 
 
 # ------------------------------------------------ gradients vs JAX ----------
@@ -281,12 +396,16 @@ def test_train_step_launch_counts_per_step(monkeypatch):
     the recompute and T times backward (layer 1's input needs none); the
     M-product runs L nb times forward, nb times in the recompute (early
     stop: the last layer's needs no saved tensor) and L nb times
-    backward; the CSR pairs are built once per run (2 T)."""
+    backward, each on a block's T / nb kept rows; the CSR pairs are built
+    once per run (2 T)."""
     calls = {"spmm": 0, "ttm": 0, "ttm_t": 0}
+    ttm_t_rows = set()
 
     def counted(key, fn):
         def call(*a):
             calls[key] += 1
+            if key == "ttm_t":
+                ttm_t_rows.add(a[0].shape[0])
             return fn(*a)
         return call
 
@@ -310,6 +429,8 @@ def test_train_step_launch_counts_per_step(monkeypatch):
                          "ttm": k * (layers * 4 + 4),
                          "ttm_t": k * layers * 4}, k
         assert spmm_ops.csr_builds == 2 * T
+    # the transposed band gets each block's kept rows, not bsize + w - 1
+    assert ttm_t_rows == {T // 4}
 
 
 # ----------------------------------------------------------- AdamW ----------
