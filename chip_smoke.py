@@ -25,11 +25,12 @@ which exits non-zero on failure:
    its generic instance (scalar and float4), then on a fully skewed
    graph, each shown to reject zeros and the kernel run with each row's
    last edge dropped),
-   and timed beside its bound, its plain version, one PyTorch library
-   call computing the same function (a yardstick the port never calls)
-   and the previous design (kept in the sources, reached by no wrapper);
-   the state-advance step timed in turns with the previous path (a CSR
-   build per layer, the thread-per-row kernel), then profiled;
+   and timed beside its bound, its plain version and one PyTorch library
+   call computing the same function (a yardstick the port never calls);
+   ``banded_ttm`` at serving's call (the 4-row prefix and one new row,
+   read through two pointers, one row written), shown to reject zeros, a
+   dropped prefix row and a dropped slice row; the state-advance step
+   timed, then profiled;
 4. the same 16 windows replayed through a ``device="cpu"`` engine — where
    the wrappers run the plain versions — and its embeddings and
    last-window queries held to the card's; then small-graph serving of
@@ -44,24 +45,23 @@ which exits non-zero on failure:
    the checkpoint recompute, 32 backward on the transposed CSR; 12
    ``banded_ttm``; 8 ``banded_ttm_t``; 0 ``flash_decode``; 64 CSR
    builds for the run), losses, fenced ``train.step`` spans, peak device
-   memory beside ``activation_memory_estimate``; then the warm step timed
-   in turns with the previous M-product path (patched in: the band over
-   [prefix, slice] with a zero-filled full-size gradient and the previous
-   transposed kernel, the new prefix a cat of all rows), and one step of
-   each profiled, its device time by kind (fills, copies, adds, GEMMs,
-   each kernel);
-4b. both backward kernels held to their plain versions at the path's
-   shapes, each shown to reject zeros and a dropped edge / band row, and
-   timed beside bound, plain version and library call (``segment_spmm``
-   on the transposed CSR at F = 6; ``banded_ttm_t`` on the kept rows'
-   gradient dZ (T_s, N x 6) at (8, lead 4) with t_offset -4 (block 0:
-   slice rows only) and +4, at (32, lead 0) and at the full config's
-   block (128, lead 4), each also in turns with the previous path — dZ
-   copied into a zero-filled full-size gradient, then the previous
-   kernel — and, at small shapes, every instance the launcher builds: w
-   1-9, T_s 1-12, lead 0 and w - 1, t_offset -7..+9, 4 and 1 columns a
-   thread, with and without the prefix's rows); the forward ``banded_ttm`` likewise at (12, N x 6) with
-   t_offset -4 and +4, at (32, N x 6) and at (132, N x 6);
+   memory beside ``activation_memory_estimate``; then the warm step
+   timed, and one step profiled: device busy, its device time by kind
+   (fills, copies, adds, GEMMs, each kernel) and the forward M-product's
+   device time a step (its 12 launches; it needs no copy);
+4b. the kernels held to their plain versions at the train path's
+   shapes, each shown to reject zeros and a dropped edge / input row, and
+   timed beside bound, plain version and library call: ``segment_spmm``
+   on the transposed CSR at F = 6; the forward ``banded_ttm`` on
+   [prefix, slice] at (T_s 8, lead 4) with t_offset -4 (block 0: its
+   prefix lies before global step 1 and is never read) and +4, at (32,
+   lead 0) and at the full config's block (128, lead 4), rejecting a
+   dropped prefix row and a dropped slice row; ``banded_ttm_t`` on the
+   kept rows' gradient dZ (T_s, N x 6) at the same four shapes (block 0:
+   slice rows only); then each at small shapes over every instance its
+   launcher builds: w 1-9, T_s 1-12, lead 0 and w - 1, t_offset -7..+9,
+   4 and 1 columns a thread (one pointer at a time off 16-byte
+   alignment), ``banded_ttm_t`` with and without the prefix's rows;
 4c. one training step's loss and every gradient, card against a
    ``device="cpu"`` run from the same parameters, for all three models at
    N = 65,536, T = 16, nb 4;
@@ -73,8 +73,7 @@ which exits non-zero on failure:
    and read just after (32 layers x 63 decode steps = 2,016 launches of
    ``flash_decode``, none of the dyngnn kernels); prefill ms, decode ms
    per step (fenced spans), tokens/s, peak device memory; then one decode
-   step alone and under ``torch.profiler``, each in turns with the
-   previous ``flash_decode``;
+   step alone and under ``torch.profiler``;
 6. ``flash_decode`` held to its plain version at the path's shape (B 8,
    S 4,160, ragged ``cache_len`` with 1 and S), at ``decode_32k``'s
    (S 32,768) and ``long_500k``'s (B 1, S 524,288) lengths, at D 64 and
@@ -83,15 +82,16 @@ which exits non-zero on failure:
    bf16 (G > 1 on the tensor-core instance) and f32 (CUDA cores); at
    each, the check is shown to reject zeros and the kernel's output with
    one split's rows dropped; each timed beside its bound, its plain
-   version, ``scaled_dot_product_attention`` (a yardstick the port never
-   calls) and the previous design (wrapper and CUDA-core kernel);
+   version and ``scaled_dot_product_attention`` (a yardstick the port
+   never calls);
 7. Yi-6B's full widths at 2 layers in f32, card (kernel) against a
    ``device="cpu"`` engine's parameters (plain version): prefill logits
    and 8 teacher-forced decode steps' logits.
 
 Tolerances: segment SpMM 1e-4 (abs and rel; fp32 sums in another order
 than the plain ``index_add_``), banded TTM and its transpose 1e-5 (abs
-and rel; the same fp32 window sum), served scores 1e-4 (the whole stack,
+and rel; the same fp32 operations in the same order, so 0.0 is
+expected), served scores 1e-4 (the whole stack,
 two layers); training loss and gradients 1e-4 x each leaf's max |value|
 (sums over T x N ~ 1 M node-steps in another order);
 flash decode, against the plain version's fp32 result, batch row by batch
@@ -112,14 +112,13 @@ without the repository around it, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
+import gc
 import json
 import statistics
 import subprocess
 import sys
 import time
-import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -234,18 +233,6 @@ def bound_ms(nbytes: float, flops: float, peak_flops: float = 67e12,
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
 
 
-@contextlib.contextmanager
-def patched(obj, name: str, value):
-    """``obj.name = value`` inside the block (the previous designs, timed on
-    the path beside the kernels in one run)."""
-    old = getattr(obj, name)
-    setattr(obj, name, value)
-    try:
-        yield
-    finally:
-        setattr(obj, name, old)
-
-
 def alternating_walls(torch, variants: dict, rounds: int, warm: int = 1
                       ) -> dict:
     """Host-clock ms of each variant's call (ending in a sync), the
@@ -289,7 +276,7 @@ def device_profile(torch, fn) -> tuple[float, float, dict]:
 
 #: device activities by kind, first match wins (substrings of the names)
 KINDS = (("banded_ttm_t", ("banded_ttm_t",)),
-         ("banded_ttm", ("banded_ttm_kernel",)),
+         ("banded_ttm", ("banded_ttm",)),
          ("segment_spmm", ("spmm",)),
          ("flash_decode", ("flash_decode",)),
          ("GEMMs", ("gemm", "xmma", "cutlass")),
@@ -463,39 +450,16 @@ def spmm_faults(name: str, ops, x, row_ptr, col, w, want
     return faults
 
 
-def previous_spmm(ops):
-    """The previous design of segment SpMM, for timing beside the kernel:
-    the thread-per-row kernel (kept in ``csrc/segment_spmm.cu``, reached
-    by no wrapper), on a prebuilt CSR and with the per-call CSR build its
-    wrapper made."""
-    import torch
-
-    def on_csr(x, row_ptr, col, w):
-        out = torch.empty_like(x)
-        ops.KERNEL.launch_uncounted(ops.ROWTHREAD_SYMBOL, x.device,
-                                    x.data_ptr(), row_ptr.data_ptr(),
-                                    col.data_ptr(), w.data_ptr(),
-                                    out.data_ptr(), x.shape[0], x.shape[1])
-        return out
-
-    def with_build(x, edges, w, n):
-        return on_csr(x, *ops.build_csr(edges, w, n))
-
-    return on_csr, with_build
-
-
 def check_spmm(torch, eng, timer):
     """Segment SpMM on the last window's graph (with self-loops), at the
     path's F = 2 (layer 1) and 6 (layer 2) and the generic instance's
     F = 9 and 32, then on a fully skewed graph; each held to the plain
-    version, shown to reject two faulty outputs, and timed beside the
-    previous design."""
+    version, shown to reject two faulty outputs, and timed."""
     from repro_torch.graph import segment
     from repro_torch.kernels.segment_spmm import ops, ref
     from repro_torch.stream.train_loop import (make_self_loops,
                                                slice_weights_with_loops)
 
-    old_csr, old_build = previous_spmm(ops)
     n = eng.model.num_nodes
     edges, mask = eng.applier.current
     # snapshot policy: every valid lane's value is 1, so values == mask
@@ -518,11 +482,8 @@ def check_spmm(torch, eng, timer):
                  (32, torch.randn((n, 32), generator=gen, device="cuda"))):
         got = ops.segment_spmm_csr(x, row_ptr, col, wc)
         want = ref.segment_spmm_csr_ref(x, row_ptr, col, wc)
-        old = old_csr(x, row_ptr, col, wc)
         torch.cuda.synchronize()
         err = check_close(f"segment_spmm F={f}", got, want, TOL_SPMM)
-        old_err = check_close(f"segment_spmm (previous design) F={f}", old,
-                              want, TOL_SPMM)
         faults = spmm_faults(f"F={f}", ops, x, row_ptr, col, wc,
                              want)
         err_all = max(err_all, err)
@@ -541,33 +502,25 @@ def check_spmm(torch, eng, timer):
             "with_csr_ms": timer(lambda x=x: ops.segment_spmm(x, e, w, n)),
             "with_csr_wrapper_ms": timer(
                 lambda x=x: ops.segment_spmm(x, e, w, n), host=True),
-            "old_ms": timer(lambda x=x: old_csr(x, row_ptr, col, wc)),
-            "old_with_csr_wrapper_ms": timer(
-                lambda x=x: old_build(x, e, w, n), host=True),
             "csr_build_ms": build_ms,
             "plain_ms": timer(lambda x=x: ref.segment_spmm_csr_ref(
                 x, row_ptr, col, wc)),
             "library_ms": timer(lambda x=x, csr=csr: torch.sparse.mm(csr,
                                                                      x)),
             "ms_write_flush": timer(kern, flush="write"),
-            "old_ms_write_flush": timer(lambda x=x: old_csr(
-                x, row_ptr, col, wc), flush="write"),
             "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
-            "old_max_abs_err": old_err, "fault_over_limit": faults,
+            "fault_over_limit": faults,
             "library_max_abs_err": lib_err}
         log(f"[kernel] segment_spmm F={f}: kernel {row['ms']:.4f} ms "
             f"(wrapper, host + device {row['wrapper_ms']:.4f}; with its "
             f"CSR build {row['with_csr_ms']:.4f}, wrapper "
-            f"{row['with_csr_wrapper_ms']:.4f}), previous design "
-            f"{row['old_ms']:.4f} (with its per-call build, wrapper "
-            f"{row['old_with_csr_wrapper_ms']:.4f}), CSR build "
-            f"{build_ms:.4f}, plain {row['plain_ms']:.4f}, torch.sparse.mm "
+            f"{row['with_csr_wrapper_ms']:.4f}), CSR build {build_ms:.4f}, "
+            f"plain {row['plain_ms']:.4f}, torch.sparse.mm "
             f"{row['library_ms']:.4f}, bound {b_ms:.4f} ({b_by}); with "
-            f"a write flush: kernel {row['ms_write_flush']:.4f}, previous "
-            f"design {row['old_ms_write_flush']:.4f}")
-        log(f"[kernel]   max|err| {err:.2e} (previous design {old_err:.2e}); "
-            f"faults rejected at x limit: zeros {faults['zeros']:.1f}, last"
-            f" edge dropped {faults['last edge dropped']:.1f}")
+            f"a write flush: kernel {row['ms_write_flush']:.4f}")
+        log(f"[kernel]   max|err| {err:.2e}; faults rejected at x limit: "
+            f"zeros {faults['zeros']:.1f}, last edge dropped "
+            f"{faults['last edge dropped']:.1f}")
         results.append(row)
     # fully skewed: every edge into one destination, pad lanes at (0, 0);
     # weights in [0.5, 1), so the one dropped edge of the fault below
@@ -589,25 +542,40 @@ def check_spmm(torch, eng, timer):
         faults = spmm_faults(f"skewed F={f}", ops, x, *s_csr, want)
         skew_err = max(skew_err, err)
         row = {"F": f, "max_abs_err": err, "fault_over_limit": faults,
-               "ms": timer(lambda x=x: ops.segment_spmm_csr(x, *s_csr)),
-               "old_ms": timer(lambda x=x: old_csr(x, *s_csr))}
+               "ms": timer(lambda x=x: ops.segment_spmm_csr(x, *s_csr))}
         skew_rows.append(row)
         log(f"[kernel] segment_spmm skewed F={f} ({m} lanes into one row, "
             f"half of them zero-weight pads): max|err| {err:.2e}, faults "
             f"rejected at x limit: zeros {faults['zeros']:.1f}, last edge "
             f"dropped {faults['last edge dropped']:.1f}; kernel "
-            f"{row['ms']:.4f} ms, previous design {row['old_ms']:.4f}")
+            f"{row['ms']:.4f} ms")
     return results, err_all, skew_err, skew_rows
 
 
-def band_cost(t_s: int, nf: int, window: int, t_offset: int,
-              lead: int = 0, first: int = 0) -> tuple[float, float]:
-    """Bytes and operations of M (or M^T) over a (lead + t_s, nf) f32
-    tensor of which the last t_s rows are read (the kept rows, for M^T)
-    and rows first .. lead + t_s - 1 written: a read row counts when it
-    lies in some written band (at or after global step 1 and row first);
-    one multiply-add per band entry and column.  lead = first = 0 is the
-    forward's M X."""
+def band_cost(t_s: int, nf: int, window: int, t_offset: int, lead: int,
+              all_rows: bool = False) -> tuple[float, float]:
+    """Bytes and operations of the forward M over [prefix (lead rows); x
+    (t_s rows)], row 0 at global index ``t_offset``: it reads the rows
+    that lie in a kept band, rows max(0, lead - w + 1, -t_offset) on, and
+    writes the t_s kept rows; one multiply-add per band entry and column
+    of a written row.  ``all_rows``: the earlier contract, which read
+    every row from global step 1 on and wrote all lead + t_s rows."""
+    rows, step1 = lead + t_s, max(0, -t_offset)
+    first = 0 if all_rows else lead
+    lo = step1 if all_rows else max(step1, lead - window + 1)
+    nnz = sum(t - max(step1, t - window + 1) + 1
+              for t in range(max(first, step1), rows))
+    read = max(0, rows - lo)
+    return float((read + rows - first) * nf * 4), float(nnz * nf)
+
+
+def band_t_cost(t_s: int, nf: int, window: int, t_offset: int, lead: int,
+                first: int) -> tuple[float, float]:
+    """Bytes and operations of M^T over the kept rows: dZ (t_s, nf) of
+    rows lead .. lead + t_s - 1 of a (lead + t_s)-row tensor, rows
+    first .. lead + t_s - 1 written; a dZ row counts when it lies in some
+    written band (at or after global step 1 and row first); one
+    multiply-add per band entry and column."""
     rows = lead + t_s
     lo = max(first, -t_offset, 0)
     nnz = sum(t - max(lo, t - window + 1) + 1
@@ -627,41 +595,16 @@ def band_matrix(torch, t: int, window: int, t_offset: int):
 
 
 def check_ttm(torch, n: int, window: int, timer):
-    """Banded TTM at the serving shape (T = w = 5, NF = N * 6)."""
-    from repro_torch.kernels.mproduct import ops, ref
-
-    t = window
+    """``banded_ttm`` at serving's call: the (w - 1)-row prefix carry and
+    one new row of N x 6 columns, one row written; at the first window's
+    t_offset (-4: the prefix lies before global step 1), 0, 37 and the
+    last window's (the main row)."""
     gen = torch.Generator(device="cuda").manual_seed(1)
-    x = torch.randn((t, n * 6), generator=gen, device="cuda")
-    main_off = NUM_WINDOWS - 1 - (window - 1)   # last window, prefix form
-    err_all, rows = 0.0, []
-    for off in (-4, 0, 37, main_off):
-        got = ops.banded_ttm(x, window, off)
-        want = ref.banded_ttm_ref(x, window, off)
-        torch.cuda.synchronize()
-        err = check_close(f"banded_ttm t_offset={off}", got, want, TOL_TTM)
-        err_all = max(err_all, err)
-        rows.append({"t_offset": off, "max_abs_err": err})
-    # dense band as a yardstick: M (T x T) @ X (T x NF)
-    m = band_matrix(torch, t, window, main_off)
-    lib_err = float((m @ x - ref.banded_ttm_ref(x, window, main_off)
-                     ).abs().max())
-    b_ms, b_by = bound_ms(*band_cost(t, x.shape[1], window, main_off))
-    res = {
-        "shape": list(x.shape), "t_offset": main_off,
-        "ms": timer(lambda: ops.banded_ttm(x, window, main_off)),
-        "wrapper_ms": timer(lambda: ops.banded_ttm(x, window, main_off),
-                            host=True),
-        "plain_ms": timer(lambda: ref.banded_ttm_ref(x, window, main_off)),
-        "library_ms": timer(lambda: m @ x),
-        "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err_all,
-        "library_max_abs_err": lib_err, "offsets": rows}
-    log(f"[kernel] banded_ttm {tuple(x.shape)}: kernel {res['ms']:.4f} ms,"
-        f" wrapper (host + device) {res['wrapper_ms']:.4f}, plain "
-        f"{res['plain_ms']:.4f}, dense band matmul "
-        f"{res['library_ms']:.4f}, bound {b_ms:.4f} ({b_by}), max|err| "
-        f"{err_all:.2e} over t_offset {[r['t_offset'] for r in rows]}")
-    return res
+    main_off = NUM_WINDOWS - 1 - (window - 1)   # the last window's prefix
+    rows = band_rows(torch, gen, n, window, timer, [
+        (1, window - 1, off) for off in (-4, 0, 37, main_off)])
+    return dict(rows[-1], max_abs_err=max(r["max_abs_err"] for r in rows),
+                offsets=rows)
 
 
 # ------------------------------------------------------------ profile ------
@@ -670,9 +613,7 @@ def profile_step(torch, eng):
     """The state-advance step alone, on the last window's graph: steady
     time over a few repeats, then one step under ``torch.profiler`` for
     device time by kernel and the device's idle share of the step."""
-    from repro_torch.core import models as mdl
     from repro_torch.graph import segment
-    from repro_torch.kernels.segment_spmm import ops as spmm_ops
 
     n = eng.model.num_nodes
     edges, mask = eng.applier.current
@@ -684,23 +625,9 @@ def profile_step(torch, eng):
         return eng._advance(eng.params, carries, frame, edges, mask, mask,
                             NUM_WINDOWS)
 
-    # the previous path: no shared CSR (each layer's wrapper builds its own)
-    # and the thread-per-row kernel
-    old_csr, _ = previous_spmm(spmm_ops)
-    no_shared = types.SimpleNamespace(build_csr=lambda *a: None)
-
-    def previous_step():
-        with patched(mdl, "spmm_ops", no_shared), \
-                patched(spmm_ops, "segment_spmm_csr", old_csr):
-            return step()
-
-    check_close("state-advance step, previous path vs this one",
-                previous_step()[0], step()[0], TOL_SCORES)
-    walls = alternating_walls(torch, {"step": step,
-                                      "previous": previous_step}, 7)
+    steady = alternating_walls(torch, {"step": step}, 7)["step"]
     log(f"[profile] state-advance step (warm, host clock + sync, median of "
-        f"6, in turns): {walls['step']:.3f} ms; on the previous path (a CSR "
-        f"build per layer, thread-per-row kernel) {walls['previous']:.3f} ms")
+        f"6): {steady:.3f} ms")
     wall_us, busy, by_name = device_profile(torch, step)
     log(f"[profile] one step under the profiler: wall {wall_us / 1e3:.2f} "
         f"ms, device busy {busy / 1e3:.2f} ms, idle share "
@@ -708,10 +635,8 @@ def profile_step(torch, eng):
         f"device activities")
     for name, v in sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:12]:
         log(f"[profile]   {sum(v) / 1e3:8.3f} ms  x{len(v):<3d} {name[:90]}")
-    return {"steady_ms": walls["step"],
-            "previous_steady_ms": walls["previous"],
-            "wall_ms": wall_us / 1e3, "busy_ms": busy / 1e3,
-            "idle_share": 1 - busy / wall_us}
+    return {"steady_ms": steady, "wall_ms": wall_us / 1e3,
+            "busy_ms": busy / 1e3, "idle_share": 1 - busy / wall_us}
 
 
 # ------------------------------------------------------- plain parity ------
@@ -788,7 +713,6 @@ def train_path(torch, kernels, obs, n_nodes: int):
 
     from repro_torch.configs import registry
     from repro_torch.core import checkpoint as ckpt
-    from repro_torch.core import models as mdl
     from repro_torch.kernels.build import reset_counts
     from repro_torch.kernels.segment_spmm import ops as spmm_ops
     from repro_torch.run import (Engine, ExecutionPlan, RunConfig,
@@ -881,43 +805,30 @@ def train_path(torch, kernels, obs, n_nodes: int):
         state["params"], state["opt"], _ = step_fn(
             state["params"], state["opt"], batch, labels)
 
-    prev_stage = previous_temporal_stage(torch)
-
-    def previous_step():
-        with patched(mdl, "temporal_stage", prev_stage):
-            one_step()
-
-    walls = alternating_walls(torch, {"step": one_step,
-                                      "previous": previous_step}, 7)
-    prof = {"steady_ms": walls["step"],
-            "previous_steady_ms": walls["previous"]}
-    log(f"[profile-train] warm step (host clock + sync, median of 6, in "
-        f"turns): {walls['step']:.1f} ms; on the previous M-product path "
-        f"(zero-filled full-size gradient, the loop kernel, 12-row prefix "
-        f"cats) {walls['previous']:.1f} ms")
-    kinds = {}
-    for key, fn in (("step", one_step), ("previous", previous_step)):
-        wall_us, busy, by_name = device_profile(torch, fn)
-        kinds[key] = by_kind(by_name)
-        prof[key] = {"wall_ms": wall_us / 1e3, "busy_ms": busy / 1e3,
-                     "idle_share": 1 - busy / wall_us,
-                     "activities": sum(map(len, by_name.values())),
-                     "by_kind": kinds[key]}
-        log(f"[profile-train] one {key} step under the profiler: wall "
-            f"{wall_us / 1e3:.1f} ms, device busy {busy / 1e3:.1f} ms, idle "
-            f"share {1 - busy / wall_us:.3f}, "
-            f"{prof[key]['activities']} device activities")
-        if key == "step":
-            for name, v in sorted(by_name.items(),
-                                  key=lambda kv: -sum(kv[1]))[:12]:
-                log(f"[profile-train]   {sum(v) / 1e3:8.3f} ms  "
-                    f"x{len(v):<4d} {name[:90]}")
-    log("[profile-train] device time by kind, ms (launches): this path | "
-        "previous M-product path")
-    for kind in kinds["step"]:
-        a, b = kinds["step"][kind], kinds["previous"][kind]
-        log(f"[profile-train]   {kind:20s} {a['ms']:8.3f} ({a['count']:4d}) | "
-            f"{b['ms']:8.3f} ({b['count']:4d})")
+    steady = alternating_walls(torch, {"step": one_step}, 7)["step"]
+    log(f"[profile-train] warm step (host clock + sync, median of 6): "
+        f"{steady:.1f} ms")
+    wall_us, busy, by_name = device_profile(torch, one_step)
+    kinds = by_kind(by_name)
+    # the forward M-product reads [prefix, slice] where they lie: its
+    # device time is its kernel's alone
+    fwd = kinds["banded_ttm"]
+    prof = {"steady_ms": steady, "wall_ms": wall_us / 1e3,
+            "busy_ms": busy / 1e3, "idle_share": 1 - busy / wall_us,
+            "activities": sum(map(len, by_name.values())), "by_kind": kinds,
+            "forward_mproduct_ms": fwd["ms"],
+            "forward_mproduct_launches": fwd["count"]}
+    log(f"[profile-train] one step under the profiler: wall "
+        f"{wall_us / 1e3:.1f} ms, device busy {busy / 1e3:.1f} ms, idle "
+        f"share {1 - busy / wall_us:.3f}, {prof['activities']} device "
+        f"activities; the forward M-product {fwd['ms']:.3f} ms in "
+        f"{fwd['count']} banded_ttm launches, no copy")
+    for name, v in sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:12]:
+        log(f"[profile-train]   {sum(v) / 1e3:8.3f} ms  x{len(v):<4d} "
+            f"{name[:90]}")
+    log("[profile-train] device time by kind, ms (launches):")
+    for kind, v in kinds.items():
+        log(f"[profile-train]   {kind:20s} {v['ms']:8.3f} ({v['count']:4d})")
     stats = {"losses": losses, "step_ms": step_ms,
              "step_ms_median": statistics.median(step_ms),
              "step_ms_median_after_first": statistics.median(step_ms[1:]),
@@ -929,66 +840,16 @@ def train_path(torch, kernels, obs, n_nodes: int):
     return batch, stats
 
 
-def previous_band_t(torch, dz, window: int, t_offset: int, lead: int,
-                    write_lead: bool = True):
-    """The previous path's gradient of the kept rows: dZ copied into a
-    zero-filled (lead + T_s, NF) gradient (the slice's backward), then the
-    previous design of the transposed band over all of it (a thread per
-    column, each element loaded and divided w times; kept in
-    ``csrc/banded_ttm.cu``, reached by no wrapper)."""
-    from repro_torch.kernels.mproduct import ops as mp_ops
-
-    t_s, nf = dz.shape
-    dy = torch.zeros((lead + t_s, nf), device=dz.device)
-    dy[lead:] = dz
-    dx = torch.empty_like(dy)
-    mp_ops.KERNEL_T.launch_uncounted(
-        mp_ops.LOOP_T_SYMBOL, dy.device, dy.data_ptr(), dx.data_ptr(),
-        lead + t_s, nf, int(window), int(t_offset), 0, 0)
-    return dx if write_lead else dx[lead:]
-
-
-def previous_temporal_stage(torch):
-    """TM-GCN's temporal stage as the previous path ran it, for timing the
-    train step beside this one: cat [prefix, y], the band over all rows
-    and the slice's rows kept, so the gradient is the previous transposed
-    path over a zero-filled full-size dY; the new prefix a cat of all
-    rows."""
-    from repro_torch.kernels.mproduct import ops as mp_ops
-
-    class PreviousBandFn(torch.autograd.Function):
-        @staticmethod
-        def forward(ctx, x, window, t_offset):
-            ctx.window, ctx.t_offset = window, t_offset
-            return mp_ops.banded_ttm(x, window, t_offset)
-
-        @staticmethod
-        def backward(ctx, dy):
-            return (previous_band_t(torch, dy.contiguous(), ctx.window,
-                                    ctx.t_offset, 0), None, None)
-
-    def stage(cfg, layer_params, y, carry, t_offset):
-        w1 = cfg.window - 1
-        full = torch.cat([carry, y], dim=0)
-        z = PreviousBandFn.apply(full.reshape(full.shape[0], -1),
-                                 cfg.window, t_offset - w1)
-        return (z.reshape(full.shape)[w1:],
-                torch.cat([carry, y], dim=0)[-w1:])
-
-    return stage
-
-
 def check_backward(torch, batch, n: int, window: int, timer):
     """The kernels at the train path's shapes, held to their plain
-    versions, each shown to reject two faulty outputs, and timed beside its
+    versions, each shown to reject faulty outputs, and timed beside its
     bound, its plain version and its library call: ``segment_spmm`` on the
     last snapshot's transposed CSR at F = 6 (the backward); ``banded_ttm``
-    (forward and recompute) at the blocks' (bsize + w - 1, N x 6) with
-    t_offset -4 (block 0) and +4 (block 1; blocks 2 and 3 read the same
-    full band at +12, +20); and ``banded_ttm_t`` (the backward) at those two
-    and at (T, N x 6)."""
-    from repro_torch.kernels.mproduct import ops as mp_ops
-    from repro_torch.kernels.mproduct import ref as mp_ref
+    (forward and recompute) on the blocks' [prefix (w - 1 rows); slice
+    (bsize rows)] with t_offset -4 (block 0) and +4 (block 1; blocks 2 and
+    3 read the same full band at +12, +20), on (T, N x 6) over an empty
+    prefix and on the full config's block; ``banded_ttm_t`` (the backward)
+    at the same four; then both bands' sweeps at small shapes."""
     from repro_torch.kernels.segment_spmm import ops, ref
 
     gen = torch.Generator(device="cuda").manual_seed(6)
@@ -1026,78 +887,103 @@ def check_backward(torch, batch, n: int, window: int, timer):
 
     bsize, w1 = TRAIN_T // TRAIN_NB, window - 1
     full_bsize = FULL_T // TRAIN_NB
-    # (rows, t_offset of row 0): block 0, block 1 (blocks 2 and 3 read
-    # the same full band at +12, +20), the whole T, and block 1 of the full
-    # config's T = 512
+    # (T_s, lead, t_offset of prefix row 0): block 0, block 1 (blocks 2
+    # and 3 read the same full band at +12, +20), the whole T over an
+    # empty prefix, and block 1 of the full config's T = 512
     fwd = band_rows(torch, gen, n, window, timer, (
-        (bsize + w1, -w1), (bsize + w1, bsize - w1), (TRAIN_T, 0),
-        (full_bsize + w1, full_bsize - w1)))
+        (bsize, w1, -w1), (bsize, w1, bsize - w1), (TRAIN_T, 0, 0),
+        (full_bsize, w1, full_bsize - w1)))
     # (T_s, lead, t_offset, write_lead): the gradient of block 0's kept
     # rows (its prefix, the zero initial carry, needs none), of block 1's
     # (prefix and slice), of the whole T, and of the full config's block 1
     rows = band_t_rows(torch, gen, n, window, timer, (
         (bsize, w1, -w1, False), (bsize, w1, bsize - w1, True),
         (TRAIN_T, 0, 0, True), (full_bsize, w1, full_bsize - w1, True)))
-    return spmm, fwd, rows, band_t_sweep(torch, gen)
+    return (spmm, fwd, rows, band_sweep(torch, gen),
+            band_t_sweep(torch, gen))
 
 
-def band_faults(name: str, want, limit: float, kernel, x, row: int
-                ) -> dict:
-    """Show that a band check rejects zeros and the kernel run with input
-    row ``row`` dropped -> {fault: max |diff| over the limit}."""
-    cut = x.clone()
-    cut[row] = 0.0
-    faults = {"zeros": float(want.abs().max()) / limit,
-              "a band row dropped": float((kernel(cut) - want).abs().max())
-              / limit}
-    for fault, ratio in faults.items():
-        if ratio <= 1.0:
+def reject_faults(name: str, want, limit: float, faulty: dict) -> dict:
+    """Show that a band check rejects each faulty output of ``faulty``
+    ({fault: output, or None where the fault cannot arise}) -> {fault:
+    max |diff| over the limit, or None}."""
+    ratios = {"zeros": float(want.abs().max()) / limit}
+    for fault, out in faulty.items():
+        ratios[fault] = None if out is None else \
+            float((out - want).abs().max()) / limit
+    for fault, ratio in ratios.items():
+        if ratio is not None and ratio <= 1.0:
             raise SystemExit(f"{name}: the check would pass a kernel that "
                              f"wrote {fault} ({ratio:.3f} x its limit)")
-    return faults
+    return ratios
+
+
+def without_row(x, row: int):
+    cut = x.clone()
+    cut[row] = 0.0
+    return cut
+
+
+def fault_text(faults: dict) -> str:
+    return ", ".join(f"{k} " + ("n/a" if v is None else f"{v:.1f}")
+                     for k, v in faults.items())
 
 
 def band_rows(torch, gen, n: int, window: int, timer, cases) -> list[dict]:
-    """``banded_ttm`` against its plain version on (t, N x 6) at each
-    (t, t_offset) of ``cases``, shown to reject zeros and a dropped band
-    row, and timed beside its bound, its plain version and the dense band
-    ``M @ X``."""
+    """``banded_ttm`` on [prefix (lead, N x 6); x (T_s, N x 6)] at each
+    (T_s, lead, t_offset of prefix row 0) of ``cases``: held to its plain
+    version, shown to reject zeros, a dropped prefix row (the last, which
+    lies in the first kept row's band; n/a without a prefix, or when the
+    prefix lies before global step 1 and is never read) and a dropped
+    slice row, and timed beside its bound (the kept rows' count, and the
+    earlier all-rows contract's beside it), its plain version and
+    cuBLAS's dense band M[lead:] @ [prefix; x] on an input concatenated
+    beforehand (the cat left out of its time)."""
     from repro_torch.kernels.mproduct import ops, ref
 
     rows = []
-    for t, off in cases:
-        x = torch.randn((t, n * 6), generator=gen, device="cuda")
-        got = ops.banded_ttm(x, window, off)
-        want = ref.banded_ttm_ref(x, window, off)
+    for t_s, lead, off in cases:
+        prefix = torch.randn((lead, n * 6), generator=gen, device="cuda")
+        x = torch.randn((t_s, n * 6), generator=gen, device="cuda")
+
+        def kern(p=prefix, v=x, off=off):
+            return ops.banded_ttm(p, v, window, off)
+
+        got = kern()
+        want = ref.banded_ttm_ref(prefix, x, window, off)
         torch.cuda.synchronize()
-        name = f"banded_ttm ({t}, {n * 6}) t_offset={off}"
+        name = (f"banded_ttm [prefix ({lead}, {n * 6}); x ({t_s}, {n * 6})]"
+                f" t_offset={off}")
         err = check_close(name, got, want, TOL_TTM)
-        faults = band_faults(name, want, TOL_TTM * (
-            1.0 + float(want.abs().max())), lambda v: ops.banded_ttm(
-                v, window, off), x, t // 2)
         del got
-        m = band_matrix(torch, t, window, off)
-        b_ms, b_by = bound_ms(*band_cost(t, n * 6, window, off))
-
-        def kern(x=x, off=off):
-            return ops.banded_ttm(x, window, off)
-
-        row = {"shape": [t, n * 6], "t_offset": off, "ms": timer(kern),
-               "wrapper_ms": timer(kern, host=True),
-               "plain_ms": timer(lambda x=x, off=off: ref.banded_ttm_ref(
-                   x, window, off)),
-               "library_ms": timer(lambda x=x, m=m: m @ x),
-               "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
-               "library_max_abs_err": float((m @ x - want).abs().max()),
+        read_prefix = lead > 0 and lead + off >= 1
+        faults = reject_faults(name, want, TOL_TTM * (
+            1.0 + float(want.abs().max())), {
+                "a prefix row dropped": kern(
+                    without_row(prefix, lead - 1)) if read_prefix else None,
+                "a slice row dropped": kern(v=without_row(x, t_s // 2))})
+        full = torch.cat([prefix, x])
+        m = band_matrix(torch, lead + t_s, window, off)[lead:].contiguous()
+        b_ms, b_by = bound_ms(*band_cost(t_s, n * 6, window, off, lead))
+        old_b_ms, _ = bound_ms(*band_cost(t_s, n * 6, window, off, lead,
+                                          all_rows=True))
+        row = {"shape": [t_s, n * 6], "lead": lead, "t_offset": off,
+               "ms": timer(kern), "wrapper_ms": timer(kern, host=True),
+               "plain_ms": timer(lambda p=prefix, v=x, off=off:
+                                 ref.banded_ttm_ref(p, v, window, off)),
+               "library_ms": timer(lambda m=m, full=full: m @ full),
+               "bound_ms": b_ms, "bound_by": b_by,
+               "bound_all_rows_ms": old_b_ms, "max_abs_err": err,
+               "library_max_abs_err": float((m @ full - want).abs().max()),
                "fault_over_limit": faults}
         log(f"[kernel] {name}: kernel {row['ms']:.4f} ms (wrapper "
             f"{row['wrapper_ms']:.4f}), plain {row['plain_ms']:.4f}, dense "
-            f"band M @ X {row['library_ms']:.4f}, bound {b_ms:.4f} ({b_by},"
-            f" {b_ms / row['ms']:.1%}); max|err| {err:.2e}; faults rejected"
-            f" at x limit: zeros {faults['zeros']:.1f}, a band row dropped "
-            f"{faults['a band row dropped']:.1f}")
+            f"band M[lead:] @ [prefix; x] {row['library_ms']:.4f}, bound "
+            f"{b_ms:.4f} ({b_by}, {b_ms / row['ms']:.1%}; all rows written:"
+            f" {old_b_ms:.4f}); max|err| {err:.2e}; faults rejected at x "
+            f"limit: {fault_text(faults)}")
         rows.append(row)
-        del x, want, m
+        del prefix, x, want, full, m
         torch.cuda.empty_cache()
     return rows
 
@@ -1107,9 +993,8 @@ def band_t_rows(torch, gen, n: int, window: int, timer, cases
     """``banded_ttm_t`` on the kept rows' gradient dZ (T_s, N x 6) at each
     (T_s, lead, t_offset, write_lead) of ``cases``: held to its plain
     version, shown to reject zeros and a dropped dZ row, and timed beside
-    its bound (the kept-rows contract's bytes), its plain version, the
-    dense ``M[lead:, first:]^T @ dZ`` and, in turns with the kernel, the
-    previous path (zero-filled full-size gradient + the loop kernel)."""
+    its bound (the kept-rows contract's bytes), its plain version and the
+    dense ``M[lead:, first:]^T @ dZ``."""
     from repro_torch.kernels.mproduct import ops, ref
 
     rows = []
@@ -1122,25 +1007,20 @@ def band_t_rows(torch, gen, n: int, window: int, timer, cases
 
         got = kern()
         want = ref.banded_ttm_t_ref(dz, window, off, lead, write_lead)
-        old = previous_band_t(torch, dz, window, off, lead, write_lead)
         torch.cuda.synchronize()
         name = (f"banded_ttm_t dZ ({t_s}, {n * 6}) lead {lead} t_offset="
                 f"{off}{'' if write_lead else ', slice rows only'}")
         err = check_close(name, got, want, TOL_TTM)
-        check_close(name + " (previous path)", old, want, TOL_TTM)
-        faults = band_faults(name, want, TOL_TTM * (
-            1.0 + float(want.abs().max())), kern, dz, t_s // 2)
-        del got, old
+        del got
+        faults = reject_faults(name, want, TOL_TTM * (
+            1.0 + float(want.abs().max())), {
+                "a dZ row dropped": kern(without_row(dz, t_s // 2))})
         m = band_matrix(torch, lead + t_s, window, off)[lead:, first:]
         m = m.T.contiguous()
-        b_ms, b_by = bound_ms(*band_cost(t_s, n * 6, window, off, lead,
-                                         first))
-        both = timer.turns({
-            "ms": kern,
-            "previous_path_ms": lambda v=dz, lead=lead, off=off,
-            wl=write_lead: previous_band_t(torch, v, window, off, lead, wl)})
+        b_ms, b_by = bound_ms(*band_t_cost(t_s, n * 6, window, off, lead,
+                                           first))
         row = {"shape": [t_s, n * 6], "lead": lead, "t_offset": off,
-               "write_lead": write_lead, **both,
+               "write_lead": write_lead, "ms": timer(kern),
                "wrapper_ms": timer(kern, host=True),
                "plain_ms": timer(lambda v=dz, lead=lead, off=off,
                                  wl=write_lead: ref.banded_ttm_t_ref(
@@ -1150,16 +1030,65 @@ def band_t_rows(torch, gen, n: int, window: int, timer, cases
                "library_max_abs_err": float((m @ dz - want).abs().max()),
                "fault_over_limit": faults}
         log(f"[kernel] {name}: kernel {row['ms']:.4f} ms (wrapper "
-            f"{row['wrapper_ms']:.4f}; previous path, in turns, "
-            f"{row['previous_path_ms']:.4f}), plain {row['plain_ms']:.4f}, "
+            f"{row['wrapper_ms']:.4f}), plain {row['plain_ms']:.4f}, "
             f"dense M^T @ dZ {row['library_ms']:.4f}, bound {b_ms:.4f} "
             f"({b_by}, {b_ms / row['ms']:.1%}); max|err| {err:.2e}; faults "
-            f"rejected at x limit: zeros {faults['zeros']:.1f}, a band row "
-            f"dropped {faults['a band row dropped']:.1f}")
+            f"rejected at x limit: {fault_text(faults)}")
         rows.append(row)
         del dz, want, m
         torch.cuda.empty_cache()
     return rows
+
+
+def sweep_verdict(torch, name: str, cases: list, errs: list, scale: list
+                  ) -> dict:
+    """Exit if any case's max |diff| exceeds check_close's limit, TOL_TTM
+    x (1 + max |want|) -> the sweep's summary."""
+    errs, scale = torch.stack(errs).cpu(), torch.stack(scale).cpu()
+    bad = (~(errs <= TOL_TTM * (1.0 + scale))).nonzero().flatten()
+    if len(bad):
+        raise SystemExit(
+            f"{name} sweep: {len(bad)} of {len(cases)} cases disagree with "
+            f"the plain version, first {cases[int(bad[0])]}: max |diff| "
+            f"{float(errs[bad[0]]):.3e}")
+    return {"cases": len(cases), "max_abs_err": float(errs.max()),
+            "nonzero_cases": int((scale > 0).sum())}
+
+
+def band_sweep(torch, gen) -> dict:
+    """``banded_ttm`` against its plain version at small shapes that reach
+    every instance the launcher builds: w 1-8 (the register window) and 9
+    (the loop), each with 4 columns a thread (NF 36) and one (NF 13, and
+    NF 12 with the prefix's pointer, then x's, one float off 16-byte
+    alignment); T_s 1-12, lead 0 and w - 1, t_offset -7..+9."""
+    from repro_torch.kernels.mproduct import ops, ref
+
+    inputs = {}
+    for label, nf, skew_p, skew_x in (("NF 36", 36, 0, 0),
+                                      ("NF 13", 13, 0, 0),
+                                      ("NF 12 (prefix misaligned)", 12, 1, 0),
+                                      ("NF 12 (x misaligned)", 12, 0, 1)):
+        inputs[label] = tuple(
+            torch.randn(12 * nf + skew, generator=gen, device="cuda"
+                        )[skew:].view(12, nf) for skew in (skew_p, skew_x))
+    cases, errs, scale = [], [], []
+    for label, (p_all, x_all) in inputs.items():
+        for w in range(1, 10):
+            for t_s in range(1, 13):
+                for lead in sorted({0, w - 1}):
+                    for off in range(-7, 10):
+                        p, x = p_all[:lead], x_all[:t_s]
+                        want = ref.banded_ttm_ref(p, x, w, off)
+                        cases.append((label, w, t_s, lead, off))
+                        errs.append((ops.banded_ttm(p, x, w, off) - want
+                                     ).abs().max())
+                        scale.append(want.abs().max())
+    out = sweep_verdict(torch, "banded_ttm", cases, errs, scale)
+    log(f"[kernel] banded_ttm sweep: {out['cases']} cases (w 1-9, T_s 1-12, "
+        f"lead 0 and w - 1, t_offset -7..+9; {', '.join(inputs)}), max|err| "
+        f"{out['max_abs_err']:.2e} (limit {TOL_TTM:.0e} x (1 + max |want|));"
+        f" {out['nonzero_cases']} cases with a nonzero result")
+    return out
 
 
 def band_t_sweep(torch, gen) -> dict:
@@ -1167,8 +1096,7 @@ def band_t_sweep(torch, gen) -> dict:
     reach every instance the launcher builds: w 1-8 (the unrolled window)
     and 9 (the loop), each with 4 columns a thread (NF 36) and one (NF 13,
     and NF 12 with dZ one float off 16-byte alignment); T_s 1-12, lead 0
-    and w - 1, t_offset -7..+9, with and without the prefix's rows.
-    Exits if any case differs by more than ``TOL_TTM``."""
+    and w - 1, t_offset -7..+9, with and without the prefix's rows."""
     from repro_torch.kernels.mproduct import ops, ref
 
     inputs = {}
@@ -1190,18 +1118,7 @@ def band_t_sweep(torch, gen) -> dict:
                             cases.append((label, w, t_s, lead, off, wl))
                             errs.append((got - want).abs().max())
                             scale.append(want.abs().max())
-    errs, scale = torch.stack(errs).cpu(), torch.stack(scale).cpu()
-    # check_close's limit, TOL_TTM x (1 + max |want|), case by case
-    bad = (~(errs <= TOL_TTM * (1.0 + scale))).nonzero().flatten()
-    if len(bad):
-        label, w, t_s, lead, off, wl = cases[int(bad[0])]
-        raise SystemExit(
-            f"banded_ttm_t sweep: {len(bad)} of {len(cases)} cases disagree"
-            f" with the plain version, first {label} w {w} T_s {t_s} lead "
-            f"{lead} t_offset {off} write_lead {wl}: max |diff| "
-            f"{float(errs[bad[0]]):.3e}")
-    out = {"cases": len(cases), "max_abs_err": float(errs.max()),
-           "nonzero_cases": int((scale > 0).sum())}
+    out = sweep_verdict(torch, "banded_ttm_t", cases, errs, scale)
     log(f"[kernel] banded_ttm_t sweep: {out['cases']} cases (w 1-9, T_s "
         f"1-12, lead 0 and w - 1, t_offset -7..+9, with and without the "
         f"prefix's rows; {', '.join(inputs)}), max|err| "
@@ -1342,9 +1259,7 @@ def _leaves(tree):
 def profile_decode(torch, eng):
     """One Yi-6B decode step at the path's shape: warm steady time, then
     one step under ``torch.profiler`` (device busy, idle share, top ops)."""
-    from repro_torch.kernels.flash_decode import ops as fd_ops
     from repro_torch.models import lm
-    from repro_torch.nn import attention
 
     cfg, params = eng.model, eng.params
     gen = torch.Generator(device="cuda").manual_seed(5)
@@ -1358,15 +1273,7 @@ def profile_decode(torch, eng):
         lg, cache = lm.decode_step(cfg, params, cache, tok)
         tok = torch.argmax(lg, -1)
 
-    old_fd = previous_decode_attention(torch, fd_ops)
-
-    def previous_step():
-        with patched(attention, "decode_attention", old_fd):
-            step()
-
-    walls = alternating_walls(torch, {"step": step,
-                                      "previous": previous_step}, 8, warm=2)
-    steady = walls["step"]
+    steady = alternating_walls(torch, {"step": step}, 8, warm=2)["step"]
 
     def profiled(fn):
         wall_us, busy, by_name = device_profile(torch, fn)
@@ -1374,7 +1281,6 @@ def profile_decode(torch, eng):
         return wall_us, busy, fd, by_name
 
     wall_us, busy, fd, by_name = profiled(step)
-    _, old_busy, old_fd_us, _ = profiled(previous_step)
     weight_bytes = sum(t.nbytes for t in _leaves(params))
     # the K/V rows the profiled step reads, in bf16
     kv_bytes = 2 * cfg.num_layers * int(cache["len"].sum()) \
@@ -1383,22 +1289,15 @@ def profile_decode(torch, eng):
     res = {"steady_ms": steady, "wall_ms": wall_us / 1e3,
            "busy_ms": busy / 1e3, "idle_share": 1 - busy / wall_us,
            "flash_decode_ms": fd / 1e3, "bound_ms": bound,
-           "activities": sum(map(len, by_name.values())),
-           "previous_steady_ms": walls["previous"],
-           "previous_busy_ms": old_busy / 1e3,
-           "previous_flash_decode_ms": old_fd_us / 1e3}
-    log(f"[profile-lm] decode step (warm, host clock + sync, median of 6, "
-        f"in turns): {steady:.3f} ms; with the previous flash_decode "
-        f"{walls['previous']:.3f} ms; bound {bound:.3f} ms "
+           "activities": sum(map(len, by_name.values()))}
+    log(f"[profile-lm] decode step (warm, host clock + sync, median of 6):"
+        f" {steady:.3f} ms; bound {bound:.3f} ms "
         f"({weight_bytes / 1e9:.2f} GB of weights + "
         f"{kv_bytes / 1e9:.2f} GB of K/V at 3.35 TB/s)")
     log(f"[profile-lm] one step under the profiler: wall "
         f"{res['wall_ms']:.3f} ms, device busy {res['busy_ms']:.3f} ms, "
         f"idle share {res['idle_share']:.3f}, {res['activities']} device "
-        f"activities, flash_decode {res['flash_decode_ms']:.3f} ms; with "
-        f"the previous flash_decode: device busy "
-        f"{res['previous_busy_ms']:.3f} ms, flash_decode "
-        f"{res['previous_flash_decode_ms']:.3f} ms")
+        f"activities, flash_decode {res['flash_decode_ms']:.3f} ms")
     for name, v in sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:12]:
         log(f"[profile-lm]   {sum(v) / 1e3:8.3f} ms  x{len(v):<4d} "
             f"{name[:90]}")
@@ -1430,52 +1329,6 @@ def dropped_split_lens(lens: list[int], s: int, splits: int) -> list[int]:
     return out
 
 
-def previous_decode_attention(torch, ops):
-    """The previous design of ``decode_attention``, for timing beside the
-    kernel: its wrapper's host path as it was (every check on every call,
-    three allocations, the device switch) and its partial kernel on CUDA
-    cores (head tile 8 for G > 1; still in ``csrc/flash_decode.cu``, which
-    f32 runs), not counted."""
-
-    def call(q, k, v, cache_len):
-        b, hq, d = q.shape
-        s, kvh = k.shape[1], k.shape[2]
-        if q.dim() != 3 or k.dim() != 4 or k.shape != v.shape:
-            raise ValueError("flash_decode: bad shapes")
-        if k.shape[0] != b or k.shape[3] != d or s < 1 or hq % kvh != 0:
-            raise ValueError("flash_decode: k does not fit q")
-        if d % 8 != 0 or d > 256:
-            raise ValueError("flash_decode: bad D")
-        for t, dt in ((q, q.dtype), (k, q.dtype), (v, q.dtype),
-                      (cache_len, torch.int32)):
-            if t.device != q.device or t.dtype != dt or \
-                    not t.is_contiguous():
-                raise ValueError("flash_decode: bad tensor")
-            if t.data_ptr() % 16:
-                raise ValueError("flash_decode: misaligned")
-        if cache_len.shape != (b,):
-            raise ValueError("flash_decode: bad cache_len")
-        g = hq // kvh
-        tile = 1 if g == 1 else 8
-        splits = max(1, min(2 * ops._sm_count(q.device.index or 0)
-                            // (b * kvh * -(-g // tile)),
-                            -(-s // ops.MIN_ROWS_PER_SPLIT)))
-        part_ml = torch.empty((b, hq, splits, 2), dtype=torch.float32,
-                              device=q.device)
-        part_acc = torch.empty((b, hq, splits, d), dtype=torch.float32,
-                               device=q.device)
-        out = torch.empty_like(q)
-        with torch.cuda.device(q.device):
-            ops.KERNEL.launch_uncounted(
-                ops.KERNEL.symbol, q.device, q.data_ptr(), k.data_ptr(),
-                v.data_ptr(), cache_len.data_ptr(), part_ml.data_ptr(),
-                part_acc.data_ptr(), out.data_ptr(), b, s, hq, kvh, d, tile,
-                splits, int(q.dtype == torch.bfloat16))
-        return out
-
-    return call
-
-
 def check_flash_decode(torch, timer):
     """Phase 6: the kernel against its plain version, and timed.  Each
     case also shows that its check rejects two faulty outputs made on the
@@ -1499,7 +1352,6 @@ def check_flash_decode(torch, timer):
         ("cache_len 0", 2, 32, 4, 128, s_path, [0, s_path]),
         ("D64 G4", 2, 16, 4, 64, 1000, [1000, 77]),
     ]
-    old_fd = previous_decode_attention(torch, ops)
     gen = torch.Generator(device="cuda").manual_seed(3)
     rows, err_all = [], 0.0
     for dtype in (torch.bfloat16, torch.float32):
@@ -1525,13 +1377,6 @@ def check_flash_decode(torch, timer):
                                  f"|diff| {err:.3e}, {ratio:.3f} x a row's "
                                  "limit")
             err_all = max(err_all, err)
-            old_got = old_fd(q, k, v, cl).float()
-            torch.cuda.synchronize()
-            old_err, old_ratio = fd_excess(dname, old_got, want32)
-            if not old_ratio <= 1.0:
-                raise SystemExit(f"flash_decode {name} {dname}: the previous "
-                                 f"design disagrees ({old_ratio:.3f} x a "
-                                 "row's limit)")
             pl = ops.plan(b, s, hq, kvh, d, dtype == torch.bfloat16,
                           ops._sm_count(0))
             instance = "tensor cores" if pl[0] == ops.TC_HEADS \
@@ -1572,47 +1417,37 @@ def check_flash_decode(torch, timer):
             def kern(q=q, k=k, v=v, cl=cl):
                 return ops.decode_attention(q, k, v, cl)
 
-            def old(q=q, k=k, v=v, cl=cl):
-                return old_fd(q, k, v, cl)
-
             row = {
                 "case": name, "dtype": dname,
                 "B": b, "Hq": hq, "KVH": kvh, "D": d, "S": s,
                 "cache_len": lens, "instance": instance,
                 "ms": timer(kern), "wrapper_ms": timer(kern, host=True),
-                "old_ms": timer(old), "old_wrapper_ms": timer(old,
-                                                              host=True),
                 "plain_ms": timer(lambda q=q, k=k, v=v, cl=cl:
                                   ref.flash_decode_ref(q, k, v, cl)),
                 "library_ms": timer(lib),
                 "ms_write_flush": timer(kern, flush="write"),
-                "old_ms_write_flush": timer(old, flush="write"),
                 "library_ms_write_flush": timer(lib, flush="write"),
                 "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
                 "err_over_limit": ratio,
                 "max_abs_err_vs_plain_in_dtype": float(
                     (got - want.float()).abs().max()),
                 "fault_over_limit": faults, "library_max_abs_err": lib_err,
-                "old_err_over_limit": old_ratio, "plan": pl}
+                "plan": pl}
             log(f"[kernel] flash_decode {name} {dname} (B {b}, Hq {hq}, "
                 f"KVH {kvh}, D {d}, S {s}, plan {row['plan']}, {instance})"
                 f": kernel {row['ms']:.4f} ms (wrapper, host + device "
-                f"{row['wrapper_ms']:.4f}), previous design "
-                f"{row['old_ms']:.4f}"
-                f" (wrapper {row['old_wrapper_ms']:.4f}), plain "
+                f"{row['wrapper_ms']:.4f}), plain "
                 f"{row['plain_ms']:.4f}, sdpa {row['library_ms']:.4f}, bound "
                 f"{b_ms:.4f} ({b_by}); with a write flush: kernel "
-                f"{row['ms_write_flush']:.4f}, previous design "
-                f"{row['old_ms_write_flush']:.4f}, sdpa "
+                f"{row['ms_write_flush']:.4f}, sdpa "
                 f"{row['library_ms_write_flush']:.4f}")
             log(f"[kernel]   max|err| {err:.3e}, {ratio:.3f} x a row's "
-                f"limit (previous design {old_ratio:.3f}); faults rejected at "
-                "x limit: zeros "
+                "limit; faults rejected at x limit: zeros "
                 f"{faults['zeros']:.1f}, a split dropped "
                 f"{faults['a split dropped']:.1f}; sdpa max|err| "
                 f"{lib_err:.2e}")
             rows.append(row)
-            del q, k, v, got, want, want32, kt, vt, lib, kern, old, old_got
+            del q, k, v, got, want, want32, kt, vt, lib, kern
     return rows, err_all
 
 
@@ -1728,16 +1563,20 @@ def main(argv: list[str] | None = None) -> int:
         step_prof = phase("profile", profile_step, torch, eng)
         phase("plain-path parity", plain_parity, eng, events)
         phase("small-graph parity", small_parity, torch)
+        # the engine sits in a reference cycle: collect it now, or its
+        # device state stays allocated under the train phase's peak
         del eng, events
+        gc.collect()
         torch.cuda.empty_cache()
     if "train" in groups:
         batch, train_stats = phase("train path", train_path, torch,
                                    kernels, obs, n_nodes)
         launches["train"] = train_stats["launches"]
-        spmm_bwd, ttm_train_rows, ttm_t_rows, ttm_t_sweep = phase(
-            "train-shape kernel checks", check_backward, torch, batch,
-            n_nodes, 5, timer)
+        spmm_bwd, ttm_train_rows, ttm_t_rows, ttm_sweep, ttm_t_sweep = \
+            phase("train-shape kernel checks", check_backward, torch, batch,
+                  n_nodes, 5, timer)
         del batch
+        gc.collect()
         torch.cuda.empty_cache()
         train_par = phase("train parity", train_parity, torch)
     if "lm" in groups:
@@ -1745,6 +1584,7 @@ def main(argv: list[str] | None = None) -> int:
         launches["lm"] = {"flash_decode": lm_stats["launches"]}
         lm_prof = phase("lm profile", profile_decode, torch, lm_eng)
         del lm_eng
+        gc.collect()
         torch.cuda.empty_cache()
         fd_rows, fd_err = phase("flash_decode check", check_flash_decode,
                                 torch, timer)
@@ -1767,7 +1607,8 @@ def main(argv: list[str] | None = None) -> int:
         report.append(kernel_entry(
             "banded_ttm", "src/repro_torch/csrc/banded_ttm.cu",
             "src/repro/kernels/mproduct/mproduct.py:54", launches, ttm,
-            detail=ttm, **({"train_shapes": ttm_train_rows}
+            detail=ttm, **({"train_shapes": ttm_train_rows,
+                            "sweep": ttm_sweep}
                            if "train" in groups else {})))
     if "train" in groups:
         ttm_t_main = ttm_t_rows[1]     # block 1: dZ (8, N x 6), lead 4, +4

@@ -92,8 +92,10 @@ def m_product_with_prefix(x: torch.Tensor, prefix: torch.Tensor,
     """M-product over a timeline slice given the (w-1)-frame prefix carry.
 
     prefix: (w-1, N, F) — the last w-1 frames before x[0] (zeros at t=0).
-    Returns Y for the slice only: (T_slice, N, F).  The gradient reaches
-    prefix and x from one transposed-band launch over the slice's rows.
+    Returns Y for the slice only: (T_slice, N, F).  One band launch reads
+    prefix and x where they lie (no concatenation) and writes only the
+    slice's rows; the gradient reaches prefix and x from one
+    transposed-band launch over the slice's rows.
     """
     return mp_ops.MProductWithPrefixFn.apply(prefix, x, window, t_offset)
 

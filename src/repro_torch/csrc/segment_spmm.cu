@@ -48,10 +48,6 @@
 //   third: the limit is the random gathers -- each edge reads one random
 //   8- or 24-byte x row, one or two 32-byte sectors through L2, where the
 //   bound counts x once.
-//
-// segment_spmm_csr_f32_rowthread is the previous design (one thread per row,
-//   scalar loads, (col, w) re-read per 8 features).  No wrapper calls it;
-//   chip_smoke.py times it beside the kernel above.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -229,39 +225,6 @@ spmm_rows_feature_parallel(const float* __restrict__ x,
   }
 }
 
-// The previous design, kept for timing only: one thread per row.
-constexpr int kFeatChunk = 8;   // features summed per pass over a row
-
-__global__ void segment_spmm_rowthread_kernel(const float* __restrict__ x,
-                                              const int* __restrict__ row_ptr,
-                                              const int* __restrict__ col,
-                                              const float* __restrict__ w,
-                                              float* __restrict__ out,
-                                              int n, int f) {
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= n) return;
-  const int beg = row_ptr[row];
-  const int end = row_ptr[row + 1];
-  float* out_row = out + static_cast<long long>(row) * f;
-  for (int f0 = 0; f0 < f; f0 += kFeatChunk) {
-    float acc[kFeatChunk];
-#pragma unroll
-    for (int j = 0; j < kFeatChunk; ++j) acc[j] = 0.0f;
-    for (int e = beg; e < end; ++e) {
-      const float we = __ldg(w + e);
-      const float* xs = x + static_cast<long long>(__ldg(col + e)) * f + f0;
-#pragma unroll
-      for (int j = 0; j < kFeatChunk; ++j) {
-        if (f0 + j < f) acc[j] = fmaf(we, __ldg(xs + j), acc[j]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < kFeatChunk; ++j) {
-      if (f0 + j < f) out_row[f0 + j] = acc[j];
-    }
-  }
-}
-
 inline unsigned blocks_for(long long threads) {
   return static_cast<unsigned>((threads + kThreads - 1) / kThreads);
 }
@@ -309,19 +272,6 @@ int segment_spmm_csr_f32(const void* x, const void* row_ptr, const void* col,
     spmm_rows_feature_parallel<false, kScalarLanes>
         <<<blocks_for(ns), kThreads, 0, s>>>(xf, rp, cl, wf, of, n, f);
   }
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The previous design (one thread per row), same arguments; for timing.
-int segment_spmm_csr_f32_rowthread(const void* x, const void* row_ptr,
-                                   const void* col, const void* w,
-                                   void* out, int n, int f, void* stream) {
-  if (n <= 0 || f <= 0) return 0;
-  segment_spmm_rowthread_kernel<<<blocks_for(n), kThreads, 0,
-                                  static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const int*>(row_ptr),
-      static_cast<const int*>(col), static_cast<const float*>(w),
-      static_cast<float*>(out), n, f);
   return static_cast<int>(cudaGetLastError());
 }
 

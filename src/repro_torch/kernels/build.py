@@ -59,7 +59,6 @@ class Kernel:
         self.launches = 0
         self.build_log = ""
         self._lib = None
-        self._others: dict = {}
         self._fn = None
         self._err = None
         self._lock = threading.Lock()
@@ -96,41 +95,25 @@ class Kernel:
                     build_all([self])
                 self._bind()
 
-    def _call(self, fn, device: torch.device, args) -> None:
-        # the launcher runs on the current device: switch only when the
-        # tensors lie on another one (the switch costs more than a check)
-        index = device.index if device.index is not None \
-            else torch.cuda.current_device()
-        if index == torch.cuda.current_device():
-            rc = fn(*args, torch.cuda.current_stream().cuda_stream)
-        else:
-            with torch.cuda.device(index):
-                rc = fn(*args, torch.cuda.current_stream().cuda_stream)
-        if rc != 0:
-            msg = self._err(rc).decode(errors="replace")
-            raise RuntimeError(f"kernel {self.name}: launch failed with "
-                               f"CUDA error {rc} ({msg})")
-
     def launch(self, device: torch.device, *args) -> None:
         """Call the launcher on ``device``'s current stream, with that
         device made current (the tensors' pointers belong to it); raise on
         a CUDA error."""
         self.load()
-        self._call(self._fn, device, args)
+        # the launcher runs on the current device: switch only when the
+        # tensors lie on another one (the switch costs more than a check)
+        index = device.index if device.index is not None \
+            else torch.cuda.current_device()
+        if index == torch.cuda.current_device():
+            rc = self._fn(*args, torch.cuda.current_stream().cuda_stream)
+        else:
+            with torch.cuda.device(index):
+                rc = self._fn(*args, torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            msg = self._err(rc).decode(errors="replace")
+            raise RuntimeError(f"kernel {self.name}: launch failed with "
+                               f"CUDA error {rc} ({msg})")
         self.launches += 1
-
-    def launch_uncounted(self, symbol: str, device: torch.device,
-                         *args) -> None:
-        """Call another launcher of the same library, with the same
-        argument types (an earlier design kept for timing); not counted
-        in ``launches``."""
-        self.load()
-        fn = self._others.get(symbol)
-        if fn is None:
-            fn = self._others[symbol] = getattr(self._lib, symbol)
-            fn.argtypes = self.argtypes
-            fn.restype = ctypes.c_int
-        self._call(fn, device, args)
 
 
 def build_all(kernels: list[Kernel]) -> dict[str, str]:

@@ -3,14 +3,16 @@
 Port of ``repro.kernels.mproduct.ops.m_product`` (TPU kernel
 ``banded_ttm``).  Y = M x_1 X with M[t, k] = 1/min(w, g) on the band
 max(1, g - w + 1) <= k_g <= g, g the 1-indexed global step; ``t_offset``
-(the global index of row 0, negative under ``m_product_with_prefix``) is a
-runtime argument.  The kernel is ``csrc/banded_ttm.cu``.  On a CPU tensor
-the wrapper runs the plain PyTorch version (``ref.py``); on a CUDA tensor
-it launches the kernel or raises.
+(the global index of row 0) is a runtime argument.  The kernels are
+``csrc/banded_ttm.cu``.  On a CPU tensor a wrapper runs the plain PyTorch
+version (``ref.py``); on a CUDA tensor it launches the kernel or raises.
 
-Training differentiates through :class:`MProductWithPrefixFn` (the
-M-product over ``[prefix, slice]``, keeping the slice's rows; ``m_product``
-is it over an empty prefix).  It takes its gradient from
+Both kernels work on the rows a caller keeps.  The forward,
+``banded_ttm``, reads [prefix (lead rows); x (T_s rows)] through two
+pointers, with no concatenated copy, and writes only the T_s kept rows,
+rows lead .. lead + T_s - 1 of M [prefix; x].  Training differentiates
+through :class:`MProductWithPrefixFn` (that forward, keeping x's rows;
+``m_product`` is it over an empty prefix).  It takes its gradient from
 ``banded_ttm_t``, the kernel ``banded_ttm_t_f32`` of the same source (its
 own :class:`Kernel` and launch count; plain version
 ``ref.banded_ttm_t_ref``), which reads only the kept rows' gradient dZ and
@@ -30,18 +32,16 @@ import torch
 from repro_torch.kernels.build import Kernel
 from repro_torch.kernels.mproduct.ref import banded_ttm_ref, banded_ttm_t_ref
 
-_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-             ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
-KERNEL = Kernel("banded_ttm", "banded_ttm.cu", "banded_ttm_f32", _ARGTYPES)
+KERNEL = Kernel("banded_ttm", "banded_ttm.cu", "banded_ttm_f32",
+                [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int,
+                                         ctypes.c_longlong, ctypes.c_int,
+                                         ctypes.c_int])
 #: the transposed band over the kept rows (the backward); one library of
-#: its own.  Arguments: the forward's, then ``lead`` and the first output
-#: row written.
+#: its own.  Arguments: dz, out, t_s, nf, window, t_offset, ``lead`` and
+#: the first output row written.
 KERNEL_T = Kernel("banded_ttm_t", "banded_ttm.cu", "banded_ttm_t_f32",
-                  _ARGTYPES + [ctypes.c_int, ctypes.c_int])
-#: the previous design of the transposed band (a thread per column that
-#: loads and divides each element w times), same arguments; no wrapper
-#: calls it (``chip_smoke.py`` times it through ``launch_uncounted``)
-LOOP_T_SYMBOL = "banded_ttm_t_f32_v1"
+                  [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_longlong] + [ctypes.c_int] * 4)
 
 
 def _on_card(kernel: Kernel, x: torch.Tensor, window: int) -> bool:
@@ -59,15 +59,26 @@ def _on_card(kernel: Kernel, x: torch.Tensor, window: int) -> bool:
     return True
 
 
-def banded_ttm(x: torch.Tensor, window: int, t_offset: int = 0
-               ) -> torch.Tensor:
-    """x (T, NF) f32 -> (T, NF): the band of M applied along axis 0."""
+def banded_ttm(prefix: torch.Tensor, x: torch.Tensor, window: int,
+               t_offset: int = 0) -> torch.Tensor:
+    """The band over kept rows: prefix (lead, NF) and x (T_s, NF) f32,
+    row 0 of [prefix; x] at global index ``t_offset``; returns rows
+    lead .. lead + T_s - 1 of M [prefix; x], (T_s, NF).  ``lead = 0``:
+    M x."""
+    if prefix.device != x.device:
+        raise ValueError(f"banded_ttm: prefix and x lie on {prefix.device} "
+                         f"and {x.device}")
     if not _on_card(KERNEL, x, window):
-        return banded_ttm_ref(x, window, t_offset)
-    t, nf = x.shape
+        return banded_ttm_ref(prefix, x, window, t_offset)
+    (t_s, nf), lead = x.shape, prefix.shape[0]
+    if prefix.dtype != x.dtype or prefix.dim() != 2 or \
+            prefix.shape[1] != nf or not prefix.is_contiguous():
+        raise ValueError(f"banded_ttm: prefix must be a contiguous "
+                         f"(lead, {nf}) tensor like x, got {prefix.dtype} "
+                         f"{tuple(prefix.shape)}")
     out = torch.empty_like(x)
-    KERNEL.launch(x.device, x.data_ptr(), out.data_ptr(), t, nf,
-                  int(window), int(t_offset))
+    KERNEL.launch(x.device, prefix.data_ptr(), x.data_ptr(), out.data_ptr(),
+                  lead, t_s, nf, int(window), int(t_offset))
     return out
 
 
@@ -93,10 +104,12 @@ def banded_ttm_t(dz: torch.Tensor, window: int, t_offset: int = 0,
 
 class MProductWithPrefixFn(torch.autograd.Function):
     """The M-product over ``[prefix, x]`` ((lead, N, F), lead w - 1 or 0,
-    and (T_s, N, F)), keeping x's rows; ``t_offset`` is the global index of x[0].  Its
-    backward is one ``banded_ttm_t`` launch on the kept rows' gradient,
-    which writes the prefix's and x's gradients as two views of one
-    buffer (x's alone when the prefix needs none).  It saves no tensor."""
+    and (T_s, N, F)), keeping x's rows; ``t_offset`` is the global index
+    of x[0].  The forward is one ``banded_ttm`` launch on the two inputs
+    as they lie, writing only x's rows; its backward is one
+    ``banded_ttm_t`` launch on the kept rows' gradient, which writes the
+    prefix's and x's gradients as two views of one buffer (x's alone
+    when the prefix needs none).  It saves no tensor."""
 
     @staticmethod
     def forward(ctx, prefix: torch.Tensor, x: torch.Tensor, window: int,
@@ -105,9 +118,10 @@ class MProductWithPrefixFn(torch.autograd.Function):
         ctx.window, ctx.t_offset, ctx.lead = window, t_offset, lead
         ctx.prefix_shape, ctx.x_shape = prefix.shape, x.shape
         nf = math.prod(x.shape[1:])
-        full = torch.cat([prefix.reshape(lead, nf), x.reshape(t_s, nf)])
-        return banded_ttm(full, window, t_offset - lead)[lead:].view(
-            x.shape)
+        z = banded_ttm(prefix.reshape(lead, nf).contiguous(),
+                       x.reshape(t_s, nf).contiguous(), window,
+                       t_offset - lead)
+        return z.view(x.shape)
 
     @staticmethod
     def backward(ctx, dz: torch.Tensor):

@@ -35,10 +35,6 @@ from repro_torch.kernels.segment_spmm.ref import segment_spmm_csr_ref
 KERNEL = Kernel("segment_spmm", "segment_spmm.cu", "segment_spmm_csr_f32",
                 [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int])
 
-#: the previous design (a thread per row) in the same library; no wrapper
-#: calls it, ``chip_smoke.py`` times it beside the kernel
-ROWTHREAD_SYMBOL = "segment_spmm_csr_f32_rowthread"
-
 #: CSRs built by :func:`build_csr` since the last reset (a plain count)
 csr_builds = 0
 

@@ -128,6 +128,69 @@ def test_m_product_sliced_with_prefix_equals_full(use_pallas):
                                atol=MP_TOL)
 
 
+@pytest.mark.parametrize("w", range(1, 10))
+def test_banded_ttm_kept_rows_matches_the_oracle(w):
+    """The forward over kept rows, ``banded_ttm(prefix, x)``, against rows
+    [lead:] of the JAX package's dense oracle on the concatenation
+    [prefix; x] (built here), for T_s 1-12, lead 0 and w - 1, t_offset
+    -7 to +9 (the global index of prefix row 0)."""
+    rng = np.random.default_rng(40 + w)
+    n, f = 3, 2
+    for t_s in range(1, 13):
+        for lead in sorted({0, w - 1}):
+            prefix = rng.normal(size=(lead, n * f)).astype(np.float32)
+            x = rng.normal(size=(t_s, n * f)).astype(np.float32)
+            full = jnp.asarray(np.concatenate([prefix, x]))
+            for t_offset in range(-7, 10):
+                want = np.asarray(jmp_ops.banded_ttm_ref(full, w, t_offset))
+                got = mp_ops.banded_ttm(torch.from_numpy(prefix),
+                                        torch.from_numpy(x), w, t_offset)
+                assert got.shape == (t_s, n * f)
+                np.testing.assert_allclose(got.numpy(), want[lead:],
+                                           rtol=MP_TOL, atol=MP_TOL)
+
+
+@pytest.mark.parametrize("w,t_s,lead,t_offset", [
+    (5, 8, 4, -4), (5, 8, 4, 4), (5, 32, 0, 0), (5, 1, 4, 11), (3, 6, 2, -1),
+    (8, 12, 7, 2), (9, 5, 8, -3), (1, 4, 0, 0)])
+def test_banded_ttm_ref_is_the_ascending_float32_loop(w, t_s, lead,
+                                                      t_offset):
+    """The plain forward equals, bit for bit, each kept row's band summed
+    step by step in ascending k from zero in float32 and divided once --
+    the kernel's operations in its order, which the card's check relies
+    on for a max |diff| of 0."""
+    rng = np.random.default_rng(w * 100 + t_s + lead)
+    prefix = rng.normal(size=(lead, 7)).astype(np.float32)
+    x = rng.normal(size=(t_s, 7)).astype(np.float32)
+    rows = np.concatenate([prefix, x])
+    want = np.zeros((t_s, 7), np.float32)
+    for t in range(lead, lead + t_s):
+        acc = np.zeros(7, np.float32)
+        for k in range(max(0, t - w + 1, -t_offset), t + 1):
+            acc = acc + rows[k]
+        g = t + t_offset + 1
+        want[t - lead] = acc / np.float32(max(1, min(w, g)))
+    got = mp_ops.banded_ttm(torch.from_numpy(prefix), torch.from_numpy(x),
+                            w, t_offset)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_banded_ttm_refuses_inputs_the_kernel_cannot_take():
+    """The forward's wrapper raises on a device it has no path for and on
+    a prefix that lies elsewhere than x; a CPU pair takes the plain
+    version."""
+    with pytest.raises(ValueError, match="unsupported device"):
+        mp_ops.banded_ttm(torch.zeros((4, 6), device="meta"),
+                          torch.zeros((2, 6), device="meta"), 5)
+    with pytest.raises(ValueError, match="prefix and x lie on"):
+        mp_ops.banded_ttm(torch.zeros((4, 6), device="meta"),
+                          torch.zeros((2, 6)), 5)
+    with pytest.raises(ValueError, match="window must be >= 1"):
+        mp_ops.banded_ttm(torch.zeros((0, 6)), torch.zeros((2, 6)), 0)
+    out = mp_ops.banded_ttm(torch.ones((4, 6)), torch.ones((2, 6)), 5, 10)
+    assert out.shape == (2, 6) and bool((out == 1.0).all())
+
+
 @pytest.mark.parametrize("t_s,w,t_offset,lead", [
     (8, 5, -4, 4), (8, 5, 4, 4), (32, 5, 0, 0), (12, 3, 7, 2),
     (3, 6, -2, 5), (1, 8, 9, 7), (5, 9, 2, 8)])

@@ -310,6 +310,39 @@ def test_m_product_backward_hands_the_band_only_the_kept_rows(
     assert (prefix.grad is not None) == prefix_grad
 
 
+@pytest.mark.parametrize("lead,t_offset", [(4, -4), (4, 4), (0, 0)])
+def test_m_product_forward_hands_the_band_its_inputs_uncopied(
+        monkeypatch, lead, t_offset):
+    """One band call per M-product forward, on the prefix's (lead, NF) and
+    the slice's (T_s, NF) rows as they lie (the same storage, no
+    ``torch.cat`` anywhere), returning only the slice's (T_s, NF) rows."""
+    calls, cats = [], []
+    plain, cat = mp_ops.banded_ttm_ref, torch.cat
+
+    def spy(prefix, x, window, off):
+        out = plain(prefix, x, window, off)
+        calls.append((tuple(prefix.shape), tuple(x.shape), tuple(out.shape),
+                      prefix.data_ptr(), x.data_ptr(), off))
+        return out
+
+    def no_cat(*args, **kwargs):
+        cats.append(len(args[0]))
+        return cat(*args, **kwargs)
+
+    monkeypatch.setattr(mp_ops, "banded_ttm_ref", spy)
+    monkeypatch.setattr(torch, "cat", no_cat)
+    w, t_s, n, f = 5, 8, 6, 3
+    rng = np.random.default_rng(7)
+    prefix = torch.from_numpy(rng.normal(size=(lead, n, f)).astype(
+        np.float32))
+    x = torch.from_numpy(rng.normal(size=(t_s, n, f)).astype(np.float32))
+    z = mp_ops.MProductWithPrefixFn.apply(prefix, x, w, t_offset + lead)
+    assert cats == []
+    assert calls == [((lead, n * f), (t_s, n * f), (t_s, n * f),
+                      prefix.data_ptr(), x.data_ptr(), t_offset)]
+    assert z.shape == x.shape
+
+
 @pytest.mark.parametrize("t_s", [1, 2, 3, 4, 5, 8])
 def test_new_prefix_matches_the_jax_carry(t_s):
     """TM-GCN's temporal stage: the output and the next block's (w-1)-frame
