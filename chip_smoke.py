@@ -65,6 +65,26 @@ which exits non-zero on failure:
 4c. one training step's loss and every gradient, card against a
    ``device="cpu"`` run from the same parameters, for all three models at
    N = 65,536, T = 16, nb 4;
+4d. the streamed schedule: ``paper_dyngnn`` at the full config's widths
+   over the training trace (the train phase's dataset, reused; made here
+   when that phase does not run), one epoch per snapshot through
+   ``Engine(mode="streamed", device="cuda")`` with the prefetch thread
+   staging on a side CUDA stream, then one without it (every count
+   zeroed just before each and read just after: per step 3
+   ``segment_spmm`` — 2 forward, 1 backward —, 2 ``banded_ttm``, 2
+   ``banded_ttm_t``, 0 ``flash_decode``, 2 CSR builds), their losses and
+   parameters held bit-identical, the per-snapshot breakdown (fenced
+   spans: encode, stage, apply, CSR pair, step; ``prefetch.wait``), the
+   payload bytes against naive, the peak device memory and whether the
+   host encoder bounds the schedule; one epoch of ``slice_len = 8`` (24
+   / 2 / 2 / 0 and 16 CSR builds a step); ``banded_ttm_t`` at the step's
+   (1, lead 4), slice rows only, held to its plain version, shown to
+   reject zeros and a dropped row, timed beside its bound, plain version
+   and cuBLAS; one snapshot's CSR-pair build timed against the F = 6
+   ``segment_spmm``; then the streamed loss stream, card (prefetch
+   thread) against CPU (inline), for all three models at N = 65,536,
+   T = 8: every step's loss within 1e-4 relative, the first step's
+   gradients within 1e-4 x each leaf's max;
 5. the LM path: Yi-6B at full width (32 layers, d 4096, 32 query heads
    over 4 KV heads, D 128, bf16, random weights drawn on the card from a
    seed) served through ``ServeEngine(device="cuda").generate()``: one
@@ -103,11 +123,12 @@ of 4,096- and 11,008-long products taken in another order, TF32 off).
 Kernel times are device time only (each call queued behind a device
 sleep); ``wrapper_ms`` is the wrapper's host time plus device time.
 
-Prints the card line, the per-phase numbers, one JSON line of the kernels
-and, last, ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
-without the repository around it, it exits non-zero and prints no result.
-``--only serve,train,lm`` runs the build and the named groups of phases
-(1–4, 4a–4c, 5–7) and prints no result line.
+Prints the card line, the per-phase numbers, one JSON line of the
+streamed phase's numbers, one JSON line of the kernels and, last,
+``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
+repository around it, it exits non-zero and prints no result.
+``--only serve,train,stream,lm`` runs the build and the named groups of
+phases (1–4, 4a–4c, 4d, 5–7) and prints no result line.
 """
 
 from __future__ import annotations
@@ -142,6 +163,8 @@ TRAIN_STEPS = 10
 TRAIN_NB = 4                 # the full config's checkpoint_blocks
 TOL_GRAD = 1e-4
 PARITY_N, PARITY_T = 65_536, 16
+STREAM_SLICE = 8             # the slice schedule's k: T / 8 AdamW steps
+STREAM_PARITY_N, STREAM_PARITY_T = 65_536, 8
 
 LM_BATCH = 8
 LM_PROMPT = 4096
@@ -704,25 +727,33 @@ def small_parity(torch):
 
 # ------------------------------------------------------------ training -----
 
+def train_trace(n_nodes: int, window: int):
+    """The training trace's spec: T = 32 steps at N = ``n_nodes``,
+    M-transform smoothed (~2.1 M edge slots with self-loops)."""
+    from repro_torch.run import SyntheticTrace
+
+    return SyntheticTrace(num_nodes=n_nodes, num_steps=TRAIN_T,
+                          density=TRAIN_DENSITY, churn=0.1,
+                          smoothing_mode="mproduct", window=window, seed=0)
+
+
 def train_path(torch, kernels, obs, n_nodes: int):
     """The training path: ``paper_dyngnn`` (TM-GCN) at the full config's
     widths through ``repro_torch.run.Engine(device="cuda")`` — 10 AdamW
     steps of the blocked-checkpoint trainer (nb 4) over a T = 32 synthetic
-    trace at N = 755,200, then link-prediction evaluation."""
+    trace at N = 755,200, then link-prediction evaluation -> (the padded
+    batch, the path's numbers, the trace's dataset, which the streamed
+    phase trains on again)."""
     import numpy as np
 
     from repro_torch.configs import registry
     from repro_torch.core import checkpoint as ckpt
     from repro_torch.kernels.build import reset_counts
     from repro_torch.kernels.segment_spmm import ops as spmm_ops
-    from repro_torch.run import (Engine, ExecutionPlan, RunConfig,
-                                 SyntheticTrace)
+    from repro_torch.run import Engine, ExecutionPlan, RunConfig
 
     cfg = registry.get_arch("paper_dyngnn").make_config()
-    data = SyntheticTrace(num_nodes=n_nodes, num_steps=TRAIN_T,
-                          density=TRAIN_DENSITY, churn=0.1,
-                          smoothing_mode="mproduct", window=cfg.window,
-                          seed=0)
+    data = train_trace(n_nodes, cfg.window)
     t0 = time.perf_counter()
     eng = Engine(RunConfig(model=cfg, data=data,
                            plan=ExecutionPlan(num_steps=TRAIN_STEPS),
@@ -837,7 +868,7 @@ def train_path(torch, kernels, obs, n_nodes: int):
              "csr_bytes": csr_bytes, "activation_estimate": est,
              "max_edges": pipe.max_edges, "link_pred_acc": acc,
              "launches": launches, "profile": prof}
-    return batch, stats
+    return batch, stats, rr.ds
 
 
 def check_backward(torch, batch, n: int, window: int, timer):
@@ -1179,6 +1210,326 @@ def train_parity(torch):
     return out
 
 
+# ----------------------------------------------------------- streaming -----
+
+def phase_ms(spans, name: str) -> list[float]:
+    return [sp.dur_s * 1e3 for sp in spans if sp.name == name]
+
+
+def stream_fit(torch, kernels, obs, pipe, overlap: bool, trace: str):
+    """One epoch of ``Engine(mode="streamed", device="cuda")`` over the
+    pipeline's trace, with ``trace`` "fenced" spans, "host"-clock spans or
+    "none", every count zeroed just before the fit and read just after ->
+    {result, launches (with the CSR builds), wall_s, spans, peak and
+    base bytes (allocated before the fit)}."""
+    from repro_torch.configs import registry
+    from repro_torch.kernels.build import reset_counts
+    from repro_torch.kernels.segment_spmm import ops as spmm_ops
+    from repro_torch.run import Engine, ExecutionPlan, InMemoryDTDG, \
+        RunConfig
+
+    eng = Engine(RunConfig(
+        model=registry.get_arch("paper_dyngnn").make_config(),
+        data=InMemoryDTDG(pipe.ds, pipeline=pipe),
+        plan=ExecutionPlan(mode="streamed", num_epochs=1, overlap=overlap),
+        log_every=8, log_fn=log), device="cuda")
+    eng.resolve()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    tracer = obs.configure(enabled=trace != "none", fence=trace == "fenced")
+    reset_counts(kernels)
+    spmm_ops.csr_builds = 0
+    t0 = time.perf_counter()
+    res = eng.fit()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in kernels}
+    launches["csr_builds"] = spmm_ops.csr_builds
+    obs.configure(enabled=False)
+    return {"result": res, "launches": launches, "wall_s": wall,
+            "spans": tracer.spans(), "base": base,
+            "peak": torch.cuda.max_memory_allocated()}
+
+
+def check_stream_counts(path: str, launches: dict, steps: int, k: int,
+                        layers: int) -> None:
+    """Per step over a slice of k snapshots, TM-GCN with L layers: L k
+    aggregates forward and (L - 1) k backward (the frames need no
+    gradient), L bands and L transposed bands (slice rows only: the
+    detached prefix carry needs no gradient), 2 k CSR builds."""
+    check_launches(path, launches, {
+        "segment_spmm": steps * (2 * layers - 1) * k,
+        "banded_ttm": steps * layers, "banded_ttm_t": steps * layers,
+        "flash_decode": 0})
+    if launches["csr_builds"] != steps * 2 * k:
+        raise SystemExit(f"{path}: {launches['csr_builds']} CSR builds, "
+                         f"expected {steps * 2 * k}")
+
+
+def stream_path(torch, kernels, obs, ds):
+    """The streamed schedule: ``paper_dyngnn`` (TM-GCN) at the full
+    config's widths over the train phase's trace (N = 755,200, T = 32):
+    four per-snapshot epochs through ``Engine(mode="streamed",
+    device="cuda")`` in turns, with the prefetch thread (host-clock
+    spans), without it (fenced spans: the per-snapshot breakdown), then
+    without and with it untraced; then one epoch of
+    ``train_streamed(slice_len=8)``.  Launches and CSR builds are counted
+    in each; the four per-snapshot runs' losses and parameters are held
+    bit-identical -> (the phase's numbers, the pipeline)."""
+    import numpy as np
+
+    from repro_torch.configs import registry
+    from repro_torch.data.dyngnn import DTDGPipeline
+    from repro_torch.kernels.build import reset_counts
+    from repro_torch.kernels.segment_spmm import ops as spmm_ops
+    from repro_torch.stream import train_loop as st
+
+    cfg = dataclasses.replace(
+        registry.get_arch("paper_dyngnn").make_config(),
+        num_nodes=ds.num_nodes, num_steps=ds.num_steps)
+    t0 = time.perf_counter()
+    pipe = DTDGPipeline(ds, nb=cfg.checkpoint_blocks, device="cuda")
+    setup_s = time.perf_counter() - t0
+    t, layers = ds.num_steps, cfg.num_layers
+    rep = pipe.transfer_bytes()
+    log(f"[stream] trace N={ds.num_nodes} T={t} (the train phase's), "
+        f"block {pipe.bsize}, max_edges {pipe.max_edges}, pads "
+        f"{pipe.stream_stats.max_drops}/{pipe.stream_stats.max_adds}; "
+        f"pipeline (stats + one encode pass) {setup_s:.1f} s on the host; "
+        f"payload {rep['graph_diff']:,} B against naive {rep['naive']:,} B "
+        f"(ratio {rep['ratio']:.3f}, {rep['graph_diff'] / t / 1e6:.2f} MB "
+        f"a snapshot)")
+
+    # in turns: on (host-clock spans), off (fenced spans: the breakdown),
+    # then off and on again untraced
+    runs = [stream_fit(torch, kernels, obs, pipe, overlap, trace)
+            for overlap, trace in ((True, "host"), (False, "fenced"),
+                                   (False, "none"), (True, "none"))]
+    for r, overlap in zip(runs, (True, False, False, True), strict=True):
+        check_stream_counts("stream" if overlap else "stream (no overlap)",
+                            r["launches"], t, 1, layers)
+    on, off = runs[0], runs[1]
+    losses = on["result"].losses
+    if len(losses) != t or not np.isfinite(losses).all():
+        raise SystemExit(f"stream: bad losses {losses}")
+    for r in runs[1:]:
+        if r["result"].losses != losses or not all(
+                torch.equal(a, b) for a, b in zip(
+                    on["result"].state.params.parameters(),
+                    r["result"].state.params.parameters(), strict=True)):
+            raise SystemExit("stream: overlap on and off disagree: "
+                             f"{losses} vs {r['result'].losses}")
+    log("[stream] losses (overlap on == off, bit for bit, and the "
+        "parameters, in all four runs): "
+        + ", ".join(f"{v:.5f}" for v in losses))
+    on_spans, off_spans = on["spans"], off["spans"]
+    on_walls = [runs[0]["wall_s"], runs[3]["wall_s"]]
+    off_walls = [runs[1]["wall_s"], runs[2]["wall_s"]]
+    on_s, off_s = min(on_walls), min(off_walls)
+
+    phases = {name: phase_ms(off_spans, f"stream.{name}")
+              for name in ("encode", "stage", "apply", "csr_pair", "step")}
+    for name, v in phases.items():
+        if len(v) != t:
+            raise SystemExit(f"stream: {len(v)} stream.{name} spans, "
+                             f"expected {t}")
+    phases["step_less_csr"] = [a - b for a, b in zip(
+        phases["step"], phases["csr_pair"], strict=True)]
+    med = {k: statistics.median(v) for k, v in phases.items()}
+    wait = phase_ms(on_spans, "prefetch.wait")
+    enc_on = phase_ms(on_spans, "stream.encode")
+    stage_on = phase_ms(on_spans, "prefetch.stage")
+    on_ms, off_ms = on_s * 1e3 / t, off_s * 1e3 / t
+    device_ms = med["stage"] + med["apply"] + med["step"]
+    log("[stream] per snapshot without the prefetch thread (fenced spans, "
+        "median / max ms): " + ", ".join(
+            f"{k} {med[k]:.2f} / {max(phases[k]):.2f}"
+            for k in ("encode", "stage", "apply", "csr_pair",
+                      "step_less_csr", "step")))
+    log(f"[stream] with the prefetch thread (host-clock spans): "
+        f"prefetch.wait median {statistics.median(wait):.2f} ms, total "
+        f"{sum(wait) / 1e3:.2f} s of {on['wall_s']:.2f} s; worker encode "
+        f"median "
+        f"{statistics.median(enc_on):.2f} ms, stage (pin + enqueue) median "
+        f"{statistics.median(stage_on):.2f} ms")
+    bound = "encoder" if med["encode"] > device_ms else "device"
+    verdict = (
+        f"the host encoder bounds the schedule: {med['encode']:.1f} ms a "
+        f"snapshot against {device_ms:.1f} ms of stage + apply + step, so "
+        "the prefetch thread can hide at most "
+        f"{device_ms / (med['encode'] + device_ms):.1%} of a snapshot"
+        if bound == "encoder" else
+        f"the prefetch thread can hide the host encoder "
+        f"({med['encode']:.1f} ms a snapshot) behind stage + apply + step "
+        f"({device_ms:.1f} ms)")
+    walls = ", ".join(f"{r['wall_s']:.2f}" for r in runs)
+    log(f"[stream] epoch wall, in turns (on traced, off fenced, off, on):"
+        f" {walls} s; the faster of each: overlap on {on_ms:.1f} ms a "
+        f"snapshot, off {off_ms:.1f} ms; {verdict}")
+    log(f"[stream] peak device memory {on['peak'] / 1e9:.3f} GB with the "
+        f"prefetch thread, {off['peak'] / 1e9:.3f} GB without; above what "
+        f"was allocated before each fit, {(on['peak'] - on['base']) / 1e9:.3f}"
+        f" and {(off['peak'] - off['base']) / 1e9:.3f} GB (the eager train "
+        "step: 5.266 GB, PERF.md)")
+
+    reset_counts(kernels)
+    spmm_ops.csr_builds = 0
+    tracer = obs.configure(enabled=True)
+    t0 = time.perf_counter()
+    sl = st.train_streamed(
+        cfg, ds.snapshots, ds.values, ds.frames, ds.labels,
+        block_size=pipe.bsize, stats=pipe.stream_stats,
+        max_edges=pipe.max_edges, slice_len=STREAM_SLICE, device="cuda")
+    torch.cuda.synchronize()
+    sl_s = time.perf_counter() - t0
+    sl_launches = {k.name: k.launches for k in kernels}
+    sl_launches["csr_builds"] = spmm_ops.csr_builds
+    obs.configure(enabled=False)
+    rounds = t // STREAM_SLICE
+    check_stream_counts("stream (slice 8)", sl_launches, rounds,
+                        STREAM_SLICE, layers)
+    if len(sl.losses) != rounds or not np.isfinite(sl.losses).all():
+        raise SystemExit(f"stream slice: bad losses {sl.losses}")
+    sl_spans = tracer.spans()
+    sl_med = {name: statistics.median(phase_ms(sl_spans, f"stream.{name}"))
+              for name in ("encode", "apply", "csr_pair", "step")}
+    log(f"[stream] slice_len {STREAM_SLICE}: {rounds} steps in {sl_s:.2f} "
+        "s, losses " + ", ".join(f"{v:.5f}" for v in sl.losses)
+        + "; per step (fenced, median ms): " + ", ".join(
+            f"{k} {v:.2f}" for k, v in sl_med.items())
+        + " (encode: per snapshot)")
+    return {"T": t, "N": ds.num_nodes, "max_edges": pipe.max_edges,
+            "block": pipe.bsize, "pipeline_s": setup_s, "transfer": rep,
+            "losses": losses, "launches": on["launches"],
+            "overlap_on": {"wall_s": on_walls, "ms_per_snapshot": on_ms,
+                           "peak_bytes": on["peak"],
+                           "base_bytes": on["base"],
+                           "wait_ms_median": statistics.median(wait),
+                           "wait_s_total": sum(wait) / 1e3,
+                           "encode_ms_median": statistics.median(enc_on),
+                           "stage_ms_median": statistics.median(stage_on)},
+            "overlap_off": {"wall_s": off_walls, "ms_per_snapshot": off_ms,
+                            "peak_bytes": off["peak"],
+                            "base_bytes": off["base"], "phases_ms": med},
+            "bound_by": bound, "verdict": verdict,
+            "slice": {"slice_len": STREAM_SLICE, "wall_s": sl_s,
+                      "losses": sl.losses, "launches": sl_launches,
+                      "phases_ms": sl_med}}, pipe
+
+
+def stream_kernel_checks(torch, pipe, window: int, timer) -> dict:
+    """The kernels at the streamed step's shapes: ``banded_ttm_t`` on one
+    kept row's gradient, (1, lead 4), slice rows only (held to its plain
+    version, shown to reject zeros and a dropped row, timed beside its
+    bound, plain version and cuBLAS's dense Mᵀ·dZ), and one snapshot's
+    CSR-pair build — the step makes one a snapshot, eager training 2 T
+    per run — timed against the F = 6 ``segment_spmm`` on its CSR."""
+    import numpy as np
+
+    from repro_torch.kernels.segment_spmm import ops
+    from repro_torch.stream import train_loop as st
+
+    n = pipe.ds.num_nodes
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    # global step 16 of the trace: its prefix rows are steps 12-15
+    band_t = band_t_rows(torch, gen, n, window, timer,
+                         ((1, window - 1, 16 - (window - 1), False),))[0]
+    snap, vals = pipe.ds.snapshots[-1], pipe.ds.values[-1]
+    e = np.zeros((pipe.max_edges, 2), np.int32)
+    m = np.zeros((pipe.max_edges,), np.float32)
+    v = np.zeros((pipe.max_edges,), np.float32)
+    e[:len(snap)], m[:len(snap)], v[:len(snap)] = snap, 1.0, vals
+    e_full, w_full = st.slice_weights_with_loops(
+        n, *st.make_self_loops(n, "cuda"),
+        *(torch.from_numpy(a)[None].cuda() for a in (e, m, v)))
+    e_full, w_full = e_full[0], w_full[0]
+    csr = ops.build_csr(e_full, w_full, n)
+    x = torch.randn((n, 6), generator=gen, device="cuda")
+    times = timer.turns({
+        "pair": lambda: ops.build_csr_pair(e_full, w_full, n),
+        "spmm": lambda: ops.segment_spmm_csr(x, *csr)})
+    out = {"lanes": int(e_full.shape[0]), "nnz": int(csr[0][-1]),
+           "pair_ms": times["pair"], "spmm_f6_ms": times["spmm"],
+           "ratio": times["pair"] / times["spmm"]}
+    log(f"[kernel] CSR pair build (forward + transposed, {out['lanes']} "
+        f"lanes, {out['nnz']} edges): {out['pair_ms']:.4f} ms a snapshot, "
+        f"{out['ratio']:.1f}x the F = 6 segment_spmm on its CSR "
+        f"({out['spmm_f6_ms']:.4f} ms)")
+    return {"banded_ttm_t": band_t, "csr_pair": out}
+
+
+def stream_parity(torch):
+    """The streamed loss stream, card (kernels, prefetch thread) against
+    CPU (plain versions, inline), from the same parameters, for all three
+    models at N = 65,536, T = 8 at the full config's widths: each step's
+    loss within 1e-4 relative, and the first step's loss and gradients
+    within 1e-4 x each leaf's max |value|."""
+    import copy
+
+    import numpy as np
+
+    from repro_torch.configs import registry
+    from repro_torch.core import models as tm
+    from repro_torch.data.dyngnn import synthetic_dataset
+    from repro_torch.stream import encoder as enc
+    from repro_torch.stream import train_loop as st
+    from repro_torch.stream.prefetch import DeltaApplier, stage_item
+
+    out = {}
+    n, t = STREAM_PARITY_N, STREAM_PARITY_T
+    for model, smooth in (("tmgcn", "mproduct"), ("cdgcn", "none"),
+                          ("evolvegcn", "edgelife")):
+        cfg = dataclasses.replace(registry.get_arch(model).make_config(),
+                                  num_nodes=n, num_steps=t,
+                                  checkpoint_blocks=TRAIN_NB)
+        ds = synthetic_dataset(n, t, density=TRAIN_DENSITY,
+                               smoothing_mode=smooth, window=cfg.window,
+                               seed=1)
+        params = tm.init_params(torch.Generator().manual_seed(7), cfg)
+        max_edges = enc.padded_max_edges(ds.snapshots)
+        first = next(st.host_stream(ds.snapshots, ds.values, ds.frames,
+                                    ds.labels, n, max_edges, t // TRAIN_NB))
+        names = [k for k, _ in params.named_parameters()]
+        res = {}
+        for dev in ("cuda", "cpu"):
+            p = copy.deepcopy(params).to(dev)
+            item, frame, lab = stage_item(first, dev)
+            e, m, v = DeltaApplier(max_edges, dev).consume(item)
+            loss, grads, _ = st.slice_value_and_grad(
+                cfg, p, st.fresh_carries(cfg, p), frame[None], e[None],
+                m[None], v[None], lab[None], 0)
+            run = st.train_streamed(
+                cfg, ds.snapshots, ds.values, ds.frames, ds.labels,
+                params=copy.deepcopy(params), overlap=dev == "cuda",
+                device=dev)
+            res[dev] = (loss.item(), [g.cpu() for g in grads], run.losses)
+        (lg, gg, sg), (lc, gc, sc) = res["cuda"], res["cpu"]
+        worst = abs(lg - lc) / (TOL_GRAD * abs(lc))
+        for name, a, b in zip(names, gg, gc, strict=True):
+            ratio = float((a - b).abs().max()) / (
+                TOL_GRAD * max(float(b.abs().max()), 1e-30))
+            if not ratio <= 1.0:
+                raise SystemExit(f"stream parity {model}: gradient {name} "
+                                 f"card vs CPU at {ratio:.3f} x its limit")
+            worst = max(worst, ratio)
+        steps = [abs(a - b) / (TOL_GRAD * abs(b))
+                 for a, b in zip(sg, sc, strict=True)]
+        if not (worst <= 1.0 and len(sg) == t and max(steps) <= 1.0
+                and np.isfinite(sg).all()):
+            raise SystemExit(f"stream parity {model}: losses {sg} vs {sc}, "
+                             f"first step {lg} vs {lc}")
+        out[model] = {"losses_cuda": sg, "losses_cpu": sc,
+                      "loss_worst_over_limit": max(steps),
+                      "first_step_worst_over_limit": worst}
+        log(f"[parity-stream] {model} N={n} T={t}: {t} losses card vs CPU "
+            f"within {max(steps):.3f} of 1e-4 relative (last {sg[-1]:.6f} "
+            f"/ {sc[-1]:.6f}); first step's loss and {len(names)} "
+            f"gradients within {worst:.3f} of their limits")
+    return out
+
+
 # ------------------------------------------------------------- LM path -----
 
 def lm_path(torch, kernels, obs):
@@ -1487,7 +1838,7 @@ def lm_parity(torch):
 
 # ---------------------------------------------------------------- main -----
 
-GROUPS = ("serve", "train", "lm")
+GROUPS = ("serve", "train", "stream", "lm")
 
 
 def kernel_entry(name: str, source: str, replaces: str, launches: dict,
@@ -1568,9 +1919,10 @@ def main(argv: list[str] | None = None) -> int:
         del eng, events
         gc.collect()
         torch.cuda.empty_cache()
+    train_ds = None
     if "train" in groups:
-        batch, train_stats = phase("train path", train_path, torch,
-                                   kernels, obs, n_nodes)
+        batch, train_stats, train_ds = phase("train path", train_path,
+                                             torch, kernels, obs, n_nodes)
         launches["train"] = train_stats["launches"]
         spmm_bwd, ttm_train_rows, ttm_t_rows, ttm_sweep, ttm_t_sweep = \
             phase("train-shape kernel checks", check_backward, torch, batch,
@@ -1579,6 +1931,24 @@ def main(argv: list[str] | None = None) -> int:
         gc.collect()
         torch.cuda.empty_cache()
         train_par = phase("train parity", train_parity, torch)
+    if "stream" in groups:
+        if train_ds is None:
+            t0 = time.perf_counter()
+            train_ds = train_trace(n_nodes, 5).build()
+            log(f"[stream] trace made on the host in "
+                f"{time.perf_counter() - t0:.1f} s (no train phase)")
+        stream_stats, stream_pipe = phase("stream path", stream_path, torch,
+                                          kernels, obs, train_ds)
+        launches["stream"] = stream_stats["launches"]
+        stream_checks = phase("stream-shape kernel checks",
+                              stream_kernel_checks, torch, stream_pipe, 5,
+                              timer)
+        del train_ds, stream_pipe
+        gc.collect()
+        torch.cuda.empty_cache()
+        stream_stats["parity"] = phase("stream parity", stream_parity,
+                                       torch)
+        stream_stats.update(stream_checks)
     if "lm" in groups:
         lm_eng, lm_stats = phase("lm path", lm_path, torch, kernels, obs)
         launches["lm"] = {"flash_decode": lm_stats["launches"]}
@@ -1600,6 +1970,9 @@ def main(argv: list[str] | None = None) -> int:
         if "train" in groups:
             extra["backward"] = spmm_bwd
             extra["csr_builds_train"] = launches["train"]["csr_builds"]
+        if "stream" in groups:
+            extra["csr_builds_stream"] = launches["stream"]["csr_builds"]
+            extra["csr_pair_build"] = stream_stats["csr_pair"]
         report.append(kernel_entry(
             "segment_spmm", "src/repro_torch/csrc/segment_spmm.cu",
             "src/repro/kernels/segment_spmm/segment_spmm.py:55", launches,
@@ -1618,8 +1991,14 @@ def main(argv: list[str] | None = None) -> int:
             "TPU package has none)", launches,
             dict(ttm_t_main, max_abs_err=max(r["max_abs_err"]
                                              for r in ttm_t_rows)),
-            shapes=ttm_t_rows, sweep=ttm_t_sweep, train_path=train_stats,
+            shapes=ttm_t_rows + ([stream_stats["banded_ttm_t"]]
+                                 if "stream" in groups else []),
+            sweep=ttm_t_sweep, train_path=train_stats,
             train_parity=train_par))
+    if "stream" in groups:
+        # the streamed schedule's own numbers (the kernels' lines above
+        # count its launches in their "stream" path)
+        log(json.dumps({"stream_path": stream_stats}))
     if "lm" in groups:
         report.append(kernel_entry(
             "flash_decode", "src/repro_torch/csrc/flash_decode.cu",

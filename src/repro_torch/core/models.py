@@ -112,7 +112,8 @@ def init_params(gen: torch.Generator, cfg: DynGNNConfig) -> ParamTree:
 def init_layer_carry(cfg: DynGNNConfig, params: ParamTree, layer: int,
                      dtype=torch.float32, device=None) -> Any:
     """Zero temporal carry (pi_0) for one layer.  EvolveGCN's weight carry
-    starts as ``w0`` itself (an alias — see ``serve.state.fresh_carries``)."""
+    starts as ``w0`` itself (an alias — see
+    ``stream.train_loop.fresh_carries``)."""
     n = cfg.num_nodes
     _, _, d_out = cfg.layer_dims()[layer]
     if cfg.model == "cdgcn":

@@ -87,9 +87,10 @@ class Span:
 
     def __exit__(self, *exc) -> None:
         tr = self._tracer
-        if self._fence_obj is not None and tr.fencing:
-            _fence(self._fence_obj)
-            self._fence_obj = None
+        # the recorded span must not keep the fenced tensors alive
+        obj, self._fence_obj = self._fence_obj, None
+        if obj is not None and tr.fencing:
+            _fence(obj)
         end_ns = time.perf_counter_ns()
         self.start_s = (self._t0_ns - tr._epoch_ns) * 1e-9
         self.dur_s = (end_ns - self._t0_ns) * 1e-9
@@ -157,9 +158,9 @@ class Stopwatch:
 
     def __exit__(self, *exc) -> None:
         tr = self._tracer
-        if self._fence_obj is not None and tr.enabled and tr.fencing:
-            _fence(self._fence_obj)
-            self._fence_obj = None
+        obj, self._fence_obj = self._fence_obj, None
+        if obj is not None and tr.enabled and tr.fencing:
+            _fence(obj)
         end_ns = time.perf_counter_ns()
         self.start_s = (self._t0_ns - tr._epoch_ns) * 1e-9
         self.seconds = (end_ns - self._t0_ns) * 1e-9

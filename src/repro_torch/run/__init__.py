@@ -10,9 +10,10 @@
         plan=ExecutionPlan(mode="eager", num_steps=20), seed=0)
     result = Engine(run).fit()        # on the card; device="cpu" on a host
 
-Port of ``repro.run`` for the single-device eager schedule (the blocked
-trainer of paper §3.1); the other schedules raise ``NotImplementedError``
-naming their ROADMAP item.
+Port of ``repro.run`` for the single-device schedules: ``eager`` (the
+blocked trainer of paper §3.1) and ``streamed`` (per-snapshot training
+over the graph-difference delta stream, §3.2).  The mesh and sampled
+schedules raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from repro_torch.run.config import (CheckpointSpec, ResolvedRun, RunConfig,

@@ -22,6 +22,7 @@ from repro_torch.data.dyngnn import DTDGDataset, DTDGPipeline
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.run.data import DataSource
 from repro_torch.run.plan import ExecutionPlan
+from repro_torch.stream.encoder import StreamReport
 from repro_torch.train.trainer import TrainState
 
 
@@ -48,8 +49,8 @@ class RunConfig:
 
 @dataclass
 class ResolvedRun:
-    """Everything the eager worker needs, resolved once.  ``cache`` holds
-    the step function so repeated ``fit()`` calls reuse it."""
+    """Everything a worker needs, resolved once.  ``cache`` holds the
+    step functions so repeated ``fit()`` calls reuse them."""
 
     config: RunConfig
     cfg: DynGNNConfig               # model config w/ resolved N and T
@@ -67,12 +68,15 @@ class ResolvedRun:
 @dataclass
 class RunResult:
     """What ``Engine.fit()`` returns: the final state, the per-step loss
-    stream, the graph-diff byte accounting (``transfer_report``) and the
+    stream, the graph-diff byte accounting (``transfer_report``), the
+    streamed schedule's encoder health counters (``stream_report``: resyncs
+    when live churn outgrows the measured pads) and the
     ``repro_torch.obs`` counter delta plus span summary of the fit
-    (``metrics``).  The reference's fields for the other schedules (stream,
-    shard, rescale, sample and budget reports) arrive with them."""
+    (``metrics``).  The reference's fields for the other schedules (shard,
+    rescale, sample and budget reports) arrive with them."""
 
     state: TrainState
     losses: list[float]
+    stream_report: StreamReport | None = None
     transfer_report: dict | None = None
     metrics: dict | None = None     # obs counter delta + span summary

@@ -6,8 +6,11 @@
     result = Engine(run, device="cuda").fit()      # -> RunResult
 
 ``resolve()`` builds the dataset and the pipeline (whose batch lives on
-the Engine's device) once; ``fit()`` runs the eager worker; ``evaluate()``
-runs the paper's link-prediction protocol on the trained params.
+the Engine's device, built only when a worker reads it) once; ``fit()``
+runs the plan's worker — the blocked trainer for ``mode="eager"``, the
+per-snapshot delta-stream trainer for ``mode="streamed"`` — and
+``evaluate()`` runs the paper's link-prediction protocol on the trained
+params.
 ``device`` defaults to ``"cuda"`` and raises without a card unless the
 caller passes ``device="cpu"``; ``params`` may hand in initial parameters
 (a ``ParamTree``, e.g. from ``repro_torch.convert.params_from_jax``),
@@ -25,6 +28,11 @@ from repro_torch.data.dyngnn import DTDGPipeline
 from repro_torch.run import workers
 from repro_torch.run.config import ResolvedRun, RunConfig, RunResult
 from repro_torch.train.trainer import TrainState, evaluate_link_prediction
+
+
+#: plan.mode -> the worker that runs it (the other modes are refused by
+#: ``ExecutionPlan.validate``)
+_WORKERS = {"eager": workers.fit_eager, "streamed": workers.fit_streamed}
 
 
 class Engine:
@@ -72,7 +80,7 @@ class Engine:
         base = obs.metrics_snapshot()
         trc = obs.get_tracer()
         spans0 = trc.recorded
-        self._last = workers.fit_eager(rr, params)
+        self._last = _WORKERS[rr.plan.mode](rr, params)
         self._last.metrics = obs.metrics().delta(base)
         self._last.metrics["spans"] = trc.summary(trc.spans_since(spans0))
         return self._last

@@ -1,12 +1,13 @@
 """Execution plans: the *how* of a training run (port of ``repro.run.plan``).
 
-The fields are the reference's.  Only the single-device ``eager`` schedule
-(the blocked trainer) is ported; :meth:`ExecutionPlan.validate` applies the
+The fields are the reference's.  The single-device schedules are ported:
+``eager`` (the blocked trainer) and ``streamed`` (per-snapshot training
+over the delta stream, with ``num_epochs``, ``overlap`` and
+``prefetch_depth``).  :meth:`ExecutionPlan.validate` applies the
 reference's rules and then refuses what is not ported yet, naming the
 ROADMAP item that ports it:
 
 * ``eager`` on more than one shard (snapshot partitioning) — Queue 1, item 5;
-* ``streamed`` — Queue 1, item 6;
 * ``streamed_mesh`` (with its overlap, compression and rescale knobs) —
   Queue 1, item 7;
 * ``sampled`` and ``device_budget_bytes`` (``hoststore``) — Queue 1, item 8.
@@ -21,8 +22,7 @@ MODES = ("eager", "streamed", "streamed_mesh", "sampled")
 COMPRESSIONS = ("none", "int8_a2a", "int8_all")
 
 #: mode -> the ROADMAP item that ports it
-_NOT_PORTED = {"streamed": "Queue 1, item 6",
-               "streamed_mesh": "Queue 1, item 7",
+_NOT_PORTED = {"streamed_mesh": "Queue 1, item 7",
                "sampled": "Queue 1, item 8"}
 
 
@@ -115,7 +115,7 @@ class ExecutionPlan:
             raise NotImplementedError(
                 f"plan.mode={self.mode!r} is not ported to PyTorch yet "
                 f"(ROADMAP {_NOT_PORTED[self.mode]}); the port trains "
-                "mode='eager' on one device")
+                "mode='eager' or 'streamed' on one device")
         if self.wants_mesh:
             raise NotImplementedError(
                 f"eager training on {self.num_shards} shards (snapshot "

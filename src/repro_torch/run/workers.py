@@ -1,12 +1,19 @@
-"""The training worker behind ``Engine.fit()`` (port of the eager part of
-``repro.run.workers``).
+"""The training workers behind ``Engine.fit()`` (port of the
+single-device part of ``repro.run.workers``).
 
-``fit_eager`` is the blocked single-device trainer: the step from
-``train.trainer.make_single_device_train_step`` run ``plan.num_steps``
-times over the pipeline's batch, with each step in a fenced ``train.step``
-span when tracing is on.  The reference's async checkpointing, preemption
-guard and straggler timer (``ckpt/``, ``ft/``) are not ported yet (ROADMAP
-Queue 1, item 8); nor are the other schedules' workers.
+* ``fit_eager`` — the blocked single-device trainer: the step from
+  ``train.trainer.make_single_device_train_step`` run ``plan.num_steps``
+  times over the pipeline's batch, with each step in a fenced
+  ``train.step`` span when tracing is on;
+* ``fit_streamed`` — per-snapshot online training over the graph-diff
+  delta stream (``stream.train_loop.train_streamed``), ``plan.num_epochs``
+  passes.  It reads the pipeline's stream statistics, ``max_edges`` and
+  block size, never its padded batch: device memory follows the edge ring,
+  not T.
+
+The reference's async checkpointing, preemption guard and straggler timer
+(``ckpt/``, ``ft/``) are not ported yet (ROADMAP Queue 1, item 8); nor are
+the mesh and sampled schedules' workers (items 7 and 8).
 """
 
 from __future__ import annotations
@@ -17,7 +24,19 @@ from repro_torch import obs
 from repro_torch.core import models as dyn_models
 from repro_torch.optim import adamw
 from repro_torch.run.config import ResolvedRun, RunResult
+from repro_torch.stream import encoder as stream_enc
+from repro_torch.stream import train_loop as stream_train
 from repro_torch.train import trainer
+
+
+def _init(rr: ResolvedRun, params):
+    """``params`` (a ``ParamTree``), or fresh ones drawn from ``rr.seed``,
+    on the run's device, with a fresh AdamW state."""
+    if params is None:
+        params = dyn_models.init_params(
+            torch.Generator().manual_seed(rr.seed), rr.cfg)
+    params = params.to(rr.device)
+    return params, adamw.init_state(params)
 
 
 def fit_eager(rr: ResolvedRun, params=None) -> RunResult:
@@ -26,10 +45,7 @@ def fit_eager(rr: ResolvedRun, params=None) -> RunResult:
     num_steps = rr.plan.num_steps
     opt_cfg = rr.opt_cfg or adamw.AdamWConfig(
         lr=1e-2, warmup_steps=10, total_steps=num_steps, weight_decay=0.0)
-    if params is None:
-        params = dyn_models.init_params(
-            torch.Generator().manual_seed(rr.seed), rr.cfg).to(rr.device)
-    opt_state = adamw.init_state(params)
+    params, opt_state = _init(rr, params)
     step_fn = rr.cache.get("eager_step")
     if step_fn is None:
         step_fn = trainer.make_single_device_train_step(rr.cfg, opt_cfg)
@@ -50,3 +66,29 @@ def fit_eager(rr: ResolvedRun, params=None) -> RunResult:
                                step=len(losses))
     return RunResult(state=state, losses=losses,
                      transfer_report=rr.pipeline.transfer_bytes())
+
+
+def fit_streamed(rr: ResolvedRun, params=None) -> RunResult:
+    """``params`` as for :func:`fit_eager`."""
+    plan, ds, pipe = rr.plan, rr.ds, rr.pipeline
+    opt_cfg = rr.opt_cfg or adamw.AdamWConfig(
+        lr=1e-2, warmup_steps=10,
+        total_steps=plan.num_epochs * ds.num_steps, weight_decay=0.0)
+    params, opt_state = _init(rr, params)
+    step_fn = rr.cache.get("stream_step")
+    if step_fn is None:
+        step_fn = stream_train.make_stream_train_step(rr.cfg, opt_cfg)
+        rr.cache["stream_step"] = step_fn
+    report = stream_enc.StreamReport()
+    st = stream_train.train_streamed(
+        rr.cfg, ds.snapshots, ds.values, ds.frames, ds.labels,
+        block_size=pipe.bsize, num_epochs=plan.num_epochs,
+        overlap=plan.overlap, prefetch_depth=plan.prefetch_depth,
+        opt_cfg=opt_cfg, params=params, opt_state=opt_state,
+        stats=pipe.stream_stats, max_edges=pipe.max_edges, report=report,
+        step_fn=step_fn, log_every=rr.log_every, log_fn=rr.log_fn,
+        device=rr.device)
+    state = trainer.TrainState(params=st.params, opt_state=st.opt_state,
+                               step=len(st.losses))
+    return RunResult(state=state, losses=st.losses, stream_report=report,
+                     transfer_report=pipe.transfer_bytes())

@@ -8,7 +8,9 @@ Port of ``repro.serve.state``.
   slice, and the per-layer temporal carries roll forward.  Where JAX
   donated the carries to a jitted step, the port writes the rolled state
   into the same tensors in place, so resident state stays O(state) for a
-  stream of any length.  The math is ``stream.train_loop.advance_slice``;
+  stream of any length.  The math is ``stream.train_loop.advance_slice``,
+  and the session's initial state ``fresh_carries`` lives beside it (the
+  streamed trainer starts each epoch from it too);
 * the QUERY steps are pure reads against the resident embeddings ``z_t``:
   gather the requested rows, apply the classifier (node scoring) or the
   link head (link prediction).
@@ -21,7 +23,10 @@ from typing import Any
 import torch
 
 from repro_torch.core import models as mdl
-from repro_torch.stream.train_loop import advance_slice
+from repro_torch.stream.train_loop import advance_slice, fresh_carries
+
+__all__ = ["fresh_carries", "make_advance_step", "make_link_query_step",
+           "make_node_query_step"]
 
 
 def _copy_into(dst: Any, src: Any) -> None:
@@ -74,22 +79,3 @@ def make_link_query_step():
         return mdl.link_logits(params, z, pairs)
 
     return query
-
-
-def _cloned(tree: Any) -> Any:
-    if isinstance(tree, tuple):
-        return tuple(_cloned(t) for t in tree)
-    if isinstance(tree, list):
-        return [_cloned(t) for t in tree]
-    return tree.detach().clone()
-
-
-def fresh_carries(cfg: mdl.DynGNNConfig, params) -> list:
-    """Zero carries that own their memory.
-
-    ``init_carries`` aliases EvolveGCN's initial weight carry to the
-    parameter ``w0`` itself; the in-place advance would then overwrite the
-    parameter.  Serving therefore clones the initial state once at session
-    start, on the parameters' device."""
-    device = params["classifier"]["u"].device
-    return _cloned(mdl.init_carries(cfg, params, device=device))

@@ -589,7 +589,7 @@ def test_engine_evaluate_and_launcher_print_the_done_line(capsys):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--stream"], "item 6"), (["--mesh", "4"], "item 5"),
+    (["--stream", "--mesh", "4"], "item 7"), (["--mesh", "4"], "item 5"),
     (["--sampled"], "item 8"), (["--compression", "int8_a2a"], "item 7"),
     (["--ckpt-dir", "x"], "item 8")])
 def test_launcher_refuses_unported_flags(flag, item):
@@ -598,7 +598,7 @@ def test_launcher_refuses_unported_flags(flag, item):
 
 
 @pytest.mark.parametrize("plan,item", [
-    (ExecutionPlan(mode="streamed"), "item 6"),
+    (ExecutionPlan(mode="streamed", device_budget_bytes=1 << 20), "item 8"),
     (ExecutionPlan(mode="streamed_mesh"), "item 7"),
     (ExecutionPlan(mode="sampled", sampling=object()), "item 8"),
     (ExecutionPlan(shards=4), "item 5"),
