@@ -85,6 +85,27 @@ which exits non-zero on failure:
    thread) against CPU (inline), for all three models at N = 65,536,
    T = 8: every step's loss within 1e-4 relative, the first step's
    gradients within 1e-4 x each leaf's max;
+4e. snapshot partitioning at P = 1 over a one-rank NCCL group (the
+   machine has one card; the same code as P ranks): ``paper_dyngnn`` on
+   the train phase's trace through ``Engine(plan=ExecutionPlan(mode=
+   "eager", mesh=group), device="cuda")``, 10 steps from the train phase's
+   seed and optimizer (every count zeroed just before and read just after:
+   the train phase's 160 / 12 / 8 / 0 launches a step and 64 CSR builds,
+   40 all-to-alls a step of one layer's (8, N, 6) f32 payload, none of it
+   leaving the rank), the loss stream held to the train phase's at rtol
+   1e-5, the warm step, one profiled step (NCCL's all-to-all ranges apart
+   from the copies they span) and peak memory beside eager's, and the
+   one-rank all-to-all timed on one layer's payload and on a P = 4 rank's
+   beside their copy bound and ``clone()``, with its host enqueue time;
+4f. ``banded_ttm`` and ``banded_ttm_t`` at a P = 4 rank's temporal shape,
+   (8, lead 4) x N/4 x 6 = 1,132,800 columns, t_offset -4 and +4, held to
+   their plain versions, shown to reject faults, timed beside bound, plain
+   version and cuBLAS's dense band;
+4g. P = 2 ranks sharing the card over gloo with CUDA tensors: two spawned
+   processes (each with a join deadline) train TM-GCN at N = 65,536, T =
+   8 partitioned, then on the CPU; their losses and first-step gradients
+   held to each other, to the CPU's and to the card's P = 1 run over NCCL
+   (1e-4 relative and 1e-4 x each leaf's max);
 5. the LM path: Yi-6B at full width (32 layers, d 4096, 32 query heads
    over 4 KV heads, D 128, bf16, random weights drawn on the card from a
    seed) served through ``ServeEngine(device="cuda").generate()``: one
@@ -123,12 +144,14 @@ of 4,096- and 11,008-long products taken in another order, TF32 off).
 Kernel times are device time only (each call queued behind a device
 sleep); ``wrapper_ms`` is the wrapper's host time plus device time.
 
-Prints the card line, the per-phase numbers, one JSON line of the
-streamed phase's numbers, one JSON line of the kernels and, last,
-``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
-repository around it, it exits non-zero and prints no result.
-``--only serve,train,stream,lm`` runs the build and the named groups of
-phases (1–4, 4a–4c, 4d, 5–7) and prints no result line.
+Prints the card line, the per-phase numbers, one JSON line each of the
+streamed and the partitioned phases' numbers, one JSON line of the
+kernels and, last, ``{"ok": true, "device": {...}}``.  Without a CUDA
+device, or without the repository around it, it exits non-zero and
+prints no result.  ``--only serve,train,stream,partition,lm`` runs the
+build and the named groups of phases (1–4, 4a–4c, 4d, 4e–4g, 5–7;
+partition is held to train's run, so it needs train) and prints no
+result line.
 """
 
 from __future__ import annotations
@@ -165,6 +188,10 @@ TOL_GRAD = 1e-4
 PARITY_N, PARITY_T = 65_536, 16
 STREAM_SLICE = 8             # the slice schedule's k: T / 8 AdamW steps
 STREAM_PARITY_N, STREAM_PARITY_T = 65_536, 8
+PART_P4 = 4                  # the rank count whose per-rank shapes are timed
+PART_SHARED_N, PART_SHARED_T, PART_SHARED_NB = 65_536, 8, 2
+PART_SHARED_STEPS = 4
+RANK_DEADLINE_S = 300        # a spawned rank that hangs fails its phase
 
 LM_BATCH = 8
 LM_PROMPT = 4096
@@ -272,11 +299,17 @@ def alternating_walls(torch, variants: dict, rounds: int, warm: int = 1
     return {k: statistics.median(v[warm:]) for k, v in walls.items()}
 
 
-def device_profile(torch, fn) -> tuple[float, float, dict]:
+def device_profile(torch, fn, ranges: dict | None = None,
+                   host_top: list | None = None
+                   ) -> tuple[float, float, dict]:
     """``fn()`` once under ``torch.profiler`` -> (wall us, device busy us,
     {device activity name: [us, ...]}).  Device activities only (kernels,
-    copies, sets): one stream, so their durations add up to the device's
-    busy time without overlap."""
+    copies, sets): one stream at a time, so their durations add up to the
+    device's busy time without overlap.  The ranges that annotate device
+    work (NCCL's ``nccl:all_to_all`` spans its copy) are not activities:
+    they go to ``ranges`` ({name: [us, ...]}) when it is given; the 15
+    host operations of most self time to ``host_top`` ([(name, us,
+    calls)]), when it is given."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -288,12 +321,20 @@ def device_profile(torch, fn) -> tuple[float, float, dict]:
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     by_name: dict[str, list[float]] = {}
+    ranges = {} if ranges is None else ranges
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
-            by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
+            annotation = (getattr(e, "is_user_annotation", False)
+                          or e.name.startswith("nccl:"))
+            (ranges if annotation else by_name).setdefault(
+                e.name, []).append(e.time_range.elapsed_us())
     busy = sum(sum(v) for v in by_name.values())
     if busy <= 0:
         raise SystemExit("profile: the trace holds no device time")
+    if host_top is not None:
+        host_top.extend(sorted(
+            ((a.key, a.self_cpu_time_total, a.count)
+             for a in prof.key_averages()), key=lambda r: -r[1])[:15])
     return wall_us, busy, by_name
 
 
@@ -737,6 +778,17 @@ def train_trace(n_nodes: int, window: int):
                           smoothing_mode="mproduct", window=window, seed=0)
 
 
+def train_launches(layers: int, t: int, nb: int) -> dict:
+    """Launches of ``TRAIN_STEPS`` blocked TM-GCN steps: per step the
+    aggregate forward (L T), again in each block's recompute (L T) and
+    backward for every layer but the first (T); the M-product forward
+    (L nb), in the recompute up to the block's last saved tensor, layer
+    2's relu (nb: early stop), backward (L nb)."""
+    return {"segment_spmm": TRAIN_STEPS * (2 * layers * t + t),
+            "banded_ttm": TRAIN_STEPS * (layers * nb + nb),
+            "banded_ttm_t": TRAIN_STEPS * layers * nb, "flash_decode": 0}
+
+
 def train_path(torch, kernels, obs, n_nodes: int):
     """The training path: ``paper_dyngnn`` (TM-GCN) at the full config's
     widths through ``repro_torch.run.Engine(device="cuda")`` — 10 AdamW
@@ -784,15 +836,7 @@ def train_path(torch, kernels, obs, n_nodes: int):
     obs.configure(enabled=False)
     peak = torch.cuda.max_memory_allocated()
     layers, t = cfg.num_layers, TRAIN_T
-    # per step: the aggregate forward (L T), again in each block's
-    # recompute (L T) and backward for every layer but the first (T); the
-    # M-product forward (L nb), in the recompute up to the block's last
-    # saved tensor, layer 2's relu (nb: early stop), backward (L nb)
-    check_launches("train", launches, {
-        "segment_spmm": TRAIN_STEPS * (2 * layers * t + t),
-        "banded_ttm": TRAIN_STEPS * (layers * nb + nb),
-        "banded_ttm_t": TRAIN_STEPS * layers * nb,
-        "flash_decode": 0})
+    check_launches("train", launches, train_launches(layers, t, nb))
     log(f"[train] CSR builds: {builds} (a forward and a transposed CSR per "
         "snapshot, once per run)")
     if builds != 2 * t:
@@ -839,7 +883,9 @@ def train_path(torch, kernels, obs, n_nodes: int):
     steady = alternating_walls(torch, {"step": one_step}, 7)["step"]
     log(f"[profile-train] warm step (host clock + sync, median of 6): "
         f"{steady:.1f} ms")
-    wall_us, busy, by_name = device_profile(torch, one_step)
+    host_top: list = []
+    wall_us, busy, by_name = device_profile(torch, one_step,
+                                            host_top=host_top)
     kinds = by_kind(by_name)
     # the forward M-product reads [prefix, slice] where they lie: its
     # device time is its kernel's alone
@@ -847,6 +893,7 @@ def train_path(torch, kernels, obs, n_nodes: int):
     prof = {"steady_ms": steady, "wall_ms": wall_us / 1e3,
             "busy_ms": busy / 1e3, "idle_share": 1 - busy / wall_us,
             "activities": sum(map(len, by_name.values())), "by_kind": kinds,
+            "host_top": host_top,
             "forward_mproduct_ms": fwd["ms"],
             "forward_mproduct_launches": fwd["count"]}
     log(f"[profile-train] one step under the profiler: wall "
@@ -1450,13 +1497,18 @@ def stream_kernel_checks(torch, pipe, window: int, timer) -> dict:
     times = timer.turns({
         "pair": lambda: ops.build_csr_pair(e_full, w_full, n),
         "spmm": lambda: ops.segment_spmm_csr(x, *csr)})
-    out = {"lanes": int(e_full.shape[0]), "nnz": int(csr[0][-1]),
+    lanes = int(e_full.shape[0])
+    # the edges and weights read once, two CSRs (row_ptr, col, w) written
+    b_ms, b_by = bound_ms(12 * lanes + 2 * (4 * (n + 1) + 8 * lanes), 0.0)
+    out = {"lanes": lanes, "nnz": int(csr[0][-1]),
            "pair_ms": times["pair"], "spmm_f6_ms": times["spmm"],
-           "ratio": times["pair"] / times["spmm"]}
+           "ratio": times["pair"] / times["spmm"], "bound_ms": b_ms,
+           "bound_by": b_by}
     log(f"[kernel] CSR pair build (forward + transposed, {out['lanes']} "
         f"lanes, {out['nnz']} edges): {out['pair_ms']:.4f} ms a snapshot, "
         f"{out['ratio']:.1f}x the F = 6 segment_spmm on its CSR "
-        f"({out['spmm_f6_ms']:.4f} ms)")
+        f"({out['spmm_f6_ms']:.4f} ms); bound {b_ms:.4f} ms ({b_by}, "
+        f"{b_ms / out['pair_ms']:.1%})")
     return {"banded_ttm_t": band_t, "csr_pair": out}
 
 
@@ -1528,6 +1580,366 @@ def stream_parity(torch):
             f"/ {sc[-1]:.6f}); first step's loss and {len(names)} "
             f"gradients within {worst:.3f} of their limits")
     return out
+
+
+# ------------------------------------------------------- partitioning ------
+
+def nccl_group(torch):
+    """A one-rank NCCL process group on cuda:0 (an in-memory store: it
+    opens no port)."""
+    import torch.distributed as dist
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1,
+                            device_id=torch.device("cuda", 0))
+    return dist.group.WORLD
+
+
+def partition_path(torch, kernels, obs, ds, pipe, group, eager: dict,
+                   timer):
+    """The snapshot-partitioned step at P = 1 over a one-rank NCCL group:
+    ``paper_dyngnn`` at the full config's widths on the train phase's trace
+    (N = 755,200, T = 32, nb 4) through ``Engine(plan=ExecutionPlan(
+    mode="eager", mesh=group), device="cuda")``, 10 steps from the same
+    seed and optimizer as the train phase; every count zeroed just before
+    the fit and read just after (the train phase's 160 / 12 / 8 / 0 a step
+    and 2 T CSR builds, the CPU test's counts at P = 1; 40 all-to-alls a
+    step, every payload one layer's (8, N, 6) f32, none of it leaving the
+    rank), the loss stream held to the train phase's at rtol 1e-5; then
+    the warm step (and the cudaMalloc calls it makes), one profiled step
+    (NCCL's all-to-all ranges apart from the copies they span), the
+    one-rank all-to-all timed on one layer's payload and on the payload a
+    P = 4 rank sends, each beside its copy bound and ``clone()``, and its
+    host enqueue time -> the path's numbers."""
+    import numpy as np
+
+    from repro_torch.configs import registry
+    from repro_torch.dist.sharding import ShardLayout, t_to_n
+    from repro_torch.kernels.build import reset_counts
+    from repro_torch.kernels.segment_spmm import ops as spmm_ops
+    from repro_torch.run import Engine, ExecutionPlan, InMemoryDTDG, RunConfig
+
+    cfg = registry.get_arch("paper_dyngnn").make_config()
+    t0 = time.perf_counter()
+    eng = Engine(RunConfig(model=cfg, data=InMemoryDTDG(ds, pipeline=pipe),
+                           plan=ExecutionPlan(mode="eager", mesh=group,
+                                              num_steps=TRAIN_STEPS),
+                           log_fn=log), device="cuda")
+    rr = eng.resolve()
+    setup_s = time.perf_counter() - t0
+    pipe, nb, n = rr.pipeline, rr.cfg.checkpoint_blocks, rr.cfg.num_nodes
+    layers, t = cfg.num_layers, ds.num_steps
+    log(f"[partition] P = 1 over NCCL ({torch.cuda.get_device_name(0)}): "
+        f"N={n}, T={t}, nb {nb}; plan resolved in {setup_s:.1f} s")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    tracer = obs.configure(enabled=True)     # fenced train.step spans
+    reset_counts(kernels)
+    spmm_ops.csr_builds = 0
+    t0 = time.perf_counter()
+    res = eng.fit()
+    fit_s = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in kernels}
+    builds = spmm_ops.csr_builds
+    obs.configure(enabled=False)
+    peak = torch.cuda.max_memory_allocated()
+    check_launches("partition", launches, train_launches(layers, t, nb))
+    if builds != 2 * t:
+        raise SystemExit(f"partition: {builds} CSR builds, expected {2 * t}")
+    launches["csr_builds"] = builds
+    counters = res.metrics["counters"]
+    calls = counters.get("partition.a2a_calls", 0)
+    handed = counters.get("partition.a2a_bytes", 0)
+    remote = counters.get("partition.a2a_remote_bytes", 0)
+    payload = (t // nb) * n * 6 * 4
+    # per block: the forward's 2 L, the recompute's 2 L - 2 (it stops at
+    # the last layer's relu), the backward's 2 L
+    want_calls = TRAIN_STEPS * nb * (6 * layers - 2)
+    if calls != want_calls or handed != calls * payload or remote != 0:
+        raise SystemExit(f"partition: {calls} all-to-alls of {handed} B "
+                         f"({remote} B remote), expected {want_calls} of "
+                         f"{payload} B each, none remote")
+    losses = res.losses
+    worst = max(abs(a - b) / abs(b)
+                for a, b in zip(losses, eager["losses"], strict=True))
+    if not (np.isfinite(losses).all() and worst <= 1e-5):
+        raise SystemExit(f"partition: losses {losses} against eager's "
+                         f"{eager['losses']} (worst relative {worst:.2e})")
+    spans = tracer.spans()
+    step_ms = phase_ms(spans, "train.step")
+    build_ms = phase_ms(spans, "train.csr_build")
+    log("[partition] losses: " + ", ".join(f"{v:.5f}" for v in losses)
+        + f"; against the train phase's eager run: worst relative "
+        f"{worst:.2e} (limit 1e-5)")
+    log(f"[partition] a step: {calls // TRAIN_STEPS} all-to-alls, "
+        f"{handed // TRAIN_STEPS:,} B handed to NCCL, {remote} B remote; "
+        f"fit {fit_s:.2f} s; train.step (fenced spans) median "
+        f"{statistics.median(step_ms):.1f} ms, after the first "
+        f"{statistics.median(step_ms[1:]):.1f} (eager "
+        f"{eager['step_ms_median_after_first']:.1f}); the rank's 2 T CSR "
+        f"builds before the first step {build_ms[0]:.1f} ms")
+    log(f"[partition] peak device memory {peak / 1e9:.3f} GB, "
+        f"{(peak - base) / 1e9:.3f} above the {base / 1e9:.3f} GB allocated "
+        f"before the fit (eager: {eager['peak_bytes'] / 1e9:.3f} GB)")
+
+    step_fn = rr.cache["eager_step"]
+    layout = ShardLayout.of(group, nb, t // nb, n)
+    args = pipe.rank_arrays(layout)
+    csrs = pipe.rank_batch(layout).csr_pairs()
+    state = {"params": res.state.params, "opt": res.state.opt_state}
+
+    def one_step():
+        state["params"], state["opt"], _ = step_fn(
+            state["params"], state["opt"], *args, csrs=csrs)
+
+    mallocs = torch.cuda.memory_stats()["num_device_alloc"]
+    steady = alternating_walls(torch, {"step": one_step}, 7)["step"]
+    mallocs = torch.cuda.memory_stats()["num_device_alloc"] - mallocs
+    ranges: dict = {}
+    host_top: list = []
+    wall_us, busy, by_name = device_profile(torch, one_step, ranges,
+                                            host_top)
+    kinds = by_kind(by_name)
+    nccl = [us for name, v in ranges.items() if name.startswith("nccl")
+            for us in v]
+    dtod = by_name.get("Memcpy DtoD (Device -> Device)", [])
+    prof = {"steady_ms": steady, "wall_ms": wall_us / 1e3,
+            "busy_ms": busy / 1e3, "idle_share": 1 - busy / wall_us,
+            "by_kind": kinds, "host_top": host_top,
+            "nccl_ranges": len(nccl),
+            "nccl_ms": sum(nccl) / 1e3, "dtod_copies": len(dtod),
+            "dtod_ms": sum(dtod) / 1e3, "warm_step_device_mallocs": mallocs}
+    ep = eager["profile"]
+    log(f"[profile-partition] warm step (host clock + sync, median of 6): "
+        f"{steady:.1f} ms (eager, this call: {ep['steady_ms']:.1f}); one "
+        f"profiled step: wall {wall_us / 1e3:.1f} ms, device busy "
+        f"{busy / 1e3:.1f} ms (eager {ep['busy_ms']:.1f}), idle share "
+        f"{1 - busy / wall_us:.3f}")
+    log(f"[profile-partition] NCCL's all-to-all ranges: {len(nccl)}, "
+        f"{sum(nccl) / 1e3:.3f} ms, spanning its copies (Memcpy DtoD, in "
+        f"other copies: {len(dtod)}, {sum(dtod) / 1e3:.3f} ms); cudaMalloc "
+        f"calls over the 7 warm steps: {mallocs}")
+    log("[profile-partition] host operations by self time, ms (calls), "
+        "the eager step's beside:")
+    eager_top = {name: (us, c) for name, us, c in ep["host_top"]}
+    for name, us, count in host_top:
+        e_us, e_c = eager_top.get(name, (0.0, 0))
+        log(f"[profile-partition]   {us / 1e3:8.3f} ({count:4d})   eager "
+            f"{e_us / 1e3:8.3f} ({e_c:4d})  {name[:70]}")
+    log("[profile-partition] device time by kind, ms (launches), eager's "
+        "beside:")
+    for kind, v in kinds.items():
+        e = ep["by_kind"].get(kind, {"ms": 0.0, "count": 0})
+        log(f"[profile-partition]   {kind:20s} {v['ms']:8.3f} "
+            f"({v['count']:4d})   eager {e['ms']:8.3f} ({e['count']:4d})")
+    del args, csrs, state
+
+    a2a = {}
+    for label, rows in (("layer payload", t // nb),
+                        (f"a P = {PART_P4} rank's payload",
+                         t // nb // PART_P4)):
+        x = torch.randn((rows, n, 6), device="cuda")
+        if not torch.equal(t_to_n(x, group), x):
+            raise SystemExit("partition: the one-rank all-to-all changed "
+                             "its payload")
+        b_ms, b_by = bound_ms(2 * x.nbytes, 0.0)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(200_000_000)       # the host enqueues ahead
+        t0 = time.perf_counter()
+        for _ in range(20):
+            t_to_n(x, group)
+        host_us = (time.perf_counter() - t0) / 20 * 1e6
+        torch.cuda.synchronize()
+        a2a[label] = {"shape": [rows, n, 6], "bytes": x.nbytes,
+                      "host_enqueue_us": host_us,
+                      "ms": timer(lambda x=x: t_to_n(x, group)),
+                      "wrapper_ms": timer(lambda x=x: t_to_n(x, group),
+                                          host=True),
+                      "clone_ms": timer(x.clone), "bound_ms": b_ms,
+                      "bound_by": b_by}
+        r = a2a[label]
+        log(f"[partition] one-rank all-to-all, {label} ({rows}, {n}, 6) "
+            f"f32, {x.nbytes:,} B: {r['ms']:.4f} ms (with its host call "
+            f"{r['wrapper_ms']:.4f}), clone() {r['clone_ms']:.4f}, copy "
+            f"bound {b_ms:.4f} ({b_ms / r['ms']:.1%}); the host enqueues "
+            f"one in {host_us:.1f} us")
+        del x
+    torch.cuda.empty_cache()
+    return {"N": n, "T": t, "nb": nb, "losses": losses,
+            "loss_worst_relative": worst, "launches": launches,
+            "a2a": {"calls": calls, "bytes": handed, "remote_bytes": remote,
+                    "payload_bytes": payload}, "a2a_timed": a2a,
+            "step_ms": step_ms, "csr_build_ms": build_ms,
+            "step_ms_median_after_first": statistics.median(step_ms[1:]),
+            "fit_s": fit_s, "peak_bytes": peak, "base_bytes": base,
+            "profile": prof}
+
+
+def partition_band_checks(torch, n: int, window: int, timer):
+    """The bands at the shapes a P = 4 rank's temporal stage gives them:
+    (8, lead 4) x N/4 x 6 = 1,132,800 columns, block 0 (t_offset -4) and
+    the later blocks (+4), forward and backward, each held to its plain
+    version, shown to reject faults and timed beside its bound, plain
+    version and cuBLAS's dense band."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    n_rank = n // PART_P4
+    bsize, w1 = TRAIN_T // TRAIN_NB, window - 1
+    fwd = band_rows(torch, gen, n_rank, window, timer, (
+        (bsize, w1, -w1), (bsize, w1, bsize - w1)))
+    bwd = band_t_rows(torch, gen, n_rank, window, timer, (
+        (bsize, w1, -w1, False), (bsize, w1, bsize - w1, True)))
+    return fwd, bwd
+
+
+def partition_small(torch, dev: str, group) -> dict:
+    """TM-GCN at the full config's widths, N = 65,536, T = 8, nb 2,
+    partitioned over ``group`` with this rank's tensors on ``dev``: the
+    first step's loss and (all-reduced) gradients, then 4 steps' losses."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import registry
+    from repro_torch.core import models as tm
+    from repro_torch.core import partition
+    from repro_torch.data.dyngnn import DTDGPipeline, synthetic_dataset
+    from repro_torch.dist.sharding import ShardLayout
+    from repro_torch.optim import adamw
+    from repro_torch.train import trainer
+
+    n, t, nb = PART_SHARED_N, PART_SHARED_T, PART_SHARED_NB
+    cfg = dataclasses.replace(registry.get_arch("tmgcn").make_config(),
+                              num_nodes=n, num_steps=t, checkpoint_blocks=nb)
+    ds = synthetic_dataset(n, t, density=TRAIN_DENSITY,
+                           smoothing_mode="mproduct", window=cfg.window,
+                           seed=1)
+    pipe = DTDGPipeline(ds, nb=nb, device=dev)
+    layout = ShardLayout.of(group, nb, t // nb, n)
+    args = pipe.rank_arrays(layout)
+    csrs = pipe.rank_batch(layout).csr_pairs()
+    params = tm.init_params(torch.Generator().manual_seed(7), cfg).to(dev)
+    names = [k for k, _ in params.named_parameters()]
+    share = partition.snapshot_partition_loss(cfg, group)(params, *args,
+                                                          csrs=csrs)
+    grads = torch.autograd.grad(share, list(params.parameters()))
+    for g in grads:
+        dist.all_reduce(g, group=group)
+    loss = share.detach().clone()
+    dist.all_reduce(loss, group=group)
+    opt_cfg = adamw.AdamWConfig(lr=1e-2, warmup_steps=2,
+                                total_steps=PART_SHARED_STEPS,
+                                weight_decay=0.0)
+    step = trainer.make_dyngnn_train_step(cfg, group, opt_cfg)
+    opt = adamw.init_state(params)
+    losses = []
+    for _ in range(PART_SHARED_STEPS):
+        params, opt, lv = step(params, opt, *args, csrs=csrs)
+        losses.append(float(lv))
+    return {"loss": float(loss), "losses": losses, "names": names,
+            "grads": [g.cpu().numpy() for g in grads]}
+
+
+def _shared_card_rank(rank: int, src: str, store: str, out_dir: str):
+    """One of two ranks sharing cuda:0 over gloo: the small partitioned run
+    on the card, then on the CPU, written to ``out_dir``."""
+    import datetime
+    import pickle
+
+    sys.path.insert(0, src)
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, 2),
+                            rank=rank, world_size=2,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        res = {dev: partition_small(torch, dev, dist.group.WORLD)
+               for dev in ("cuda", "cpu")}
+        with open(Path(out_dir) / f"rank{rank}.pkl", "wb") as f:
+            pickle.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def run_ranks(fn, nprocs: int, args: tuple, deadline_s: float) -> None:
+    """Spawn ``nprocs`` ranks of ``fn(rank, *args)`` and join them by the
+    deadline; a failure, or the deadline, kills the rest and fails."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.start_processes(fn, args=args, nprocs=nprocs, join=False,
+                             start_method="spawn")
+    end = time.monotonic() + deadline_s
+    try:
+        while not ctx.join(timeout=max(end - time.monotonic(), 0.0)):
+            if time.monotonic() >= end:
+                raise SystemExit(f"{nprocs} ranks still running after "
+                                 f"{deadline_s} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join()
+
+
+def small_close(name: str, got: dict, want: dict) -> float:
+    """Losses within 1e-4 relative, first-step loss and gradients within
+    1e-4 x each leaf's max |value| -> the worst share of its limit."""
+    worst = max(abs(a - b) / (TOL_GRAD * abs(b)) for a, b in zip(
+        got["losses"] + [got["loss"]], want["losses"] + [want["loss"]],
+        strict=True))
+    for k, a, b in zip(want["names"], got["grads"], want["grads"],
+                       strict=True):
+        ratio = float(abs(a - b).max()) / (
+            TOL_GRAD * max(float(abs(b).max()), 1e-30))
+        worst = max(worst, ratio)
+        if not ratio <= 1.0:
+            raise SystemExit(f"{name}: gradient {k} at {ratio:.3f} x its "
+                             "limit")
+    if not worst <= 1.0:
+        raise SystemExit(f"{name}: losses {got['losses']} vs "
+                         f"{want['losses']}")
+    return worst
+
+
+def partition_shared_card(torch, group) -> dict:
+    """P = 2 ranks sharing the one card over gloo, with CUDA tensors:
+    two spawned processes run the small partitioned TM-GCN on cuda:0, then
+    on the CPU; held to each other (rank 0 = rank 1), card against CPU and
+    against the card's P = 1 run over NCCL."""
+    import pickle
+    import tempfile
+
+    one = partition_small(torch, "cuda", group)
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        run_ranks(_shared_card_rank, 2,
+                  (str(SRC), str(Path(d) / "store"), d), RANK_DEADLINE_S)
+        ranks_s = time.perf_counter() - t0
+        res = []
+        for r in range(2):
+            with open(Path(d) / f"rank{r}.pkl", "rb") as f:
+                res.append(pickle.load(f))
+    for dev in ("cuda", "cpu"):
+        a, b = res[0][dev], res[1][dev]
+        if a["losses"] != b["losses"] or not all(
+                (x == y).all() for x, y in zip(a["grads"], b["grads"],
+                                               strict=True)):
+            raise SystemExit(f"partition shared card: the two ranks "
+                             f"disagree on {dev}")
+    two = res[0]["cuda"]
+    vs_cpu = small_close("P = 2 card vs CPU", two, res[0]["cpu"])
+    vs_one = small_close("P = 2 vs P = 1 on the card", two, one)
+    log(f"[partition-shared] P = 2 gloo ranks on cuda:0 ({ranks_s:.1f} s "
+        f"with their start): losses "
+        + ", ".join(f"{v:.6f}" for v in two["losses"])
+        + f"; card vs CPU gloo P = 2 within {vs_cpu:.3f} of the limits, vs "
+        f"the card's P = 1 within {vs_one:.3f} (loss 1e-4 relative, "
+        f"gradients {TOL_GRAD} x each leaf's max)")
+    return {"N": PART_SHARED_N, "T": PART_SHARED_T, "losses": two["losses"],
+            "losses_cpu": res[0]["cpu"]["losses"], "losses_p1": one["losses"],
+            "worst_vs_cpu": vs_cpu, "worst_vs_p1": vs_one,
+            "ranks_s": ranks_s}
 
 
 # ------------------------------------------------------------- LM path -----
@@ -1838,7 +2250,7 @@ def lm_parity(torch):
 
 # ---------------------------------------------------------------- main -----
 
-GROUPS = ("serve", "train", "stream", "lm")
+GROUPS = ("serve", "train", "stream", "partition", "lm")
 
 
 def kernel_entry(name: str, source: str, replaces: str, launches: dict,
@@ -1862,8 +2274,10 @@ def main(argv: list[str] | None = None) -> int:
     groups = GROUPS
     if argv[:1] == ["--only"] and len(argv) == 2:
         groups = tuple(argv[1].split(","))
-    if argv and (groups == GROUPS or not set(groups) <= set(GROUPS)):
-        print(f"usage: chip_smoke.py [--only {','.join(GROUPS)}]",
+    if argv and (groups == GROUPS or not set(groups) <= set(GROUPS)
+                 or ("partition" in groups and "train" not in groups)):
+        print(f"usage: chip_smoke.py [--only {','.join(GROUPS)}] "
+              "(partition is held to train's run: name both)",
               file=sys.stderr)
         return 2
     if not (SRC / "repro_torch" / "csrc").is_dir():
@@ -1919,7 +2333,7 @@ def main(argv: list[str] | None = None) -> int:
         del eng, events
         gc.collect()
         torch.cuda.empty_cache()
-    train_ds = None
+    train_ds = stream_pipe = None
     if "train" in groups:
         batch, train_stats, train_ds = phase("train path", train_path,
                                              torch, kernels, obs, n_nodes)
@@ -1943,12 +2357,34 @@ def main(argv: list[str] | None = None) -> int:
         stream_checks = phase("stream-shape kernel checks",
                               stream_kernel_checks, torch, stream_pipe, 5,
                               timer)
-        del train_ds, stream_pipe
         gc.collect()
         torch.cuda.empty_cache()
         stream_stats["parity"] = phase("stream parity", stream_parity,
                                        torch)
         stream_stats.update(stream_checks)
+    if "partition" in groups:
+        import torch.distributed as dist
+        group = nccl_group(torch)
+        try:
+            part_stats = phase("partition path", partition_path, torch,
+                               kernels, obs, train_ds, stream_pipe, group,
+                               train_stats, timer)
+            launches["partition"] = part_stats["launches"]
+            part_fwd, part_bwd = phase("partition-shape kernel checks",
+                                       partition_band_checks, torch,
+                                       n_nodes, 5, timer)
+            gc.collect()
+            torch.cuda.empty_cache()
+            part_stats["shared_card"] = phase(
+                "partition shared card", partition_shared_card, torch,
+                group)
+        finally:
+            dist.destroy_process_group()
+        part_stats["band_rows"] = part_fwd
+        part_stats["band_t_rows"] = part_bwd
+    del train_ds, stream_pipe
+    gc.collect()
+    torch.cuda.empty_cache()
     if "lm" in groups:
         lm_eng, lm_stats = phase("lm path", lm_path, torch, kernels, obs)
         launches["lm"] = {"flash_decode": lm_stats["launches"]}
@@ -1982,7 +2418,9 @@ def main(argv: list[str] | None = None) -> int:
             "src/repro/kernels/mproduct/mproduct.py:54", launches, ttm,
             detail=ttm, **({"train_shapes": ttm_train_rows,
                             "sweep": ttm_sweep}
-                           if "train" in groups else {})))
+                           if "train" in groups else {}),
+            **({"partition_shapes": part_stats["band_rows"]}
+               if "partition" in groups else {})))
     if "train" in groups:
         ttm_t_main = ttm_t_rows[1]     # block 1: dZ (8, N x 6), lead 4, +4
         report.append(kernel_entry(
@@ -1992,13 +2430,18 @@ def main(argv: list[str] | None = None) -> int:
             dict(ttm_t_main, max_abs_err=max(r["max_abs_err"]
                                              for r in ttm_t_rows)),
             shapes=ttm_t_rows + ([stream_stats["banded_ttm_t"]]
-                                 if "stream" in groups else []),
+                                 if "stream" in groups else [])
+            + (part_stats["band_t_rows"] if "partition" in groups else []),
             sweep=ttm_t_sweep, train_path=train_stats,
             train_parity=train_par))
     if "stream" in groups:
         # the streamed schedule's own numbers (the kernels' lines above
         # count its launches in their "stream" path)
         log(json.dumps({"stream_path": stream_stats}))
+    if "partition" in groups:
+        log(json.dumps({"partition_path": {
+            k: v for k, v in part_stats.items()
+            if k not in ("band_rows", "band_t_rows")}}))
     if "lm" in groups:
         report.append(kernel_entry(
             "flash_decode", "src/repro_torch/csrc/flash_decode.cu",

@@ -110,11 +110,14 @@ def init_params(gen: torch.Generator, cfg: DynGNNConfig) -> ParamTree:
 
 
 def init_layer_carry(cfg: DynGNNConfig, params: ParamTree, layer: int,
-                     dtype=torch.float32, device=None) -> Any:
+                     dtype=torch.float32, device=None,
+                     num_local_nodes: int | None = None) -> Any:
     """Zero temporal carry (pi_0) for one layer.  EvolveGCN's weight carry
     starts as ``w0`` itself (an alias — see
-    ``stream.train_loop.fresh_carries``)."""
-    n = cfg.num_nodes
+    ``stream.train_loop.fresh_carries``).  ``num_local_nodes``: the
+    vertex rows a rank holds under snapshot partitioning (N / P; the
+    temporal stage runs vertex-sharded), else all N."""
+    n = cfg.num_nodes if num_local_nodes is None else num_local_nodes
     _, _, d_out = cfg.layer_dims()[layer]
     if cfg.model == "cdgcn":
         return temporal.lstm_zero_state((n,), d_out, dtype, device)
@@ -129,8 +132,8 @@ def init_layer_carry(cfg: DynGNNConfig, params: ParamTree, layer: int,
 
 
 def init_carries(cfg: DynGNNConfig, params: ParamTree, dtype=torch.float32,
-                 device=None) -> list:
-    return [init_layer_carry(cfg, params, l, dtype, device)
+                 device=None, num_local_nodes: int | None = None) -> list:
+    return [init_layer_carry(cfg, params, l, dtype, device, num_local_nodes)
             for l in range(cfg.num_layers)]
 
 

@@ -8,8 +8,9 @@ Host-side stages (the CPU side of the paper's CPU -> GPU boundary):
   5. label synthesis for vertex classification / link prediction tasks.
 
 Stages 1–3 and 5 are host numpy, copies of the reference's; the batch
-(stage 4) lands on the pipeline's device.  ``transfer_bytes()`` reports the
-graph-difference savings.
+(stage 4) lands on the pipeline's device.  Under snapshot partitioning a
+rank moves only its own steps there (``rank_batch`` / ``rank_arrays``).
+``transfer_bytes()`` reports the graph-difference savings.
 """
 
 from __future__ import annotations
@@ -87,6 +88,7 @@ class DTDGPipeline:
             max_edges = ((max_edges + 127) // 128) * 128
         self.max_edges = max_edges
         self._batch = None
+        self._rank = None               # (layout, its DTDGBatch)
         # only the byte total is kept: host_stream re-encodes lazily
         self.stream_stats = stream_encoder.measure_stats(
             ds.snapshots, ds.num_nodes, self.bsize, max_edges)
@@ -118,11 +120,37 @@ class DTDGPipeline:
             self.max_edges, self.bsize, self.stream_stats)
 
     def sharded_streams(self, num_shards: int, wire: str = "none"):
-        """Per-shard time-slice streams for snapshot partitioning."""
+        """Per-shard time-slice streams of the snapshot-parallel stream."""
         raise NotImplementedError(
             f"DTDGPipeline.sharded_streams({num_shards}, wire={wire!r}): "
-            "snapshot partitioning is not ported yet (ROADMAP Queue 1, "
-            "item 5)")
+            "the distributed stream is not ported yet (ROADMAP Queue 1, "
+            "item 7)")
+
+    def rank_batch(self, layout) -> DTDGBatch:
+        """One rank's steps (``layout.steps``, a ``dist.sharding.
+        ShardLayout``, block by block) as a padded batch on the pipeline's
+        device, built on first call: the full batch's padding and Laplacian
+        weights for those steps, and nothing of the other ranks' steps.
+        Its ``csr_pairs()`` are the rank's own snapshots'."""
+        if self._rank is None or self._rank[0] != layout:
+            steps = layout.steps
+            vals = self.ds.values
+            self._rank = (layout, build_batch(
+                [self.ds.snapshots[t] for t in steps],
+                self.ds.frames[steps], self.ds.num_nodes,
+                max_edges=self.max_edges,
+                values=None if vals is None else [vals[t] for t in steps],
+                device=self.device))
+        return self._rank[1]
+
+    def rank_arrays(self, layout):
+        """(frames, edges, edge_weights, labels) of one rank, blocked
+        (nb, bsl, ...): views of :meth:`rank_batch`, and its labels."""
+        b = self.rank_batch(layout)
+        labels = torch.from_numpy(self.ds.labels[layout.steps]).to(
+            b.frames.device)
+        return tuple(a.reshape((layout.nb, layout.bsl) + tuple(a.shape[1:]))
+                     for a in (b.frames, b.edges, b.edge_weights, labels))
 
     def blocked_arrays(self):
         """(frames, edges, edge_weights, labels) blocked (nb, bsize, ...)."""

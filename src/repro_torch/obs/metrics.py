@@ -10,6 +10,10 @@ feeds:
 * ``serve.queries`` / ``serve.query_rows`` — requests / rows scored;
 * ``serve.tokens_generated`` — tokens of ``ServeEngine.generate`` waves;
 * ``stream.resyncs`` — encoder pad overflows -> full-frame resync;
+* ``partition.a2a_calls`` / ``partition.a2a_bytes`` /
+  ``partition.a2a_remote_bytes`` — the snapshot-partitioned schedule's
+  all-to-alls (forward, recompute and backward), the bytes a rank hands
+  to them and the (P - 1) / P of those that leave it;
 * ``sanitize.guard_trips`` — ThreadAffinityGuard rejections.
 
 Counters are monotonic within a process; use ``snapshot()`` +

@@ -13,7 +13,7 @@ refused (ROADMAP Queue 1, item 8).
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Callable
+from typing import Any, Callable
 
 import torch
 
@@ -49,8 +49,10 @@ class RunConfig:
 
 @dataclass
 class ResolvedRun:
-    """Everything a worker needs, resolved once.  ``cache`` holds the
-    step functions so repeated ``fit()`` calls reuse them."""
+    """Everything a worker needs, resolved once.  ``mesh`` is the run's
+    process group (None on one device); ``padded_from`` the nominal
+    ``num_nodes`` when the plan padded the vertex axis.  ``cache`` holds
+    the step functions so repeated ``fit()`` calls reuse them."""
 
     config: RunConfig
     cfg: DynGNNConfig               # model config w/ resolved N and T
@@ -62,6 +64,8 @@ class ResolvedRun:
     log_every: int
     log_fn: Callable[[str], None]
     device: torch.device
+    mesh: Any = None                # torch.distributed group, or None
+    padded_from: int | None = None  # original num_nodes if auto-padded
     cache: dict = field(default_factory=dict)
 
 
@@ -70,13 +74,17 @@ class RunResult:
     """What ``Engine.fit()`` returns: the final state, the per-step loss
     stream, the graph-diff byte accounting (``transfer_report``), the
     streamed schedule's encoder health counters (``stream_report``: resyncs
-    when live churn outgrows the measured pads) and the
-    ``repro_torch.obs`` counter delta plus span summary of the fit
-    (``metrics``).  The reference's fields for the other schedules (shard,
-    rescale, sample and budget reports) arrive with them."""
+    when live churn outgrows the measured pads), the ``a2a_chunks`` the
+    run executed with (a pure schedule knob: results that differ only
+    there carry identical losses) and the ``repro_torch.obs`` counter
+    delta plus span summary of the fit (``metrics``; the partitioned
+    schedule's ``partition.a2a_*`` counters among them).  The reference's
+    fields for the other schedules (shard, rescale, sample and budget
+    reports) arrive with them."""
 
     state: TrainState
     losses: list[float]
     stream_report: StreamReport | None = None
     transfer_report: dict | None = None
+    a2a_chunks: int = 1
     metrics: dict | None = None     # obs counter delta + span summary

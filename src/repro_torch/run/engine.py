@@ -5,12 +5,15 @@
                     plan=ExecutionPlan(mode="eager", num_steps=20))
     result = Engine(run, device="cuda").fit()      # -> RunResult
 
-``resolve()`` builds the dataset and the pipeline (whose batch lives on
-the Engine's device, built only when a worker reads it) once; ``fit()``
-runs the plan's worker — the blocked trainer for ``mode="eager"``, the
-per-snapshot delta-stream trainer for ``mode="streamed"`` — and
-``evaluate()`` runs the paper's link-prediction protocol on the trained
-params.
+``resolve()`` builds the dataset (its vertex axis padded to a multiple of
+the plan's ranks) and the pipeline (whose batch lives on the Engine's
+device, built only when a worker reads it) once, and takes the plan's
+process group; ``fit()`` runs the plan's worker — the blocked trainer for
+``mode="eager"`` (snapshot-partitioned on a group: every rank of the
+group runs the same Engine, and each moves only its own steps to its
+device), the per-snapshot delta-stream trainer for ``mode="streamed"`` —
+and ``evaluate()`` runs the paper's link-prediction protocol on the
+trained params.
 ``device`` defaults to ``"cuda"`` and raises without a card unless the
 caller passes ``device="cpu"``; ``params`` may hand in initial parameters
 (a ``ParamTree``, e.g. from ``repro_torch.convert.params_from_jax``),
@@ -47,6 +50,7 @@ class Engine:
                 "yet (ROADMAP Queue 1, item 8)")
         self.config = config
         self.device = resolve_device(device)
+        config.plan.check_devices(self.device)
         self._params = params
         self._resolved: ResolvedRun | None = None
         self._last: RunResult | None = None
@@ -56,7 +60,10 @@ class Engine:
         if self._resolved is not None:
             return self._resolved
         c = self.config
-        ds = c.data.build()
+        mesh = c.plan.build_mesh()
+        nominal = c.data.num_nodes
+        n = c.plan.padded_num_nodes(nominal, log_fn=c.log_fn)
+        ds = c.data.build(num_nodes=n if n != nominal else None)
         nb = c.model.checkpoint_blocks
         cfg = c.model
         if cfg.num_nodes != ds.num_nodes or cfg.num_steps != ds.num_steps:
@@ -69,7 +76,8 @@ class Engine:
         self._resolved = ResolvedRun(
             config=c, cfg=cfg, ds=ds, pipeline=pipe, plan=c.plan,
             opt_cfg=c.optimizer, seed=c.seed, log_every=c.log_every,
-            log_fn=c.log_fn, device=self.device)
+            log_fn=c.log_fn, device=self.device, mesh=mesh,
+            padded_from=nominal if n != nominal else None)
         return self._resolved
 
     def fit(self) -> RunResult:

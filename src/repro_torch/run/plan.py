@@ -1,22 +1,35 @@
 """Execution plans: the *how* of a training run (port of ``repro.run.plan``).
 
-The fields are the reference's.  The single-device schedules are ported:
-``eager`` (the blocked trainer) and ``streamed`` (per-snapshot training
-over the delta stream, with ``num_epochs``, ``overlap`` and
-``prefetch_depth``).  :meth:`ExecutionPlan.validate` applies the
-reference's rules and then refuses what is not ported yet, naming the
-ROADMAP item that ports it:
+The fields are the reference's.  Ported: ``eager`` (the blocked trainer;
+on P > 1 shards, or on an explicit process group, snapshot-partitioned,
+with ``mesh_axis``, ``a2a_chunks`` and ``auto_pad``) and ``streamed``
+(per-snapshot training over the delta stream, with ``num_epochs``,
+``overlap`` and ``prefetch_depth``).  :meth:`ExecutionPlan.validate`
+applies the reference's rules and then refuses what is not ported yet,
+naming the ROADMAP item that ports it:
 
-* ``eager`` on more than one shard (snapshot partitioning) — Queue 1, item 5;
 * ``streamed_mesh`` (with its overlap, compression and rescale knobs) —
   Queue 1, item 7;
 * ``sampled`` and ``device_budget_bytes`` (``hoststore``) — Queue 1, item 8.
+
+The reference's mesh is a ``torch.distributed`` process group here, one
+process per rank (gloo on the CPU, NCCL on the card with rank r on
+``cuda:r``): ``mesh`` takes a group, and ``num_shards`` is its size.  A
+group of any size, 1 included, runs the partitioned step, as a prebuilt
+mesh does in the reference.  ``shards = P > 1`` without a group uses the
+default group when it is initialized with P ranks (``torchrun
+--nproc-per-node P``).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any
+from typing import Any, Callable
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.dist.sharding import DATA_AXIS, group_size
 
 MODES = ("eager", "streamed", "streamed_mesh", "sampled")
 COMPRESSIONS = ("none", "int8_a2a", "int8_all")
@@ -31,8 +44,9 @@ class ExecutionPlan:
     """Declarative execution spec, independent of model and data.
 
     ``shards`` is the snapshot-parallel width; ``mesh`` may inject a
-    prebuilt mesh instead.  ``num_steps`` drives the eager schedule,
-    ``num_epochs`` the streamed ones.  The overlap, compression and
+    process group instead (its one axis is ``mesh_axis``, "data").
+    ``num_steps`` drives the eager schedule, ``num_epochs`` the streamed
+    ones.  The overlap, compression and
     rescale knobs belong to the streamed schedules (see
     ``repro.run.plan``); ``sampling`` holds the sampled schedule's spec.
     """
@@ -45,7 +59,7 @@ class ExecutionPlan:
     num_epochs: int = 1             # streamed passes over the trace
     overlap: bool = True
     prefetch_depth: int = 2
-    a2a_chunks: int = 1             # chunked all-to-alls (mesh schedules)
+    a2a_chunks: int = 1             # chunked all-to-alls (partitioned)
     pipeline_rounds: bool = False   # round-level pipelining (streamed_mesh)
     compression: str = "none"       # wire compression (streamed_mesh)
     auto_pad: bool = True
@@ -81,12 +95,15 @@ class ExecutionPlan:
             raise ValueError("mode='streamed' is single-device; use "
                              "mode='streamed_mesh' for snapshot-parallel "
                              "streaming")
-        if self.a2a_chunks > 1 and not self.wants_mesh:
-            raise ValueError("plan.a2a_chunks chunks the shard_map "
-                             "all-to-alls; this plan runs without a mesh "
-                             f"(mode={self.mode!r}, shards="
-                             f"{self.num_shards}) so there are none — "
-                             "use a mesh schedule")
+        if self.a2a_chunks > 1 and not self.partitioned:
+            raise ValueError("plan.a2a_chunks chunks the partitioned "
+                             "schedule's all-to-alls; this plan runs "
+                             f"without a process group (mode={self.mode!r},"
+                             f" shards={self.num_shards}) so there are "
+                             "none — use shards > 1 or pass mesh=group")
+        if self.partitioned and self.mesh_axis != DATA_AXIS:
+            raise ValueError(f"plan.mesh_axis={self.mesh_axis!r}: a process "
+                             f"group has the one axis {DATA_AXIS!r}")
         if self.pipeline_rounds and self.mode != "streamed_mesh":
             raise ValueError("plan.pipeline_rounds pipelines the "
                              "distributed streamed round loop; it requires "
@@ -116,10 +133,6 @@ class ExecutionPlan:
                 f"plan.mode={self.mode!r} is not ported to PyTorch yet "
                 f"(ROADMAP {_NOT_PORTED[self.mode]}); the port trains "
                 "mode='eager' or 'streamed' on one device")
-        if self.wants_mesh:
-            raise NotImplementedError(
-                f"eager training on {self.num_shards} shards (snapshot "
-                "partitioning) is not ported yet (ROADMAP Queue 1, item 5)")
         if self.device_budget_bytes is not None:
             raise NotImplementedError(
                 "plan.device_budget_bytes (hoststore/budget) is not ported "
@@ -128,11 +141,70 @@ class ExecutionPlan:
     @property
     def num_shards(self) -> int:
         if self.mesh is not None:
-            return int(self.mesh.shape[self.mesh_axis])
+            return group_size(self.mesh)
         return self.shards
 
     @property
     def wants_mesh(self) -> bool:
-        """True when this plan trains under a mesh."""
+        """True when this plan trains on a group of num_shards > 1 ranks."""
         return (self.mode in ("streamed_mesh", "sampled")
                 or (self.mode == "eager" and self.num_shards > 1))
+
+    @property
+    def partitioned(self) -> bool:
+        """True when the eager step runs snapshot-partitioned: on more
+        than one shard, or on an explicit group of any size."""
+        return self.wants_mesh or self.mesh is not None
+
+    def build_mesh(self):
+        """The plan's process group, or None for one device: ``mesh``
+        when given; else, for P > 1 shards, the default group, which must
+        be initialized with P ranks."""
+        if self.mesh is not None:
+            return self.mesh
+        if not self.wants_mesh:
+            return None
+        p = self.num_shards
+        if not dist.is_initialized() or dist.get_world_size() != p:
+            have = (f"{dist.get_world_size()} ranks" if dist.is_initialized()
+                    else "no process group")
+            raise ValueError(
+                f"plan.shards={p} needs a process group of {p} ranks and "
+                f"there is {have}: launch one process per rank (torchrun "
+                f"--nproc-per-node {p} -m repro_torch.launch.train "
+                f"--data-parallel {p} ...) or pass mesh=group")
+        return dist.group.WORLD
+
+    def check_devices(self, device: torch.device) -> None:
+        """NCCL runs one rank per card: refuse a partitioned plan on CUDA
+        with fewer visible cards than ranks (never a fallback)."""
+        if device.type != "cuda" or not self.wants_mesh:
+            return
+        have = torch.cuda.device_count()
+        if have < self.num_shards:
+            raise RuntimeError(
+                f"{self.num_shards} snapshot-parallel ranks on cuda need "
+                f"{self.num_shards} visible CUDA devices (one per rank); "
+                f"{have} visible")
+
+    def padded_num_nodes(self, num_nodes: int,
+                         log_fn: Callable[[str], None] | None = None) -> int:
+        """``num_nodes`` rounded up to the next multiple of the ranks.
+
+        The vertex-sharded temporal stage needs N % P == 0; rather than
+        refusing to run, the plan pads the vertex axis with isolated nodes
+        and logs the padding (``auto_pad=False`` refuses instead).  The
+        reference's elastic plans pad to the lcm of their widths; they
+        wait for ROADMAP Queue 1, item 8.
+        """
+        p = self.num_shards
+        if not self.wants_mesh or num_nodes % p == 0:
+            return num_nodes
+        if not self.auto_pad:
+            raise ValueError(f"num_nodes {num_nodes} must divide over "
+                             f"{p} shards (set plan.auto_pad=True to pad)")
+        padded = ((num_nodes + p - 1) // p) * p
+        if log_fn is not None:
+            log_fn(f"plan: auto-padding num_nodes {num_nodes} -> {padded} "
+                   f"(next multiple of {p} shards)")
+        return padded

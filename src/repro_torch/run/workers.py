@@ -1,10 +1,13 @@
 """The training workers behind ``Engine.fit()`` (port of the
 single-device part of ``repro.run.workers``).
 
-* ``fit_eager`` — the blocked single-device trainer: the step from
+* ``fit_eager`` — the blocked trainer: the step from
   ``train.trainer.make_single_device_train_step`` run ``plan.num_steps``
-  times over the pipeline's batch, with each step in a fenced
-  ``train.step`` span when tracing is on;
+  times over the pipeline's batch or, on a process group, the
+  snapshot-partitioned step (``make_dyngnn_train_step``) over the rank's
+  own blocked steps (``DTDGPipeline.rank_arrays``; their CSR pairs built
+  once per run), with each step in a fenced ``train.step`` span when
+  tracing is on;
 * ``fit_streamed`` — per-snapshot online training over the graph-diff
   delta stream (``stream.train_loop.train_streamed``), ``plan.num_epochs``
   passes.  It reads the pipeline's stream statistics, ``max_edges`` and
@@ -13,7 +16,7 @@ single-device part of ``repro.run.workers``).
 
 The reference's async checkpointing, preemption guard and straggler timer
 (``ckpt/``, ``ft/``) are not ported yet (ROADMAP Queue 1, item 8); nor are
-the mesh and sampled schedules' workers (items 7 and 8).
+the streamed-mesh and sampled schedules' workers (items 7 and 8).
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import torch
 
 from repro_torch import obs
 from repro_torch.core import models as dyn_models
+from repro_torch.dist.sharding import ShardLayout
 from repro_torch.optim import adamw
 from repro_torch.run.config import ResolvedRun, RunResult
 from repro_torch.stream import encoder as stream_enc
@@ -47,17 +51,30 @@ def fit_eager(rr: ResolvedRun, params=None) -> RunResult:
         lr=1e-2, warmup_steps=10, total_steps=num_steps, weight_decay=0.0)
     params, opt_state = _init(rr, params)
     step_fn = rr.cache.get("eager_step")
-    if step_fn is None:
-        step_fn = trainer.make_single_device_train_step(rr.cfg, opt_cfg)
-        rr.cache["eager_step"] = step_fn
-    batch = rr.pipeline.batch
-    labels = torch.from_numpy(rr.ds.labels).to(batch.frames.device)
+    pipe = rr.pipeline
+    if rr.mesh is not None:
+        if step_fn is None:
+            step_fn = trainer.make_dyngnn_train_step(
+                rr.cfg, rr.mesh, opt_cfg, axis=rr.plan.mesh_axis,
+                a2a_chunks=rr.plan.a2a_chunks)
+            rr.cache["eager_step"] = step_fn
+        layout = ShardLayout.of(rr.mesh, pipe.nb, pipe.bsize,
+                                rr.cfg.num_nodes)
+        args = pipe.rank_arrays(layout)
+        kwargs = {"csrs": pipe.rank_batch(layout).csr_pairs()}
+    else:
+        if step_fn is None:
+            step_fn = trainer.make_single_device_train_step(rr.cfg, opt_cfg)
+            rr.cache["eager_step"] = step_fn
+        batch = pipe.batch
+        args = (batch, torch.from_numpy(rr.ds.labels).to(batch.frames.device))
+        kwargs = {}
 
     losses: list[float] = []
     for step in range(num_steps):
         with obs.span("train.step", step=step) as sp:
-            params, opt_state, loss = step_fn(params, opt_state, batch,
-                                              labels)
+            params, opt_state, loss = step_fn(params, opt_state, *args,
+                                              **kwargs)
             sp.fence(loss)
         losses.append(float(loss))
         if step % rr.log_every == 0:
@@ -65,7 +82,8 @@ def fit_eager(rr: ResolvedRun, params=None) -> RunResult:
     state = trainer.TrainState(params=params, opt_state=opt_state,
                                step=len(losses))
     return RunResult(state=state, losses=losses,
-                     transfer_report=rr.pipeline.transfer_bytes())
+                     transfer_report=pipe.transfer_bytes(),
+                     a2a_chunks=rr.plan.a2a_chunks)
 
 
 def fit_streamed(rr: ResolvedRun, params=None) -> RunResult:

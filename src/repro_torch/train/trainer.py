@@ -2,15 +2,16 @@
 ``repro.train.trainer``).
 
 * :func:`make_single_device_train_step` — the step the Engine's eager
-  worker runs: the blocked-checkpoint node loss (``core.checkpoint``), its
-  gradients by ``torch.autograd`` through both kernels' backward, and the
-  repo's own AdamW;
+  worker runs on one device: the blocked-checkpoint node loss
+  (``core.checkpoint``), its gradients by ``torch.autograd`` through both
+  kernels' backward, and the repo's own AdamW;
+* :func:`make_dyngnn_train_step` — the same step under snapshot
+  partitioning (paper §4.2) on a ``torch.distributed`` process group;
 * :func:`evaluate_link_prediction` (paper §6.4), which ``Engine.evaluate``
   wraps.
 
-The snapshot-partitioned step (``make_dyngnn_train_step``) waits for
-ROADMAP Queue 1, item 5; the reference's deprecated ``train_dyngnn*``
-shims have no counterpart (``repro_torch.run.Engine`` is the one way in).
+The reference's deprecated ``train_dyngnn*`` shims have no counterpart
+(``repro_torch.run.Engine`` is the one way in).
 """
 
 from __future__ import annotations
@@ -20,10 +21,13 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import checkpoint as ckpt_exec
 from repro_torch.core import models as dyn_models
+from repro_torch.core import partition
 from repro_torch.data.dyngnn import DTDGPipeline
+from repro_torch.dist.sharding import DATA_AXIS
 from repro_torch.optim import adamw
 
 
@@ -35,13 +39,47 @@ class TrainState:
 
 
 def make_dyngnn_train_step(cfg: dyn_models.DynGNNConfig, mesh,
-                           opt_cfg: adamw.AdamWConfig, axis="data",
+                           opt_cfg: adamw.AdamWConfig, axis=DATA_AXIS,
                            a2a_chunks: int = 1):
-    """The snapshot-partitioned train step: not ported yet."""
-    raise NotImplementedError(
-        f"make_dyngnn_train_step ({cfg.model} on mesh {mesh!r}, axis "
-        f"{axis!r}, a2a_chunks={a2a_chunks}, lr={opt_cfg.lr}): snapshot "
-        "partitioning is not ported yet (ROADMAP Queue 1, item 5)")
+    """The eager train step under snapshot partitioning on the process
+    group ``mesh`` -> ``step(params, opt_state, frames, edges, ew, labels,
+    csrs=None) -> (params, opt_state, loss)``, run by every rank on its
+    own blocked steps (nb, bsl, ...) with replicated ``params`` (updated
+    in place).
+
+    The reference differentiates ``psum(total) / psum(count)`` with
+    respect to replicated parameters, which sums every shard's share.
+    Here each rank differentiates its share of the loss
+    (``partition.snapshot_partition_loss``), one ``all_reduce(SUM)`` per
+    gradient leaf sums the shares' gradients, and AdamW (whose
+    global-norm clip sees the reduced gradients) updates the parameters
+    alike on every rank: an all-reduce hands every rank the same bits.
+    The loss reported is the shares' all-reduce, outside autograd.
+    ``a2a_chunks`` chunks each redistribution into that many
+    feature-sliced all-to-alls (math-identical).
+    """
+    if mesh is None:
+        raise ValueError("make_dyngnn_train_step needs a process group "
+                         "(torch.distributed); the single-device step is "
+                         "make_single_device_train_step")
+    if axis != DATA_AXIS:
+        raise ValueError(f"a process group has the one axis {DATA_AXIS!r}, "
+                         f"got axis={axis!r}")
+    loss_fn = partition.snapshot_partition_loss(cfg, mesh,
+                                                a2a_chunks=a2a_chunks)
+
+    def train_step(params, opt_state, frames, edges, ew, labels, csrs=None):
+        share = loss_fn(params, frames, edges, ew, labels, csrs)
+        grads = torch.autograd.grad(share, list(params.parameters()))
+        for g in grads:
+            dist.all_reduce(g, group=mesh)
+        loss = share.detach().clone()
+        dist.all_reduce(loss, group=mesh)
+        params, opt_state = adamw.apply_updates(opt_cfg, params, grads,
+                                                opt_state)
+        return params, opt_state, loss
+
+    return train_step
 
 
 def make_single_device_train_step(cfg: dyn_models.DynGNNConfig,

@@ -589,7 +589,7 @@ def test_engine_evaluate_and_launcher_print_the_done_line(capsys):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--stream", "--mesh", "4"], "item 7"), (["--mesh", "4"], "item 5"),
+    (["--stream", "--mesh", "4"], "item 7"), (["--mesh", "4"], "item 7"),
     (["--sampled"], "item 8"), (["--compression", "int8_a2a"], "item 7"),
     (["--ckpt-dir", "x"], "item 8")])
 def test_launcher_refuses_unported_flags(flag, item):
@@ -601,7 +601,7 @@ def test_launcher_refuses_unported_flags(flag, item):
     (ExecutionPlan(mode="streamed", device_budget_bytes=1 << 20), "item 8"),
     (ExecutionPlan(mode="streamed_mesh"), "item 7"),
     (ExecutionPlan(mode="sampled", sampling=object()), "item 8"),
-    (ExecutionPlan(shards=4), "item 5"),
+    (ExecutionPlan(mode="streamed_mesh", shards=4), "item 7"),
     (ExecutionPlan(device_budget_bytes=1 << 20), "item 8")])
 def test_unported_schedules_raise_naming_their_roadmap_item(plan, item):
     with pytest.raises(NotImplementedError, match=item):
@@ -617,7 +617,7 @@ def test_checkpointing_and_resume_raise_naming_their_roadmap_item():
                device="cpu")
     with pytest.raises(NotImplementedError, match="item 8"):
         Engine(rc, device="cpu").resume()
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(ValueError, match="process group"):
         trainer.make_dyngnn_train_step(_tcfg("tmgcn"), None,
                                        adamw.AdamWConfig())
     with pytest.raises(ValueError, match="a2a_chunks"):
@@ -695,7 +695,7 @@ def test_dataset_and_batch_match_jax(model):
                                rtol=1e-6)
     for a, b in zip(pipe.blocked_arrays(), jpipe.blocked_arrays()):
         assert tuple(a.shape) == b.shape
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(NotImplementedError, match="item 7"):
         pipe.sharded_streams(2)
 
 
