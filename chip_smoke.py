@@ -106,6 +106,28 @@ which exits non-zero on failure:
    8 partitioned, then on the CPU; their losses and first-step gradients
    held to each other, to the CPU's and to the card's P = 1 run over NCCL
    (1e-4 relative and 1e-4 x each leaf's max);
+4h. the distributed stream at P = 1 over the one-rank NCCL group:
+   ``paper_dyngnn`` on the train phase's trace (made here when that phase
+   does not run), block 8 (4 rounds an epoch), 2 epochs through
+   ``Engine(plan=ExecutionPlan(mode="streamed_mesh", mesh=group),
+   device="cuda")`` (every count zeroed just before the fit and read just
+   after: per round the slice step's 24 ``segment_spmm`` / 2
+   ``banded_ttm`` / 2 ``banded_ttm_t`` / 0 ``flash_decode`` and 16 CSR
+   builds, 8 all-to-alls of one layer's (8, N, 6) f32 payload, none of it
+   leaving the rank), its loss stream held to the single-device
+   ``train_streamed(slice_len=8)`` at rtol 1e-5; on the rank's cached
+   stream: the prefetch thread off (identical), ``pipeline_rounds`` and
+   ``a2a_chunks = 2`` (rtol 1e-5), ``int8_a2a`` and ``int8_all`` (within
+   1e-3 of ``none``, ``tests/test_compression_drift.py``'s bound; their
+   int8 all-to-all bytes), a fenced run (the round's transfer, CSR pair
+   and step), ``pipeline_rounds`` off and on in turns, peak memory; one
+   layer's int8 all-to-all, its quantize and dequantize passes apart,
+   beside the f32 one and their copy bounds;
+4i. P = 2 ranks sharing the card over gloo with CUDA tensors: two
+   spawned processes run the distributed stream (TM-GCN, N = 65,536, T =
+   8, block 4) on cuda:0, then on the CPU, for ``none`` and ``int8_a2a``;
+   their losses held to each other, to the CPU's (1e-4 relative) and to
+   the card's P = 1 (``none`` 1e-4 relative, ``int8_a2a`` 1e-3);
 5. the LM path: Yi-6B at full width (32 layers, d 4096, 32 query heads
    over 4 KV heads, D 128, bf16, random weights drawn on the card from a
    seed) served through ``ServeEngine(device="cuda").generate()``: one
@@ -145,13 +167,13 @@ Kernel times are device time only (each call queued behind a device
 sleep); ``wrapper_ms`` is the wrapper's host time plus device time.
 
 Prints the card line, the per-phase numbers, one JSON line each of the
-streamed and the partitioned phases' numbers, one JSON line of the
-kernels and, last, ``{"ok": true, "device": {...}}``.  Without a CUDA
-device, or without the repository around it, it exits non-zero and
-prints no result.  ``--only serve,train,stream,partition,lm`` runs the
-build and the named groups of phases (1–4, 4a–4c, 4d, 4e–4g, 5–7;
-partition is held to train's run, so it needs train) and prints no
-result line.
+streamed, the partitioned and the distributed-stream phases' numbers, one
+JSON line of the kernels and, last, ``{"ok": true, "device": {...}}``.
+Without a CUDA device, or without the repository around it, it exits
+non-zero and prints no result.  ``--only
+serve,train,stream,partition,dstream,lm`` runs the build and the named
+groups of phases (1–4, 4a–4c, 4d, 4e–4g, 4h–4i, 5–7; partition is held
+to train's run, so it needs train) and prints no result line.
 """
 
 from __future__ import annotations
@@ -192,6 +214,10 @@ PART_P4 = 4                  # the rank count whose per-rank shapes are timed
 PART_SHARED_N, PART_SHARED_T, PART_SHARED_NB = 65_536, 8, 2
 PART_SHARED_STEPS = 4
 RANK_DEADLINE_S = 300        # a spawned rank that hangs fails its phase
+DSTREAM_EPOCHS = 2           # the distributed stream: 4 rounds an epoch
+DSTREAM_PAIRS = 3            # pipeline_rounds off / on, 1-epoch turns
+DSTREAM_SHARED_N, DSTREAM_SHARED_T, DSTREAM_SHARED_NB = 65_536, 8, 2
+DRIFT_ATOL = 1e-3            # tests/test_compression_drift.py:43
 
 LM_BATCH = 8
 LM_PROMPT = 4096
@@ -1942,6 +1968,392 @@ def partition_shared_card(torch, group) -> dict:
             "ranks_s": ranks_s}
 
 
+# ------------------------------------------------- distributed stream ------
+
+def dstream_run(torch, kernels, obs, cfg, ds, pipe, group, stream,
+                **kw) -> dict:
+    """One ``train_distributed_streamed`` run on the card over ``group``
+    from the seed-0 parameters, on the rank's cached ``stream``, every
+    count zeroed just before and read just after -> {losses, params,
+    launches, counters, wall_s, per_shard_bytes}."""
+    from repro_torch.kernels.build import reset_counts
+    from repro_torch.kernels.segment_spmm import ops as spmm_ops
+    from repro_torch.stream import distributed as sd
+
+    kw.setdefault("num_epochs", DSTREAM_EPOCHS)
+    before = dict(obs.metrics_snapshot()["counters"])
+    reset_counts(kernels)
+    spmm_ops.csr_builds = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = sd.train_distributed_streamed(
+        cfg, ds.snapshots, ds.values, ds.frames, ds.labels, mesh=group,
+        block_size=pipe.bsize, stats=pipe.stream_stats,
+        max_edges=pipe.max_edges, shard_stream=stream, device="cuda", **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in kernels}
+    launches["csr_builds"] = spmm_ops.csr_builds
+    now = dict(obs.metrics_snapshot()["counters"])
+    return {"losses": st.losses, "params": st.params, "launches": launches,
+            "counters": {k: now.get(k, 0) - before.get(k, 0) for k in now},
+            "wall_s": wall, "per_shard_bytes": st.per_shard_bytes}
+
+
+def same_params(a, b) -> bool:
+    return all(x.equal(y) for x, y in zip(a.parameters(), b.parameters(),
+                                          strict=True))
+
+
+def drift(a: list, b: list) -> float:
+    return max(abs(x - y) for x, y in zip(a, b, strict=True))
+
+
+def worst_rel(a: list, b: list) -> float:
+    return max(abs(x - y) / abs(y) for x, y in zip(a, b, strict=True))
+
+
+def dstream_path(torch, kernels, obs, ds, pipe, group, timer):
+    """The distributed stream at P = 1 over the one-rank NCCL group:
+    ``paper_dyngnn`` at the full config's widths on the train phase's trace
+    (N = 755,200, T = 32, block 8: 4 rounds an epoch), 2 epochs through
+    ``Engine(plan=ExecutionPlan(mode="streamed_mesh", mesh=group),
+    device="cuda")``, every count zeroed just before the fit and read just
+    after (per round the streamed slice step's 24 / 2 / 2 / 0 launches and
+    16 CSR builds, 8 all-to-alls of one layer's (8, N, 6) f32 payload, none
+    of it leaving the rank); its loss stream held to the single-device
+    ``train_streamed(slice_len=8)`` at rtol 1e-5; then on the rank's cached
+    stream: overlap off (identical), ``pipeline_rounds`` and ``a2a_chunks =
+    2`` (rtol 1e-5 against the serial run), ``int8_a2a`` and ``int8_all``
+    (within DRIFT_ATOL of ``none``; their all-to-all bytes), a fenced run
+    (the round's transfer / CSR pair / step medians), ``pipeline_rounds``
+    off and on in turns; then one layer's int8 all-to-all, its quantize
+    and dequantize passes apart, beside the f32 one and their copy bounds
+    -> the path's numbers."""
+    import numpy as np
+
+    from repro_torch.configs import registry
+    from repro_torch.data.dyngnn import DTDGPipeline
+    from repro_torch.dist import compression as comp
+    from repro_torch.dist import sharding
+    from repro_torch.kernels.build import reset_counts
+    from repro_torch.kernels.segment_spmm import ops as spmm_ops
+    from repro_torch.run import Engine, ExecutionPlan, InMemoryDTDG, RunConfig
+    from repro_torch.stream import train_loop as st
+
+    cfg = registry.get_arch("paper_dyngnn").make_config()
+    if pipe is None:
+        t0 = time.perf_counter()
+        pipe = DTDGPipeline(ds, nb=cfg.checkpoint_blocks, device="cuda")
+        log(f"[dstream] pipeline (stats + one encode pass) "
+            f"{time.perf_counter() - t0:.1f} s on the host")
+    n, t, layers = ds.num_nodes, ds.num_steps, cfg.num_layers
+    win = pipe.bsize
+    rounds = DSTREAM_EPOCHS * t // win
+    cfg = dataclasses.replace(cfg, num_nodes=n, num_steps=t)
+
+    t0 = time.perf_counter()
+    ref = st.train_streamed(
+        cfg, ds.snapshots, ds.values, ds.frames, ds.labels,
+        block_size=win, num_epochs=DSTREAM_EPOCHS, stats=pipe.stream_stats,
+        max_edges=pipe.max_edges, slice_len=win, device="cuda")
+    ref_s = time.perf_counter() - t0
+
+    eng = Engine(RunConfig(model=cfg, data=InMemoryDTDG(ds, pipeline=pipe),
+                           plan=ExecutionPlan(mode="streamed_mesh",
+                                              mesh=group,
+                                              num_epochs=DSTREAM_EPOCHS),
+                           log_every=4, log_fn=log), device="cuda")
+    rr = eng.resolve()
+    if rr.cfg.checkpoint_blocks != cfg.checkpoint_blocks:
+        raise SystemExit("dstream: the plan re-blocked the timeline")
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    tracer = obs.configure(enabled=True, fence=False)   # host-clock rounds
+    reset_counts(kernels)
+    spmm_ops.csr_builds = 0
+    t0 = time.perf_counter()
+    res = eng.fit()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in kernels}
+    launches["csr_builds"] = spmm_ops.csr_builds
+    obs.configure(enabled=False)
+    peak = torch.cuda.max_memory_allocated()
+    check_stream_counts("dstream", launches, rounds, win, layers)
+    round_s = sum(sp.dur_s for sp in tracer.spans() if sp.name == "round")
+    losses = res.losses
+    rel = worst_rel(losses, ref.losses)
+    if not (len(losses) == rounds and np.isfinite(losses).all()
+            and rel <= 1e-5):
+        raise SystemExit(f"dstream: losses {losses} against the slice "
+                         f"stream's {ref.losses} (worst relative {rel:.2e})")
+    counters = res.metrics["counters"]
+    payload = win * n * 6 * 4
+    calls = counters.get("partition.a2a_calls", 0)
+    handed = counters.get("partition.a2a_bytes", 0)
+    remote = counters.get("partition.a2a_remote_bytes", 0)
+    want_calls = rounds * 4 * layers          # forward 2 L, backward 2 L
+    if (calls != want_calls or handed != calls * payload or remote != 0
+            or counters.get("stream.rounds") != rounds):
+        raise SystemExit(f"dstream: {calls} all-to-alls of {handed} B "
+                         f"({remote} B remote), expected {want_calls} of "
+                         f"{payload} B each, none remote")
+    per_shard = res.per_shard_bytes
+    naive = res.transfer_report["naive"]
+    log(f"[dstream] P = 1 over NCCL, N={n} T={t} block {win}: "
+        f"{rounds} rounds in {fit_s:.2f} s of fit (the rank's encode "
+        f"included; rounds {round_s:.2f} s on the host clock); losses "
+        + ", ".join(f"{v:.5f}" for v in losses) + f"; against "
+        f"train_streamed(slice_len={win}) on the card ({ref_s:.2f} s): worst "
+        f"relative {rel:.2e} (limit 1e-5)")
+    log(f"[dstream] a round: {calls // rounds} all-to-alls, "
+        f"{handed // rounds:,} B handed to NCCL, {remote} B remote; the "
+        f"rank's stream {per_shard[0]:,} B, {per_shard[0] / naive:.3f} of "
+        f"naive ({naive:,} B); peak {peak / 1e9:.3f} GB, "
+        f"{(peak - base) / 1e9:.3f} above the {base / 1e9:.3f} allocated "
+        "before the fit (streamed 0.821, eager 5.266 GB: PERF.md)")
+
+    stream = rr.cache["shard_stream"]
+    runs = {"overlap_off": dstream_run(torch, kernels, obs, cfg, ds, pipe,
+                                       group, stream, overlap=False),
+            "pipelined": dstream_run(torch, kernels, obs, cfg, ds, pipe,
+                                     group, stream, pipeline_rounds=True),
+            "chunks_2": dstream_run(torch, kernels, obs, cfg, ds, pipe,
+                                    group, stream, a2a_chunks=2),
+            "int8_a2a": dstream_run(torch, kernels, obs, cfg, ds, pipe,
+                                    group, stream, compression="int8_a2a")}
+    t0 = time.perf_counter()
+    stream8 = pipe.sharded_streams(1, wire="int8", rank=0)[0]
+    enc8_s = time.perf_counter() - t0
+    runs["int8_all"] = dstream_run(torch, kernels, obs, cfg, ds, pipe, group,
+                                   stream8, compression="int8_all")
+    for name, r in runs.items():
+        check_stream_counts(f"dstream ({name})", r["launches"], rounds, win,
+                            layers)
+    if runs["overlap_off"]["losses"] != losses or not same_params(
+            runs["overlap_off"]["params"], res.state.params):
+        raise SystemExit("dstream: overlap on and off disagree")
+    for name in ("pipelined", "chunks_2"):
+        rel_k = worst_rel(runs[name]["losses"], losses)
+        if not rel_k <= 1e-5:
+            raise SystemExit(f"dstream: {name} at {rel_k:.2e} of the serial "
+                             "run (limit 1e-5)")
+    a2a_bytes = {"f32": handed // rounds}
+    for name in ("int8_a2a", "int8_all"):
+        d = drift(runs[name]["losses"], losses)
+        if not d <= DRIFT_ATOL:
+            raise SystemExit(f"dstream: {name} drifts {d:.2e} from none "
+                             f"(limit {DRIFT_ATOL})")
+        c = runs[name]["counters"]
+        a2a_bytes[name] = c.get("partition.a2a_bytes", 0) // rounds
+        want_q = win * n * 6 * 4 * layers + 4 * 4 * layers
+        if (c.get("partition.a2a_calls") != 2 * want_calls
+                or a2a_bytes[name] != want_q
+                or c.get("partition.a2a_remote_bytes") != 0):
+            raise SystemExit(f"dstream: {name} handed {c} to NCCL, "
+                             f"expected {2 * want_calls} calls and "
+                             f"{want_q} B a round")
+    log("[dstream] overlap off: identical; pipeline_rounds "
+        f"{worst_rel(runs['pipelined']['losses'], losses):.1e}, "
+        f"a2a_chunks 2 {worst_rel(runs['chunks_2']['losses'], losses):.1e} "
+        "relative (limit 1e-5); int8_a2a drift "
+        f"{drift(runs['int8_a2a']['losses'], losses):.2e}, int8_all "
+        f"{drift(runs['int8_all']['losses'], losses):.2e} (limit "
+        f"{DRIFT_ATOL}); a round hands NCCL {a2a_bytes['f32']:,} B in f32, "
+        f"{a2a_bytes['int8_a2a']:,} B in int8 "
+        f"({a2a_bytes['int8_a2a'] / a2a_bytes['f32']:.3f}); the int8 wire "
+        f"stream {runs['int8_all']['per_shard_bytes'][0]:,} B against "
+        f"{per_shard[0]:,} (encoded in {enc8_s:.1f} s)")
+
+    # the round's phases: fenced spans serialize the schedule
+    tracer = obs.configure(enabled=True, fence=True)
+    fenced = dstream_run(torch, kernels, obs, cfg, ds, pipe, group, stream,
+                         overlap=False)
+    spans = tracer.spans()
+    obs.configure(enabled=False)
+    phases = {k: phase_ms(spans, name) for k, name in (
+        ("transfer", "round.transfer"), ("step", "round.step"),
+        ("csr_pair", "stream.csr_pair"), ("round", "round"))}
+    for k, v in phases.items():
+        if len(v) != rounds:
+            raise SystemExit(f"dstream: {len(v)} {k} spans, expected "
+                             f"{rounds}")
+    med = {k: statistics.median(v) for k, v in phases.items()}
+    log("[dstream] a round, fenced spans (median / max ms): " + ", ".join(
+        f"{k} {med[k]:.2f} / {max(phases[k]):.2f}" for k in phases))
+    if fenced["losses"] != losses:
+        raise SystemExit("dstream: the fenced run's losses differ")
+
+    walls = {False: [], True: []}
+    for _ in range(DSTREAM_PAIRS):
+        for pr in (False, True):
+            r = dstream_run(torch, kernels, obs, cfg, ds, pipe, group, stream,
+                            num_epochs=1, pipeline_rounds=pr)
+            walls[pr].append(r["wall_s"] * 1e3 / (t // win))
+    off_ms, on_ms = min(walls[False]), min(walls[True])
+    log(f"[dstream] a round (host clock over 1-epoch runs in turns, ms): "
+        f"pipeline_rounds off {', '.join(f'{v:.1f}' for v in walls[False])}"
+        f"; on {', '.join(f'{v:.1f}' for v in walls[True])}; the faster of "
+        f"each {off_ms:.1f} / {on_ms:.1f} ({1 - on_ms / off_ms:+.1%} with it)")
+
+    knobs = {"pipelined_rel": worst_rel(runs["pipelined"]["losses"], losses),
+             "chunks_2_rel": worst_rel(runs["chunks_2"]["losses"], losses),
+             "int8_a2a_drift": drift(runs["int8_a2a"]["losses"], losses),
+             "int8_all_drift": drift(runs["int8_all"]["losses"], losses),
+             "int8_all_stream_bytes": runs["int8_all"]["per_shard_bytes"]}
+    a2a = dstream_a2a_timing(torch, comp, sharding, group, n, win, timer)
+    del eng, rr, runs, fenced, stream, stream8
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"N": n, "T": t, "block": win, "rounds": rounds,
+            "losses": losses, "losses_slice_stream": ref.losses,
+            "loss_worst_relative": rel, "launches": launches,
+            "a2a": {"calls": calls, "bytes": handed, "remote_bytes": remote,
+                    "payload_bytes": payload, "per_round_bytes": a2a_bytes},
+            "per_shard_bytes": per_shard, "naive_bytes": naive,
+            "fit_s": fit_s, "rounds_host_s": round_s, "ref_s": ref_s,
+            "int8_wire_encode_s": enc8_s, "peak_bytes": peak,
+            "base_bytes": base, "fenced_ms": med,
+            "pipeline_rounds_ms": {"off": walls[False], "on": walls[True]},
+            "knobs": knobs, "a2a_timed": a2a}
+
+
+def dstream_a2a_timing(torch, comp, sharding, group, n: int, win: int,
+                       timer) -> dict:
+    """One layer's payload (win, N, 6) through the one-rank all-to-all:
+    f32 (``t_to_n``), and on the int8 wire (``quantized_t_to_n``: the
+    residual added, quantize, the int8 and scale all-to-alls, dequantize,
+    the new residual), with its quantize pass, its int8 all-to-all and its
+    dequantize pass timed apart; each beside its copy bound (bytes read
+    once and written once at 3.35 TB/s)."""
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    x = torch.randn((win, n, 6), generator=gen, device="cuda")
+    res = torch.randn((win, n, 6), generator=gen, device="cuda") * 0.01
+    pieces = sharding.t2n_send(x + res, 1)
+    q, scales = comp.quantize_pieces(pieces)
+    back = comp.dequantize_pieces(q, scales)
+    if not (torch.equal(comp.quantized_t_to_n(x, res, group)[0],
+                        sharding.t2n_recv(back))
+            and torch.equal(sharding.all_to_all(q, group), q)):
+        raise SystemExit("dstream: the one-rank int8 all-to-all changed its "
+                         "payload")
+    elems = x.numel()
+    fns = {"f32_a2a": (lambda: sharding.t_to_n(x, group), 8 * elems),
+           "int8_a2a": (lambda: sharding.all_to_all(q, group), 2 * elems),
+           "quantize": (lambda: comp.quantize_pieces(pieces), 5 * elems),
+           "dequantize": (lambda: comp.dequantize_pieces(q, scales),
+                          5 * elems),
+           "quantized_t_to_n": (lambda: comp.quantized_t_to_n(x, res, group),
+                                16 * elems)}
+    times = timer.turns({k: f for k, (f, _) in fns.items()})
+    out = {}
+    for k, (f, nbytes) in fns.items():
+        b_ms, _ = bound_ms(nbytes, 0.0)
+        out[k] = {"ms": times[k], "wrapper_ms": timer(f, host=True),
+                  "bytes": nbytes, "bound_ms": b_ms}
+        log(f"[dstream] {k} on ({win}, {n}, 6): {times[k]:.4f} ms (with its "
+            f"host calls {out[k]['wrapper_ms']:.4f}), copy bound "
+            f"{b_ms:.4f} ({b_ms / times[k]:.1%})")
+    return out
+
+
+def dstream_small(torch, dev: str, group, compression: str) -> list:
+    """TM-GCN at the full config's widths, N = 65,536, T = 8, block 4,
+    the distributed stream over ``group`` with this rank's tensors on
+    ``dev``, 2 epochs from the seed-7 parameters -> the loss stream."""
+    from repro_torch.configs import registry
+    from repro_torch.core import models as tm
+    from repro_torch.data.dyngnn import synthetic_dataset
+    from repro_torch.stream import distributed as sd
+
+    n, t, nb = DSTREAM_SHARED_N, DSTREAM_SHARED_T, DSTREAM_SHARED_NB
+    cfg = dataclasses.replace(registry.get_arch("tmgcn").make_config(),
+                              num_nodes=n, num_steps=t, checkpoint_blocks=nb)
+    ds = synthetic_dataset(n, t, density=TRAIN_DENSITY,
+                           smoothing_mode="mproduct", window=cfg.window,
+                           seed=1)
+    params = tm.init_params(torch.Generator().manual_seed(7), cfg)
+    return sd.train_distributed_streamed(
+        cfg, ds.snapshots, ds.values, ds.frames, ds.labels, mesh=group,
+        num_epochs=DSTREAM_EPOCHS, params=params, compression=compression,
+        pipeline_rounds=True, device=dev).losses
+
+
+def _dstream_shared_rank(rank: int, src: str, store: str, out_dir: str):
+    """One of two ranks sharing cuda:0 over gloo: the small distributed
+    stream on the card, then on the CPU, for ``none`` and ``int8_a2a``,
+    written to ``out_dir``."""
+    import datetime
+    import pickle
+
+    sys.path.insert(0, src)
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, 2),
+                            rank=rank, world_size=2,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        res = {(comp, dev): dstream_small(torch, dev, dist.group.WORLD,
+                                          comp)
+               for comp in ("none", "int8_a2a") for dev in ("cuda", "cpu")}
+        with open(Path(out_dir) / f"rank{rank}.pkl", "wb") as f:
+            pickle.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def dstream_shared_card(torch, group) -> dict:
+    """P = 2 ranks sharing the one card over gloo, with CUDA tensors: the
+    small distributed stream on cuda:0, then on the CPU, for ``none`` and
+    ``int8_a2a``; held to each other (rank 0 = rank 1), card against CPU
+    gloo P = 2 (1e-4 relative) and against the card's P = 1 over NCCL
+    (``none`` 1e-4 relative; ``int8_a2a`` within DRIFT_ATOL: its pieces,
+    and so its scales, differ with P)."""
+    import pickle
+    import tempfile
+
+    one = {c: dstream_small(torch, "cuda", group, c)
+           for c in ("none", "int8_a2a")}
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        run_ranks(_dstream_shared_rank, 2,
+                  (str(SRC), str(Path(d) / "store"), d), RANK_DEADLINE_S)
+        ranks_s = time.perf_counter() - t0
+        res = []
+        for r in range(2):
+            with open(Path(d) / f"rank{r}.pkl", "rb") as f:
+                res.append(pickle.load(f))
+    out = {"N": DSTREAM_SHARED_N, "T": DSTREAM_SHARED_T, "ranks_s": ranks_s,
+           "p1": one}
+    for c in ("none", "int8_a2a"):
+        card, cpu = res[0][(c, "cuda")], res[0][(c, "cpu")]
+        if res[1][(c, "cuda")] != card or res[1][(c, "cpu")] != cpu:
+            raise SystemExit(f"dstream shared card: the two ranks disagree "
+                             f"({c})")
+        vs_cpu = worst_rel(card, cpu)
+        vs_one = (worst_rel(card, one[c]) if c == "none"
+                  else drift(card, one[c]))
+        limit_one = TOL_GRAD if c == "none" else DRIFT_ATOL
+        if not (vs_cpu <= TOL_GRAD and vs_one <= limit_one):
+            raise SystemExit(f"dstream shared card {c}: {card} vs CPU {cpu} "
+                             f"and P = 1 {one[c]}")
+        out[c] = {"losses": card, "losses_cpu": cpu, "vs_cpu": vs_cpu,
+                  "vs_p1": vs_one}
+        log(f"[dstream-shared] {c}: P = 2 gloo ranks on cuda:0, losses "
+            + ", ".join(f"{v:.6f}" for v in card)
+            + f"; vs CPU gloo P = 2 {vs_cpu:.2e} relative (limit "
+            f"{TOL_GRAD}), vs the card's P = 1 {vs_one:.2e} (limit "
+            f"{limit_one}{' relative' if c == 'none' else ' absolute'})")
+    log(f"[dstream-shared] ranks took {ranks_s:.1f} s with their start")
+    return out
+
+
 # ------------------------------------------------------------- LM path -----
 
 def lm_path(torch, kernels, obs):
@@ -2250,7 +2662,7 @@ def lm_parity(torch):
 
 # ---------------------------------------------------------------- main -----
 
-GROUPS = ("serve", "train", "stream", "partition", "lm")
+GROUPS = ("serve", "train", "stream", "partition", "dstream", "lm")
 
 
 def kernel_entry(name: str, source: str, replaces: str, launches: dict,
@@ -2362,26 +2774,41 @@ def main(argv: list[str] | None = None) -> int:
         stream_stats["parity"] = phase("stream parity", stream_parity,
                                        torch)
         stream_stats.update(stream_checks)
-    if "partition" in groups:
+    if "partition" in groups or "dstream" in groups:
         import torch.distributed as dist
         group = nccl_group(torch)
         try:
-            part_stats = phase("partition path", partition_path, torch,
-                               kernels, obs, train_ds, stream_pipe, group,
-                               train_stats, timer)
-            launches["partition"] = part_stats["launches"]
-            part_fwd, part_bwd = phase("partition-shape kernel checks",
-                                       partition_band_checks, torch,
-                                       n_nodes, 5, timer)
-            gc.collect()
-            torch.cuda.empty_cache()
-            part_stats["shared_card"] = phase(
-                "partition shared card", partition_shared_card, torch,
-                group)
+            if "partition" in groups:
+                part_stats = phase("partition path", partition_path, torch,
+                                   kernels, obs, train_ds, stream_pipe,
+                                   group, train_stats, timer)
+                launches["partition"] = part_stats["launches"]
+                part_fwd, part_bwd = phase("partition-shape kernel checks",
+                                           partition_band_checks, torch,
+                                           n_nodes, 5, timer)
+                gc.collect()
+                torch.cuda.empty_cache()
+                part_stats["shared_card"] = phase(
+                    "partition shared card", partition_shared_card, torch,
+                    group)
+                part_stats["band_rows"] = part_fwd
+                part_stats["band_t_rows"] = part_bwd
+            if "dstream" in groups:
+                if train_ds is None:
+                    t0 = time.perf_counter()
+                    train_ds = train_trace(n_nodes, 5).build()
+                    log(f"[dstream] trace made on the host in "
+                        f"{time.perf_counter() - t0:.1f} s (no train "
+                        "phase)")
+                dstream_stats = phase("dstream path", dstream_path, torch,
+                                      kernels, obs, train_ds, stream_pipe,
+                                      group, timer)
+                launches["dstream"] = dstream_stats["launches"]
+                dstream_stats["shared_card"] = phase(
+                    "dstream shared card", dstream_shared_card, torch,
+                    group)
         finally:
             dist.destroy_process_group()
-        part_stats["band_rows"] = part_fwd
-        part_stats["band_t_rows"] = part_bwd
     del train_ds, stream_pipe
     gc.collect()
     torch.cuda.empty_cache()
@@ -2442,6 +2869,8 @@ def main(argv: list[str] | None = None) -> int:
         log(json.dumps({"partition_path": {
             k: v for k, v in part_stats.items()
             if k not in ("band_rows", "band_t_rows")}}))
+    if "dstream" in groups:
+        log(json.dumps({"dstream_path": dstream_stats}))
     if "lm" in groups:
         report.append(kernel_entry(
             "flash_decode", "src/repro_torch/csrc/flash_decode.cu",

@@ -19,12 +19,16 @@ collectives go through the group (``repro_torch.dist.sharding``).
 The hybrid scheme (§6.5, ``hybrid_spmm``) needs a 2-D grid of subgroups
 and waits for ROADMAP Queue 1, item 5b.
 
-Each checkpoint block is one non-reentrant ``torch.utils.checkpoint``
-call with its all-to-alls inside, so the backward's recompute issues the
-block's forward all-to-alls again (up to the last tensor its backward
-needs: PyTorch's early stop).  Every rank runs the same graph and so
-issues the same collectives in the same order; the only rank-dependent
-step inside a block is EvolveGCN's slice of the evolved weights.
+Each checkpoint block of the eager trainer is one non-reentrant
+``torch.utils.checkpoint`` call with its all-to-alls inside, so the
+backward's recompute issues the block's forward all-to-alls again (up to
+the last tensor its backward needs: PyTorch's early stop).  The
+distributed stream (``stream.distributed``) runs ``snapshot_block_body``
+once per round without a checkpoint, which its int8 all-to-alls need:
+their error-feedback residual advances once per forward.  Every rank
+runs the same graph and so issues the same collectives in the same
+order; the only rank-dependent step inside a block is EvolveGCN's slice
+of the evolved weights.
 """
 
 from __future__ import annotations
@@ -38,12 +42,9 @@ from repro_torch.core import gcn as gcnlib
 from repro_torch.core import models as mdl
 from repro_torch.core import temporal
 from repro_torch.core.dtdg import DTDGBatch
+from repro_torch.dist import compression as compression_lib
 from repro_torch.dist.sharding import group_rank, group_size, n_to_t, t_to_n
 from repro_torch.kernels.segment_spmm import ops as spmm_ops
-
-
-def _feature_cuts(width: int, chunks: int) -> list[int]:
-    return [width * c // chunks for c in range(1, chunks)]
 
 
 # ------------------------------------------------- snapshot partitioning ----
@@ -51,7 +52,8 @@ def _feature_cuts(width: int, chunks: int) -> list[int]:
 def snapshot_block_body(cfg: mdl.DynGNNConfig, params: mdl.ParamTree, group,
                         carries: list, blk: tuple, csrs: list, *,
                         comm_dtype=None, fused_labels: bool = False,
-                        a2a_chunks: int = 1, compression: str = "none"):
+                        a2a_chunks: int = 1, compression: str = "none",
+                        comm_residuals: list | None = None):
     """One checkpoint block under snapshot partitioning (Fig. 3b), on this
     rank.
 
@@ -60,9 +62,10 @@ def snapshot_block_body(cfg: mdl.DynGNNConfig, params: mdl.ParamTree, group,
     global step ``t0 = b bsize``, plus the vertex-sharded labels
     ``(bsize, N/P)`` when ``fused_labels``; ``csrs`` the (CSR, transposed
     CSR) pair of each of the rank's steps.  The temporal carries are
-    vertex-sharded (N/P rows).  Returns ``(new_carries, h)`` with the
-    time-sharded block output h (bsl, N, out), or ``(new_carries,
-    nll_sum)`` when ``fused_labels``.
+    vertex-sharded (N/P rows).  Returns ``(new_carries, h,
+    new_comm_residuals)`` with the time-sharded block output h (bsl, N,
+    out), or the NLL sum in its place when ``fused_labels``;
+    ``new_comm_residuals`` is None when ``compression`` is "none".
 
     Options (the reference's):
       * ``comm_dtype`` — cast each all-to-all payload (e.g. bf16), and
@@ -72,13 +75,25 @@ def snapshot_block_body(cfg: mdl.DynGNNConfig, params: mdl.ParamTree, group,
         N -> T all-to-all is dropped;
       * ``a2a_chunks`` — C all-to-alls over feature slices instead of one
         (math-identical);
-      * ``compression`` — only ``"none"`` (ROADMAP Queue 1, item 7).
+      * ``compression`` != "none" — int8 error-feedback all-to-alls
+        (``dist.compression``).  ``comm_residuals`` then holds one
+        ``(res_t2n (bsl, N, f_t2n), res_n2t (bsize, N/P, f_n2t))`` pair
+        per layer in the PRE-all-to-all layouts (``a2a_payload_dims``;
+        none for EvolveGCN), chunking cuts payload and residual at the
+        same features (each chunk keeps its own scales), and the body
+        returns the residuals updated, in the same layout.  It composes
+        with ``a2a_chunks`` only.
     """
-    if compression != "none":
-        raise NotImplementedError(
-            f"compression={compression!r}: the int8 error-feedback "
-            "all-to-alls (dist/compression.py) are not ported yet (ROADMAP "
-            "Queue 1, item 7)")
+    compress = compression_lib.compresses_a2a(compression)
+    if compress:
+        if comm_dtype is not None or fused_labels:
+            raise ValueError(
+                "compression composes with a2a_chunks only, not with "
+                "comm_dtype/fused_labels")
+        if comm_residuals is None:
+            raise ValueError(
+                "compression != 'none' requires comm_residuals "
+                "(stream.distributed.init_comm_residuals)")
     if fused_labels:
         x_b, e_b, w_b, t0, labels_b = blk
     else:
@@ -87,21 +102,31 @@ def snapshot_block_body(cfg: mdl.DynGNNConfig, params: mdl.ParamTree, group,
     p, rank = group_size(group), group_rank(group)
     bsl, num_nodes = x_b.shape[0], x_b.shape[1]
 
-    def a2a(y, redistribute):
-        orig = y.dtype
-        if comm_dtype is not None:
-            y = y.to(comm_dtype)
-        if a2a_chunks > 1:
-            y = torch.cat([redistribute(piece, group) for piece in
-                           torch.tensor_split(
-                               y, _feature_cuts(y.shape[-1], a2a_chunks),
-                               dim=-1)], dim=-1)
-        else:
-            y = redistribute(y, group)
-        return y.to(orig)
+    def cut(y):
+        width = y.shape[-1]
+        return torch.tensor_split(
+            y, [width * c // a2a_chunks for c in range(1, a2a_chunks)],
+            dim=-1)
+
+    def join(pieces):
+        return pieces[0] if len(pieces) == 1 else torch.cat(pieces, dim=-1)
+
+    def a2a(y, res, plain, quantized):
+        """One redistribution as ``a2a_chunks`` feature-sliced all-to-alls:
+        f32 (cast to ``comm_dtype`` on the wire) when ``res`` is None, else
+        the int8 wire with payload and residual cut at the same features
+        -> (out, the new residual or None)."""
+        if res is None:
+            return join([plain(yp if comm_dtype is None
+                               else yp.to(comm_dtype), group).to(y.dtype)
+                         for yp in cut(y)]), None
+        outs = [quantized(yp, rp, group)
+                for yp, rp in zip(cut(y), cut(res), strict=True)]
+        return join([o for o, _ in outs]), join([r for _, r in outs])
 
     h = x_b
     new_carries = []
+    new_comm_res = []
     for l in range(cfg.num_layers):
         lp = params["layers"][l]
         if cfg.model == "evolvegcn":
@@ -120,14 +145,19 @@ def snapshot_block_body(cfg: mdl.DynGNNConfig, params: mdl.ParamTree, group,
             continue
         # spatial stage: whole snapshots are local, no communication
         h, _ = mdl.spatial_stage(cfg, lp, h, e_b, w_b, None, csrs)
-        h = a2a(h, t_to_n)                      # T-sharded -> N-sharded
+        res_t2n, res_n2t = comm_residuals[l] if compress else (None, None)
+        # T-sharded -> N-sharded
+        h, nr1 = a2a(h, res_t2n, t_to_n, compression_lib.quantized_t_to_n)
         # temporal stage: the block's whole timeline, local vertices
         h, c_tm = mdl.temporal_stage(cfg, lp, h, carries[l], t0)
         new_carries.append(c_tm)
         if l == cfg.num_layers - 1 and labels_b is not None:
-            return new_carries, _nll(params, h, labels_b).sum()
-        h = a2a(h, n_to_t)                      # N-sharded -> T-sharded
-    return new_carries, h
+            return new_carries, _nll(params, h, labels_b).sum(), None
+        # N-sharded -> T-sharded
+        h, nr2 = a2a(h, res_n2t, n_to_t, compression_lib.quantized_n_to_t)
+        new_comm_res.append((nr1, nr2))
+    # EvolveGCN redistributes nothing, so its list is empty
+    return new_carries, h, new_comm_res if compress else None
 
 
 def _nll(params, z: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -183,10 +213,10 @@ def _blocks(cfg, params, group, frames, edges, ew, csrs, labels=None,
         args = (cfg, params, group, carries, blk,
                 csrs[b * bsl:(b + 1) * bsl])
         if record:
-            carries, out = checkpoint(snapshot_block_body, *args,
-                                      use_reentrant=False, **opts)
+            carries, out, _ = checkpoint(snapshot_block_body, *args,
+                                         use_reentrant=False, **opts)
         else:
-            carries, out = snapshot_block_body(*args, **opts)
+            carries, out, _ = snapshot_block_body(*args, **opts)
         outs.append(out)
     return outs
 

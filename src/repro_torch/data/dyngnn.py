@@ -9,7 +9,9 @@ Host-side stages (the CPU side of the paper's CPU -> GPU boundary):
 
 Stages 1–3 and 5 are host numpy, copies of the reference's; the batch
 (stage 4) lands on the pipeline's device.  Under snapshot partitioning a
-rank moves only its own steps there (``rank_batch`` / ``rank_arrays``).
+rank moves only its own steps there (``rank_batch`` / ``rank_arrays``),
+and the distributed stream encodes only its own time slices
+(``sharded_streams(..., rank=r)``).
 ``transfer_bytes()`` reports the graph-difference savings.
 """
 
@@ -24,6 +26,7 @@ from repro_torch.core import graphdiff, smoothing
 from repro_torch.core.dtdg import DTDGBatch, build_batch
 from repro_torch.graph import generate
 from repro_torch.stream import encoder as stream_encoder
+from repro_torch.stream import sharded as stream_sharded
 
 
 @dataclass
@@ -119,12 +122,16 @@ class DTDGPipeline:
             self.ds.snapshots, self.ds.values, self.ds.num_nodes,
             self.max_edges, self.bsize, self.stream_stats)
 
-    def sharded_streams(self, num_shards: int, wire: str = "none"):
-        """Per-shard time-slice streams of the snapshot-parallel stream."""
-        raise NotImplementedError(
-            f"DTDGPipeline.sharded_streams({num_shards}, wire={wire!r}): "
-            "the distributed stream is not ported yet (ROADMAP Queue 1, "
-            "item 7)")
+    def sharded_streams(self, num_shards: int, wire: str = "none",
+                        rank: int | None = None):
+        """Per-shard time-slice streams of the snapshot-parallel stream
+        (``wire="int8"`` = the narrow delta format, see ``stream.wire``):
+        every shard's, or only shard ``rank``'s (a list of one stream), as
+        a rank process encodes its own."""
+        return stream_sharded.encode_time_sliced(
+            self.ds.snapshots, self.ds.values, self.ds.num_nodes,
+            self.max_edges, self.bsize, num_shards, self.stream_stats,
+            wire=wire, shards=None if rank is None else [rank])
 
     def rank_batch(self, layout) -> DTDGBatch:
         """One rank's steps (``layout.steps``, a ``dist.sharding.

@@ -1,3 +1,5 @@
 """Distribution utilities of the port: communication-volume laws
-(``comm_volume``) and the process-group rank layout with its counted
-all-to-alls (``sharding``)."""
+(``comm_volume``), the process-group rank layout with its counted
+all-to-alls (``sharding``), the int8 error-feedback wire of the
+collectives (``compression``) and the overlap time models
+(``overlap``)."""

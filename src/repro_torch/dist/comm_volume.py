@@ -59,8 +59,8 @@ def alltoall_round_payload(win: int, n: int, feat: int, layers: int,
     trainer inherits (total communication independent of P).
 
     ``compression`` != "none" models the int8 quantized redistributions
-    (the reference's ``dist.compression``; ROADMAP Queue 1, item 7 ports
-    it): one byte per element plus
+    (``repro_torch.dist.compression``, whose counted bytes equal it —
+    ``tests/test_torch_dist_stream.py``): one byte per element plus
     one (P,) f32 scale vector per all-to-all per shard — and each of the
     2L redistributions lowers to ``a2a_chunks`` feature-sliced
     all-to-alls, so the scale overhead grows with the chunk count while

@@ -18,7 +18,10 @@ one-dimensional, so its one axis is :data:`DATA_AXIS`.
   autograd function.  The adjoint of an equal-split all-to-all is the
   same all-to-all, so its backward sends the gradient the same way.
 * :func:`t_to_n` / :func:`n_to_t` — the two redistributions of a layer,
-  laid out as ``jax.lax.all_to_all(..., tiled=True)`` lays them out.
+  laid out as ``jax.lax.all_to_all(..., tiled=True)`` lays them out.  The
+  layout helpers (``t2n_send`` / ``t2n_recv``, ``n2t_send`` /
+  ``n2t_recv``) are shared with the int8 all-to-alls of
+  ``dist.compression``.
 
 Every all-to-all, forward or backward, adds to three ``obs`` counters:
 ``partition.a2a_calls``, ``partition.a2a_bytes`` (the bytes this rank
@@ -103,7 +106,10 @@ class ShardLayout:
         return blocked[:, :, self.vertices]
 
 
-def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    """``dist.all_to_all_single`` with equal splits along dim 0, counted
+    (``partition.a2a_calls`` / ``a2a_bytes`` / ``a2a_remote_bytes``, in
+    the bytes of ``x``'s own dtype)."""
     x = x.contiguous()
     out = torch.empty_like(x)
     dist.all_to_all_single(out, x, group=group)
@@ -122,11 +128,53 @@ class AllToAll(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
         ctx.group = group
-        return _all_to_all(x, group)
+        return all_to_all(x, group)
 
     @staticmethod
     def backward(ctx, grad):
-        return _all_to_all(grad, ctx.group), None
+        return all_to_all(grad, ctx.group), None
+
+
+def t2n_send(h: torch.Tensor, p: int) -> torch.Tensor:
+    """Time-sharded (bsl, N, F) -> the (P, bsl, N/P, F) pieces sent by
+    ``t_to_n`` (piece q, vertex block q, goes to rank q); a view."""
+    bsl, n, f = h.shape
+    return h.reshape(bsl, p, n // p, f).permute(1, 0, 2, 3)
+
+
+def t2n_unsend(x: torch.Tensor) -> torch.Tensor:
+    """The inverse of :func:`t2n_send`: (P, bsl, N/P, F) -> (bsl, N, F)."""
+    p, bsl, n_loc, f = x.shape
+    return x.permute(1, 0, 2, 3).reshape(bsl, p * n_loc, f)
+
+
+def t2n_recv(y: torch.Tensor) -> torch.Tensor:
+    """The (P, bsl, N/P, F) pieces ``t_to_n`` receives, by source rank,
+    -> vertex-sharded (P bsl, N/P, F) in time order."""
+    p, bsl, n_loc, f = y.shape
+    return y.reshape(p * bsl, n_loc, f)
+
+
+def n2t_send(h: torch.Tensor, p: int) -> torch.Tensor:
+    """Vertex-sharded (bsize, N/P, F) -> the (P, bsize/P, N/P, F) pieces
+    sent by ``n_to_t`` (piece q, rank q's steps, goes to rank q); a
+    view."""
+    bsize, n_loc, f = h.shape
+    return h.reshape(p, bsize // p, n_loc, f)
+
+
+def n2t_unsend(x: torch.Tensor) -> torch.Tensor:
+    """The inverse of :func:`n2t_send`: (P, bsl, N/P, F) -> (P bsl, N/P,
+    F)."""
+    p, bsl, n_loc, f = x.shape
+    return x.reshape(p * bsl, n_loc, f)
+
+
+def n2t_recv(y: torch.Tensor) -> torch.Tensor:
+    """The (P, bsl, N/P, F) pieces ``n_to_t`` receives, by source rank (=
+    vertex block) -> time-sharded (bsl, N, F)."""
+    p, bsl, n_loc, f = y.shape
+    return y.permute(1, 0, 2, 3).reshape(bsl, p * n_loc, f)
 
 
 def t_to_n(h: torch.Tensor, group) -> torch.Tensor:
@@ -137,17 +185,10 @@ def t_to_n(h: torch.Tensor, group) -> torch.Tensor:
     is time order (rank q owns steps q bsl ... of the block).  At P = 1
     the permuted view is already contiguous, so nothing is copied; the
     collective is issued all the same."""
-    p = group_size(group)
-    bsl, n, f = h.shape
-    x = h.reshape(bsl, p, n // p, f).permute(1, 0, 2, 3)
-    return AllToAll.apply(x, group).reshape(p * bsl, n // p, f)
+    return t2n_recv(AllToAll.apply(t2n_send(h, group_size(group)), group))
 
 
 def n_to_t(h: torch.Tensor, group) -> torch.Tensor:
     """Vertex-sharded (bsize, N/P, F) -> time-sharded (bsize/P, N, F):
     the inverse of :func:`t_to_n`."""
-    p = group_size(group)
-    bsize, n_loc, f = h.shape
-    x = h.reshape(p, bsize // p, n_loc, f)
-    y = AllToAll.apply(x, group)           # (source rank = vertex block)
-    return y.permute(1, 0, 2, 3).reshape(bsize // p, p * n_loc, f)
+    return n2t_recv(AllToAll.apply(n2t_send(h, group_size(group)), group))

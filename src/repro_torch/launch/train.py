@@ -20,7 +20,16 @@ Snapshot-partitioned training runs one process per rank under
 It joins the process group (gloo for ``--device cpu``, NCCL with rank r
 on ``cuda:r`` for ``cuda``), trains with ``--data-parallel P`` ranks (the
 world size under ``torchrun``, 1 otherwise) and ``--a2a-chunks`` feature
-slices per all-to-all, and only rank 0 evaluates and prints.
+slices per all-to-all, and only rank 0 evaluates and prints.  The
+distributed stream runs the same way with ``--stream --mesh P`` (P, more
+than 1, the world size), each rank encoding and streaming its own time
+slices, with ``--pipeline-rounds`` and ``--compression
+none|int8_a2a|int8_all``; rank 0 prints ``streamed ... block rounds on P
+shards, final loss ..., per-device stream ... B (total ... of naive)``::
+
+    torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.train \
+        --arch paper_dyngnn --stream --mesh 2 --pipeline-rounds \
+        --compression int8_a2a --device cpu
 
 The reference's other flags are known by name: each exits with one line
 naming the ROADMAP item that ports it.
@@ -34,9 +43,6 @@ import os
 #: the reference's flags the port does not run yet -> (argparse kwargs,
 #: the ROADMAP item that ports them)
 _NOT_PORTED = {
-    "--mesh": ({"type": int, "default": 0}, "Queue 1, item 7"),
-    "--pipeline-rounds": ({"action": "store_true"}, "Queue 1, item 7"),
-    "--compression": ({"default": "none"}, "Queue 1, item 7"),
     "--rescale-at": ({"action": "append", "default": []},
                      "Queue 1, item 8"),
     "--rescale-on-preempt": ({"type": int, "default": 0},
@@ -75,6 +81,18 @@ def main(argv: list[str] | None = None) -> None:
                     help="split each all-to-all of the partitioned step "
                          "into this many feature slices (losses "
                          "unchanged)")
+    ap.add_argument("--mesh", type=int, default=0,
+                    help="--stream: snapshot-parallel ranks of the "
+                         "distributed stream (> 1: the world size under "
+                         "torchrun)")
+    ap.add_argument("--pipeline-rounds", action="store_true",
+                    help="--stream --mesh P: queue round r+1's apply and "
+                         "step before reading round r's loss (losses "
+                         "unchanged)")
+    ap.add_argument("--compression", default="none",
+                    help="--stream --mesh P: none | int8_a2a (int8 "
+                         "error-feedback all-to-alls) | int8_all (also "
+                         "the int8 delta wire)")
     for flag, (kwargs, _) in _NOT_PORTED.items():
         ap.add_argument(flag, **kwargs, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
@@ -88,10 +106,13 @@ def main(argv: list[str] | None = None) -> None:
     if world > 1 and dp != world:
         raise SystemExit(f"--data-parallel {dp} under torchrun with "
                          f"{world} processes: they must agree")
-    if world > 1 and args.stream:
-        raise SystemExit("--stream on several ranks (the distributed "
-                         "stream) is not ported to PyTorch yet (ROADMAP "
-                         "Queue 1, item 7)")
+    if args.mesh and not args.stream:
+        raise SystemExit("--mesh P sets the distributed stream's width; it "
+                         "requires --stream (the eager schedule's is "
+                         "--data-parallel P)")
+    if args.stream and world > 1 and args.mesh != world:
+        raise SystemExit(f"--stream under torchrun with {world} processes "
+                         f"runs the distributed stream: pass --mesh {world}")
     try:
         _train(args, dp, world)
     finally:
@@ -131,11 +152,20 @@ def _train(args, dp: int, world: int) -> None:
                           density=3.0, churn=0.1, smoothing_mode=smooth,
                           window=cfg.window)
     if args.stream:
-        plan = ExecutionPlan(mode="streamed", num_epochs=args.epochs,
-                             overlap=not args.no_overlap)
+        # the pipelining and compression flags pass through as given, so a
+        # combination the plan cannot honor (e.g. --pipeline-rounds without
+        # --mesh) fails below instead of running a no-op
+        plan = ExecutionPlan(
+            mode="streamed_mesh" if args.mesh > 1 else "streamed",
+            shards=max(args.mesh, 1), num_epochs=args.epochs,
+            overlap=not args.no_overlap, a2a_chunks=args.a2a_chunks,
+            pipeline_rounds=args.pipeline_rounds,
+            compression=args.compression)
     else:
         plan = ExecutionPlan(mode="eager", shards=dp, num_steps=args.steps,
-                             a2a_chunks=args.a2a_chunks)
+                             a2a_chunks=args.a2a_chunks,
+                             pipeline_rounds=args.pipeline_rounds,
+                             compression=args.compression)
     if world > 1:
         _join_group(args.device)
     lead = int(os.environ.get("RANK", "0")) == 0
@@ -150,12 +180,23 @@ def _train(args, dp: int, world: int) -> None:
         raise SystemExit(f"invalid run configuration: {e}") from None
     result = engine.fit()
     final = f"{result.losses[-1]:.4f}" if result.losses else "n/a"
+    if not lead:
+        return
+    rep = result.transfer_report
+    if plan.mode == "streamed_mesh":
+        # what crossed the links: the per-rank time-sliced streams (their
+        # extra slice-boundary fulls), not the single-device stream
+        per_dev = result.per_shard_bytes
+        comp = (f", compression {result.compression}"
+                if result.compression != "none" else "")
+        print(f"streamed {result.state.step} block rounds on {args.mesh} "
+              f"shards, final loss {final}, per-device stream "
+              f"{max(per_dev)} B (total "
+              f"{sum(per_dev) / max(rep['naive'], 1):.3f} of naive){comp}")
+        return
     if args.stream:
         print(f"streamed {result.state.step} snapshot steps, final loss "
-              f"{final}, transfer ratio "
-              f"{result.transfer_report['ratio']:.3f} vs naive")
-        return
-    if not lead:
+              f"{final}, transfer ratio {rep['ratio']:.3f} vs naive")
         return
     acc = engine.evaluate(result)
     print(f"done: {result.state.step} steps, final loss {final}, "

@@ -10,10 +10,12 @@
         plan=ExecutionPlan(mode="eager", num_steps=20), seed=0)
     result = Engine(run).fit()        # on the card; device="cpu" on a host
 
-Port of ``repro.run`` for the single-device schedules: ``eager`` (the
-blocked trainer of paper §3.1) and ``streamed`` (per-snapshot training
-over the graph-difference delta stream, §3.2).  The mesh and sampled
-schedules raise ``NotImplementedError`` naming their ROADMAP item.
+Port of ``repro.run``: ``eager`` (the blocked trainer of paper §3.1, on
+one device or snapshot-partitioned over a process group, §4.2),
+``streamed`` (per-snapshot training over the graph-difference delta
+stream, §3.2) and ``streamed_mesh`` (per-rank delta streams under
+snapshot partitioning, §3.2 x §4.2).  The sampled schedule and the
+elastic knobs raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from repro_torch.run.config import (CheckpointSpec, ResolvedRun, RunConfig,

@@ -71,20 +71,27 @@ class ResolvedRun:
 
 @dataclass
 class RunResult:
-    """What ``Engine.fit()`` returns: the final state, the per-step loss
-    stream, the graph-diff byte accounting (``transfer_report``), the
-    streamed schedule's encoder health counters (``stream_report``: resyncs
-    when live churn outgrows the measured pads), the ``a2a_chunks`` the
-    run executed with (a pure schedule knob: results that differ only
-    there carry identical losses) and the ``repro_torch.obs`` counter
-    delta plus span summary of the fit (``metrics``; the partitioned
-    schedule's ``partition.a2a_*`` counters among them).  The reference's
-    fields for the other schedules (shard, rescale, sample and budget
+    """What ``Engine.fit()`` returns: the final state, the per-step
+    (eager, streamed) or per-round (streamed_mesh) loss stream, the
+    graph-diff byte accounting (``transfer_report``), the streamed
+    schedule's encoder health counters (``stream_report``: resyncs when
+    live churn outgrows the measured pads), the per-rank stream payloads of
+    the streamed_mesh schedule (``per_shard_bytes``), the ``a2a_chunks`` /
+    ``pipeline_rounds`` the run executed with (pure schedule knobs: results
+    that differ only there carry identical losses), its ``compression``
+    (not a pure schedule knob: quantized runs drift within the bound the
+    tests pin; "none" is bit-identical) and the ``repro_torch.obs``
+    counter delta plus span summary of the fit (``metrics``; the
+    partitioned schedules' ``partition.a2a_*`` counters among them).  The
+    reference's fields for the other schedules (rescale, sample and budget
     reports) arrive with them."""
 
     state: TrainState
     losses: list[float]
     stream_report: StreamReport | None = None
     transfer_report: dict | None = None
+    per_shard_bytes: list[int] | None = None
     a2a_chunks: int = 1
+    pipeline_rounds: bool = False
+    compression: str = "none"
     metrics: dict | None = None     # obs counter delta + span summary

@@ -8,12 +8,14 @@
 ``resolve()`` builds the dataset (its vertex axis padded to a multiple of
 the plan's ranks) and the pipeline (whose batch lives on the Engine's
 device, built only when a worker reads it) once, and takes the plan's
-process group; ``fit()`` runs the plan's worker — the blocked trainer for
-``mode="eager"`` (snapshot-partitioned on a group: every rank of the
-group runs the same Engine, and each moves only its own steps to its
-device), the per-snapshot delta-stream trainer for ``mode="streamed"`` —
-and ``evaluate()`` runs the paper's link-prediction protocol on the
-trained params.
+process group, re-blocking the timeline when the distributed stream needs
+it (``ExecutionPlan.resolved_blocks``); ``fit()`` runs the plan's worker
+— the blocked trainer for ``mode="eager"`` (snapshot-partitioned on a
+group: every rank of the group runs the same Engine, and each moves only
+its own steps to its device), the per-snapshot delta-stream trainer for
+``mode="streamed"``, the per-rank delta streams under snapshot
+partitioning for ``mode="streamed_mesh"`` — and ``evaluate()`` runs the
+paper's link-prediction protocol on the trained params.
 ``device`` defaults to ``"cuda"`` and raises without a card unless the
 caller passes ``device="cpu"``; ``params`` may hand in initial parameters
 (a ``ParamTree``, e.g. from ``repro_torch.convert.params_from_jax``),
@@ -35,7 +37,8 @@ from repro_torch.train.trainer import TrainState, evaluate_link_prediction
 
 #: plan.mode -> the worker that runs it (the other modes are refused by
 #: ``ExecutionPlan.validate``)
-_WORKERS = {"eager": workers.fit_eager, "streamed": workers.fit_streamed}
+_WORKERS = {"eager": workers.fit_eager, "streamed": workers.fit_streamed,
+            "streamed_mesh": workers.fit_streamed_mesh}
 
 
 class Engine:
@@ -64,11 +67,14 @@ class Engine:
         nominal = c.data.num_nodes
         n = c.plan.padded_num_nodes(nominal, log_fn=c.log_fn)
         ds = c.data.build(num_nodes=n if n != nominal else None)
-        nb = c.model.checkpoint_blocks
+        nb = c.plan.resolved_blocks(ds.num_steps, c.model.checkpoint_blocks,
+                                    log_fn=c.log_fn)
         cfg = c.model
-        if cfg.num_nodes != ds.num_nodes or cfg.num_steps != ds.num_steps:
+        if (cfg.num_nodes != ds.num_nodes or cfg.num_steps != ds.num_steps
+                or cfg.checkpoint_blocks != nb):
             cfg = dataclasses.replace(cfg, num_nodes=ds.num_nodes,
-                                      num_steps=ds.num_steps)
+                                      num_steps=ds.num_steps,
+                                      checkpoint_blocks=nb)
         pipe = getattr(c.data, "pipeline", None)
         if (pipe is None or pipe.ds is not ds or pipe.nb != nb
                 or torch.device(pipe.device) != self.device):

@@ -2,21 +2,22 @@
 
 The fields are the reference's.  Ported: ``eager`` (the blocked trainer;
 on P > 1 shards, or on an explicit process group, snapshot-partitioned,
-with ``mesh_axis``, ``a2a_chunks`` and ``auto_pad``) and ``streamed``
+with ``mesh_axis``, ``a2a_chunks`` and ``auto_pad``), ``streamed``
 (per-snapshot training over the delta stream, with ``num_epochs``,
-``overlap`` and ``prefetch_depth``).  :meth:`ExecutionPlan.validate`
+``overlap`` and ``prefetch_depth``) and ``streamed_mesh`` (per-rank delta
+streams under snapshot partitioning, with ``a2a_chunks``,
+``pipeline_rounds`` and ``compression``; the timeline re-blocked for P by
+:meth:`ExecutionPlan.resolved_blocks`).  :meth:`ExecutionPlan.validate`
 applies the reference's rules and then refuses what is not ported yet,
-naming the ROADMAP item that ports it:
-
-* ``streamed_mesh`` (with its overlap, compression and rescale knobs) —
-  Queue 1, item 7;
-* ``sampled`` and ``device_budget_bytes`` (``hoststore``) — Queue 1, item 8.
+naming the ROADMAP item that ports it: ``sampled``,
+``device_budget_bytes`` (``hoststore``) and the elastic ``rescale`` /
+``rescale_on_preempt`` — Queue 1, item 8.
 
 The reference's mesh is a ``torch.distributed`` process group here, one
 process per rank (gloo on the CPU, NCCL on the card with rank r on
 ``cuda:r``): ``mesh`` takes a group, and ``num_shards`` is its size.  A
 group of any size, 1 included, runs the partitioned step, as a prebuilt
-mesh does in the reference.  ``shards = P > 1`` without a group uses the
+mesh does in the reference.  ``shards = P`` without a group uses the
 default group when it is initialized with P ranks (``torchrun
 --nproc-per-node P``).
 """
@@ -30,13 +31,41 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.dist.sharding import DATA_AXIS, group_size
+from repro_torch.ft.elastic import dyngnn_elastic_blocks
 
 MODES = ("eager", "streamed", "streamed_mesh", "sampled")
 COMPRESSIONS = ("none", "int8_a2a", "int8_all")
 
 #: mode -> the ROADMAP item that ports it
-_NOT_PORTED = {"streamed_mesh": "Queue 1, item 7",
-               "sampled": "Queue 1, item 8"}
+_NOT_PORTED = {"sampled": "Queue 1, item 8"}
+
+
+def _validate_schedule(schedule) -> tuple:
+    """The reference's rule set for a ``((block, new_p), ...)`` resize
+    script (``repro.elastic.controller.validate_schedule``), normalized."""
+    events = []
+    last = 0
+    for entry in schedule:
+        try:
+            b, p = entry
+        except (TypeError, ValueError):
+            raise ValueError(
+                f"rescale schedule entries must be (block, new_p) "
+                f"pairs, got {entry!r}") from None
+        b, p = int(b), int(p)
+        if b < 1:
+            raise ValueError(
+                f"rescale boundaries start at block 1 (block 0 is the "
+                f"initial width), got {b}")
+        if b <= last:
+            raise ValueError(
+                "rescale boundaries must be strictly increasing, got "
+                f"block {b} after {last}")
+        if p < 1:
+            raise ValueError(f"rescale width must be >= 1, got {p}")
+        events.append((b, p))
+        last = b
+    return tuple(events)
 
 
 @dataclass(frozen=True)
@@ -111,11 +140,19 @@ class ExecutionPlan:
         if self.compression not in COMPRESSIONS:
             raise ValueError(f"plan.compression must be one of "
                              f"{COMPRESSIONS}, got {self.compression!r}")
-        if self.compression != "none" and self.mode != "streamed_mesh":
-            raise ValueError(
-                "plan.compression quantizes the distributed stream's "
-                "wire formats; it requires mode='streamed_mesh' "
-                f"(got {self.mode!r})")
+        if self.compression != "none":
+            if self.mode != "streamed_mesh":
+                raise ValueError(
+                    "plan.compression quantizes the distributed stream's "
+                    "wire formats (the all-to-alls and the host->device "
+                    "deltas); it requires mode='streamed_mesh' "
+                    f"(got {self.mode!r})")
+            if self.is_elastic:
+                raise ValueError(
+                    "plan.compression is not wired through the elastic "
+                    "segment loop (error-feedback residuals would need "
+                    "re-sharding at every rescale boundary); drop "
+                    "rescale/rescale_on_preempt or use compression='none'")
         if self.rescale_on_preempt < 0:
             raise ValueError("plan.rescale_on_preempt is a shrink-to "
                              "width (0 = off); it cannot be negative")
@@ -125,6 +162,8 @@ class ExecutionPlan:
                              "the distributed stream at checkpoint-block "
                              "boundaries; they require "
                              "mode='streamed_mesh'")
+        if self.rescale:
+            _validate_schedule(self.rescale)
         self._refuse_unported()
 
     def _refuse_unported(self) -> None:
@@ -132,11 +171,21 @@ class ExecutionPlan:
             raise NotImplementedError(
                 f"plan.mode={self.mode!r} is not ported to PyTorch yet "
                 f"(ROADMAP {_NOT_PORTED[self.mode]}); the port trains "
-                "mode='eager' or 'streamed' on one device")
+                "mode='eager', 'streamed' or 'streamed_mesh'")
         if self.device_budget_bytes is not None:
             raise NotImplementedError(
                 "plan.device_budget_bytes (hoststore/budget) is not ported "
                 "yet (ROADMAP Queue 1, item 8)")
+        if self.is_elastic:
+            raise NotImplementedError(
+                "plan.rescale/rescale_on_preempt: the elastic segment loop "
+                "(elastic/, ft/elastic.PreemptionGuard) is not ported yet "
+                "(ROADMAP Queue 1, item 8)")
+
+    @property
+    def is_elastic(self) -> bool:
+        """True when this plan can change width mid-run."""
+        return bool(self.rescale) or self.rescale_on_preempt > 0
 
     @property
     def num_shards(self) -> int:
@@ -168,11 +217,13 @@ class ExecutionPlan:
         if not dist.is_initialized() or dist.get_world_size() != p:
             have = (f"{dist.get_world_size()} ranks" if dist.is_initialized()
                     else "no process group")
+            flag = (f"--stream --mesh {p}" if self.mode == "streamed_mesh"
+                    else f"--data-parallel {p}")
             raise ValueError(
                 f"plan.shards={p} needs a process group of {p} ranks and "
                 f"there is {have}: launch one process per rank (torchrun "
                 f"--nproc-per-node {p} -m repro_torch.launch.train "
-                f"--data-parallel {p} ...) or pass mesh=group")
+                f"{flag} ...) or pass mesh=group")
         return dist.group.WORLD
 
     def check_devices(self, device: torch.device) -> None:
@@ -208,3 +259,31 @@ class ExecutionPlan:
             log_fn(f"plan: auto-padding num_nodes {num_nodes} -> {padded} "
                    f"(next multiple of {p} shards)")
         return padded
+
+    def resolved_blocks(self, num_steps: int, checkpoint_blocks: int,
+                        log_fn: Callable[[str], None] | None = None) -> int:
+        """Checkpoint-block count adjusted for the streamed mesh.
+
+        ``streamed_mesh`` and ``sampled`` need ``bsize % P == 0`` and
+        ``T % bsize == 0`` (each round is one block, sliced over the
+        shards).  When the requested blocking violates that, re-block via
+        ``ft.elastic.dyngnn_elastic_blocks`` (largest legal block <= the
+        requested one) and log the adjustment.
+        """
+        if self.mode not in ("streamed_mesh", "sampled"):
+            return checkpoint_blocks
+        p = self.num_shards
+        nb = max(checkpoint_blocks, 1)
+        bsize = num_steps // nb
+        if bsize >= 1 and num_steps % bsize == 0 and bsize % p == 0:
+            return nb
+        if num_steps % p:
+            raise ValueError(
+                f"trace length {num_steps} cannot be sliced over {p} "
+                "snapshot shards (num_steps % shards != 0)")
+        nb2, bsize2 = dyngnn_elastic_blocks(num_steps, p, max(bsize, p))
+        if log_fn is not None:
+            log_fn(f"plan: re-blocking timeline for {p} shards: "
+                   f"checkpoint_blocks {checkpoint_blocks} -> {nb2} "
+                   f"(block size {bsize2})")
+        return nb2

@@ -1,5 +1,5 @@
-"""The training workers behind ``Engine.fit()`` (port of the
-single-device part of ``repro.run.workers``).
+"""The training workers behind ``Engine.fit()`` (port of
+``repro.run.workers``).
 
 * ``fit_eager`` — the blocked trainer: the step from
   ``train.trainer.make_single_device_train_step`` run ``plan.num_steps``
@@ -12,11 +12,16 @@ single-device part of ``repro.run.workers``).
   delta stream (``stream.train_loop.train_streamed``), ``plan.num_epochs``
   passes.  It reads the pipeline's stream statistics, ``max_edges`` and
   block size, never its padded batch: device memory follows the edge ring,
-  not T.
+  not T;
+* ``fit_streamed_mesh`` — this rank's time-slice delta stream under
+  snapshot partitioning (``stream.distributed``), ``plan.num_epochs``
+  passes over the stream it encodes once (cached on the bundle with the
+  step).
 
-The reference's async checkpointing, preemption guard and straggler timer
-(``ckpt/``, ``ft/``) are not ported yet (ROADMAP Queue 1, item 8); nor are
-the streamed-mesh and sampled schedules' workers (items 7 and 8).
+The reference's async checkpointing, preemption guard, straggler timer
+and elastic segment loop (``ckpt/``, ``ft/``, ``elastic/``) are not
+ported yet (ROADMAP Queue 1, item 8); nor is the sampled schedule's
+worker (item 8).
 """
 
 from __future__ import annotations
@@ -25,9 +30,11 @@ import torch
 
 from repro_torch import obs
 from repro_torch.core import models as dyn_models
-from repro_torch.dist.sharding import ShardLayout
+from repro_torch.dist import compression as compression_lib
+from repro_torch.dist.sharding import ShardLayout, group_rank
 from repro_torch.optim import adamw
 from repro_torch.run.config import ResolvedRun, RunResult
+from repro_torch.stream import distributed as stream_dist
 from repro_torch.stream import encoder as stream_enc
 from repro_torch.stream import train_loop as stream_train
 from repro_torch.train import trainer
@@ -110,3 +117,44 @@ def fit_streamed(rr: ResolvedRun, params=None) -> RunResult:
                                step=len(st.losses))
     return RunResult(state=state, losses=st.losses, stream_report=report,
                      transfer_report=pipe.transfer_bytes())
+
+
+def fit_streamed_mesh(rr: ResolvedRun, params=None) -> RunResult:
+    """``params`` as for :func:`fit_eager`.  Every rank of the plan's
+    group runs it; each encodes, stages and applies only its own time
+    slices."""
+    plan, ds, pipe = rr.plan, rr.ds, rr.pipeline
+    opt_cfg = rr.opt_cfg or adamw.AdamWConfig(
+        lr=1e-2, warmup_steps=10,
+        total_steps=plan.num_epochs * ds.num_steps, weight_decay=0.0)
+    params, opt_state = _init(rr, params)
+    step_fn = rr.cache.get("dist_step")
+    if step_fn is None:
+        step_fn = stream_dist.make_dist_stream_step(
+            rr.cfg, rr.mesh, opt_cfg, a2a_chunks=plan.a2a_chunks,
+            compression=plan.compression)
+        rr.cache["dist_step"] = step_fn
+    shard_stream = rr.cache.get("shard_stream")
+    if shard_stream is None:
+        shard_stream = pipe.sharded_streams(
+            plan.num_shards, wire=compression_lib.wire_mode(plan.compression),
+            rank=group_rank(rr.mesh))[0]
+        rr.cache["shard_stream"] = shard_stream
+    st = stream_dist.train_distributed_streamed(
+        rr.cfg, ds.snapshots, ds.values, ds.frames, ds.labels,
+        mesh=rr.mesh, block_size=pipe.bsize,
+        num_epochs=plan.num_epochs, overlap=plan.overlap,
+        prefetch_depth=plan.prefetch_depth, a2a_chunks=plan.a2a_chunks,
+        pipeline_rounds=plan.pipeline_rounds, compression=plan.compression,
+        opt_cfg=opt_cfg, params=params, opt_state=opt_state,
+        stats=pipe.stream_stats, max_edges=pipe.max_edges, step_fn=step_fn,
+        shard_stream=shard_stream, log_every=rr.log_every,
+        log_fn=rr.log_fn, device=rr.device)
+    state = trainer.TrainState(params=st.params, opt_state=st.opt_state,
+                               step=len(st.losses))
+    return RunResult(state=state, losses=st.losses,
+                     transfer_report=pipe.transfer_bytes(),
+                     per_shard_bytes=st.per_shard_bytes,
+                     a2a_chunks=plan.a2a_chunks,
+                     pipeline_rounds=plan.pipeline_rounds,
+                     compression=plan.compression)

@@ -1,9 +1,9 @@
 """Vectorized host-side graph-diff encoder.
 
 Host numpy, a copy of ``repro.stream.encoder`` whose items are held
-byte-identical to the reference's by ``tests/test_torch_stream.py``.  Only
-the lossless ``wire="none"`` format is ported; the narrow int8 wire
-(``repro.stream.wire``) waits for ROADMAP Queue 1, item 7.
+byte-identical to the reference's by ``tests/test_torch_stream.py`` (the
+lossless ``wire="none"`` format) and ``tests/test_torch_dist_stream.py``
+(the narrow ``wire="int8"`` format of ``stream.wire``).
 
 Replaces the reference encoder's per-edge python dict alignment
 (``core.graphdiff.encode_stream``) with ``np.searchsorted`` set algebra:
@@ -33,6 +33,7 @@ import numpy as np
 
 from repro_torch import obs
 from repro_torch.core.graphdiff import FullSnapshot, SnapshotDelta, _edge_key
+from repro_torch.stream import wire as wirelib
 
 
 class ChurnOverflowError(ValueError):
@@ -207,8 +208,11 @@ class IncrementalEncoder:
     * ``"raise"`` — propagate :class:`ChurnOverflowError` (strict mode
       for offline encoding where stats are authoritative).
 
-    Only ``wire="none"`` (lossless f32) is ported; any other wire raises
-    ``NotImplementedError`` until ROADMAP Queue 1, item 7 ports ``stream/wire.py``.
+    ``wire="int8"`` emits deltas on the narrow ``stream.wire`` format
+    (:class:`~repro_torch.stream.wire.QuantizedDelta`: int16/int32
+    indices, int8 masks, absmax-int8 values).  Full snapshots — block
+    boundaries AND overflow resyncs — always stay on the lossless f32
+    format, so value quantization error never survives a re-base.
     """
 
     def __init__(self, num_nodes: int, max_edges: int, block_size: int,
@@ -224,11 +228,7 @@ class IncrementalEncoder:
         self.add_pad = add_pad
         self.on_overflow = on_overflow
         self.report = report
-        if wire != "none":
-            raise NotImplementedError(
-                f"wire={wire!r} is not ported yet (ROADMAP Queue 1, item 7 ports "
-                "stream/wire.py); the port supports wire='none'")
-        self.wire = wire
+        self.wire = wirelib.validate_wire(wire)
         self.step = 0
         self._dev: _DeviceMirror | None = None
         self._warned = False
@@ -251,6 +251,9 @@ class IncrementalEncoder:
             item, self._dev = _delta_step(
                 self._dev, snap, vals, self.num_nodes, self.max_edges,
                 self.drop_pad, self.add_pad)
+            if self.wire != "none":
+                item = wirelib.quantize_delta(item, self.num_nodes,
+                                              self.max_edges)
             return item
         except ChurnOverflowError as err:
             if self.on_overflow == "raise":

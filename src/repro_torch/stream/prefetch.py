@@ -16,7 +16,9 @@ Port of ``repro.stream.prefetch``.
   on the device: each delta is applied from the current slot into the
   retiring one — where JAX donated the previous buffers, the port writes
   into the slot in place, so the stream runs in O(ring) device memory
-  regardless of its length.
+  regardless of its length.  A ``QuantizedDelta`` (the narrow
+  ``stream.wire`` format) crosses the link in its narrow dtypes and is
+  widened and dequantized on the device before it is applied.
 * ``SlotStacker`` copies each reconstructed snapshot of a slice out of the
   ring before the next ``consume`` overwrites it (the streamed trainer's
   ``slice_len > 1`` schedule).
@@ -35,6 +37,7 @@ import torch
 from repro_torch import obs, resolve_device
 from repro_torch.core import graphdiff
 from repro_torch.core.graphdiff import FullSnapshot, SnapshotDelta
+from repro_torch.stream.wire import QuantizedDelta
 
 _SENTINEL = object()
 
@@ -170,6 +173,16 @@ def stage_item(item: Any, device: str | torch.device = "cuda") -> Any:
                              add_mask=_put(item.add_mask, dev),
                              values=_put(item.values, dev),
                              num_edges=item.num_edges)
+    if isinstance(item, QuantizedDelta):
+        # the narrow dtypes cross the host->device link as they are; the
+        # ring widens them on the device (DeltaApplier.consume)
+        return QuantizedDelta(drop_pos=_put(item.drop_pos, dev),
+                              drop_mask=_put(item.drop_mask, dev),
+                              add_edges=_put(item.add_edges, dev),
+                              add_mask=_put(item.add_mask, dev),
+                              values_q=_put(item.values_q, dev),
+                              values_scale=item.values_scale,
+                              num_edges=item.num_edges)
     return _put(item, dev)
 
 
@@ -233,7 +246,9 @@ class DeltaApplier:
     ``consume`` turns a staged stream item into the current snapshot's
     device buffers, written into the retiring slot: a full snapshot is
     copied in, a delta is applied from the current slot by
-    ``graphdiff.apply_delta``.  Each slot has one extra dump row that
+    ``graphdiff.apply_delta``; a ``QuantizedDelta``'s indices and masks
+    are widened (int32, f32) and its values dequantized (``q * scale``, in
+    f32) on the device first.  Each slot has one extra dump row that
     out-of-range adds land in.  The returned tensors are views of the new
     current slot and stay valid until the next ``consume`` (the contract
     of the JAX ring, whose buffers the next call donated).
@@ -259,21 +274,37 @@ class DeltaApplier:
         """-> (edges, mask, values) device tensors for this step."""
         nxt = 1 - self._cur
         out_e, out_m = self._edges[nxt], self._mask[nxt]
+        dev = self.device
         if isinstance(item, FullSnapshot):
             out_e[:self.max_edges].copy_(item.edges)
             out_m[:self.max_edges].copy_(item.mask)
+            values = torch.as_tensor(item.values, device=dev)
         elif isinstance(item, SnapshotDelta):
             prev_e, prev_m = self.current
             graphdiff.apply_delta(prev_e, prev_m, item.drop_pos,
                                   item.drop_mask, item.add_edges,
                                   item.add_mask, out_edges=out_e,
                                   out_mask=out_m)
+            values = torch.as_tensor(item.values, device=dev)
+        elif isinstance(item, QuantizedDelta):
+            prev_e, prev_m = self.current
+
+            def wide(a, dtype):
+                return torch.as_tensor(a, device=dev).to(dtype)
+
+            graphdiff.apply_delta(
+                prev_e, prev_m, wide(item.drop_pos, torch.int32),
+                wide(item.drop_mask, torch.float32),
+                wide(item.add_edges, torch.int32),
+                wide(item.add_mask, torch.float32),
+                out_edges=out_e, out_mask=out_m)
+            values = wide(item.values_q, torch.float32) * float(
+                item.values_scale)
         else:
             raise TypeError(f"DeltaApplier cannot consume "
                             f"{type(item).__name__}")
         self._cur = nxt
-        return (*self.current, torch.as_tensor(item.values,
-                                               device=self.device))
+        return (*self.current, values)
 
 
 class SlotStacker:

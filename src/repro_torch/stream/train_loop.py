@@ -160,8 +160,8 @@ def make_stream_slice_step(cfg: mdl.DynGNNConfig,
     carries, loss)``: per-step Laplacian weights and both CSRs on the
     device, one ``forward_slice`` over the k-length timeline, mean CE, one
     AdamW update of ``params`` in place.  This is the single-device
-    reference the snapshot-parallel streamed trainer (ROADMAP Queue 1,
-    item 7) will be held to."""
+    reference the snapshot-parallel streamed trainer
+    (``stream.distributed``) is held to."""
 
     def step(params, opt_state, carries, frames, edges, mask, values,
              labels, t_offset):

@@ -738,17 +738,17 @@ def test_plan_pads_the_vertex_axis_and_refuses_what_is_not_ported(
                    plan=plan, log_fn=_silent)
     with pytest.raises(ValueError, match="torchrun"):
         Engine(rc, device="cpu").resolve()
-    # compression, the distributed stream and its wire: ROADMAP item 7
+    # compression, the distributed stream and its wire run (held to JAX in
+    # tests/test_torch_dist_stream.py); the int8 block body needs its
+    # residuals
     cfg = _engine_cfg("tmgcn")
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(ValueError, match="comm_residuals"):
         partition.snapshot_block_body(cfg, None, None, [], (), [],
                                       compression="int8_a2a")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        ExecutionPlan(mode="streamed_mesh", shards=4,
-                      compression="int8_a2a").validate()
-    with pytest.raises(NotImplementedError, match="item 7"):
-        data.DTDGPipeline(_engine_data("tmgcn").build(), nb=NB,
-                          device="cpu").sharded_streams(4)
+    ExecutionPlan(mode="streamed_mesh", shards=4,
+                  compression="int8_a2a").validate()
+    assert len(data.DTDGPipeline(_engine_data("tmgcn").build(), nb=NB,
+                                 device="cpu").sharded_streams(4)) == 4
     # NCCL runs one rank per card: too few cards refuse, naming both counts
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)

@@ -112,8 +112,13 @@ def test_encoder_items_byte_identical_and_stats():
 
 
 def test_encoder_rejects_unported_wire():
-    with pytest.raises(NotImplementedError, match="Queue 1, item 7"):
-        enc.IncrementalEncoder(N, 64, 4, 64, 64, wire="int8")
+    """The reference's two wires are ported (``int8``'s items are held to
+    JAX's in ``tests/test_torch_dist_stream.py``); any other is refused,
+    as the reference refuses it."""
+    assert enc.IncrementalEncoder(N, 64, 4, 64, 64, wire="int8").wire == \
+        "int8"
+    with pytest.raises(ValueError, match="wire must be one of"):
+        enc.IncrementalEncoder(N, 64, 4, 64, 64, wire="int4")
 
 
 @pytest.mark.parametrize("policy", ["snapshot", "window"])

@@ -589,8 +589,8 @@ def test_engine_evaluate_and_launcher_print_the_done_line(capsys):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--stream", "--mesh", "4"], "item 7"), (["--mesh", "4"], "item 7"),
-    (["--sampled"], "item 8"), (["--compression", "int8_a2a"], "item 7"),
+    (["--rescale-at", "2:2"], "item 8"), (["--trace", "t.json"], "item 8"),
+    (["--sampled"], "item 8"), (["--rescale-on-preempt", "2"], "item 8"),
     (["--ckpt-dir", "x"], "item 8")])
 def test_launcher_refuses_unported_flags(flag, item):
     with pytest.raises(SystemExit, match=item):
@@ -599,9 +599,10 @@ def test_launcher_refuses_unported_flags(flag, item):
 
 @pytest.mark.parametrize("plan,item", [
     (ExecutionPlan(mode="streamed", device_budget_bytes=1 << 20), "item 8"),
-    (ExecutionPlan(mode="streamed_mesh"), "item 7"),
+    (ExecutionPlan(mode="streamed_mesh", rescale=((1, 2),)), "item 8"),
     (ExecutionPlan(mode="sampled", sampling=object()), "item 8"),
-    (ExecutionPlan(mode="streamed_mesh", shards=4), "item 7"),
+    (ExecutionPlan(mode="streamed_mesh", shards=4, rescale_on_preempt=2),
+     "item 8"),
     (ExecutionPlan(device_budget_bytes=1 << 20), "item 8")])
 def test_unported_schedules_raise_naming_their_roadmap_item(plan, item):
     with pytest.raises(NotImplementedError, match=item):
@@ -695,8 +696,12 @@ def test_dataset_and_batch_match_jax(model):
                                rtol=1e-6)
     for a, b in zip(pipe.blocked_arrays(), jpipe.blocked_arrays()):
         assert tuple(a.shape) == b.shape
-    with pytest.raises(NotImplementedError, match="item 7"):
-        pipe.sharded_streams(2)
+    for ours, theirs in zip(pipe.sharded_streams(2),
+                            jpipe.sharded_streams(2), strict=True):
+        for a, b in zip(ours, theirs, strict=True):
+            assert type(a).__name__ == type(b).__name__
+            for f in a.__dataclass_fields__:
+                np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
 
 
 @pytest.mark.parametrize("model", MODELS)
