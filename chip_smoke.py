@@ -128,6 +128,39 @@ which exits non-zero on failure:
    8, block 4) on cuda:0, then on the CPU, for ``none`` and ``int8_a2a``;
    their losses held to each other, to the CPU's (1e-4 relative) and to
    the card's P = 1 (``none`` 1e-4 relative, ``int8_a2a`` 1e-3);
+4j. the hybrid scheme (paper §6.5) on a 1 x 1 grid of the one-rank NCCL
+   group (``dist.sharding.make_grid``): ``paper_dyngnn``'s widths on the
+   train phase's trace (made here when that phase does not run), its
+   edges split into the grid's destination shard, through
+   ``core.hybrid.hybrid_forward`` (every count zeroed just before and read
+   just after: L T = 64 ``segment_spmm`` on rectangular CSRs, L = 2
+   ``banded_ttm``, T = 32 CSR builds), Z held to ``models.forward`` on the
+   same batch (1e-5; 0.0 expected), the forward timed in turns beside the
+   eager one; the one-rank frame all-gather at (32, 755,200, 6) into one
+   tensor and into a list of its views, beside one copy of the frame;
+   ``segment_spmm`` on a rectangular CSR at a Pm = 4 rank's shape
+   (188,800 rows gathered from 755,200) at F = 2 and 6, held to its
+   plain version, shown to reject zeros and a dropped edge per row, timed
+   beside its bound (the x rows the CSR reads), plain version and
+   ``torch.sparse.mm``; then a 2 x 2
+   grid of four spawned gloo ranks sharing cuda:0 at N = 65,536, T = 8,
+   held to CPU gloo and to the card's 1 x 1 grid and eager forward (1e-4);
+4k. the sampled schedule over the one-rank NCCL group: ``paper_dyngnn``
+   on the train trace (N = 755,200, T = 32; 2 epochs of 4 rounds of
+   block 8), the launcher's defaults (N / 4 seeds, fanouts 10, 10), the
+   union capped at the largest snapshot's edges, through
+   ``Engine(plan=ExecutionPlan(mode="sampled", mesh=group,
+   device_budget_bytes=B))`` with B between the sampled and the full-graph
+   round's bytes, after ``streamed_mesh`` is shown to refuse B (every
+   count zeroed just before the fit and read just after: per round 24 /
+   2 / 2 / 0 and 16 CSR builds); ``table_pad``, ``edge_pad``, the dropped
+   lanes, per round the fenced host sampling, staging, carry gather /
+   all-gather / scatter, step and CSR-pair spans, the staged bytes beside
+   the full round's and the peak beside ``sampled_round_bytes``; every
+   vertex a seed with full fanout at N = 65,536, T = 8, 2 epochs, against
+   the distributed stream on the card (rtol 1e-5); and two spawned gloo
+   ranks sharing cuda:0 for 2 epochs, card against CPU and the card's P =
+   1 (1e-4);
 5. the LM path: Yi-6B at full width (32 layers, d 4096, 32 query heads
    over 4 KV heads, D 128, bf16, random weights drawn on the card from a
    seed) served through ``ServeEngine(device="cuda").generate()``: one
@@ -167,13 +200,14 @@ Kernel times are device time only (each call queued behind a device
 sleep); ``wrapper_ms`` is the wrapper's host time plus device time.
 
 Prints the card line, the per-phase numbers, one JSON line each of the
-streamed, the partitioned and the distributed-stream phases' numbers, one
-JSON line of the kernels and, last, ``{"ok": true, "device": {...}}``.
-Without a CUDA device, or without the repository around it, it exits
-non-zero and prints no result.  ``--only
-serve,train,stream,partition,dstream,lm`` runs the build and the named
-groups of phases (1–4, 4a–4c, 4d, 4e–4g, 4h–4i, 5–7; partition is held
-to train's run, so it needs train) and prints no result line.
+streamed, the partitioned, the distributed-stream, the hybrid and the
+sampled phases' numbers, one JSON line of the kernels and, last,
+``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
+repository around it, it exits non-zero and prints no result.  ``--only
+serve,train,stream,partition,dstream,hybrid,sampled,lm`` runs the build
+and the named groups of phases (1–4, 4a–4c, 4d, 4e–4g, 4h–4i, 4j, 4k,
+5–7; partition is held to train's run, so it needs train) and prints no
+result line.
 """
 
 from __future__ import annotations
@@ -218,6 +252,12 @@ DSTREAM_EPOCHS = 2           # the distributed stream: 4 rounds an epoch
 DSTREAM_PAIRS = 3            # pipeline_rounds off / on, 1-epoch turns
 DSTREAM_SHARED_N, DSTREAM_SHARED_T, DSTREAM_SHARED_NB = 65_536, 8, 2
 DRIFT_ATOL = 1e-3            # tests/test_compression_drift.py:43
+HYBRID_REPS = 4              # the forward timed in turns with the eager one
+HYBRID_SHARED_N, HYBRID_SHARED_T = 65_536, 8
+SAMPLED_BLOCK = 8            # the train trace's T = 32: 4 rounds an epoch
+SAMPLED_EPOCHS = 2
+SAMPLED_SMALL_N, SAMPLED_SMALL_T, SAMPLED_SMALL_BLOCK = 65_536, 8, 4
+SAMPLED_SMALL_EPOCHS = 2     # the carry store's epoch reset runs too
 
 LM_BATCH = 8
 LM_PROMPT = 4096
@@ -2354,6 +2394,582 @@ def dstream_shared_card(torch, group) -> dict:
     return out
 
 
+# ------------------------------------------------------------- hybrid ------
+
+def hybrid_batch(torch, ds, n: int, pm: int, dev: str):
+    """The dataset's padded batch on ``dev`` and its edges split into
+    ``pm`` destination shards (``partition_edges_for_hybrid``, on the
+    host) -> (batch, edges (T, pm E, 2), weights (T, pm E) on ``dev``)."""
+    from repro_torch.core import dtdg, hybrid
+
+    batch = dtdg.build_batch(ds.snapshots, ds.frames, n, values=ds.values,
+                             device=dev)
+    e_h, w_h = hybrid.partition_edges_for_hybrid(
+        batch.edges.cpu().numpy(), batch.edge_weights.cpu().numpy(),
+        batch.edge_mask.cpu().numpy(), n, pm=pm,
+        max_local_edges=batch.edges.shape[1])
+    return (batch, torch.from_numpy(e_h).to(dev),
+            torch.from_numpy(w_h).to(dev))
+
+
+def hybrid_path(torch, kernels, ds, group, timer):
+    """The hybrid scheme (§6.5) at full width on a 1 x 1 grid over the
+    one-rank NCCL group: ``paper_dyngnn``'s widths on the train phase's
+    trace (N = 755,200, T = 32), its edges split into the one destination
+    shard, ``core.hybrid.hybrid_forward`` (random seed-0 parameters), every
+    count zeroed just before the forward and read just after (L T
+    ``segment_spmm``, L ``banded_ttm``, T rectangular CSR builds); Z held
+    to ``models.forward`` on the same batch (1e-5: the same CSRs and
+    kernels, so 0.0 is expected); the forward timed beside the eager one
+    (``forward_slice`` building its T CSRs, as the hybrid forward does);
+    then the rectangular kernel at a Pm = 4 rank's shape -> the path's
+    numbers."""
+    import numpy as np
+
+    from repro_torch.configs import registry
+    from repro_torch.core import hybrid
+    from repro_torch.core import models as tm
+    from repro_torch.dist import sharding
+    from repro_torch.kernels.build import reset_counts
+    from repro_torch.kernels.segment_spmm import ops as spmm_ops
+
+    n, t = ds.num_nodes, ds.num_steps
+    cfg = dataclasses.replace(registry.get_arch("paper_dyngnn").make_config(),
+                              num_nodes=n, num_steps=t)
+    layers = cfg.num_layers
+    t0 = time.perf_counter()
+    batch, e_h, w_h = hybrid_batch(torch, ds, n, 1, "cuda")
+    torch.cuda.synchronize()
+    prep_s = time.perf_counter() - t0
+    grid = sharding.make_grid(1, 1, group)
+    params = tm.init_params(torch.Generator().manual_seed(0), cfg).to("cuda")
+    fwd = hybrid.hybrid_forward(cfg, grid)
+    frames, edges, ew = hybrid.local_blocks(grid, batch.frames, e_h, w_h)
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(kernels)
+    spmm_ops.csr_builds = 0
+    z = fwd(params, frames, edges, ew)
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in kernels}
+    launches["csr_builds"] = spmm_ops.csr_builds
+    peak = torch.cuda.max_memory_allocated()
+    check_launches("hybrid", launches, {
+        "segment_spmm": layers * t, "banded_ttm": layers,
+        "banded_ttm_t": 0, "flash_decode": 0})
+    if launches["csr_builds"] != t:
+        raise SystemExit(f"hybrid: {launches['csr_builds']} CSR builds, "
+                         f"expected {t}")
+    with torch.no_grad():
+        want = tm.forward(cfg, params, batch)
+    if z.shape != want.shape or not bool(torch.isfinite(z).all()):
+        raise SystemExit(f"hybrid: Z {tuple(z.shape)} against "
+                         f"{tuple(want.shape)}, or not finite")
+    err = check_close("hybrid Z vs models.forward", z, want, TOL_TTM)
+
+    def eager():
+        with torch.no_grad():
+            return tm.forward_slice(cfg, params, batch.frames, batch.edges,
+                                    batch.edge_weights,
+                                    tm.init_carries(cfg, params,
+                                                    device="cuda"), 0)[0]
+
+    walls = alternating_walls(torch, {
+        "hybrid": lambda: fwd(params, frames, edges, ew), "eager": eager},
+        rounds=HYBRID_REPS)
+    log(f"[hybrid] 1 x 1 grid over NCCL, N={n} T={t}: Z max|err| {err:.2e} "
+        f"against models.forward (limit {TOL_TTM} abs + rel); forward "
+        f"{walls['hybrid']:.2f} ms against the eager forward's "
+        f"{walls['eager']:.2f} (host clock, {HYBRID_REPS - 1} rounds in "
+        f"turns, each building its {t} CSRs); peak {peak / 1e9:.3f} GB, "
+        f"{(peak - base) / 1e9:.3f} above the batch; batch and shard "
+        f"split {prep_s:.1f} s")
+    del z, want, frames, edges, ew, e_h, w_h
+    gc.collect()
+    gather = frame_gather_ms(torch, group, t, n, cfg.hidden, timer)
+    log(f"[hybrid] one-rank frame all-gather ({t}, {n}, {cfg.hidden}) "
+        f"over NCCL: into one tensor {gather['into_tensor']:.4f} ms, into a "
+        f"list of its views {gather['list']:.4f}, one copy of the frame "
+        f"{gather['copy']:.4f} (device time, in turns)")
+    rect = hybrid_rect_check(torch, batch, n, timer)
+    del batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"N": n, "T": t, "launches": launches, "max_abs_err": err,
+            "forward_ms": walls, "peak_bytes": peak, "base_bytes": base,
+            "prep_s": prep_s, "frame_all_gather_ms": gather,
+            "rectangular": rect}
+
+
+def frame_gather_ms(torch, group, t: int, n: int, f: int, timer) -> dict:
+    """The hybrid forward's frame all-gather at its (T, N, F) shape over
+    ``group``, two ways: ``all_gather_into_tensor`` into one buffer (what
+    ``dist.sharding.all_gather`` issues) and ``all_gather`` into
+    a list of that buffer's views (which NCCL gathers into a staging
+    buffer and copies out), beside one copy of the frame -> {way: median
+    device ms}."""
+    import torch.distributed as dist
+
+    x = torch.ones((t, n, f), device="cuda")
+    out = x.new_empty((dist.get_world_size(group),) + tuple(x.shape))
+    ms = timer.turns({
+        "into_tensor": lambda: dist.all_gather_into_tensor(
+            out.flatten(0, 1), x, group=group),
+        "list": lambda: dist.all_gather(list(out.unbind(0)), x,
+                                        group=group),
+        "copy": lambda: out[0].copy_(x)})
+    del x, out
+    return ms
+
+
+def hybrid_rect_check(torch, batch, n: int, timer) -> list:
+    """``segment_spmm`` on a rectangular CSR at a Pm = 4 rank's shape:
+    the last snapshot's edges (self-loops and Laplacian weights) whose
+    destination is rank 1's (N/4 rows, ids made local), gathered from all
+    N source rows; at F = 2 and 6, held to the plain version, shown to
+    reject zeros and each row's last edge dropped, timed beside its bound
+    (its bytes count each x row the CSR gathers once, and no other), the
+    plain version and ``torch.sparse.mm`` on the same (N/4, N) matrix."""
+    from repro_torch.kernels.segment_spmm import ops, ref
+
+    n_loc = n // 4
+    e, w = batch.edges[-1], batch.edge_weights[-1]
+    sel = (e[:, 1] >= n_loc) & (e[:, 1] < 2 * n_loc) & (w != 0)
+    e_loc = e[sel].clone()
+    e_loc[:, 1] -= n_loc
+    w_loc = w[sel].contiguous()
+    row_ptr, col, wc = ops.build_csr(e_loc, w_loc, n_loc)
+    nnz = int(row_ptr[-1])
+    x_rows = int(torch.unique(col[:nnz]).numel())
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    rows = []
+    for f in (2, 6):
+        x = torch.randn((n, f), generator=gen, device="cuda")
+        got = ops.segment_spmm_csr(x, row_ptr, col, wc)
+        want = ref.segment_spmm_csr_ref(x, row_ptr, col, wc)
+        torch.cuda.synchronize()
+        if got.shape != (n_loc, f):
+            raise SystemExit(f"segment_spmm rectangular: {tuple(got.shape)}"
+                             f", expected {(n_loc, f)}")
+        err = check_close(f"segment_spmm rectangular F={f}", got, want,
+                          TOL_SPMM)
+        faults = spmm_faults(f"rectangular F={f}", ops, x, row_ptr, col, wc,
+                             want)
+        csr = torch.sparse_csr_tensor(row_ptr, col[:nnz], wc[:nnz],
+                                      size=(n_loc, n),
+                                      check_invariants=False)
+        lib_err = float((torch.sparse.mm(csr, x) - want).abs().max())
+        # each x row the CSR gathers is read once; the others not at all
+        nbytes = (x_rows * f * x.element_size() + row_ptr.nbytes + nnz * 8
+                  + got.nbytes)
+        b_ms, b_by = bound_ms(nbytes, 2.0 * nnz * f)
+        row = {"F": f, "rows": n_loc, "source_rows": n,
+               "source_rows_read": x_rows, "nnz": nnz,
+               "ms": timer(lambda x=x: ops.segment_spmm_csr(x, row_ptr, col,
+                                                            wc)),
+               "wrapper_ms": timer(lambda x=x: ops.segment_spmm_csr(
+                   x, row_ptr, col, wc), host=True),
+               "plain_ms": timer(lambda x=x: ref.segment_spmm_csr_ref(
+                   x, row_ptr, col, wc)),
+               "library_ms": timer(lambda x=x, csr=csr: torch.sparse.mm(
+                   csr, x)),
+               "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
+               "fault_over_limit": faults, "library_max_abs_err": lib_err}
+        log(f"[kernel] segment_spmm rectangular ({n_loc} rows from {n}, "
+            f"{x_rows} of them read, {nnz} edges) F={f}: kernel "
+            f"{row['ms']:.4f} ms (wrapper {row['wrapper_ms']:.4f}), plain "
+            f"{row['plain_ms']:.4f}, torch.sparse.mm "
+            f"{row['library_ms']:.4f}, bound {b_ms:.4f} "
+            f"({b_by}, {b_ms / row['ms']:.1%}); max|err| {err:.2e}; faults "
+            f"rejected at x limit: zeros {faults['zeros']:.1f}, last edge "
+            f"dropped {faults['last edge dropped']:.1f}")
+        rows.append(row)
+    return rows
+
+
+def hybrid_small(torch, dev: str, grid) -> dict:
+    """TM-GCN at the full config's widths, N = 65,536, T = 8, through
+    ``hybrid_forward`` on ``grid`` with this rank's tensors on ``dev``,
+    from the seed-7 parameters -> {rank's Z block, its grid place}."""
+    from repro_torch.configs import registry
+    from repro_torch.core import hybrid
+    from repro_torch.core import models as tm
+    from repro_torch.data.dyngnn import synthetic_dataset
+
+    n, t = HYBRID_SHARED_N, HYBRID_SHARED_T
+    cfg = dataclasses.replace(registry.get_arch("tmgcn").make_config(),
+                              num_nodes=n, num_steps=t)
+    ds = synthetic_dataset(n, t, density=TRAIN_DENSITY,
+                           smoothing_mode="mproduct", window=cfg.window,
+                           seed=1)
+    batch, e_h, w_h = hybrid_batch(torch, ds, n, grid.pm, dev)
+    params = tm.init_params(torch.Generator().manual_seed(7), cfg).to(dev)
+    blocks = hybrid.local_blocks(grid, batch.frames, e_h, w_h)
+    z = hybrid.hybrid_forward(cfg, grid)(params, *blocks)
+    out = {"z": z.cpu().numpy(), "place": (grid.data_index,
+                                           grid.model_index)}
+    if grid.pd * grid.pm == 1:
+        with torch.no_grad():
+            out["eager"] = tm.forward(cfg, params, batch).cpu().numpy()
+    return out
+
+
+def _hybrid_shared_rank(rank: int, src: str, store: str, out_dir: str):
+    """One of four ranks sharing cuda:0 over gloo as a 2 x 2 grid: the
+    small hybrid forward on the card, then on the CPU, written to
+    ``out_dir``."""
+    import datetime
+    import pickle
+
+    sys.path.insert(0, src)
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.dist import sharding
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, 4),
+                            rank=rank, world_size=4,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        grid = sharding.make_grid(2, 2)
+        res = {dev: hybrid_small(torch, dev, grid) for dev in ("cuda", "cpu")}
+        with open(Path(out_dir) / f"rank{rank}.pkl", "wb") as f:
+            pickle.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def hybrid_shared_card(torch, group) -> dict:
+    """A 2 x 2 grid of four ranks sharing the one card over gloo, with
+    CUDA tensors: the small hybrid forward on cuda:0, then on the CPU;
+    the ranks' blocks assembled, card against CPU gloo and against the
+    card's 1 x 1 grid over NCCL and its eager forward (1e-4 abs + rel:
+    the kernel sums in another order than the plain version)."""
+    import pickle
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.dist import sharding
+
+    one = hybrid_small(torch, "cuda", sharding.make_grid(1, 1, group))
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        run_ranks(_hybrid_shared_rank, 4,
+                  (str(SRC), str(Path(d) / "store"), d), RANK_DEADLINE_S)
+        ranks_s = time.perf_counter() - t0
+        res = []
+        for r in range(4):
+            with open(Path(d) / f"rank{r}.pkl", "rb") as f:
+                res.append(pickle.load(f))
+
+    def assemble(dev):
+        if [r[dev]["place"] for r in res] != [(0, 0), (0, 1), (1, 0),
+                                              (1, 1)]:
+            raise SystemExit("hybrid shared card: the ranks' grid places "
+                             f"{[r[dev]['place'] for r in res]}")
+        return np.concatenate([np.concatenate([res[2 * d + m][dev]["z"]
+                                               for m in range(2)], axis=1)
+                               for d in range(2)], axis=0)
+
+    card, cpu = assemble("cuda"), assemble("cpu")
+    out = {"N": HYBRID_SHARED_N, "T": HYBRID_SHARED_T, "ranks_s": ranks_s}
+    for name, want in (("cpu", cpu), ("p1", one["z"]),
+                       ("eager", one["eager"])):
+        err = float(np.abs(card - want).max())
+        limit = TOL_SPMM * (1.0 + float(np.abs(want).max()))
+        if not (card.shape == want.shape and err <= limit):
+            raise SystemExit(f"hybrid shared card: 2 x 2 on the card vs "
+                             f"{name}: max|diff| {err:.3e} > {limit:.3e}")
+        out[f"vs_{name}"] = err
+    log(f"[hybrid-shared] 2 x 2 gloo ranks on cuda:0 ({ranks_s:.1f} s with "
+        f"their start), N={HYBRID_SHARED_N} T={HYBRID_SHARED_T}: Z max|diff| "
+        f"vs CPU gloo {out['vs_cpu']:.2e}, vs the card's 1 x 1 over NCCL "
+        f"{out['vs_p1']:.2e}, vs its eager forward {out['vs_eager']:.2e} "
+        f"(limit {TOL_SPMM} abs + rel)")
+    return out
+
+
+# ------------------------------------------------------------ sampled ------
+
+def sampled_path(torch, kernels, obs, ds, group):
+    """The sampled schedule at full width over the one-rank NCCL group:
+    ``paper_dyngnn`` on the train phase's trace (N = 755,200, T = 32),
+    block 8 (2 epochs of 4 rounds), through ``Engine(plan=
+    ExecutionPlan(mode="sampled", mesh=group), device="cuda")`` with the
+    launcher's defaults (N / 4 seeds a round, fanouts 10, 10) and the
+    union's edges capped at the largest snapshot's; the budget gate set
+    between the sampled and the full-graph round: ``streamed_mesh``
+    refuses, ``sampled`` trains within it; every count zeroed just before
+    the fit and read just after (per round the slice step's 24 / 2 / 2 / 0
+    and 16 CSR builds); fenced spans per round (host sampling, staging,
+    the carries' gather, all-gather and scatter, the step, its CSR
+    pairs) -> the path's numbers."""
+    import numpy as np
+
+    from repro_torch import hoststore as hs
+    from repro_torch.configs import registry
+    from repro_torch.data.dyngnn import DTDGPipeline
+    from repro_torch.kernels.build import reset_counts
+    from repro_torch.kernels.segment_spmm import ops as spmm_ops
+    from repro_torch.run import (Engine, ExecutionPlan, InMemoryDTDG,
+                                 RunConfig, SamplingSpec)
+
+    sub, win = ds, SAMPLED_BLOCK
+    n, t = sub.num_nodes, sub.num_steps
+    cfg = dataclasses.replace(registry.get_arch("paper_dyngnn").make_config(),
+                              num_nodes=n, num_steps=t,
+                              checkpoint_blocks=t // win)
+    layers = cfg.num_layers
+    t0 = time.perf_counter()
+    pipe = DTDGPipeline(sub, nb=t // win, device="cuda")
+    pipe_s = time.perf_counter() - t0
+    e_max = max(s.shape[0] for s in sub.snapshots)
+    spec = SamplingSpec(batch_nodes=n // 4, fanouts=(10, 10),
+                        max_edges=e_max)
+    resolved = spec.resolve(n, win, 1)
+    sampled_b = hs.sampled_round_bytes(resolved, win=win, num_shards=1,
+                                       feat_dim=sub.frames.shape[-1])
+    full_b = hs.full_graph_round_bytes(
+        "streamed_mesh", num_steps=t, win=win, num_shards=1,
+        max_edges=pipe.max_edges, num_nodes=n, feat_dim=sub.frames.shape[-1])
+    budget = (sampled_b + full_b) // 2
+    if not sampled_b < budget < full_b:
+        raise SystemExit(f"sampled: no budget between the sampled round's "
+                         f"{sampled_b} B and the full one's {full_b} B")
+    data = InMemoryDTDG(sub, pipeline=pipe)
+    try:
+        Engine(RunConfig(model=cfg, data=data, plan=ExecutionPlan(
+            mode="streamed_mesh", mesh=group, device_budget_bytes=budget),
+            log_fn=log), device="cuda").fit()
+        raise SystemExit("sampled: streamed_mesh trained within a budget "
+                         "below its round")
+    except hs.DeviceBudgetError as e:
+        refusal = str(e)
+    eng = Engine(RunConfig(model=cfg, data=data, plan=ExecutionPlan(
+        mode="sampled", mesh=group, sampling=spec, num_epochs=SAMPLED_EPOCHS,
+        device_budget_bytes=budget), log_every=1, log_fn=log),
+        device="cuda")
+    rr = eng.resolve()
+    t0 = time.perf_counter()
+    rr.cache["host_store"] = hs.TemporalCSRStore.from_stream(
+        pipe.host_stream(), n)
+    store_s = time.perf_counter() - t0
+    store_bytes = rr.cache["host_store"].nbytes
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    tracer = obs.configure(enabled=True, fence=True)
+    reset_counts(kernels)
+    spmm_ops.csr_builds = 0
+    t0 = time.perf_counter()
+    res = eng.fit()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in kernels}
+    launches["csr_builds"] = spmm_ops.csr_builds
+    spans = tracer.spans()
+    obs.configure(enabled=False)
+    peak = torch.cuda.max_memory_allocated()
+    rounds = SAMPLED_EPOCHS * t // win
+    check_stream_counts("sampled", launches, rounds, win, layers)
+    rep = res.sample_report
+    losses = res.losses
+    if not (len(losses) == rounds and np.isfinite(losses).all()
+            and rep.rounds == rounds):
+        raise SystemExit(f"sampled: losses {losses}, {rep.rounds} rounds")
+    if res.budget_report != {"required": sampled_b, "budget": budget}:
+        raise SystemExit(f"sampled: budget report {res.budget_report}")
+    per_round = {k: phase_ms(spans, name) for k, name in (
+        ("sample", "sample.round"), ("stage", "sample.stage"),
+        ("carry_gather", "carry.gather"), ("step", "round.step"),
+        ("csr_pair", "stream.csr_pair"),
+        ("carry_all_gather", "carry.all_gather"),
+        ("carry_scatter", "carry.scatter"), ("round", "round"),
+        ("prefetch_wait", "prefetch.wait"))}
+    for k in ("sample", "stage", "carry_gather", "step", "csr_pair",
+              "carry_scatter", "round"):
+        if len(per_round[k]) != rounds:
+            raise SystemExit(f"sampled: {len(per_round[k])} {k} spans, "
+                             f"expected {rounds}")
+    staged_round = rep.staged_bytes // rounds
+    warm_step = statistics.median(per_round["step"][1:])
+    log(f"[sampled] P = 1 over NCCL, N={n} T={t} block {win}, "
+        f"{spec.batch_nodes} seeds, fanouts {spec.fanouts}: table_pad "
+        f"{resolved.table_pad}, edge_pad {resolved.edge_pad} (the largest "
+        f"snapshot's {e_max} edges), table filled up to "
+        f"{rep.table_fill_max}; dropped {rep.dropped_nodes} nodes, "
+        f"{rep.dropped_edges} edges; {rep.sampled_edges} union edges staged")
+    log(f"[sampled] {rounds} rounds in {fit_s:.1f} s of fit (store ingest "
+        f"{store_s:.1f} s, {store_bytes / 1e6:.1f} MB on the host, before "
+        f"it; pipeline {pipe_s:.1f} s); losses "
+        + ", ".join(f"{v:.5f}" for v in losses))
+    for k, v in per_round.items():
+        log(f"[sampled]   {k}: " + ", ".join(f"{x:.1f}" for x in v) + " ms")
+    log(f"[sampled] warm step {warm_step:.1f} ms (the median of rounds 1-"
+        f"{rounds - 1}'s round.step)")
+    log(f"[sampled] staged {staged_round:,} B a round (the round's graph "
+        f"tensors and its table rows of the carries) "
+        f"against the full-graph round's {full_b:,} B; sampled_round_bytes "
+        f"{sampled_b:,}; budget {budget:,} B: streamed_mesh refused "
+        f"({refusal[:60]}...), sampled fit; peak {peak / 1e9:.3f} GB, "
+        f"{(peak - base) / 1e9:.3f} above the {base / 1e9:.3f} allocated "
+        "before the fit")
+    del eng, rr, res, pipe, data
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"N": n, "T": t, "block": win, "rounds": rounds,
+            "seeds": spec.batch_nodes, "fanouts": list(spec.fanouts),
+            "table_pad": resolved.table_pad, "edge_pad": resolved.edge_pad,
+            "largest_snapshot_edges": e_max,
+            "table_fill_max": rep.table_fill_max,
+            "dropped_nodes": rep.dropped_nodes,
+            "dropped_edges": rep.dropped_edges,
+            "sampled_edges": rep.sampled_edges, "losses": losses,
+            "launches": launches, "per_round_ms": per_round,
+            "warm_step_ms": warm_step,
+            "staged_bytes_per_round": staged_round,
+            "sampled_round_bytes": sampled_b, "full_round_bytes": full_b,
+            "budget": budget, "peak_bytes": peak, "base_bytes": base,
+            "fit_s": fit_s, "store_s": store_s, "store_bytes": store_bytes,
+            "pipeline_s": pipe_s}
+
+
+def sampled_small(torch, dev: str, group, full: bool) -> dict:
+    """TM-GCN at the full config's widths, N = 65,536, T = 8, block 4, 2
+    epochs over ``group`` with this rank's tensors on ``dev`` from the
+    seed-7 parameters: ``train_sampled`` with every vertex a seed and full
+    fanout (``full``; then also the distributed stream, its full-graph
+    counterpart) or with N / 4 seeds and fanouts 10, 10; the union's edges
+    capped at the largest snapshot's -> the loss streams."""
+    from repro_torch import hoststore as hs
+    from repro_torch.configs import registry
+    from repro_torch.core import models as tm
+    from repro_torch.data.dyngnn import DTDGPipeline, synthetic_dataset
+    from repro_torch.stream import distributed as sd
+
+    n, t, win = SAMPLED_SMALL_N, SAMPLED_SMALL_T, SAMPLED_SMALL_BLOCK
+    cfg = dataclasses.replace(registry.get_arch("tmgcn").make_config(),
+                              num_nodes=n, num_steps=t,
+                              checkpoint_blocks=t // win)
+    ds = synthetic_dataset(n, t, density=TRAIN_DENSITY,
+                           smoothing_mode="mproduct", window=cfg.window,
+                           seed=1)
+    pipe = DTDGPipeline(ds, nb=t // win, device=dev)
+    store = hs.TemporalCSRStore.from_stream(pipe.host_stream(), n)
+    e_max = max(s.shape[0] for s in ds.snapshots)
+    deg = store.max_in_degree()
+    spec = (hs.SamplingSpec(batch_nodes=n, fanouts=(deg, deg),
+                            max_edges=e_max) if full
+            else hs.SamplingSpec(batch_nodes=n // 4, fanouts=(10, 10),
+                                 max_edges=e_max))
+
+    def params():
+        return tm.init_params(torch.Generator().manual_seed(7), cfg)
+
+    st = hs.train_sampled(cfg, store, ds.frames, ds.labels, spec=spec,
+                          mesh=group, block_size=win,
+                          num_epochs=SAMPLED_SMALL_EPOCHS, params=params(),
+                          device=dev)
+    out = {"losses": st.losses, "dropped": (st.report.dropped_nodes,
+                                            st.report.dropped_edges),
+           "max_in_degree": deg}
+    if full:
+        out["streamed_mesh"] = sd.train_distributed_streamed(
+            cfg, ds.snapshots, ds.values, ds.frames, ds.labels, mesh=group,
+            block_size=win, num_epochs=SAMPLED_SMALL_EPOCHS,
+            stats=pipe.stream_stats, max_edges=pipe.max_edges,
+            params=params(), device=dev).losses
+    return out
+
+
+def sampled_equivalence(torch, group) -> dict:
+    """Every vertex a seed and full fanout on the card: the sampled loss
+    stream equals the distributed stream's (rtol 1e-5), as
+    ``tests/test_torch_hoststore.py`` pins on the CPU."""
+    t0 = time.perf_counter()
+    got = sampled_small(torch, "cuda", group, full=True)
+    wall = time.perf_counter() - t0
+    rel = worst_rel(got["losses"], got["streamed_mesh"])
+    if not (rel <= 1e-5 and got["dropped"] == (0, 0)):
+        raise SystemExit(f"sampled equivalence: {got['losses']} against "
+                         f"streamed_mesh {got['streamed_mesh']} (worst "
+                         f"relative {rel:.2e}), dropped {got['dropped']}")
+    log(f"[sampled] full fanout (every vertex a seed, fanout = max in-degree "
+        f"{got['max_in_degree']}) at N={SAMPLED_SMALL_N} T={SAMPLED_SMALL_T} "
+        f"on the card: losses " + ", ".join(f"{v:.6f}" for v in got["losses"])
+        + f" against streamed_mesh's, worst relative {rel:.2e} (limit 1e-5; "
+        f"{wall:.1f} s)")
+    return {"losses": got["losses"], "streamed_mesh": got["streamed_mesh"],
+            "worst_relative": rel, "max_in_degree": got["max_in_degree"],
+            "wall_s": wall}
+
+
+def _sampled_shared_rank(rank: int, src: str, store: str, out_dir: str):
+    """One of two ranks sharing cuda:0 over gloo: the small sampled run
+    (N / 4 seeds, fanouts 10, 10) on the card, then on the CPU, written to
+    ``out_dir``."""
+    import datetime
+    import pickle
+
+    sys.path.insert(0, src)
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, 2),
+                            rank=rank, world_size=2,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        res = {dev: sampled_small(torch, dev, dist.group.WORLD,
+                                  full=False)["losses"]
+               for dev in ("cuda", "cpu")}
+        with open(Path(out_dir) / f"rank{rank}.pkl", "wb") as f:
+            pickle.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def sampled_shared_card(torch, group) -> dict:
+    """P = 2 ranks sharing the one card over gloo, with CUDA tensors: the
+    small sampled run on cuda:0, then on the CPU; held to each other, card
+    against CPU gloo P = 2 and against the card's P = 1 over NCCL (1e-4
+    relative: the rounds are the same samples)."""
+    import pickle
+    import tempfile
+
+    one = sampled_small(torch, "cuda", group, full=False)["losses"]
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        run_ranks(_sampled_shared_rank, 2,
+                  (str(SRC), str(Path(d) / "store"), d), RANK_DEADLINE_S)
+        ranks_s = time.perf_counter() - t0
+        res = []
+        for r in range(2):
+            with open(Path(d) / f"rank{r}.pkl", "rb") as f:
+                res.append(pickle.load(f))
+    if res[0] != res[1]:
+        raise SystemExit(f"sampled shared card: the ranks disagree {res}")
+    card, cpu = res[0]["cuda"], res[0]["cpu"]
+    vs_cpu, vs_one = worst_rel(card, cpu), worst_rel(card, one)
+    if not (vs_cpu <= TOL_GRAD and vs_one <= TOL_GRAD):
+        raise SystemExit(f"sampled shared card: {card} vs CPU {cpu} and "
+                         f"P = 1 {one}")
+    log(f"[sampled-shared] P = 2 gloo ranks on cuda:0 ({ranks_s:.1f} s with "
+        f"their start): losses " + ", ".join(f"{v:.6f}" for v in card)
+        + f"; vs CPU gloo P = 2 {vs_cpu:.2e}, vs the card's P = 1 "
+        f"{vs_one:.2e} relative (limit {TOL_GRAD})")
+    return {"N": SAMPLED_SMALL_N, "T": SAMPLED_SMALL_T, "losses": card,
+            "losses_cpu": cpu, "losses_p1": one, "vs_cpu": vs_cpu,
+            "vs_p1": vs_one, "ranks_s": ranks_s}
+
+
 # ------------------------------------------------------------- LM path -----
 
 def lm_path(torch, kernels, obs):
@@ -2662,7 +3278,8 @@ def lm_parity(torch):
 
 # ---------------------------------------------------------------- main -----
 
-GROUPS = ("serve", "train", "stream", "partition", "dstream", "lm")
+GROUPS = ("serve", "train", "stream", "partition", "dstream", "hybrid",
+          "sampled", "lm")
 
 
 def kernel_entry(name: str, source: str, replaces: str, launches: dict,
@@ -2774,7 +3391,7 @@ def main(argv: list[str] | None = None) -> int:
         stream_stats["parity"] = phase("stream parity", stream_parity,
                                        torch)
         stream_stats.update(stream_checks)
-    if "partition" in groups or "dstream" in groups:
+    if {"partition", "dstream", "hybrid", "sampled"} & set(groups):
         import torch.distributed as dist
         group = nccl_group(torch)
         try:
@@ -2807,6 +3424,28 @@ def main(argv: list[str] | None = None) -> int:
                 dstream_stats["shared_card"] = phase(
                     "dstream shared card", dstream_shared_card, torch,
                     group)
+            if ("hybrid" in groups or "sampled" in groups) \
+                    and train_ds is None:
+                t0 = time.perf_counter()
+                train_ds = train_trace(n_nodes, 5).build()
+                log(f"[hybrid/sampled] trace made on the host in "
+                    f"{time.perf_counter() - t0:.1f} s (no train phase)")
+            if "hybrid" in groups:
+                hybrid_stats = phase("hybrid path", hybrid_path, torch,
+                                     kernels, train_ds, group, timer)
+                launches["hybrid"] = hybrid_stats["launches"]
+                hybrid_stats["shared_card"] = phase(
+                    "hybrid shared card", hybrid_shared_card, torch, group)
+            if "sampled" in groups:
+                sampled_stats = phase("sampled path", sampled_path, torch,
+                                      kernels, obs, train_ds, group)
+                launches["sampled"] = sampled_stats["launches"]
+                sampled_stats["equivalence"] = phase(
+                    "sampled equivalence", sampled_equivalence, torch,
+                    group)
+                sampled_stats["shared_card"] = phase(
+                    "sampled shared card", sampled_shared_card, torch,
+                    group)
         finally:
             dist.destroy_process_group()
     del train_ds, stream_pipe
@@ -2836,6 +3475,8 @@ def main(argv: list[str] | None = None) -> int:
         if "stream" in groups:
             extra["csr_builds_stream"] = launches["stream"]["csr_builds"]
             extra["csr_pair_build"] = stream_stats["csr_pair"]
+        if "hybrid" in groups:
+            extra["rectangular"] = hybrid_stats["rectangular"]
         report.append(kernel_entry(
             "segment_spmm", "src/repro_torch/csrc/segment_spmm.cu",
             "src/repro/kernels/segment_spmm/segment_spmm.py:55", launches,
@@ -2871,6 +3512,14 @@ def main(argv: list[str] | None = None) -> int:
             if k not in ("band_rows", "band_t_rows")}}))
     if "dstream" in groups:
         log(json.dumps({"dstream_path": dstream_stats}))
+    if "hybrid" in groups:
+        log(json.dumps({"hybrid_path": {
+            k: v for k, v in hybrid_stats.items() if k != "rectangular"}}))
+        if "serve" not in groups:
+            log(json.dumps({"segment_spmm_rectangular":
+                            hybrid_stats["rectangular"]}))
+    if "sampled" in groups:
+        log(json.dumps({"sampled_path": sampled_stats}))
     if "lm" in groups:
         report.append(kernel_entry(
             "flash_decode", "src/repro_torch/csrc/flash_decode.cu",

@@ -15,9 +15,11 @@ collectives go through the group (``repro_torch.dist.sharding``).
   all-gathered frame (the dense upper bound of the hypergraph scheme; the
   analytic volumes are in ``repro_torch.dist.comm_volume``).  Forward
   only, as in the reference.
-
-The hybrid scheme (§6.5, ``hybrid_spmm``) needs a 2-D grid of subgroups
-and waits for ROADMAP Queue 1, item 5b.
+* ``hybrid_spmm`` — §6.5: intra-snapshot edge sharding; each rank of a
+  model group aggregates its edge shard through the ``segment_spmm``
+  wrapper and an all-reduce over the group completes the sum (the
+  group is a ``dist.sharding.Grid``'s ``model`` row; the whole hybrid
+  forward is ``core.hybrid``).
 
 Each checkpoint block of the eager trainer is one non-reentrant
 ``torch.utils.checkpoint`` call with its all-to-alls inside, so the
@@ -43,7 +45,8 @@ from repro_torch.core import models as mdl
 from repro_torch.core import temporal
 from repro_torch.core.dtdg import DTDGBatch
 from repro_torch.dist import compression as compression_lib
-from repro_torch.dist.sharding import group_rank, group_size, n_to_t, t_to_n
+from repro_torch.dist.sharding import (all_gather, group_rank, group_size,
+                                       n_to_t, t_to_n)
 from repro_torch.kernels.segment_spmm import ops as spmm_ops
 
 
@@ -288,14 +291,11 @@ def blockify_batch(batch: DTDGBatch, nb: int) -> tuple:
 
 # --------------------------------------------------- vertex partitioning ----
 
-def _gather_frame(h: torch.Tensor, group) -> torch.Tensor:
-    """(T, N/P, F) -> the whole (T, N, F) frame on every rank."""
-    p = group_size(group)
-    t, n_loc, f = h.shape
-    out = h.new_empty((p * t, n_loc, f))
-    dist.all_gather_into_tensor(out, h.contiguous(), group=group)
-    return out.reshape(p, t, n_loc, f).permute(1, 0, 2, 3).reshape(
-        t, p * n_loc, f)
+def gather_frame(h: torch.Tensor, group) -> torch.Tensor:
+    """(T, N/P, F) -> the whole (T, N, F) frame on every rank of
+    ``group``, vertex blocks in group-rank order (one all-gather)."""
+    t, _, f = h.shape
+    return all_gather(h, group).permute(1, 0, 2, 3).reshape(t, -1, f)
 
 
 def vertex_partition_forward(cfg: mdl.DynGNNConfig, group):
@@ -325,7 +325,7 @@ def vertex_partition_forward(cfg: mdl.DynGNNConfig, group):
         h = frames
         for l in range(cfg.num_layers):
             lp = params["layers"][l]
-            h_full = _gather_frame(h, group)
+            h_full = gather_frame(h, group)
             y0 = torch.stack([agg(h_full[t], edges[t], ew[t])
                               for t in range(t_steps)])
             if cfg.model == "evolvegcn":
@@ -368,3 +368,23 @@ def partition_edges_by_dst(edges_padded, masks, num_nodes: int,
             out_e[t, p, :k, 1] = sel[:k, 1] % n_per
             out_w[t, p, :k] = wsel[:k]
     return out_e, out_w
+
+
+# -------------------------------------------------------------- hybrid ------
+
+def hybrid_spmm(x: torch.Tensor, edges: torch.Tensor,
+                edge_weights: torch.Tensor, num_nodes: int,
+                group) -> torch.Tensor:
+    """§6.5 hybrid partitioning: intra-snapshot edge sharding.
+
+    Run by every rank of ``group`` (a grid's ``model`` row) with x (N, F)
+    the same on each and its own slice of the snapshot's edges (E_loc, 2)
+    (src, dst) and weights: the rank aggregates its slice through the
+    ``segment_spmm`` wrapper (one CSR build, one launch) and an
+    all-reduce over the group completes ``A_tilde @ x`` on every rank.
+    Enables snapshots too large for one device (AMLSim-Large experiment).
+    """
+    csr = spmm_ops.build_csr(edges, edge_weights, num_nodes)
+    out = spmm_ops.segment_spmm_csr(x.contiguous(), *csr)
+    dist.all_reduce(out, group=group)
+    return out

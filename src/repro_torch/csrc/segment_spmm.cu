@@ -241,7 +241,8 @@ const char* repro_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// x (n, f) f32, row_ptr (n + 1) i32, col / w sorted by destination,
+// x (m, f) f32 for any m (col indexes its rows), row_ptr (n + 1) i32,
+// col / w sorted by destination,
 // out (n, f) f32; all contiguous on the device, out 16-byte aligned.
 // Returns the cudaError_t of the launch (0 = launched).
 int segment_spmm_csr_f32(const void* x, const void* row_ptr, const void* col,

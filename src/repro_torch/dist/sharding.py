@@ -7,7 +7,9 @@ P devices in one process under ``shard_map`` over the mesh axis
 ``"data"``; the port runs one process per rank in a ``torch.distributed``
 process group — gloo on the CPU, NCCL on the card with rank r on
 ``cuda:r`` — and the group plays the mesh's part.  A group is
-one-dimensional, so its one axis is :data:`DATA_AXIS`.
+one-dimensional, so its one axis is :data:`DATA_AXIS`.  The hybrid scheme
+(paper §6.5) needs the reference's 2-D ``(data, model)`` mesh: a
+:class:`Grid` of subgroups (:func:`make_grid`) plays it.
 
 * :class:`ShardLayout` — which steps and vertices a rank owns: inside
   every checkpoint block of ``bsize`` steps, rank p owns the ``bsl =
@@ -17,6 +19,8 @@ one-dimensional, so its one axis is :data:`DATA_AXIS`.
 * :class:`AllToAll` — ``dist.all_to_all_single`` with equal splits as an
   autograd function.  The adjoint of an equal-split all-to-all is the
   same all-to-all, so its backward sends the gradient the same way.
+* :func:`all_gather` — one all-gather into one (P, ...) buffer: the
+  vertex frame of §4.1 and §6.5 and the sampled schedule's carry rows.
 * :func:`t_to_n` / :func:`n_to_t` — the two redistributions of a layer,
   laid out as ``jax.lax.all_to_all(..., tiled=True)`` lays them out.  The
   layout helpers (``t2n_send`` / ``t2n_recv``, ``n2t_send`` /
@@ -32,6 +36,7 @@ hands to the collective) and ``partition.a2a_remote_bytes`` (the
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Any
 
 import torch
 import torch.distributed as dist
@@ -104,6 +109,69 @@ class ShardLayout:
         """A blocked (nb, bsize, N, ...) array -> this rank's vertex slice
         (nb, bsize, N/P, ...), the layout of fused labels."""
         return blocked[:, :, self.vertices]
+
+
+@dataclass(frozen=True)
+class Grid:
+    """This rank's place in a ``pd x pm`` grid of ranks, the reference's
+    ``make_host_mesh(data=pd, model=pm)``: rank r sits at data index
+    ``r // pm`` and model index ``r % pm`` (its mesh device), so its
+    shard of a ``P(data, model, None)`` array is block ``(r // pm, r %
+    pm)``.  ``data`` is the rank's grid column (the pd ranks of its model
+    index: the snapshot all-to-alls run over it), ``model`` its grid row
+    (the pm ranks of its data index: the vertex all-gather and the
+    ``hybrid_spmm`` all-reduce run over it)."""
+
+    pd: int
+    pm: int
+    rank: int
+    data: Any
+    model: Any
+
+    @property
+    def data_index(self) -> int:
+        return self.rank // self.pm
+
+    @property
+    def model_index(self) -> int:
+        return self.rank % self.pm
+
+
+def make_grid(pd: int, pm: int, group=None) -> Grid:
+    """Split ``group`` (default: the world) of ``pd * pm`` ranks into the
+    grid's columns and rows.  ``dist.new_group`` is collective over the
+    whole group, so every rank creates every column and every row, in one
+    order, including the groups it is not in; a column or row that spans
+    the whole group is the group itself."""
+    ranks = (list(range(dist.get_world_size())) if group is None
+             else dist.get_process_group_ranks(group))
+    if pd < 1 or pm < 1 or pd * pm != len(ranks):
+        raise ValueError(f"a {pd} x {pm} grid needs {pd * pm} ranks, the "
+                         f"group has {len(ranks)}")
+    whole = dist.group.WORLD if group is None else group
+    rank = ranks.index(dist.get_rank())
+
+    def new(members):
+        return whole if len(members) == len(ranks) else \
+            dist.new_group(members)
+
+    columns = [new([ranks[d * pm + m] for d in range(pd)])
+               for m in range(pm)]
+    rows = [new([ranks[d * pm + m] for m in range(pm)]) for d in range(pd)]
+    return Grid(pd, pm, rank, columns[rank % pm], rows[rank // pm])
+
+
+def all_gather(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` from every rank of ``group`` -> (P, *x.shape), stacked in
+    group-rank order: one all-gather into one buffer, which NCCL and gloo
+    (CUDA tensors too) fill in place.  It hands them the buffer as the
+    concatenation along dim 0, the one form gloo takes; an all-gather
+    into a list would make NCCL gather into a staging buffer and copy
+    out."""
+    x = x.contiguous()
+    out = x.new_empty((group_size(group),) + tuple(x.shape))
+    dist.all_gather_into_tensor(out.flatten(0, 1), x, group=group)
+    return out
 
 
 def all_to_all(x: torch.Tensor, group) -> torch.Tensor:

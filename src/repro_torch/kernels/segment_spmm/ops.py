@@ -14,6 +14,14 @@ edge (0, 0) — are sorted into a dump row N that the kernel never visits, so
 up to a million pad lanes never pile onto destination 0.  The CSR has no
 per-block edge budget, so nothing can overflow.
 
+The CSR may be rectangular: ``build_csr(edges, w, num_rows)`` keys the
+destinations on ``num_rows`` rows (its dump row is ``num_rows``) while the
+sources index any number of ``x`` rows, and :func:`segment_spmm_csr`
+returns ``row_ptr.numel() - 1`` rows.  The hybrid scheme
+(``core.hybrid``) aggregates a rank's N/Pm destination rows from the
+whole all-gathered frame that way; the square case (``num_rows`` = N = the
+rows of x) is the same launch and the same plain arithmetic.
+
 On a CPU tensor the wrapper runs the plain PyTorch version (``ref.py``) on
 the same CSR; on a CUDA tensor it launches the kernel or raises.
 
@@ -42,7 +50,8 @@ csr_builds = 0
 def build_csr(edges: torch.Tensor, edge_weights: torch.Tensor,
               num_nodes: int
               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """-> (row_ptr (N + 1,) int32, col (E,) int32, w (E,) f32).
+    """-> (row_ptr (N + 1,) int32, col (E,) int32, w (E,) f32), with N =
+    ``num_nodes`` destination rows (the sources may index more rows).
 
     Edges are stably sorted by destination; zero-weight lanes go to the
     dump row ``num_nodes`` past ``row_ptr[N]``, where no row reads them.
@@ -65,13 +74,14 @@ def build_csr(edges: torch.Tensor, edge_weights: torch.Tensor,
 
 def segment_spmm_csr(x: torch.Tensor, row_ptr: torch.Tensor,
                      col: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """CSR product on a prebuilt CSR: the kernel on CUDA, the plain
-    version on the CPU."""
+    """CSR product on a prebuilt CSR -> (``row_ptr.numel() - 1``, F): the
+    kernel on CUDA, the plain version on the CPU.  ``col`` indexes rows of
+    x, of which there may be more or fewer than output rows."""
     if x.device.type == "cpu":
         return segment_spmm_csr_ref(x, row_ptr, col, w)
     if x.device.type != "cuda":
         raise ValueError(f"segment_spmm: unsupported device {x.device}")
-    n, f = x.shape
+    n, f = row_ptr.shape[0] - 1, x.shape[1]
     for name, t, dt in (("x", x, torch.float32),
                         ("row_ptr", row_ptr, torch.int32),
                         ("col", col, torch.int32), ("w", w, torch.float32)):
@@ -79,11 +89,11 @@ def segment_spmm_csr(x: torch.Tensor, row_ptr: torch.Tensor,
             raise ValueError(f"segment_spmm: {name} must be a contiguous "
                              f"{dt} tensor on {x.device}, got {t.dtype} "
                              f"on {t.device}")
-    if row_ptr.shape != (n + 1,) or col.shape != w.shape:
+    if x.dim() != 2 or row_ptr.dim() != 1 or col.shape != w.shape:
         raise ValueError(f"segment_spmm: row_ptr {tuple(row_ptr.shape)} / "
                          f"col {tuple(col.shape)} / w {tuple(w.shape)} do "
                          f"not fit x {tuple(x.shape)}")
-    out = torch.empty_like(x)
+    out = x.new_empty((n, f))
     KERNEL.launch(x.device, x.data_ptr(), row_ptr.data_ptr(),
                   col.data_ptr(), w.data_ptr(), out.data_ptr(), n, f)
     return out

@@ -2,8 +2,9 @@
 
 The CPU path of ``ops.segment_spmm_csr`` and the reference
 ``chip_smoke.py`` holds the CUDA kernel to on the card.  Same inputs as the
-kernel: rows ``0..N-1`` of the CSR; edges past ``row_ptr[N]`` (the dump
-row) are never read.
+kernel: rows ``0..N-1`` of the CSR, N = ``row_ptr.numel() - 1``, gathered
+from any number of x rows; edges past ``row_ptr[N]`` (the dump row) are
+never read.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ import torch
 
 def segment_spmm_csr_ref(x: torch.Tensor, row_ptr: torch.Tensor,
                          col: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    n = x.shape[0]
+    n = row_ptr.shape[0] - 1
     nnz = int(row_ptr[-1])
     counts = (row_ptr[1:] - row_ptr[:-1]).long()
     rows = torch.repeat_interleave(

@@ -31,6 +31,19 @@ shards, final loss ..., per-device stream ... B (total ... of naive)``::
         --arch paper_dyngnn --stream --mesh 2 --pipeline-rounds \
         --compression int8_a2a --device cpu
 
+``--sampled`` trains out of core: the trace stays in a host store and
+each round streams a fanout-sampled subgraph (``--sample-batch`` seeds,
+default N / 4; ``--fanout K1,K2,...``, default 10,10), on ``--mesh P``
+ranks under ``torchrun`` (one process joins a one-rank group itself);
+rank 0 prints ``sampled ... rounds on P shards, final loss ..., staged
+... B, sampled edges ... (dropped ... edges / ... nodes)``.
+``--device-budget BYTES`` gates any schedule against a simulated
+per-device graph budget; a schedule that does not fit exits with
+``refused: ...``::
+
+    torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.train \
+        --arch paper_dyngnn --sampled --mesh 2 --device cpu
+
 The reference's other flags are known by name: each exits with one line
 naming the ROADMAP item that ports it.
 """
@@ -47,10 +60,6 @@ _NOT_PORTED = {
                      "Queue 1, item 8"),
     "--rescale-on-preempt": ({"type": int, "default": 0},
                              "Queue 1, item 8"),
-    "--sampled": ({"action": "store_true"}, "Queue 1, item 8"),
-    "--sample-batch": ({"type": int, "default": 0}, "Queue 1, item 8"),
-    "--fanout": ({"default": "10,10"}, "Queue 1, item 8"),
-    "--device-budget": ({"type": int, "default": 0}, "Queue 1, item 8"),
     "--ckpt-dir": ({"default": None}, "Queue 1, item 8"),
     "--trace": ({"default": None}, "Queue 1, item 8"),
 }
@@ -82,9 +91,9 @@ def main(argv: list[str] | None = None) -> None:
                          "into this many feature slices (losses "
                          "unchanged)")
     ap.add_argument("--mesh", type=int, default=0,
-                    help="--stream: snapshot-parallel ranks of the "
-                         "distributed stream (> 1: the world size under "
-                         "torchrun)")
+                    help="--stream or --sampled: snapshot-parallel ranks "
+                         "of the distributed stream or the sampled "
+                         "schedule (> 1: the world size under torchrun)")
     ap.add_argument("--pipeline-rounds", action="store_true",
                     help="--stream --mesh P: queue round r+1's apply and "
                          "step before reading round r's loss (losses "
@@ -93,6 +102,20 @@ def main(argv: list[str] | None = None) -> None:
                     help="--stream --mesh P: none | int8_a2a (int8 "
                          "error-feedback all-to-alls) | int8_all (also "
                          "the int8 delta wire)")
+    ap.add_argument("--sampled", action="store_true",
+                    help="out-of-core sampled training: host-resident "
+                         "temporal store, fanout-sampled rounds; combine "
+                         "with --mesh")
+    ap.add_argument("--sample-batch", type=int, default=0, metavar="B",
+                    help="--sampled: seed vertices per round (default "
+                         "num_nodes // 4)")
+    ap.add_argument("--fanout", default="10,10", metavar="K1,K2,...",
+                    help="--sampled: per-hop in-neighbor fanouts")
+    ap.add_argument("--device-budget", type=int, default=0,
+                    metavar="BYTES",
+                    help="simulated per-device cap on round-resident graph "
+                         "tensors; over-budget schedules refuse with "
+                         "DeviceBudgetError")
     for flag, (kwargs, _) in _NOT_PORTED.items():
         ap.add_argument(flag, **kwargs, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
@@ -106,13 +129,21 @@ def main(argv: list[str] | None = None) -> None:
     if world > 1 and dp != world:
         raise SystemExit(f"--data-parallel {dp} under torchrun with "
                          f"{world} processes: they must agree")
-    if args.mesh and not args.stream:
-        raise SystemExit("--mesh P sets the distributed stream's width; it "
-                         "requires --stream (the eager schedule's is "
+    if args.sampled and args.stream:
+        raise SystemExit("--sampled is its own schedule; drop --stream")
+    if (args.sample_batch or args.fanout != "10,10") and not args.sampled:
+        raise SystemExit("--sample-batch/--fanout configure the sampled "
+                         "schedule; they require --sampled")
+    if args.mesh and not (args.stream or args.sampled):
+        raise SystemExit("--mesh P sets the distributed stream's or the "
+                         "sampled schedule's width; it requires --stream or "
+                         "--sampled (the eager schedule's is "
                          "--data-parallel P)")
-    if args.stream and world > 1 and args.mesh != world:
-        raise SystemExit(f"--stream under torchrun with {world} processes "
-                         f"runs the distributed stream: pass --mesh {world}")
+    for mode in ("stream", "sampled"):
+        if getattr(args, mode) and world > 1 and args.mesh != world:
+            raise SystemExit(f"--{mode} under torchrun with {world} "
+                             f"processes runs on {world} ranks: pass "
+                             f"--mesh {world}")
     try:
         _train(args, dp, world)
     finally:
@@ -121,24 +152,28 @@ def main(argv: list[str] | None = None) -> None:
             dist.destroy_process_group()
 
 
-def _join_group(device: str) -> None:
-    """Join the process group torchrun describes in the environment:
-    gloo on the CPU, NCCL with this rank on ``cuda:LOCAL_RANK``."""
+def _join_group(device: str, world: int) -> None:
+    """Join the process group torchrun describes in the environment, or a
+    one-rank group of this process when there is none (``world`` 1): gloo
+    on the CPU, NCCL with this rank on ``cuda:LOCAL_RANK``."""
     import torch
     import torch.distributed as dist
 
+    alone = ({"store": dist.HashStore(), "rank": 0, "world_size": 1}
+             if world == 1 else {})
     if device == "cpu":
-        dist.init_process_group("gloo")
+        dist.init_process_group("gloo", **alone)
         return
     local = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
     torch.cuda.set_device(local)
-    dist.init_process_group("nccl", device_id=local)
+    dist.init_process_group("nccl", device_id=local, **alone)
 
 
 def _train(args, dp: int, world: int) -> None:
+    from repro_torch import resolve_device
     from repro_torch.configs import registry
-    from repro_torch.run import Engine, ExecutionPlan, RunConfig, \
-        SyntheticTrace
+    from repro_torch.run import DeviceBudgetError, Engine, ExecutionPlan, \
+        RunConfig, SamplingSpec, SyntheticTrace
 
     arch = registry.get_arch(args.arch)
     if arch.family != "dyngnn":
@@ -151,7 +186,24 @@ def _train(args, dp: int, world: int) -> None:
     data = SyntheticTrace(num_nodes=cfg.num_nodes, num_steps=cfg.num_steps,
                           density=3.0, churn=0.1, smoothing_mode=smooth,
                           window=cfg.window)
-    if args.stream:
+    budget = args.device_budget or None
+    if args.sampled:
+        try:
+            fanouts = tuple(int(k) for k in args.fanout.split(","))
+        except ValueError:
+            raise SystemExit(f"bad --fanout {args.fanout!r}; expected "
+                             "K1,K2,...") from None
+        spec = SamplingSpec(
+            batch_nodes=args.sample_batch or max(cfg.num_nodes // 4, 1),
+            fanouts=fanouts)
+        plan = ExecutionPlan(mode="sampled", shards=max(args.mesh, 1),
+                             num_epochs=args.epochs,
+                             overlap=not args.no_overlap,
+                             a2a_chunks=args.a2a_chunks,
+                             pipeline_rounds=args.pipeline_rounds,
+                             compression=args.compression, sampling=spec,
+                             device_budget_bytes=budget)
+    elif args.stream:
         # the pipelining and compression flags pass through as given, so a
         # combination the plan cannot honor (e.g. --pipeline-rounds without
         # --mesh) fails below instead of running a no-op
@@ -160,14 +212,16 @@ def _train(args, dp: int, world: int) -> None:
             shards=max(args.mesh, 1), num_epochs=args.epochs,
             overlap=not args.no_overlap, a2a_chunks=args.a2a_chunks,
             pipeline_rounds=args.pipeline_rounds,
-            compression=args.compression)
+            compression=args.compression, device_budget_bytes=budget)
     else:
         plan = ExecutionPlan(mode="eager", shards=dp, num_steps=args.steps,
                              a2a_chunks=args.a2a_chunks,
                              pipeline_rounds=args.pipeline_rounds,
-                             compression=args.compression)
-    if world > 1:
-        _join_group(args.device)
+                             compression=args.compression,
+                             device_budget_bytes=budget)
+    if world > 1 or args.sampled:
+        resolve_device(args.device)       # no card: raise before joining
+        _join_group(args.device, world)
     lead = int(os.environ.get("RANK", "0")) == 0
     try:
         engine = Engine(RunConfig(model=cfg, data=data, plan=plan,
@@ -178,9 +232,23 @@ def _train(args, dp: int, world: int) -> None:
         raise SystemExit(str(e)) from None
     except ValueError as e:
         raise SystemExit(f"invalid run configuration: {e}") from None
-    result = engine.fit()
+    try:
+        result = engine.fit()
+    except DeviceBudgetError as e:
+        # the budget gate refusing is the answer the flag asks for
+        raise SystemExit(f"refused: {e}") from None
     final = f"{result.losses[-1]:.4f}" if result.losses else "n/a"
     if not lead:
+        return
+    if plan.mode == "sampled":
+        srep = result.sample_report
+        budget_txt = (f", budget {result.budget_report['required']}"
+                      f"/{result.budget_report['budget']} B"
+                      if result.budget_report else "")
+        print(f"sampled {srep.rounds} rounds on {plan.num_shards} shards, "
+              f"final loss {final}, staged {srep.staged_bytes} B, sampled "
+              f"edges {srep.sampled_edges} (dropped {srep.dropped_edges} "
+              f"edges / {srep.dropped_nodes} nodes){budget_txt}")
         return
     rep = result.transfer_report
     if plan.mode == "streamed_mesh":

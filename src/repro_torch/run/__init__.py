@@ -13,11 +13,16 @@
 Port of ``repro.run``: ``eager`` (the blocked trainer of paper §3.1, on
 one device or snapshot-partitioned over a process group, §4.2),
 ``streamed`` (per-snapshot training over the graph-difference delta
-stream, §3.2) and ``streamed_mesh`` (per-rank delta streams under
-snapshot partitioning, §3.2 x §4.2).  The sampled schedule and the
-elastic knobs raise ``NotImplementedError`` naming their ROADMAP item.
+stream, §3.2), ``streamed_mesh`` (per-rank delta streams under
+snapshot partitioning, §3.2 x §4.2) and ``sampled`` (out-of-core
+fanout-sampled training over the host-resident store, with
+``SamplingSpec``; ``device_budget_bytes`` gates every mode and raises
+``DeviceBudgetError``).  The elastic knobs raise ``NotImplementedError``
+naming their ROADMAP item.
 """
 
+from repro_torch.hoststore import (DeviceBudgetError, SampleReport,
+                                   SamplingSpec)
 from repro_torch.run.config import (CheckpointSpec, ResolvedRun, RunConfig,
                                     RunResult)
 from repro_torch.run.data import (DataSource, InMemoryDTDG, SyntheticTrace,
@@ -26,7 +31,8 @@ from repro_torch.run.engine import Engine
 from repro_torch.run.plan import ExecutionPlan
 
 __all__ = [
-    "CheckpointSpec", "DataSource", "Engine", "ExecutionPlan",
-    "InMemoryDTDG", "ResolvedRun", "RunConfig", "RunResult",
-    "SyntheticTrace", "pad_dataset",
+    "CheckpointSpec", "DataSource", "DeviceBudgetError", "Engine",
+    "ExecutionPlan", "InMemoryDTDG", "ResolvedRun", "RunConfig",
+    "RunResult", "SampleReport", "SamplingSpec", "SyntheticTrace",
+    "pad_dataset",
 ]

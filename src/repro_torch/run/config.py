@@ -19,6 +19,7 @@ import torch
 
 from repro_torch.core.models import DynGNNConfig
 from repro_torch.data.dyngnn import DTDGDataset, DTDGPipeline
+from repro_torch.hoststore.sampled import SampleReport
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.run.data import DataSource
 from repro_torch.run.plan import ExecutionPlan
@@ -82,9 +83,13 @@ class RunResult:
     (not a pure schedule knob: quantized runs drift within the bound the
     tests pin; "none" is bit-identical) and the ``repro_torch.obs``
     counter delta plus span summary of the fit (``metrics``; the
-    partitioned schedules' ``partition.a2a_*`` counters among them).  The
-    reference's fields for the other schedules (rescale, sample and budget
-    reports) arrive with them."""
+    partitioned schedules' ``partition.a2a_*`` counters among them), the
+    sampled schedule's ``sample_report`` (``hoststore.SampleReport``: rounds,
+    staged bytes, dropped lanes, host sampling and step seconds) and, when
+    the plan sets ``device_budget_bytes``, the ``budget_report``
+    (``{"required": ..., "budget": ...}`` of the schedule's resident graph
+    tensors).  The reference's ``rescale_report`` arrives with the elastic
+    loop."""
 
     state: TrainState
     losses: list[float]
@@ -94,4 +99,6 @@ class RunResult:
     a2a_chunks: int = 1
     pipeline_rounds: bool = False
     compression: str = "none"
+    sample_report: SampleReport | None = None
+    budget_report: dict | None = None
     metrics: dict | None = None     # obs counter delta + span summary

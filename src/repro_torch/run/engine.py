@@ -14,8 +14,10 @@ it (``ExecutionPlan.resolved_blocks``); ``fit()`` runs the plan's worker
 group: every rank of the group runs the same Engine, and each moves only
 its own steps to its device), the per-snapshot delta-stream trainer for
 ``mode="streamed"``, the per-rank delta streams under snapshot
-partitioning for ``mode="streamed_mesh"`` — and ``evaluate()`` runs the
-paper's link-prediction protocol on the trained params.
+partitioning for ``mode="streamed_mesh"``, out-of-core fanout-sampled
+rounds over the host-resident store for ``mode="sampled"`` (every rank of
+the group runs it; the vertex axis is not padded) — and ``evaluate()``
+runs the paper's link-prediction protocol on the trained params.
 ``device`` defaults to ``"cuda"`` and raises without a card unless the
 caller passes ``device="cpu"``; ``params`` may hand in initial parameters
 (a ``ParamTree``, e.g. from ``repro_torch.convert.params_from_jax``),
@@ -35,10 +37,10 @@ from repro_torch.run.config import ResolvedRun, RunConfig, RunResult
 from repro_torch.train.trainer import TrainState, evaluate_link_prediction
 
 
-#: plan.mode -> the worker that runs it (the other modes are refused by
-#: ``ExecutionPlan.validate``)
+#: plan.mode -> the worker that runs it
 _WORKERS = {"eager": workers.fit_eager, "streamed": workers.fit_streamed,
-            "streamed_mesh": workers.fit_streamed_mesh}
+            "streamed_mesh": workers.fit_streamed_mesh,
+            "sampled": workers.fit_sampled}
 
 
 class Engine:

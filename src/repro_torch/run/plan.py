@@ -7,11 +7,14 @@ with ``mesh_axis``, ``a2a_chunks`` and ``auto_pad``), ``streamed``
 ``overlap`` and ``prefetch_depth``) and ``streamed_mesh`` (per-rank delta
 streams under snapshot partitioning, with ``a2a_chunks``,
 ``pipeline_rounds`` and ``compression``; the timeline re-blocked for P by
-:meth:`ExecutionPlan.resolved_blocks`).  :meth:`ExecutionPlan.validate`
-applies the reference's rules and then refuses what is not ported yet,
-naming the ROADMAP item that ports it: ``sampled``,
-``device_budget_bytes`` (``hoststore``) and the elastic ``rescale`` /
-``rescale_on_preempt`` — Queue 1, item 8.
+:meth:`ExecutionPlan.resolved_blocks`) and ``sampled`` (out-of-core
+fanout-sampled training over the host-resident store, ``hoststore``,
+with ``sampling``; the vertex axis never padded: the round table is).
+``device_budget_bytes`` gates every mode against the simulated
+per-device graph budget (``hoststore.budget``).
+:meth:`ExecutionPlan.validate` applies the reference's rules and then
+refuses what is not ported yet, naming the ROADMAP item that ports it:
+the elastic ``rescale`` / ``rescale_on_preempt`` — Queue 1, item 8.
 
 The reference's mesh is a ``torch.distributed`` process group here, one
 process per rank (gloo on the CPU, NCCL on the card with rank r on
@@ -32,12 +35,10 @@ import torch.distributed as dist
 
 from repro_torch.dist.sharding import DATA_AXIS, group_size
 from repro_torch.ft.elastic import dyngnn_elastic_blocks
+from repro_torch.hoststore.spec import SamplingSpec
 
 MODES = ("eager", "streamed", "streamed_mesh", "sampled")
 COMPRESSIONS = ("none", "int8_a2a", "int8_all")
-
-#: mode -> the ROADMAP item that ports it
-_NOT_PORTED = {"sampled": "Queue 1, item 8"}
 
 
 def _validate_schedule(schedule) -> tuple:
@@ -94,7 +95,7 @@ class ExecutionPlan:
     auto_pad: bool = True
     rescale: tuple = ()             # ((block, new_p), ...) resize script
     rescale_on_preempt: int = 0     # SIGTERM shrink-to width (0 = off)
-    sampling: Any = None            # sampled-schedule knobs
+    sampling: SamplingSpec | None = None    # sampled-schedule knobs
     device_budget_bytes: int | None = None  # simulated per-device budget
 
     def validate(self) -> None:
@@ -104,10 +105,12 @@ class ExecutionPlan:
         if self.mode == "sampled" and self.sampling is None:
             raise ValueError("mode='sampled' needs plan.sampling="
                              "SamplingSpec(batch_nodes, fanouts, ...)")
-        if self.sampling is not None and self.mode != "sampled":
-            raise ValueError("plan.sampling configures the sampled "
-                             "schedule; it requires mode='sampled' "
-                             f"(got {self.mode!r})")
+        if self.sampling is not None:
+            if self.mode != "sampled":
+                raise ValueError("plan.sampling configures the sampled "
+                                 "schedule; it requires mode='sampled' "
+                                 f"(got {self.mode!r})")
+            self.sampling.validate()
         if (self.device_budget_bytes is not None
                 and self.device_budget_bytes < 1):
             raise ValueError("plan.device_budget_bytes must be >= 1 "
@@ -167,15 +170,6 @@ class ExecutionPlan:
         self._refuse_unported()
 
     def _refuse_unported(self) -> None:
-        if self.mode in _NOT_PORTED:
-            raise NotImplementedError(
-                f"plan.mode={self.mode!r} is not ported to PyTorch yet "
-                f"(ROADMAP {_NOT_PORTED[self.mode]}); the port trains "
-                "mode='eager', 'streamed' or 'streamed_mesh'")
-        if self.device_budget_bytes is not None:
-            raise NotImplementedError(
-                "plan.device_budget_bytes (hoststore/budget) is not ported "
-                "yet (ROADMAP Queue 1, item 8)")
         if self.is_elastic:
             raise NotImplementedError(
                 "plan.rescale/rescale_on_preempt: the elastic segment loop "
@@ -217,8 +211,9 @@ class ExecutionPlan:
         if not dist.is_initialized() or dist.get_world_size() != p:
             have = (f"{dist.get_world_size()} ranks" if dist.is_initialized()
                     else "no process group")
-            flag = (f"--stream --mesh {p}" if self.mode == "streamed_mesh"
-                    else f"--data-parallel {p}")
+            flag = {"streamed_mesh": f"--stream --mesh {p}",
+                    "sampled": f"--sampled --mesh {p}"}.get(
+                        self.mode, f"--data-parallel {p}")
             raise ValueError(
                 f"plan.shards={p} needs a process group of {p} ranks and "
                 f"there is {have}: launch one process per rank (torchrun "
@@ -245,10 +240,14 @@ class ExecutionPlan:
         The vertex-sharded temporal stage needs N % P == 0; rather than
         refusing to run, the plan pads the vertex axis with isolated nodes
         and logs the padding (``auto_pad=False`` refuses instead).  The
-        reference's elastic plans pad to the lcm of their widths; they
-        wait for ROADMAP Queue 1, item 8.
+        sampled schedule's temporal stage runs over the round node TABLE,
+        which ``SamplingSpec.resolve`` pads to the ranks, so its vertex
+        axis never has to divide.  The reference's elastic plans pad to
+        the lcm of their widths; they wait for ROADMAP Queue 1, item 8.
         """
         p = self.num_shards
+        if self.mode == "sampled":
+            return num_nodes
         if not self.wants_mesh or num_nodes % p == 0:
             return num_nodes
         if not self.auto_pad:

@@ -16,12 +16,20 @@
 * ``fit_streamed_mesh`` — this rank's time-slice delta stream under
   snapshot partitioning (``stream.distributed``), ``plan.num_epochs``
   passes over the stream it encodes once (cached on the bundle with the
-  step).
+  step);
+* ``fit_sampled`` — out-of-core sampled training (``hoststore``): the
+  trace stays host-resident in a ``TemporalCSRStore`` (built once from
+  the pipeline's own delta items and cached on the bundle with the step)
+  and only fanout-sampled subgraph tensors reach the device.
+
+Every worker first gates against ``plan.device_budget_bytes``
+(``_budget_gate``) BEFORE allocating device graph tensors: full-graph
+schedules refuse a graph whose resident tensors exceed the budget
+(``DeviceBudgetError`` names the sampled schedule as the way out).
 
 The reference's async checkpointing, preemption guard, straggler timer
 and elastic segment loop (``ckpt/``, ``ft/``, ``elastic/``) are not
-ported yet (ROADMAP Queue 1, item 8); nor is the sampled schedule's
-worker (item 8).
+ported yet (ROADMAP Queue 1, item 8).
 """
 
 from __future__ import annotations
@@ -31,7 +39,9 @@ import torch
 from repro_torch import obs
 from repro_torch.core import models as dyn_models
 from repro_torch.dist import compression as compression_lib
+from repro_torch import hoststore
 from repro_torch.dist.sharding import ShardLayout, group_rank
+from repro_torch.hoststore import budget as hostbudget
 from repro_torch.optim import adamw
 from repro_torch.run.config import ResolvedRun, RunResult
 from repro_torch.stream import distributed as stream_dist
@@ -50,9 +60,23 @@ def _init(rr: ResolvedRun, params):
     return params, adamw.init_state(params)
 
 
+def _budget_gate(rr: ResolvedRun, resolved=None) -> dict | None:
+    """Gate the schedule against ``plan.device_budget_bytes`` BEFORE any
+    device graph tensor is allocated (raises ``DeviceBudgetError`` when
+    the resident graph tensors do not fit)."""
+    plan = rr.plan
+    return hostbudget.check_budget(
+        plan.mode, plan.device_budget_bytes,
+        num_steps=rr.ds.num_steps, win=rr.pipeline.bsize,
+        num_shards=plan.num_shards, max_edges=rr.pipeline.max_edges,
+        num_nodes=rr.ds.num_nodes,
+        feat_dim=rr.ds.frames.shape[-1], resolved=resolved)
+
+
 def fit_eager(rr: ResolvedRun, params=None) -> RunResult:
     """``params``: initial parameters (a ``ParamTree`` on the run's
     device, updated in place); drawn from ``rr.seed`` when None."""
+    budget = _budget_gate(rr)
     num_steps = rr.plan.num_steps
     opt_cfg = rr.opt_cfg or adamw.AdamWConfig(
         lr=1e-2, warmup_steps=10, total_steps=num_steps, weight_decay=0.0)
@@ -90,12 +114,13 @@ def fit_eager(rr: ResolvedRun, params=None) -> RunResult:
                                step=len(losses))
     return RunResult(state=state, losses=losses,
                      transfer_report=pipe.transfer_bytes(),
-                     a2a_chunks=rr.plan.a2a_chunks)
+                     a2a_chunks=rr.plan.a2a_chunks, budget_report=budget)
 
 
 def fit_streamed(rr: ResolvedRun, params=None) -> RunResult:
     """``params`` as for :func:`fit_eager`."""
     plan, ds, pipe = rr.plan, rr.ds, rr.pipeline
+    budget = _budget_gate(rr)
     opt_cfg = rr.opt_cfg or adamw.AdamWConfig(
         lr=1e-2, warmup_steps=10,
         total_steps=plan.num_epochs * ds.num_steps, weight_decay=0.0)
@@ -116,7 +141,8 @@ def fit_streamed(rr: ResolvedRun, params=None) -> RunResult:
     state = trainer.TrainState(params=st.params, opt_state=st.opt_state,
                                step=len(st.losses))
     return RunResult(state=state, losses=st.losses, stream_report=report,
-                     transfer_report=pipe.transfer_bytes())
+                     transfer_report=pipe.transfer_bytes(),
+                     budget_report=budget)
 
 
 def fit_streamed_mesh(rr: ResolvedRun, params=None) -> RunResult:
@@ -124,6 +150,7 @@ def fit_streamed_mesh(rr: ResolvedRun, params=None) -> RunResult:
     group runs it; each encodes, stages and applies only its own time
     slices."""
     plan, ds, pipe = rr.plan, rr.ds, rr.pipeline
+    budget = _budget_gate(rr)
     opt_cfg = rr.opt_cfg or adamw.AdamWConfig(
         lr=1e-2, warmup_steps=10,
         total_steps=plan.num_epochs * ds.num_steps, weight_decay=0.0)
@@ -157,4 +184,43 @@ def fit_streamed_mesh(rr: ResolvedRun, params=None) -> RunResult:
                      per_shard_bytes=st.per_shard_bytes,
                      a2a_chunks=plan.a2a_chunks,
                      pipeline_rounds=plan.pipeline_rounds,
-                     compression=plan.compression)
+                     compression=plan.compression, budget_report=budget)
+
+
+def fit_sampled(rr: ResolvedRun, params=None) -> RunResult:
+    """Out-of-core sampled schedule: host-resident store + fanout-sampled
+    subgraph streaming (``hoststore.train_sampled``), on every rank of
+    the plan's group.  ``params`` as for :func:`fit_eager`."""
+    plan, ds, pipe = rr.plan, rr.ds, rr.pipeline
+    spec = plan.sampling
+    resolved = spec.resolve(ds.num_nodes, pipe.bsize, plan.num_shards)
+    budget = _budget_gate(rr, resolved)
+    opt_cfg = rr.opt_cfg or adamw.AdamWConfig(
+        lr=1e-2, warmup_steps=10,
+        total_steps=plan.num_epochs * ds.num_steps, weight_decay=0.0)
+    params, opt_state = _init(rr, params)
+    store = rr.cache.get("host_store")
+    if store is None:
+        # SAME delta items as the device path: the store ingests the
+        # pipeline's IncrementalEncoder stream, no second decode
+        store = hoststore.TemporalCSRStore.from_stream(
+            pipe.host_stream(), ds.num_nodes)
+        rr.cache["host_store"] = store
+    step_fn = rr.cache.get("sampled_step")
+    if step_fn is None:
+        step_fn = hoststore.make_sampled_step(
+            rr.cfg, resolved, rr.mesh, opt_cfg, a2a_chunks=plan.a2a_chunks)
+        rr.cache["sampled_step"] = step_fn
+    st = hoststore.train_sampled(
+        rr.cfg, store, ds.frames, ds.labels, spec=spec, mesh=rr.mesh,
+        block_size=pipe.bsize, num_epochs=plan.num_epochs,
+        overlap=plan.overlap, prefetch_depth=plan.prefetch_depth,
+        a2a_chunks=plan.a2a_chunks, opt_cfg=opt_cfg, params=params,
+        opt_state=opt_state, step_fn=step_fn, seed=rr.seed,
+        log_every=rr.log_every, log_fn=rr.log_fn, device=rr.device)
+    state = trainer.TrainState(params=st.params, opt_state=st.opt_state,
+                               step=len(st.losses))
+    return RunResult(state=state, losses=st.losses,
+                     transfer_report=pipe.transfer_bytes(),
+                     a2a_chunks=plan.a2a_chunks,
+                     sample_report=st.report, budget_report=budget)

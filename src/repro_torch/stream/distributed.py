@@ -95,7 +95,8 @@ class DistStreamState:
 
 def make_dist_stream_step(cfg: mdl.DynGNNConfig, group,
                           opt_cfg: adamw.AdamWConfig, a2a_chunks: int = 1,
-                          compression: str = "none"):
+                          compression: str = "none",
+                          num_seeds: int | None = None):
     """The per-round step on this rank: its reconstructed snapshots ->
     self-loops and Laplacian weights -> the CSR pair of each snapshot ->
     the snapshot-parallel block body (2 all-to-alls a layer) -> its share
@@ -108,9 +109,14 @@ def make_dist_stream_step(cfg: mdl.DynGNNConfig, group,
     rank's error-feedback residuals (``init_comm_residuals``) when
     ``compression`` != "none", returned updated, and None otherwise.
     ``loss`` is the all-reduced mean on the device.  The carries and
-    residuals come back detached.  The reference's ``num_seeds`` (the
-    sampled schedule's loss restriction) comes with that schedule
-    (ROADMAP Queue 1, item 8).
+    residuals come back detached.
+
+    ``num_seeds`` is the sampled schedule's loss restriction
+    (``repro_torch.hoststore``): the vertex axis is then a round-local
+    node TABLE whose first ``num_seeds`` lanes are the seed batch, and
+    only those lanes carry loss (the mean over the round's steps and
+    seeds).  ``None`` (the full-graph schedules) keeps the all-vertices
+    mean.
     """
     if a2a_chunks < 1:
         raise ValueError(f"a2a_chunks must be >= 1, got {a2a_chunks}")
@@ -120,6 +126,9 @@ def make_dist_stream_step(cfg: mdl.DynGNNConfig, group,
     if n % num_procs:
         raise ValueError(f"num_nodes {n} must divide over {num_procs} "
                          f"snapshot shards (vertex-sharded temporal stage)")
+    if num_seeds is not None and not 1 <= num_seeds <= n:
+        raise ValueError(f"num_seeds {num_seeds} must lie in [1, {n}]")
+    loss_lanes = n if num_seeds is None else num_seeds
     loops: dict = {}                 # device -> (self-loop edges, ones)
 
     def step(params, opt_state, carries, comm_res, frames, edges, mask,
@@ -137,7 +146,10 @@ def make_dist_stream_step(cfg: mdl.DynGNNConfig, group,
             cfg, params, group, carries, (frames, e_full, w_full, t0), csrs,
             a2a_chunks=a2a_chunks, compression=compression,
             comm_residuals=comm_res)
-        share = tl.slice_nll(params, h, labels).sum() / (bsl * num_procs * n)
+        nll = tl.slice_nll(params, h, labels)
+        if num_seeds is not None:
+            nll = nll[:, :num_seeds]
+        share = nll.sum() / (bsl * num_procs * loss_lanes)
         leaves = list(params.parameters())
         grads = torch.autograd.grad(share, leaves, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g

@@ -590,7 +590,8 @@ def test_engine_evaluate_and_launcher_print_the_done_line(capsys):
 
 @pytest.mark.parametrize("flag,item", [
     (["--rescale-at", "2:2"], "item 8"), (["--trace", "t.json"], "item 8"),
-    (["--sampled"], "item 8"), (["--rescale-on-preempt", "2"], "item 8"),
+    (["--sampled", "--trace", "t.json"], "item 8"),
+    (["--rescale-on-preempt", "2"], "item 8"),
     (["--ckpt-dir", "x"], "item 8")])
 def test_launcher_refuses_unported_flags(flag, item):
     with pytest.raises(SystemExit, match=item):
@@ -598,12 +599,17 @@ def test_launcher_refuses_unported_flags(flag, item):
 
 
 @pytest.mark.parametrize("plan,item", [
-    (ExecutionPlan(mode="streamed", device_budget_bytes=1 << 20), "item 8"),
+    # the sampled schedule and device_budget_bytes run now
+    # (tests/test_torch_hoststore.py); the elastic knobs beside them do not
+    (ExecutionPlan(mode="streamed_mesh", shards=2, rescale=((1, 1),),
+                   device_budget_bytes=1 << 20), "item 8"),
     (ExecutionPlan(mode="streamed_mesh", rescale=((1, 2),)), "item 8"),
-    (ExecutionPlan(mode="sampled", sampling=object()), "item 8"),
+    (ExecutionPlan(mode="streamed_mesh", shards=4, rescale=((2, 4),)),
+     "item 8"),
     (ExecutionPlan(mode="streamed_mesh", shards=4, rescale_on_preempt=2),
      "item 8"),
-    (ExecutionPlan(device_budget_bytes=1 << 20), "item 8")])
+    (ExecutionPlan(mode="streamed_mesh", rescale_on_preempt=1,
+                   device_budget_bytes=1 << 20), "item 8")])
 def test_unported_schedules_raise_naming_their_roadmap_item(plan, item):
     with pytest.raises(NotImplementedError, match=item):
         Engine(RunConfig(model=_tcfg("tmgcn"),
