@@ -161,6 +161,24 @@ which exits non-zero on failure:
    the distributed stream on the card (rtol 1e-5); and two spawned gloo
    ranks sharing cuda:0 for 2 epochs, card against CPU and the card's P =
    1 (1e-4);
+4l. fault tolerance and elastic rescale (the ft group): eager
+   ``paper_dyngnn`` at full width through ``Engine(device="cuda")`` with
+   ``CheckpointSpec(every=5)``, 5 steps and ``Engine.resume()`` to 10,
+   against the uninterrupted 10-step run and the train phase's losses
+   (rtol 1e-5; 160 / 12 / 8 / 0 launches a step); the distributed stream
+   at P = 1 over the NCCL group with ``CheckpointSpec(every=2)``, a
+   SIGTERM raised in this process through the Engine's ``log_fn`` in
+   round 2 (the run stops at cursor 3, mid-epoch) and ``resume()`` to the
+   end, against the uninterrupted run (rtol 1e-5; 24 / 2 / 2 / 0 and 16
+   CSR builds a round); each beside a cold and a warm ``Checkpointer``
+   save's blocking ms and write s, the bytes on disk and a restore; P = 2
+   -> 1 -> 2 on two spawned gloo ranks sharing cuda:0 at N = 65,536, T =
+   8, against ``train_streamed`` on the card (rtol 1e-5), payloads by
+   ``comm_volume.rescale_payload``; the launcher with ``--ckpt-dir`` as a
+   subprocess (eager at the smoke config: the distributed stream needs a
+   card a rank) stopped by a real SIGTERM after its first logged step,
+   exiting 0 with a checkpoint, and relaunched to the uninterrupted
+   run's final loss;
 5. the LM path: Yi-6B at full width (32 layers, d 4096, 32 query heads
    over 4 KV heads, D 128, bf16, random weights drawn on the card from a
    seed) served through ``ServeEngine(device="cuda").generate()``: one
@@ -200,14 +218,14 @@ Kernel times are device time only (each call queued behind a device
 sleep); ``wrapper_ms`` is the wrapper's host time plus device time.
 
 Prints the card line, the per-phase numbers, one JSON line each of the
-streamed, the partitioned, the distributed-stream, the hybrid and the
-sampled phases' numbers, one JSON line of the kernels and, last,
-``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
+streamed, the partitioned, the distributed-stream, the hybrid, the
+sampled and the fault-tolerance phases' numbers, one JSON line of the
+kernels and, last, ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 repository around it, it exits non-zero and prints no result.  ``--only
-serve,train,stream,partition,dstream,hybrid,sampled,lm`` runs the build
-and the named groups of phases (1–4, 4a–4c, 4d, 4e–4g, 4h–4i, 4j, 4k,
-5–7; partition is held to train's run, so it needs train) and prints no
-result line.
+serve,train,stream,partition,dstream,hybrid,sampled,ft,lm`` runs the
+build and the named groups of phases (1–4, 4a–4c, 4d, 4e–4g, 4h–4i, 4j,
+4k, 4l, 5–7; partition is held to train's run, so it needs train) and
+prints no result line.
 """
 
 from __future__ import annotations
@@ -258,6 +276,12 @@ SAMPLED_BLOCK = 8            # the train trace's T = 32: 4 rounds an epoch
 SAMPLED_EPOCHS = 2
 SAMPLED_SMALL_N, SAMPLED_SMALL_T, SAMPLED_SMALL_BLOCK = 65_536, 8, 4
 SAMPLED_SMALL_EPOCHS = 2     # the carry store's epoch reset runs too
+FT_EVERY = 5                 # eager: 5 steps, checkpoint, resume() to 10
+FT_STREAM_EVERY = 2          # streamed_mesh: a checkpoint every 2 rounds
+FT_SIGTERM_ROUND = 2         # ... and a SIGTERM in round 2: cursor 3
+FT_SHARED_N, FT_SHARED_T, FT_SHARED_NB = 65_536, 8, 2
+FT_SCHEDULE = ((1, 1), (3, 2))   # widths 2 -> 1 -> 2, both mid-epoch
+FT_LAUNCH_STEPS = 400        # the launcher at the smoke config
 
 LM_BATCH = 8
 LM_PROMPT = 4096
@@ -2970,6 +2994,430 @@ def sampled_shared_card(torch, group) -> dict:
             "vs_p1": vs_one, "ranks_s": ranks_s}
 
 
+# ----------------------------------------------------- fault tolerance -----
+
+def ft_counts(kernels) -> dict:
+    from repro_torch.kernels.segment_spmm import ops as spmm_ops
+
+    out = {k.name: k.launches for k in kernels}
+    out["csr_builds"] = spmm_ops.csr_builds
+    return out
+
+
+def ft_zero(kernels) -> None:
+    from repro_torch.kernels.build import reset_counts
+    from repro_torch.kernels.segment_spmm import ops as spmm_ops
+
+    reset_counts(kernels)
+    spmm_ops.csr_builds = 0
+
+
+def ckpt_costs(torch, tree, d: Path) -> dict:
+    """Two ``Checkpointer`` saves of ``tree``: each call's blocking ms (the
+    device-to-host copies; the first also allocates the pinned buffers the
+    second reuses) and its writer thread's s; the bytes on disk; one
+    restore onto the card (ms, synchronized)."""
+    from repro_torch.ckpt import Checkpointer
+
+    ck = Checkpointer(d)
+    blocking, write = [], []
+    for step in (1, 2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ck.save(step, tree)
+        blocking.append(time.perf_counter() - t0)
+        ck.wait()
+        write.append(time.perf_counter() - t0 - blocking[-1])
+    on_disk = sum(f.stat().st_size for f in (d / "step_2").iterdir())
+    t0 = time.perf_counter()
+    ck.restore(2, tree)
+    torch.cuda.synchronize()
+    return {"save_blocking_ms": blocking[1] * 1e3,
+            "first_save_blocking_ms": blocking[0] * 1e3,
+            "write_s": write[1], "first_write_s": write[0],
+            "bytes_on_disk": on_disk,
+            "restore_ms": (time.perf_counter() - t0) * 1e3}
+
+
+def ft_eager(torch, kernels, obs, ds, pipe, train_losses):
+    """Eager fault tolerance at full width, P = 1: ``paper_dyngnn`` on the
+    train trace through ``Engine(device="cuda")`` with
+    ``CheckpointSpec(every=5)``: a 5-step fit, then ``Engine.resume()`` to
+    step 10, every count zeroed just before and read just after (10 steps'
+    160 / 12 / 8 / 0 a step), against the uninterrupted 10-step run (and
+    the train phase's losses when it ran): losses of steps 5-9 and the
+    final parameters within rtol 1e-5 (max |diff| expected 0); then one
+    save and restore of the (params, AdamW) tree beside the warm step."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.configs import registry
+    from repro_torch.run import (CheckpointSpec, Engine, ExecutionPlan,
+                                 InMemoryDTDG, RunConfig)
+
+    cfg = dataclasses.replace(registry.get_arch("paper_dyngnn").make_config(),
+                              num_nodes=ds.num_nodes, num_steps=ds.num_steps)
+    src = InMemoryDTDG(ds, pipeline=pipe)
+
+    def engine(steps, **kw):
+        return Engine(RunConfig(model=cfg, data=src,
+                                plan=ExecutionPlan(num_steps=steps),
+                                log_fn=lambda _m: None, **kw), device="cuda")
+
+    t0 = time.perf_counter()
+    ref = engine(TRAIN_STEPS).fit()
+    ref_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as d:
+        spec = CheckpointSpec(d, every=FT_EVERY)
+        ft_zero(kernels)
+        first = engine(FT_EVERY, checkpoint=spec).fit()
+        tracer = obs.configure(enabled=True)      # fenced train.step spans
+        rest = engine(TRAIN_STEPS, checkpoint=spec).resume()
+        obs.configure(enabled=False)
+        launches = ft_counts(kernels)
+        costs = ckpt_costs(torch, (rest.state.params, rest.state.opt_state),
+                           Path(d) / "costs")
+    step_ms = [sp.dur_s * 1e3 for sp in tracer.spans()
+               if sp.name == "train.step"]
+    want = train_launches(cfg.num_layers, ds.num_steps,
+                          cfg.checkpoint_blocks)
+    check_launches("ft eager", {k: v for k, v in launches.items()
+                                if k != "csr_builds"}, want)
+    losses = first.losses + rest.losses
+    if rest.state.step != TRAIN_STEPS or len(losses) != TRAIN_STEPS:
+        raise SystemExit(f"ft eager: resumed to {rest.state.step}, "
+                         f"{len(losses)} losses")
+    diff = max(abs(a - b) for a, b in zip(losses, ref.losses, strict=True))
+    rel = worst_rel(losses, ref.losses)
+    with torch.no_grad():
+        pdiff = max(float((a - b).abs().max()) for a, b in zip(
+            rest.state.params.parameters(), ref.state.params.parameters(),
+            strict=True))
+        pscale = max(float(b.abs().max())
+                     for b in ref.state.params.parameters())
+    if not (rel <= 1e-5 and pdiff <= 1e-5 * pscale):
+        raise SystemExit(f"ft eager: resumed {losses} vs {ref.losses}, "
+                         f"params max|diff| {pdiff}")
+    vs_train = (worst_rel(losses, train_losses)
+                if train_losses is not None else None)
+    if vs_train is not None and not vs_train <= 1e-5:
+        raise SystemExit(f"ft eager: {losses} vs the train phase's "
+                         f"{train_losses}")
+    warm = statistics.median(step_ms)
+    log(f"[ft-eager] 5 steps + resume() to 10 vs the uninterrupted run "
+        f"({ref_s:.1f} s): losses max|diff| {diff:.3e} ({rel:.2e} rel), "
+        f"params max|diff| {pdiff:.3e}"
+        + (f", vs the train phase {vs_train:.2e} rel"
+           if vs_train is not None else "")
+        + f"; launches {launches}; warm step (fenced, median of the "
+        f"resumed 5) {warm:.2f} ms; save blocks "
+        f"{costs['save_blocking_ms']:.3f} ms, writes in "
+        f"{costs['write_s']:.4f} s, {costs['bytes_on_disk']} B on disk, "
+        f"restore {costs['restore_ms']:.3f} ms")
+    return {"losses": losses, "losses_uninterrupted": ref.losses,
+            "max_abs_diff": diff, "params_max_abs_diff": pdiff,
+            "vs_train_rel": vs_train, "warm_step_ms": warm,
+            "step_ms": step_ms, "launches": launches, **costs}
+
+
+def ft_stream(torch, kernels, obs, ds, pipe, group):
+    """streamed_mesh fault tolerance at full width, P = 1 over the
+    one-rank NCCL group: 2 epochs of 4 rounds with
+    ``CheckpointSpec(every=2)``, a SIGTERM raised in this process through
+    the Engine's ``log_fn`` during round FT_SIGTERM_ROUND (the run stops
+    after it, mid-epoch, so the full-N carries cross the checkpoint),
+    ``resume()`` to the end; every count zeroed just before and read just
+    after (24 / 2 / 2 / 0 and 16 CSR builds a round); both runs' losses
+    against the uninterrupted run (fenced, traced: its round's median) at
+    rtol 1e-5; then one save and restore of the loop's checkpoint tree
+    (params, AdamW, the full-N carries: 144,998,400 B for TM-GCN)."""
+    import os
+    import signal
+    import tempfile
+
+    from repro_torch.configs import registry
+    from repro_torch.core import models as tm
+    from repro_torch.elastic import tree_bytes
+    from repro_torch.run import (CheckpointSpec, Engine, ExecutionPlan,
+                                 InMemoryDTDG, RunConfig)
+
+    cfg = dataclasses.replace(registry.get_arch("paper_dyngnn").make_config(),
+                              num_nodes=ds.num_nodes, num_steps=ds.num_steps)
+    src = InMemoryDTDG(ds, pipeline=pipe)
+    plan = ExecutionPlan(mode="streamed_mesh", mesh=group,
+                         num_epochs=DSTREAM_EPOCHS)
+
+    def engine(**kw):
+        kw.setdefault("log_fn", lambda _m: None)
+        return Engine(RunConfig(model=cfg, data=src, plan=plan, **kw),
+                      device="cuda")
+
+    tracer = obs.configure(enabled=True)      # fenced round spans
+    t0 = time.perf_counter()
+    ref = engine().fit()
+    ref_s = time.perf_counter() - t0
+    obs.configure(enabled=False)
+    round_ms = [sp.dur_s * 1e3 for sp in tracer.spans()
+                if sp.name == "round"]
+    seen = []
+
+    def killer(msg):
+        if "dist stream round" in msg:
+            if len(seen) == FT_SIGTERM_ROUND:
+                os.kill(os.getpid(), signal.SIGTERM)
+            seen.append(msg)
+
+    with tempfile.TemporaryDirectory() as d:
+        spec = CheckpointSpec(d, every=FT_STREAM_EVERY)
+        ft_zero(kernels)
+        t0 = time.perf_counter()
+        first = engine(checkpoint=spec, log_fn=killer, log_every=1).fit()
+        first_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rest = engine(checkpoint=spec).resume()
+        rest_s = time.perf_counter() - t0
+        launches = ft_counts(kernels)
+        rounds = len(first.losses) + len(rest.losses)
+        params = rest.state.params
+        carries = tm.init_carries(cfg, params, device="cuda")
+        carry_bytes = tree_bytes(carries)
+        costs = ckpt_costs(torch, {"params": params,
+                                   "opt": rest.state.opt_state,
+                                   "carries": carries}, Path(d) / "costs")
+    stop = FT_SIGTERM_ROUND + 1
+    rep, rrep = first.rescale_report, rest.rescale_report
+    if not (rep.preempted and first.state.step == stop
+            and rrep.resumed_from == stop and not rrep.preempted
+            and rest.state.step == len(ref.losses)):
+        raise SystemExit(f"ft stream: preempted {rep.preempted} at "
+                         f"{first.state.step}, resumed from "
+                         f"{rrep.resumed_from} to {rest.state.step}")
+    check_launches("ft stream", {k: v for k, v in launches.items()
+                                 if k != "csr_builds"},
+                   {"segment_spmm": 24 * rounds, "banded_ttm": 2 * rounds,
+                    "banded_ttm_t": 2 * rounds, "flash_decode": 0})
+    if launches["csr_builds"] != 16 * rounds:
+        raise SystemExit(f"ft stream: {launches['csr_builds']} CSR builds "
+                         f"for {rounds} rounds")
+    losses = first.losses + rest.losses
+    rel = worst_rel(losses, ref.losses)
+    if not rel <= 1e-5:
+        raise SystemExit(f"ft stream: {losses} vs {ref.losses}")
+    want_carry = cfg.num_layers * (cfg.window - 1) * cfg.num_nodes \
+        * cfg.out_dim * 4
+    if carry_bytes != want_carry:
+        raise SystemExit(f"ft stream: carries {carry_bytes} B, expected "
+                         f"{want_carry}")
+    med = statistics.median(round_ms)
+    log(f"[ft-stream] SIGTERM in round {FT_SIGTERM_ROUND}: stopped at "
+        f"cursor {first.state.step} ({first_s:.1f} s), resume() to "
+        f"{rest.state.step} ({rest_s:.1f} s); losses vs the uninterrupted "
+        f"run ({ref_s:.1f} s) {rel:.2e} rel, max|diff| "
+        f"{drift(losses, ref.losses):.3e}; launches {launches}; round "
+        f"(fenced, median) {med:.2f} ms; the loop's tree: carries "
+        f"{carry_bytes} B, save blocks "
+        f"{costs['first_save_blocking_ms']:.2f} ms (pinned buffers "
+        f"allocated), then {costs['save_blocking_ms']:.2f} ms, "
+        f"writes in {costs['write_s']:.3f} s, {costs['bytes_on_disk']} B "
+        f"on disk, restore {costs['restore_ms']:.2f} ms")
+    return {"losses": losses, "losses_uninterrupted": ref.losses,
+            "worst_rel": rel, "stopped_at": first.state.step,
+            "round_ms_median": med, "round_ms": round_ms,
+            "carry_bytes": carry_bytes, "launches": launches,
+            "first_s": first_s, "resume_s": rest_s, **costs}
+
+
+def ft_small(torch, dev: str, pool) -> dict:
+    """TM-GCN at the full config's widths, N = 65,536, T = 8, block 4,
+    ``train_elastic_streamed`` over ``pool`` at widths 2 -> 1 -> 2
+    (FT_SCHEDULE), 2 epochs from the seed-7 parameters."""
+    from repro_torch import elastic as el
+    from repro_torch.configs import registry
+    from repro_torch.core import models as tm
+    from repro_torch.data.dyngnn import synthetic_dataset
+
+    n, t, nb = FT_SHARED_N, FT_SHARED_T, FT_SHARED_NB
+    cfg = dataclasses.replace(registry.get_arch("tmgcn").make_config(),
+                              num_nodes=n, num_steps=t, checkpoint_blocks=nb)
+    ds = synthetic_dataset(n, t, density=TRAIN_DENSITY,
+                           smoothing_mode="mproduct", window=cfg.window,
+                           seed=1)
+    params = tm.init_params(torch.Generator().manual_seed(7), cfg)
+    st = el.train_elastic_streamed(
+        cfg, ds.snapshots, ds.values, ds.frames, ds.labels,
+        controller=el.RescaleController(initial_p=2, schedule=FT_SCHEDULE),
+        pool=pool, num_epochs=DSTREAM_EPOCHS, params=params, device=dev)
+    return {"losses": st.losses,
+            "events": [(e.block, e.old_p, e.new_p, e.payload_bytes,
+                        e.recompose_s) for e in st.report.events],
+            "segments": st.report.segments}
+
+
+def _ft_shared_rank(rank: int, src: str, store: str, out_dir: str):
+    """One of two ranks sharing cuda:0 over gloo: the small elastic run on
+    the card, written to ``out_dir``."""
+    import datetime
+    import pickle
+
+    sys.path.insert(0, src)
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, 2),
+                            rank=rank, world_size=2,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        res = ft_small(torch, "cuda", dist.group.WORLD)
+        with open(Path(out_dir) / f"rank{rank}.pkl", "wb") as f:
+            pickle.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def ft_shared_card(torch) -> dict:
+    """P = 2 -> 1 -> 2 on two gloo ranks sharing the card: the ranks agree,
+    their losses equal ``train_streamed(slice_len=win)`` on the card at
+    rtol 1e-5, and each event's payload is ``comm_volume.rescale_payload``
+    of the run's trees."""
+    import pickle
+    import tempfile
+
+    from repro_torch.configs import registry
+    from repro_torch.core import models as tm
+    from repro_torch.data.dyngnn import synthetic_dataset
+    from repro_torch.dist import comm_volume as cv
+    from repro_torch.elastic import tree_bytes
+    from repro_torch.optim import adamw
+    from repro_torch.stream import train_loop as st
+
+    n, t, nb = FT_SHARED_N, FT_SHARED_T, FT_SHARED_NB
+    cfg = dataclasses.replace(registry.get_arch("tmgcn").make_config(),
+                              num_nodes=n, num_steps=t, checkpoint_blocks=nb)
+    ds = synthetic_dataset(n, t, density=TRAIN_DENSITY,
+                           smoothing_mode="mproduct", window=cfg.window,
+                           seed=1)
+    params = tm.init_params(torch.Generator().manual_seed(7), cfg)
+    carry_b = tree_bytes(tm.init_carries(cfg, params))
+    state_b = tree_bytes(params) + tree_bytes(adamw.init_state(params))
+    ref = st.train_streamed(cfg, ds.snapshots, ds.values, ds.frames,
+                            ds.labels, num_epochs=DSTREAM_EPOCHS,
+                            params=params, slice_len=t // nb,
+                            device="cuda").losses
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        run_ranks(_ft_shared_rank, 2,
+                  (str(SRC), str(Path(d) / "store"), d), RANK_DEADLINE_S)
+        ranks_s = time.perf_counter() - t0
+        res = []
+        for r in range(2):
+            with open(Path(d) / f"rank{r}.pkl", "rb") as f:
+                res.append(pickle.load(f))
+    if res[0]["losses"] != res[1]["losses"] or \
+            res[0]["segments"] != res[1]["segments"]:
+        raise SystemExit(f"ft shared card: the ranks disagree {res}")
+    got = res[0]
+    rel = worst_rel(got["losses"], ref)
+    events = [e[:3] for e in got["events"]]
+    want = [(1, 2, 1), (3, 1, 2)]
+    payload_ok = all(e[3] == int(cv.rescale_payload(carry_b, state_b,
+                                                    e[1], e[2]))
+                     for e in got["events"])
+    if not (rel <= 1e-5 and events == want and payload_ok):
+        raise SystemExit(f"ft shared card: losses {got['losses']} vs "
+                         f"{ref}, events {got['events']} (carries "
+                         f"{carry_b} B, state {state_b} B)")
+    log(f"[ft-shared] P = 2 -> 1 -> 2 on 2 gloo ranks sharing cuda:0 "
+        f"({ranks_s:.1f} s with their start): losses "
+        + ", ".join(f"{v:.6f}" for v in got["losses"])
+        + f"; vs train_streamed on the card {rel:.2e} rel; events "
+        + ", ".join(f"{b}: {o} -> {p}, {pb} B, recompose {s * 1e3:.1f} ms"
+                    for b, o, p, pb, s in got["events"])
+        + f" (the law: carries {carry_b} B + state {state_b} B a new rank)")
+    return {"N": n, "T": t, "losses": got["losses"], "losses_ref": ref,
+            "worst_rel": rel, "events": got["events"],
+            "segments": got["segments"], "carry_bytes": carry_b,
+            "state_bytes": state_b, "ranks_s": ranks_s}
+
+
+def ft_launcher(torch) -> dict:
+    """The launcher as a subprocess on the card (``--ckpt-dir``, the eager
+    schedule at the smoke config: the distributed stream needs a card a
+    rank), stopped by a real SIGTERM from this process after its first
+    logged step: it exits 0 with a checkpoint, and a relaunch with the
+    same ``--ckpt-dir`` resumes and completes; its final loss equals an
+    uninterrupted in-process run's."""
+    import os
+    import signal
+    import subprocess
+    import tempfile
+
+    from repro_torch.configs import registry
+    from repro_torch.run import Engine, ExecutionPlan, RunConfig, \
+        SyntheticTrace
+
+    env = dict(os.environ, PYTHONPATH=str(SRC), PYTHONUNBUFFERED="1")
+    with tempfile.TemporaryDirectory() as d:
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+               "paper_dyngnn", "--steps", str(FT_LAUNCH_STEPS),
+               "--ckpt-dir", d, "--device", "cuda"]
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True,
+                                env=env, cwd=ROOT)
+        lines = []
+        try:
+            for line in proc.stdout:
+                lines.append(line.rstrip())
+                if line.startswith("step 0 loss"):
+                    proc.send_signal(signal.SIGTERM)
+                    break
+            rest, _ = proc.communicate(timeout=300)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        first_s = time.perf_counter() - t0
+        lines += rest.splitlines()
+        from repro_torch.ckpt import Checkpointer
+        steps = Checkpointer(d).all_steps()
+        pre = [ln for ln in lines if ln.startswith("preempted at step")]
+        if proc.returncode != 0 or len(steps) != 1 or not pre:
+            raise SystemExit("ft launcher: the SIGTERMed run exited "
+                             f"{proc.returncode} with checkpoints {steps}:\n"
+                             + "\n".join(lines[-20:]))
+        t0 = time.perf_counter()
+        again = subprocess.run(cmd, capture_output=True, text=True,
+                               env=env, cwd=ROOT, timeout=300)
+        second_s = time.perf_counter() - t0
+    out = again.stdout.splitlines()
+    done = [ln for ln in out if ln.startswith("done: ")]
+    resumed = [ln for ln in out if ln.startswith("resumed from checkpoint")]
+    arch = registry.get_arch("paper_dyngnn")
+    cfg = arch.make_smoke_config()
+    ref = Engine(RunConfig(
+        model=cfg, data=SyntheticTrace(num_nodes=cfg.num_nodes,
+                                       num_steps=cfg.num_steps, density=3.0,
+                                       churn=0.1, smoothing_mode="mproduct",
+                                       window=cfg.window),
+        plan=ExecutionPlan(num_steps=FT_LAUNCH_STEPS),
+        log_fn=lambda _m: None), device="cuda").fit()
+    want = f"done: {FT_LAUNCH_STEPS} steps, final loss {ref.losses[-1]:.4f}"
+    if again.returncode != 0 or not done or not done[0].startswith(want) \
+            or resumed != [f"resumed from checkpoint step {steps[0]}"]:
+        raise SystemExit(f"ft launcher: relaunch exited {again.returncode}: "
+                         f"{done} {resumed} (want {want!r})\n"
+                         + again.stderr[-2000:])
+    log(f"[ft-launcher] SIGTERM after step 0: '{pre[0]}', exit 0 with the "
+        f"step-{steps[0]} checkpoint ({first_s:.1f} s); relaunch: "
+        f"'{resumed[0]}', '{done[0]}' ({second_s:.1f} s), the "
+        f"uninterrupted run's final loss {ref.losses[-1]:.4f}")
+    return {"stopped_at": steps[0], "final": done[0],
+            "first_s": first_s, "relaunch_s": second_s}
+
+
 # ------------------------------------------------------------- LM path -----
 
 def lm_path(torch, kernels, obs):
@@ -3279,7 +3727,7 @@ def lm_parity(torch):
 # ---------------------------------------------------------------- main -----
 
 GROUPS = ("serve", "train", "stream", "partition", "dstream", "hybrid",
-          "sampled", "lm")
+          "sampled", "ft", "lm")
 
 
 def kernel_entry(name: str, source: str, replaces: str, launches: dict,
@@ -3391,7 +3839,7 @@ def main(argv: list[str] | None = None) -> int:
         stream_stats["parity"] = phase("stream parity", stream_parity,
                                        torch)
         stream_stats.update(stream_checks)
-    if {"partition", "dstream", "hybrid", "sampled"} & set(groups):
+    if {"partition", "dstream", "hybrid", "sampled", "ft"} & set(groups):
         import torch.distributed as dist
         group = nccl_group(torch)
         try:
@@ -3424,7 +3872,7 @@ def main(argv: list[str] | None = None) -> int:
                 dstream_stats["shared_card"] = phase(
                     "dstream shared card", dstream_shared_card, torch,
                     group)
-            if ("hybrid" in groups or "sampled" in groups) \
+            if {"hybrid", "sampled", "ft"} & set(groups) \
                     and train_ds is None:
                 t0 = time.perf_counter()
                 train_ds = train_trace(n_nodes, 5).build()
@@ -3446,6 +3894,33 @@ def main(argv: list[str] | None = None) -> int:
                 sampled_stats["shared_card"] = phase(
                     "sampled shared card", sampled_shared_card, torch,
                     group)
+            if "ft" in groups:
+                gc.collect()
+                torch.cuda.empty_cache()
+                if stream_pipe is None:
+                    from repro_torch.data.dyngnn import DTDGPipeline
+                    t0 = time.perf_counter()
+                    stream_pipe = DTDGPipeline(train_ds, nb=TRAIN_NB,
+                                               device="cuda")
+                    log(f"[ft] pipeline {time.perf_counter() - t0:.1f} s on "
+                        "the host (no stream phase)")
+                ft_stats = {"eager": phase(
+                    "ft eager", ft_eager, torch, kernels, obs, train_ds,
+                    stream_pipe, train_stats["losses"]
+                    if "train" in groups else None)}
+                ft_stats["stream"] = phase("ft stream", ft_stream, torch,
+                                           kernels, obs, train_ds,
+                                           stream_pipe, group)
+                launches["ft"] = {
+                    k: ft_stats["eager"]["launches"].get(k, 0)
+                    + ft_stats["stream"]["launches"].get(k, 0)
+                    for k in ft_stats["eager"]["launches"]}
+                gc.collect()
+                torch.cuda.empty_cache()
+                ft_stats["shared_card"] = phase("ft shared card",
+                                                ft_shared_card, torch)
+                ft_stats["launcher"] = phase("ft launcher", ft_launcher,
+                                             torch)
         finally:
             dist.destroy_process_group()
     del train_ds, stream_pipe
@@ -3520,6 +3995,8 @@ def main(argv: list[str] | None = None) -> int:
                             hybrid_stats["rectangular"]}))
     if "sampled" in groups:
         log(json.dumps({"sampled_path": sampled_stats}))
+    if "ft" in groups:
+        log(json.dumps({"ft_path": ft_stats}))
     if "lm" in groups:
         report.append(kernel_entry(
             "flash_decode", "src/repro_torch/csrc/flash_decode.cu",

@@ -75,3 +75,22 @@ def carries_to_numpy(carries: Any) -> Any:
     if isinstance(carries, list):
         return [carries_to_numpy(v) for v in carries]
     return carries.detach().cpu().numpy()
+
+
+def opt_state_from_jax(state: dict) -> dict:
+    """A JAX AdamW state (``repro.optim.adamw.init_state``'s tree as numpy
+    arrays) -> the port's: ``m`` / ``v`` / ``master`` keyed by the
+    ``ParamTree`` parameter names in its order, ``step`` a 0-d int32
+    tensor on the host."""
+    names = [k for k, _ in ParamTree(_numpy_tree(state["m"]))
+             .named_parameters()]
+
+    def flat(tree) -> dict:
+        module = ParamTree(_numpy_tree(tree))
+        got = dict(module.named_parameters())
+        return {k: got[k].detach() for k in names}
+
+    return {"m": flat(state["m"]), "v": flat(state["v"]),
+            "master": flat(state["master"]),
+            "step": torch.as_tensor(np.asarray(state["step"]),
+                                    dtype=torch.int32)}

@@ -1,2 +1,3 @@
-"""Fault tolerance of the port: for now only the snapshot-axis re-blocking
-(``elastic.dyngnn_elastic_blocks``)."""
+"""Fault tolerance of the port: preemption, re-meshing and the
+snapshot-axis re-blocking (``elastic``), and the straggler watchdog
+(``straggler``)."""

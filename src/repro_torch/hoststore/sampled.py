@@ -35,10 +35,14 @@ independent of N.
 The reference expands a round's steps in ``spec.workers`` threads; the
 sampler's per-vertex Python loop holds the interpreter lock, so they
 run one at a time.  The port sends each step — its CSR, edge values and the seeds — to one of
-``spec.workers`` processes of its stream's pool (spawned, never
-forked: the parent holds a CUDA context and other threads).  Every step
-draws from its own (seed, epoch, step) generator, so which worker runs
-it changes nothing: the round stays byte-identical.
+``spec.workers`` processes (spawned, never forked: the parent holds a
+CUDA context and other threads).  Each process imports the package and
+``torch`` when it starts, which costs seconds, so ``train_sampled``
+hands its stream the process's one pool of that size
+(:func:`worker_pool`), started at the first fit and reused by every
+later one; a stream built without a pool starts its own and stops it on
+``close``.  Every step draws from its own (seed, epoch, step) generator,
+so which worker runs it changes nothing: the round stays byte-identical.
 
 Thread discipline: per-round counters and timings ride ON the round
 item through the prefetch queue (the queue's lock is the happens-before
@@ -49,6 +53,7 @@ main thread — no cross-thread attribute writes at all.
 from __future__ import annotations
 
 import multiprocessing
+import multiprocessing.util
 from concurrent.futures import Executor, ProcessPoolExecutor
 from dataclasses import dataclass, field
 from typing import Any
@@ -289,6 +294,34 @@ def _sample_round_body(store: TemporalCSRStore, frames: np.ndarray,
                        dropped_edges=dropped_edges)
 
 
+_POOLS: dict[int, ProcessPoolExecutor] = {}
+
+
+def worker_pool(workers: int) -> ProcessPoolExecutor:
+    """The process's pool of ``workers`` spawned sampling processes,
+    started at the first call and shared by every later stream of that
+    size (a pool whose process died is replaced).  They stop at
+    :func:`close_worker_pools`, or when this process exits — before
+    ``multiprocessing`` joins its children, so a rank process that
+    sampled (itself a spawned child) does not wait on them forever."""
+    pool = _POOLS.get(workers)
+    if pool is None or getattr(pool, "_broken", False):
+        if not _POOLS:
+            multiprocessing.util.Finalize(None, close_worker_pools,
+                                          exitpriority=100)
+        pool = ProcessPoolExecutor(
+            max_workers=workers,
+            mp_context=multiprocessing.get_context("spawn"))
+        _POOLS[workers] = pool
+    return pool
+
+
+def close_worker_pools() -> None:
+    """Stop every shared sampling pool (:func:`worker_pool`)."""
+    while _POOLS:
+        _POOLS.popitem()[1].shutdown()
+
+
 @dataclass
 class SampledSliceStream:
     """The sampled round pipeline stage: host sampling -> this rank's
@@ -298,7 +331,10 @@ class SampledSliceStream:
     stream: ``rounds(epoch)`` is the host iterator the prefetch thread
     drains, ``stage_fn()`` the staging callable it applies, and
     :meth:`receive` (consumer thread) makes a staged round ready on the
-    consumer's current stream."""
+    consumer's current stream.  ``pool``: the executor that expands the
+    steps (e.g. :func:`worker_pool`), which ``close`` leaves running;
+    None starts the stream's own ``spec.workers`` processes, which
+    ``close`` stops."""
 
     store: TemporalCSRStore
     frames: np.ndarray
@@ -309,23 +345,26 @@ class SampledSliceStream:
     rank: int = 0
     num_shards: int = 1
     device: Any = "cuda"
+    pool: Executor | None = None
     _side: SideStream = field(init=False)
-    _pool: ProcessPoolExecutor = field(init=False)
+    _pool: Executor = field(init=False)
 
     def __post_init__(self):
         if self.win % self.num_shards:
             raise ValueError(f"block_size {self.win} must divide into "
                              f"{self.num_shards} shards")
         self._side = SideStream(self.device)
-        # its processes start at the first round and serve every epoch:
-        # each start costs seconds (a worker imports the package)
-        self._pool = ProcessPoolExecutor(
+        # its own processes start at the first round and serve every
+        # epoch: each start costs seconds (a worker imports the package)
+        self._pool = self.pool or ProcessPoolExecutor(
             max_workers=self.spec.workers,
             mp_context=multiprocessing.get_context("spawn"))
 
     def close(self) -> None:
-        """Stop the sampling processes (the stream samples no more)."""
-        self._pool.shutdown()
+        """Stop the stream's own sampling processes (the stream samples
+        no more); a pool handed in keeps running."""
+        if self.pool is None:
+            self._pool.shutdown()
 
     @property
     def rounds_per_epoch(self) -> int:

@@ -38,7 +38,8 @@ from repro_torch import obs, resolve_device
 from repro_torch.core import models as mdl
 from repro_torch.dist.sharding import all_gather, group_rank, group_size
 from repro_torch.hoststore.carry import HostCarryStore, leaves, rebuild
-from repro_torch.hoststore.sampled import SampledSliceStream, SampleReport
+from repro_torch.hoststore.sampled import (SampledSliceStream, SampleReport,
+                                          worker_pool)
 from repro_torch.hoststore.spec import ResolvedSampling, SamplingSpec
 from repro_torch.hoststore.store import TemporalCSRStore
 from repro_torch.optim import adamw
@@ -108,7 +109,9 @@ def train_sampled(cfg: mdl.DynGNNConfig, store: TemporalCSRStore,
     takes the updated rows of every lane.  ``params`` (a ``ParamTree``,
     moved to ``device`` and updated in place) default to
     ``mdl.init_params`` from ``seed``; ``step_fn`` / ``carry_store`` /
-    ``report`` let the Engine worker reuse them across calls.  Each
+    ``report`` let the Engine worker reuse them across calls; the steps
+    are expanded in the process's shared sampling pool
+    (``sampled.worker_pool``), started by the first fit.  Each
     round runs in a ``round`` stopwatch, with ``carry.gather``,
     ``round.step``, ``carry.all_gather`` and ``carry.scatter`` spans
     (fenced when tracing fences) inside it.
@@ -144,7 +147,8 @@ def train_sampled(cfg: mdl.DynGNNConfig, store: TemporalCSRStore,
     report = report if report is not None else SampleReport()
     stream = SampledSliceStream(store=store, frames=frames, labels=labels,
                                 spec=spec, resolved=resolved, win=win,
-                                rank=rank, num_shards=num_procs, device=dev)
+                                rank=rank, num_shards=num_procs, device=dev,
+                                pool=worker_pool(spec.workers))
     axis = carry_store.axis
     # this rank's table lanes (its vertex block of the step's temporal
     # stage); past the table's fill, gather() pads them with zeros
@@ -208,6 +212,6 @@ def train_sampled(cfg: mdl.DynGNNConfig, store: TemporalCSRStore,
                 if isinstance(rounds, PrefetchIterator):
                     rounds.close()
     finally:
-        stream.close()    # its sampling processes
+        stream.close()
     return SampledState(params=params, opt_state=opt_state, losses=losses,
                         report=report)

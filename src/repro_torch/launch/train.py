@@ -44,8 +44,21 @@ per-device graph budget; a schedule that does not fit exits with
     torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.train \
         --arch paper_dyngnn --sampled --mesh 2 --device cpu
 
-The reference's other flags are known by name: each exits with one line
-naming the ROADMAP item that ports it.
+``--ckpt-dir DIR`` checkpoints the eager schedule and the distributed
+stream (``--stream --mesh P``) there, and a relaunch with it resumes from
+the newest checkpoint; a SIGTERM saves one and exits 0.  ``--rescale-at
+BLOCK:P`` (repeatable) changes the distributed stream's width to P at
+global round BLOCK and ``--rescale-on-preempt P`` absorbs a SIGTERM by
+shrinking to P; launch as many processes as the widest width, and rank 0
+prints ``streamed ... block rounds elastically (...), final loss ...,
+rescales: ...``::
+
+    torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train \
+        --arch paper_dyngnn --stream --mesh 2 --rescale-at 1:4 \
+        --ckpt-dir ckpt --device cpu
+
+``--trace`` is known by name and exits naming the ROADMAP item that
+ports it.
 """
 
 from __future__ import annotations
@@ -56,13 +69,19 @@ import os
 #: the reference's flags the port does not run yet -> (argparse kwargs,
 #: the ROADMAP item that ports them)
 _NOT_PORTED = {
-    "--rescale-at": ({"action": "append", "default": []},
-                     "Queue 1, item 8"),
-    "--rescale-on-preempt": ({"type": int, "default": 0},
-                             "Queue 1, item 8"),
-    "--ckpt-dir": ({"default": None}, "Queue 1, item 8"),
-    "--trace": ({"default": None}, "Queue 1, item 8"),
+    "--trace": ({"default": None}, "Queue 1, item 8c"),
 }
+
+
+def _parse_rescale(spec: str) -> tuple[int, int]:
+    """'BLOCK:P' -> (block, new_p) for the plan's rescale schedule."""
+    try:
+        block, p = spec.split(":")
+        return int(block), int(p)
+    except ValueError:
+        raise SystemExit(
+            f"--rescale-at expects BLOCK:P (e.g. 2:8), got {spec!r}"
+        ) from None
 
 
 def main(argv: list[str] | None = None) -> None:
@@ -116,6 +135,20 @@ def main(argv: list[str] | None = None) -> None:
                     help="simulated per-device cap on round-resident graph "
                          "tensors; over-budget schedules refuse with "
                          "DeviceBudgetError")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="checkpoint the eager schedule or the distributed "
+                         "stream here; a relaunch resumes from it")
+    ap.add_argument("--rescale-at", action="append", default=[],
+                    metavar="BLOCK:P",
+                    help="with --stream --mesh: elastically rescale the "
+                         "snapshot-parallel width to P at global round "
+                         "BLOCK (repeatable; realized at the "
+                         "checkpoint-block boundary; losses unchanged)")
+    ap.add_argument("--rescale-on-preempt", type=int, default=0,
+                    metavar="P",
+                    help="with --stream --mesh: absorb SIGTERM by "
+                         "shrinking to width P at the next block "
+                         "boundary instead of stopping")
     for flag, (kwargs, _) in _NOT_PORTED.items():
         ap.add_argument(flag, **kwargs, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
@@ -134,18 +167,36 @@ def main(argv: list[str] | None = None) -> None:
     if (args.sample_batch or args.fanout != "10,10") and not args.sampled:
         raise SystemExit("--sample-batch/--fanout configure the sampled "
                          "schedule; they require --sampled")
+    if (args.rescale_at or args.rescale_on_preempt) and not args.stream:
+        # fail loudly, never drop the flags: the eager branch has no
+        # rescale plumbing, so a typo'd command would otherwise run a
+        # plain fixed-width schedule without a word
+        raise SystemExit("--rescale-at/--rescale-on-preempt recompose the "
+                         "distributed stream; they require "
+                         "--stream --mesh P")
+    rescale = tuple(_parse_rescale(s) for s in args.rescale_at)
     if args.mesh and not (args.stream or args.sampled):
         raise SystemExit("--mesh P sets the distributed stream's or the "
                          "sampled schedule's width; it requires --stream or "
                          "--sampled (the eager schedule's is "
                          "--data-parallel P)")
+    # an elastic run's pool is as wide as its widest width (rescale flags
+    # imply --stream)
+    elastic = bool(rescale or args.rescale_on_preempt)
+    widest = max((args.mesh, args.rescale_on_preempt)
+                 + tuple(p for _, p in rescale))
+    if elastic and world > 1 and widest != world:
+        raise SystemExit(f"--stream under torchrun with {world} processes: "
+                         f"the widest width of the elastic policy is "
+                         f"{widest}; launch that many processes")
     for mode in ("stream", "sampled"):
-        if getattr(args, mode) and world > 1 and args.mesh != world:
+        if (getattr(args, mode) and world > 1 and args.mesh != world
+                and not elastic):
             raise SystemExit(f"--{mode} under torchrun with {world} "
                              f"processes runs on {world} ranks: pass "
                              f"--mesh {world}")
     try:
-        _train(args, dp, world)
+        _train(args, dp, world, rescale)
     finally:
         import torch.distributed as dist
         if dist.is_initialized():
@@ -169,11 +220,11 @@ def _join_group(device: str, world: int) -> None:
     dist.init_process_group("nccl", device_id=local, **alone)
 
 
-def _train(args, dp: int, world: int) -> None:
+def _train(args, dp: int, world: int, rescale: tuple) -> None:
     from repro_torch import resolve_device
     from repro_torch.configs import registry
-    from repro_torch.run import DeviceBudgetError, Engine, ExecutionPlan, \
-        RunConfig, SamplingSpec, SyntheticTrace
+    from repro_torch.run import CheckpointSpec, DeviceBudgetError, Engine, \
+        ExecutionPlan, RunConfig, SamplingSpec, SyntheticTrace
 
     arch = registry.get_arch(args.arch)
     if arch.family != "dyngnn":
@@ -203,6 +254,11 @@ def _train(args, dp: int, world: int) -> None:
                              pipeline_rounds=args.pipeline_rounds,
                              compression=args.compression, sampling=spec,
                              device_budget_bytes=budget)
+        ckpt = None
+        if args.ckpt_dir:
+            print("note: --ckpt-dir is ignored with --sampled "
+                  "(checkpointing is wired for the eager and streamed "
+                  "--mesh schedules)")
     elif args.stream:
         # the pipelining and compression flags pass through as given, so a
         # combination the plan cannot honor (e.g. --pipeline-rounds without
@@ -212,19 +268,34 @@ def _train(args, dp: int, world: int) -> None:
             shards=max(args.mesh, 1), num_epochs=args.epochs,
             overlap=not args.no_overlap, a2a_chunks=args.a2a_chunks,
             pipeline_rounds=args.pipeline_rounds,
-            compression=args.compression, device_budget_bytes=budget)
+            compression=args.compression, rescale=rescale,
+            rescale_on_preempt=args.rescale_on_preempt,
+            device_budget_bytes=budget)
+        ckpt = None
+        if args.ckpt_dir:
+            if plan.mode == "streamed_mesh":
+                # round-granular checkpoints of whole host arrays: SIGTERM
+                # saves the data cursor; a rerun resumes it, on any legal
+                # --mesh width
+                ckpt = CheckpointSpec(args.ckpt_dir)
+            else:
+                print("note: --ckpt-dir is ignored with single-device "
+                      "--stream (checkpointing is wired for the eager and "
+                      "streamed --mesh schedules)")
     else:
         plan = ExecutionPlan(mode="eager", shards=dp, num_steps=args.steps,
                              a2a_chunks=args.a2a_chunks,
                              pipeline_rounds=args.pipeline_rounds,
                              compression=args.compression,
                              device_budget_bytes=budget)
+        ckpt = CheckpointSpec(args.ckpt_dir) if args.ckpt_dir else None
     if world > 1 or args.sampled:
         resolve_device(args.device)       # no card: raise before joining
         _join_group(args.device, world)
     lead = int(os.environ.get("RANK", "0")) == 0
     try:
         engine = Engine(RunConfig(model=cfg, data=data, plan=plan,
+                                  checkpoint=ckpt,
                                   log_fn=print if lead else _quiet),
                         device=args.device)
         engine.resolve()
@@ -251,6 +322,23 @@ def _train(args, dp: int, world: int) -> None:
               f"edges / {srep.dropped_nodes} nodes){budget_txt}")
         return
     rep = result.transfer_report
+    rsc = result.rescale_report
+    if plan.mode == "streamed_mesh" and rsc is not None and (
+            rsc.events or rsc.preempted or rsc.resumed_from is not None):
+        # elastic summary: the width trajectory, not a single per-device
+        # figure (each segment has its own P)
+        evs = ", ".join(f"{e.old_p}->{e.new_p}@block{e.block}"
+                        f" ({e.cause}, {e.payload_bytes} B)"
+                        for e in rsc.events) or "none realized"
+        if not rsc.preempted:
+            state_txt = "completed"
+        elif ckpt is not None:
+            state_txt = "preempted+checkpointed"
+        else:       # no --ckpt-dir: progress was NOT saved
+            state_txt = "preempted (no checkpoint configured)"
+        print(f"streamed {result.state.step} block rounds elastically "
+              f"({state_txt}), final loss {final}, rescales: {evs}")
+        return
     if plan.mode == "streamed_mesh":
         # what crossed the links: the per-rank time-sliced streams (their
         # extra slice-boundary fulls), not the single-device stream

@@ -17,8 +17,10 @@ stream, §3.2), ``streamed_mesh`` (per-rank delta streams under
 snapshot partitioning, §3.2 x §4.2) and ``sampled`` (out-of-core
 fanout-sampled training over the host-resident store, with
 ``SamplingSpec``; ``device_budget_bytes`` gates every mode and raises
-``DeviceBudgetError``).  The elastic knobs raise ``NotImplementedError``
-naming their ROADMAP item.
+``DeviceBudgetError``).  ``CheckpointSpec`` checkpoints the eager and
+streamed_mesh schedules (``Engine.resume()``), and the streamed_mesh
+plan's ``rescale`` / ``rescale_on_preempt`` change its width mid-run
+(``repro_torch.elastic``).
 """
 
 from repro_torch.hoststore import (DeviceBudgetError, SampleReport,

@@ -5,9 +5,9 @@
 :class:`ExecutionPlan`, the optimizer, checkpointing, logging and the
 parameter-init ``seed``.  ``Engine.resolve()`` turns it into a
 :class:`ResolvedRun`, the bundle the workers consume; ``Engine.fit()``
-returns a :class:`RunResult`.  Checkpointing (``CheckpointSpec``; the
-reference's ``ckpt/``) is not ported yet: a run that asks for it is
-refused (ROADMAP Queue 1, item 8).
+returns a :class:`RunResult`.  ``CheckpointSpec`` turns on
+``repro_torch.ckpt`` checkpoints for the eager and streamed_mesh
+schedules (``Engine.resume()`` restarts from the newest).
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ import torch
 
 from repro_torch.core.models import DynGNNConfig
 from repro_torch.data.dyngnn import DTDGDataset, DTDGPipeline
+from repro_torch.elastic.controller import RescaleReport
 from repro_torch.hoststore.sampled import SampleReport
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.run.data import DataSource
@@ -29,8 +30,11 @@ from repro_torch.train.trainer import TrainState
 
 @dataclass(frozen=True)
 class CheckpointSpec:
-    """Where/how often to checkpoint (refused until ROADMAP Queue 1,
-    item 8 ports ``ckpt/``)."""
+    """Where/how often to checkpoint.
+
+    ``every`` counts eager steps on the eager schedule and rounds
+    (checkpoint blocks) on streamed_mesh.  A SIGTERM during a fit also
+    saves, blocking, and stops the fit cleanly."""
 
     directory: str
     every: int = 50
@@ -65,6 +69,7 @@ class ResolvedRun:
     log_every: int
     log_fn: Callable[[str], None]
     device: torch.device
+    checkpoint: CheckpointSpec | None = None
     mesh: Any = None                # torch.distributed group, or None
     padded_from: int | None = None  # original num_nodes if auto-padded
     cache: dict = field(default_factory=dict)
@@ -88,8 +93,9 @@ class RunResult:
     staged bytes, dropped lanes, host sampling and step seconds) and, when
     the plan sets ``device_budget_bytes``, the ``budget_report``
     (``{"required": ..., "budget": ...}`` of the schedule's resident graph
-    tensors).  The reference's ``rescale_report`` arrives with the elastic
-    loop."""
+    tensors).  An elastic or checkpointed streamed_mesh run carries its
+    ``rescale_report`` (``elastic.RescaleReport``: events, segments,
+    preempted, resumed_from)."""
 
     state: TrainState
     losses: list[float]
@@ -99,6 +105,7 @@ class RunResult:
     a2a_chunks: int = 1
     pipeline_rounds: bool = False
     compression: str = "none"
+    rescale_report: RescaleReport | None = None
     sample_report: SampleReport | None = None
     budget_report: dict | None = None
     metrics: dict | None = None     # obs counter delta + span summary

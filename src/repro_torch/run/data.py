@@ -4,7 +4,7 @@ A :class:`DataSource` yields a ``DTDGDataset``; the Engine asks it to build
 and owns nothing else.  Ported: :class:`SyntheticTrace` (the evolving
 synthetic DTDG generator as a declarative spec) and :class:`InMemoryDTDG`
 (an already-built dataset).  The reference's ``EdgeListDTDG`` (timestamped
-edge-list files) is not ported yet (ROADMAP Queue 1, item 8).
+edge-list files) is not ported yet (ROADMAP Queue 1, item 8d).
 """
 
 from __future__ import annotations

@@ -17,8 +17,10 @@ its own steps to its device), the per-snapshot delta-stream trainer for
 partitioning for ``mode="streamed_mesh"``, out-of-core fanout-sampled
 rounds over the host-resident store for ``mode="sampled"`` (every rank of
 the group runs it; the vertex axis is not padded) — and ``evaluate()``
-runs the paper's link-prediction protocol on the trained params.
-``device`` defaults to ``"cuda"`` and raises without a card unless the
+runs the paper's link-prediction protocol on the trained params;
+``resume()`` restarts from the newest checkpoint of the run's
+``CheckpointSpec`` (eager and streamed_mesh; a streamed_mesh checkpoint
+restores onto any legal width).  ``device`` defaults to ``"cuda"`` and raises without a card unless the
 caller passes ``device="cpu"``; ``params`` may hand in initial parameters
 (a ``ParamTree``, e.g. from ``repro_torch.convert.params_from_jax``),
 which are otherwise drawn from ``RunConfig.seed``.
@@ -49,10 +51,6 @@ class Engine:
     def __init__(self, config: RunConfig, params=None,
                  device: str | torch.device = "cuda"):
         config.plan.validate()
-        if config.checkpoint is not None:
-            raise NotImplementedError(
-                "RunConfig.checkpoint: checkpointing (ckpt/) is not ported "
-                "yet (ROADMAP Queue 1, item 8)")
         self.config = config
         self.device = resolve_device(device)
         config.plan.check_devices(self.device)
@@ -65,12 +63,39 @@ class Engine:
         if self._resolved is not None:
             return self._resolved
         c = self.config
-        mesh = c.plan.build_mesh()
+        plan = c.plan
+        if (c.checkpoint is not None
+                and plan.mode not in ("eager", "streamed_mesh")):
+            raise ValueError(
+                "RunConfig.checkpoint is only wired for plan.mode='eager' "
+                f"and 'streamed_mesh' (got {plan.mode!r}); the "
+                "single-device streamed schedule does not checkpoint yet "
+                "— drop the CheckpointSpec or switch modes")
+        if c.checkpoint is not None and plan.compression != "none":
+            raise ValueError(
+                "RunConfig.checkpoint routes streamed_mesh through the "
+                "elastic segment loop, which does not thread the "
+                "error-feedback residuals of plan.compression="
+                f"{plan.compression!r}; drop the CheckpointSpec or use "
+                "compression='none'")
+        # an elastic plan's groups are made once its widths are known to
+        # be realizable
+        mesh = None if plan.is_elastic else plan.build_mesh()
         nominal = c.data.num_nodes
-        n = c.plan.padded_num_nodes(nominal, log_fn=c.log_fn)
+        n = plan.padded_num_nodes(nominal, log_fn=c.log_fn)
         ds = c.data.build(num_nodes=n if n != nominal else None)
-        nb = c.plan.resolved_blocks(ds.num_steps, c.model.checkpoint_blocks,
-                                    log_fn=c.log_fn)
+        nb = plan.resolved_blocks(ds.num_steps, c.model.checkpoint_blocks,
+                                  log_fn=c.log_fn)
+        if plan.is_elastic:
+            # every width the rescale policy can switch to must slice the
+            # resolved block and the (lcm-padded) vertex axis, over the
+            # pool's ranks — fail at resolve time, not segments into the run
+            from repro_torch.elastic.train import validate_widths
+            pool = (torch.distributed.get_world_size()
+                    if torch.distributed.is_initialized() else 1)
+            validate_widths(plan.rescale_widths, win=ds.num_steps // nb,
+                            num_nodes=ds.num_nodes, num_devices=pool)
+            mesh = plan.build_mesh()
         cfg = c.model
         if (cfg.num_nodes != ds.num_nodes or cfg.num_steps != ds.num_steps
                 or cfg.checkpoint_blocks != nb):
@@ -84,7 +109,8 @@ class Engine:
         self._resolved = ResolvedRun(
             config=c, cfg=cfg, ds=ds, pipeline=pipe, plan=c.plan,
             opt_cfg=c.optimizer, seed=c.seed, log_every=c.log_every,
-            log_fn=c.log_fn, device=self.device, mesh=mesh,
+            log_fn=c.log_fn, device=self.device, checkpoint=c.checkpoint,
+            mesh=mesh,
             padded_from=nominal if n != nominal else None)
         return self._resolved
 
@@ -102,9 +128,26 @@ class Engine:
         return self._last
 
     def resume(self) -> RunResult:
-        raise NotImplementedError(
-            "Engine.resume: checkpointing (ckpt/) is not ported yet "
-            "(ROADMAP Queue 1, item 8)")
+        """Explicit restart from the configured checkpoint directory.
+
+        streamed_mesh checkpoints hold whole host arrays: the resuming
+        plan may use a DIFFERENT snapshot-parallel width than the one the
+        checkpoint was written at — the worker slices the restored
+        carries for the current ranks and re-slices the remaining delta
+        streams from the saved cursor (``repro_torch.elastic``).
+        """
+        rr = self.resolve()
+        if rr.checkpoint is None:
+            raise ValueError("resume() needs RunConfig.checkpoint")
+        if rr.plan.mode not in ("eager", "streamed_mesh"):
+            raise NotImplementedError("checkpoint resume is only wired for "
+                                      "the eager and streamed_mesh "
+                                      "schedules")
+        from repro_torch.ckpt.checkpoint import Checkpointer
+        if Checkpointer(rr.checkpoint.directory).latest_step() is None:
+            raise FileNotFoundError(
+                f"no checkpoint under {rr.checkpoint.directory}")
+        return self.fit()
 
     def evaluate(self, state: TrainState | RunResult | None = None,
                  test_snapshot=None, theta: float = 0.1,

@@ -11,10 +11,11 @@ streams under snapshot partitioning, with ``a2a_chunks``,
 fanout-sampled training over the host-resident store, ``hoststore``,
 with ``sampling``; the vertex axis never padded: the round table is).
 ``device_budget_bytes`` gates every mode against the simulated
-per-device graph budget (``hoststore.budget``).
-:meth:`ExecutionPlan.validate` applies the reference's rules and then
-refuses what is not ported yet, naming the ROADMAP item that ports it:
-the elastic ``rescale`` / ``rescale_on_preempt`` — Queue 1, item 8.
+per-device graph budget (``hoststore.budget``).  The elastic
+``rescale`` / ``rescale_on_preempt`` policy of the streamed_mesh
+schedule is executed by ``repro_torch.elastic`` at checkpoint-block
+boundaries.  :meth:`ExecutionPlan.validate` applies the reference's
+rules.
 
 The reference's mesh is a ``torch.distributed`` process group here, one
 process per rank (gloo on the CPU, NCCL on the card with rank r on
@@ -22,11 +23,15 @@ process per rank (gloo on the CPU, NCCL on the card with rank r on
 group of any size, 1 included, runs the partitioned step, as a prebuilt
 mesh does in the reference.  ``shards = P`` without a group uses the
 default group when it is initialized with P ranks (``torchrun
---nproc-per-node P``).
+--nproc-per-node P``).  An elastic plan runs on a pool of ranks, the
+default group, of at least its largest width: width p trains on the
+pool's first p ranks (``elastic.reshard.width_groups``), and the plan's
+group is the width-``shards`` one.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Any, Callable
 
@@ -39,34 +44,6 @@ from repro_torch.hoststore.spec import SamplingSpec
 
 MODES = ("eager", "streamed", "streamed_mesh", "sampled")
 COMPRESSIONS = ("none", "int8_a2a", "int8_all")
-
-
-def _validate_schedule(schedule) -> tuple:
-    """The reference's rule set for a ``((block, new_p), ...)`` resize
-    script (``repro.elastic.controller.validate_schedule``), normalized."""
-    events = []
-    last = 0
-    for entry in schedule:
-        try:
-            b, p = entry
-        except (TypeError, ValueError):
-            raise ValueError(
-                f"rescale schedule entries must be (block, new_p) "
-                f"pairs, got {entry!r}") from None
-        b, p = int(b), int(p)
-        if b < 1:
-            raise ValueError(
-                f"rescale boundaries start at block 1 (block 0 is the "
-                f"initial width), got {b}")
-        if b <= last:
-            raise ValueError(
-                "rescale boundaries must be strictly increasing, got "
-                f"block {b} after {last}")
-        if p < 1:
-            raise ValueError(f"rescale width must be >= 1, got {p}")
-        events.append((b, p))
-        last = b
-    return tuple(events)
 
 
 @dataclass(frozen=True)
@@ -166,15 +143,17 @@ class ExecutionPlan:
                              "boundaries; they require "
                              "mode='streamed_mesh'")
         if self.rescale:
-            _validate_schedule(self.rescale)
-        self._refuse_unported()
+            # the one schedule rule set, shared with RescaleController
+            from repro_torch.elastic.controller import validate_schedule
+            validate_schedule(self.rescale)
 
-    def _refuse_unported(self) -> None:
-        if self.is_elastic:
-            raise NotImplementedError(
-                "plan.rescale/rescale_on_preempt: the elastic segment loop "
-                "(elastic/, ft/elastic.PreemptionGuard) is not ported yet "
-                "(ROADMAP Queue 1, item 8)")
+    @property
+    def rescale_widths(self) -> tuple:
+        """Every width the elastic policy can switch to."""
+        ws = tuple(int(p) for _, p in self.rescale)
+        if self.rescale_on_preempt:
+            ws += (self.rescale_on_preempt,)
+        return ws
 
     @property
     def is_elastic(self) -> bool:
@@ -202,12 +181,20 @@ class ExecutionPlan:
     def build_mesh(self):
         """The plan's process group, or None for one device: ``mesh``
         when given; else, for P > 1 shards, the default group, which must
-        be initialized with P ranks."""
+        be initialized with P ranks.  An elastic plan takes the default
+        group as its pool (at least as many ranks as its widest width)
+        and makes every width's group of it at once; its group is the
+        width-``shards`` one."""
         if self.mesh is not None:
             return self.mesh
         if not self.wants_mesh:
             return None
         p = self.num_shards
+        if self.is_elastic and dist.is_initialized() \
+                and dist.get_world_size() >= max((p,) + self.rescale_widths):
+            from repro_torch.elastic.reshard import width_groups
+            return width_groups((p,) + self.rescale_widths,
+                                dist.group.WORLD)[p]
         if not dist.is_initialized() or dist.get_world_size() != p:
             have = (f"{dist.get_world_size()} ranks" if dist.is_initialized()
                     else "no process group")
@@ -242,10 +229,13 @@ class ExecutionPlan:
         and logs the padding (``auto_pad=False`` refuses instead).  The
         sampled schedule's temporal stage runs over the round node TABLE,
         which ``SamplingSpec.resolve`` pads to the ranks, so its vertex
-        axis never has to divide.  The reference's elastic plans pad to
-        the lcm of their widths; they wait for ROADMAP Queue 1, item 8.
+        axis never has to divide.  An elastic plan pads to the lcm of
+        EVERY width its rescale policy can switch to, so the vertex axis
+        stays divisible mid-run.
         """
         p = self.num_shards
+        for w in self.rescale_widths:
+            p = math.lcm(p, w)
         if self.mode == "sampled":
             return num_nodes
         if not self.wants_mesh or num_nodes % p == 0:

@@ -46,11 +46,19 @@ safe.  ``compression`` ("int8_a2a", "int8_all") quantizes the
 all-to-alls with error feedback (``dist.compression``); "int8_all" also
 encodes the delta stream on the narrow ``stream.wire`` format.
 
+The elastic entry (``start_round``, ``carries``, ``stop_fn``) runs one
+epoch's rounds from a checkpoint-block boundary, and stops at a round
+boundary when ``stop_fn`` says so; ``repro_torch.elastic`` drives its
+segments through it.  A SIGTERM may reach one rank and not the others,
+so the ranks AGREE on stopping: each round's ``stop_fn`` answers are
+reduced with ``all_reduce(MAX)`` over the group before any rank acts on
+them, and every rank leaves the loop after the same round.  Every round
+feeds its wall time to a ``StepTimer`` (``step_timer``; the straggler
+watchdog's ``straggler.flags`` counter).
+
 Not ported here: the reference's ``lowered_step_hlo`` (XLA HLO; the
-``partition.a2a_*`` byte counters take its place), its derived phase
-spans (``obs.calibrate``) and its elastic / straggler arguments
-(``start_round``, ``carries``, ``stop_fn``, ``step_timer``), which raise
-naming ROADMAP Queue 1, item 8.
+``partition.a2a_*`` byte counters take its place) and its derived phase
+spans (``obs.calibrate``, ROADMAP Queue 1, item 8c).
 """
 
 from __future__ import annotations
@@ -66,15 +74,13 @@ from repro_torch.core import models as mdl
 from repro_torch.core import partition
 from repro_torch.dist import compression as compression_lib
 from repro_torch.dist.sharding import group_rank, group_size
+from repro_torch.ft.straggler import StepTimer
 from repro_torch.optim import adamw
 from repro_torch.stream import encoder as enc
 from repro_torch.stream import sharded as stream_sharded
 from repro_torch.stream import train_loop as tl
 from repro_torch.stream.prefetch import (DeltaApplier, PrefetchIterator,
                                          SlotStacker, stage_item)
-
-_ITEM8 = "ROADMAP Queue 1, item 8"
-
 
 def _detached(tree, clone: bool = False):
     """A carry tree (nested tuples and lists of tensors), detached from
@@ -91,6 +97,7 @@ class DistStreamState:
     losses: list
     per_shard_bytes: list = field(default_factory=list)
     carries: object = None          # the rank's final temporal carries
+    step_timer: object = None       # the run's StepTimer (EWMA watchdog)
 
 
 def make_dist_stream_step(cfg: mdl.DynGNNConfig, group,
@@ -188,14 +195,15 @@ def init_comm_residuals(cfg: mdl.DynGNNConfig, win: int, group,
 
 
 def dist_round_stream(shard_stream, frames, labels, win: int, bsl: int,
-                      rank: int):
+                      rank: int, start_round: int = 0):
     """Host iterator of this rank's rounds: (its ``bsl`` delta items,
     frames (bsl, N, F), labels (bsl, N)) of steps ``t0 + rank bsl ...``
-    with ``t0 = r win``."""
+    with ``t0 = r win``.  ``start_round`` resumes mid-epoch: the given
+    ``shard_stream`` begins at that round's block."""
     rounds = len(shard_stream) // bsl
     for r in range(rounds):
         items = tuple(shard_stream[r * bsl + j] for j in range(bsl))
-        t0 = r * win + rank * bsl
+        t0 = (start_round + r) * win + rank * bsl
         yield (items, np.asarray(frames[t0:t0 + bsl]),
                np.asarray(labels[t0:t0 + bsl]))
 
@@ -218,6 +226,14 @@ def _gather_bytes(mine: int, group, device) -> list[int]:
     return [int(b) for b in buf.tolist()]
 
 
+def agreed(flag: bool, group, device) -> bool:
+    """True on every rank of ``group`` when ``flag`` is True on any (one
+    ``all_reduce(MAX)``): the decision the ranks act on together."""
+    buf = torch.tensor([int(bool(flag))], dtype=torch.int32, device=device)
+    dist.all_reduce(buf, op=dist.ReduceOp.MAX, group=group)
+    return bool(buf.item())
+
+
 def train_distributed_streamed(cfg: mdl.DynGNNConfig, snapshots, values,
                                frames, labels, *, mesh,
                                block_size: int | None = None,
@@ -235,7 +251,7 @@ def train_distributed_streamed(cfg: mdl.DynGNNConfig, snapshots, values,
                                start_round: int = 0, carries=None,
                                stop_fn=None, seed: int = 0,
                                log_every: int = 10, log_fn=None,
-                               step_timer=None,
+                               step_timer: StepTimer | None = None,
                                device: str | torch.device = "cuda"
                                ) -> DistStreamState:
     """Stream the trace through snapshot-parallel distributed training, as
@@ -259,18 +275,18 @@ def train_distributed_streamed(cfg: mdl.DynGNNConfig, snapshots, values,
     with fenced ``round.transfer`` / ``round.step`` spans when tracing is
     on (fencing serializes the schedule), and adds to ``stream.rounds``;
     the call adds the rank's payload bytes to ``stream.payload_bytes``.
-    ``start_round`` / ``carries`` / ``stop_fn`` / ``step_timer`` (the
-    reference's elastic and straggler entry) raise naming ROADMAP Queue
-    1, item 8.
+
+    ``start_round`` / ``carries`` / ``stop_fn`` are the resumable-from-
+    block entry the elastic loop (``repro_torch.elastic``) drives its
+    segments through: run the rounds of ONE epoch from checkpoint-block
+    boundary ``start_round`` (``shard_stream``, when given, begins there)
+    with this rank's initial ``carries`` (None = fresh zeros), and stop
+    at the next round boundary when ``stop_fn(global_round)`` is True on
+    any rank (agreed by ``all_reduce(MAX)``; with ``pipeline_rounds`` the
+    in-flight round is drained first).  The final carries ride back on
+    ``DistStreamState.carries``.  ``step_timer`` (a ``StepTimer``, shared
+    across segments) observes each round's wall time.
     """
-    given = [name for name, unset in (
-        ("start_round", start_round == 0), ("carries", carries is None),
-        ("stop_fn", stop_fn is None), ("step_timer", step_timer is None))
-        if not unset]
-    if given:
-        raise NotImplementedError(
-            f"{', '.join(given)}: the elastic segment loop and the "
-            f"straggler timer are not ported yet ({_ITEM8})")
     dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is None:
         # the prefetch thread stages onto this rank's card, not the
@@ -285,6 +301,11 @@ def train_distributed_streamed(cfg: mdl.DynGNNConfig, snapshots, values,
     if t_steps % win:
         raise ValueError(f"trace length {t_steps} must be a multiple of "
                          f"block_size {win}")
+    if (start_round or carries is not None) and num_epochs != 1:
+        raise ValueError(
+            "start_round/carries resume one epoch segment; run with "
+            "num_epochs=1 and loop epochs in the caller "
+            "(repro_torch.elastic)")
     bsl = win // num_procs
     max_edges = max_edges or tl.default_max_edges(snapshots)
     if stats is None and shard_stream is None:
@@ -306,8 +327,8 @@ def train_distributed_streamed(cfg: mdl.DynGNNConfig, snapshots, values,
     if shard_stream is None:
         shard_stream = stream_sharded.encode_time_sliced(
             snapshots, values, cfg.num_nodes, max_edges, win, num_procs,
-            stats, wire=compression_lib.wire_mode(compression),
-            shards=[rank])[0]
+            stats, start_step=start_round * win,
+            wire=compression_lib.wire_mode(compression), shards=[rank])[0]
     mine = sum(item.payload_bytes for item in shard_stream)
     per_shard_bytes = _gather_bytes(mine, mesh, dev)
     # pipeline_rounds alternates two rings: round r uses buffer r % 2
@@ -323,16 +344,21 @@ def train_distributed_streamed(cfg: mdl.DynGNNConfig, snapshots, values,
                    f"(P={num_procs}, win={win}, C={a2a_chunks}, "
                    f"pipelined={pipeline_rounds})")
 
+    timer = step_timer if step_timer is not None else StepTimer()
+    initial_carries = carries
+    stopped = False
     obs.inc("stream.payload_bytes", mine)
-    ridx = 0                 # span round index, monotonic across epochs
+    ridx = start_round       # span round index, monotonic across epochs
     for _ in range(num_epochs):
         host = dist_round_stream(shard_stream, frames, labels, win, bsl,
-                                 rank)
+                                 rank, start_round)
         rounds = (PrefetchIterator(host, depth=prefetch_depth, device=dev)
                   if overlap else (stage_item(x, dev) for x in host))
         appliers = [DeltaApplier(max_edges, dev) for _ in range(nbuf)]
         stackers = [SlotStacker(bsl) for _ in range(nbuf)]
-        carries = init_sharded_carries(cfg, params, mesh)
+        carries = (initial_carries if initial_carries is not None
+                   else init_sharded_carries(cfg, params, mesh))
+        initial_carries = None           # later epochs start fresh
         # the residuals restart with the carries: they are the quantizer's
         # state, not the model's
         comm_res = (init_comm_residuals(cfg, win, mesh, dev)
@@ -342,15 +368,16 @@ def train_distributed_streamed(cfg: mdl.DynGNNConfig, snapshots, values,
         try:
             for r, (items, fr, lab) in enumerate(rounds):
                 buf = r % nbuf
+                gr = start_round + r
                 with obs.stopwatch("round", cat="round", round=ridx,
-                                   p=num_procs, win=win):
+                                   p=num_procs, win=win) as round_sw:
                     with obs.span("round.transfer", round=ridx) as sp:
                         blk = sp.fence(consume_round(items, appliers[buf],
                                                      stackers[buf]))
                     with obs.span("round.step", round=ridx) as sp:
                         params, opt_state, carries, comm_res, loss = \
                             step_fn(params, opt_state, carries, comm_res,
-                                    fr, *blk, lab, r * win)
+                                    fr, *blk, lab, gr * win)
                         sp.fence(loss)
                     if pipeline_rounds:
                         # read round r-1's loss only now: round r's apply
@@ -361,12 +388,18 @@ def train_distributed_streamed(cfg: mdl.DynGNNConfig, snapshots, values,
                     else:
                         emit(loss)
                 obs.inc("stream.rounds")
+                timer.observe(round_sw.seconds)  # counts straggler.flags
                 ridx += 1
+                if stop_fn is not None and agreed(stop_fn(gr), mesh, dev):
+                    stopped = True
+                    break
             if in_flight is not None:       # the pipelined epoch's tail
                 emit(in_flight)
         finally:
             if isinstance(rounds, PrefetchIterator):
                 rounds.close()
+        if stopped:
+            break
     return DistStreamState(params=params, opt_state=opt_state,
                            losses=losses, per_shard_bytes=per_shard_bytes,
-                           carries=carries)
+                           carries=carries, step_timer=timer)

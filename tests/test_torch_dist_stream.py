@@ -36,6 +36,7 @@ JAX side runs at data = 4 where its own test uses 8.
 """
 
 import datetime
+import functools
 import os
 import pickle
 import subprocess
@@ -59,6 +60,7 @@ from repro_torch.dist import comm_volume as cv
 from repro_torch.dist import compression, overlap
 from repro_torch.dist import sharding
 from repro_torch.ft import elastic
+from repro_torch.ft.straggler import StepTimer
 from repro_torch.kernels.mproduct import ops as mp_ops
 from repro_torch.kernels.segment_spmm import ops as spmm_ops
 from repro_torch.optim import adamw
@@ -993,8 +995,14 @@ def test_plan_rules_for_the_distributed_stream(jx):
         with pytest.raises(ValueError, match=match):
             ExecutionPlan(**kw).validate()
     for kw in ({"rescale": ((1, 2),)}, {"rescale_on_preempt": 2}):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            ExecutionPlan(mode="streamed_mesh", shards=4, **kw).validate()
+        # the elastic knobs validate, and pad N, as the reference's do
+        ExecutionPlan(mode="streamed_mesh", shards=4, **kw).validate()
+        jx.JPlan(mode="streamed_mesh", shards=4, **kw).validate()
+        for n in (48, 50, 53):
+            assert ExecutionPlan(mode="streamed_mesh", shards=4,
+                                 **kw).padded_num_nodes(n) == \
+                jx.JPlan(mode="streamed_mesh", shards=4,
+                         **kw).padded_num_nodes(n)
     msgs = []
     for t, nb, p in ((16, 8, 4), (16, 2, 4), (32, 4, 8), (12, 4, 3),
                      (16, 3, 2), (16, 1, 1)):
@@ -1009,20 +1017,39 @@ def test_plan_rules_for_the_distributed_stream(jx):
 
 
 def test_engine_and_trainer_refuse_what_waits_for_item_8():
-    cfg = _ds("tmgcn")[0]
+    """What waited for item 8 runs now: a CheckpointSpec is taken (and the
+    plan still needs its group), and the elastic entry of
+    ``train_distributed_streamed`` resumes one epoch segment (the
+    reference's refusal for more), stops where ``stop_fn`` says and
+    times every round (a one-rank gloo group)."""
+    cfg, ds = _ds("tmgcn")
     trace = SyntheticTrace(num_nodes=N, num_steps=T)
     plan = ExecutionPlan(mode="streamed_mesh", shards=4)
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(ValueError, match="--stream --mesh 4"):
         Engine(RunConfig(model=cfg, data=trace, plan=plan,
-                         checkpoint=CheckpointSpec("d")), device="cpu")
+                         checkpoint=CheckpointSpec("d")), device="cpu") \
+            .resolve()
     with pytest.raises(ValueError, match="--stream --mesh 4"):
         Engine(RunConfig(model=cfg, data=trace, plan=plan), device="cpu") \
             .resolve()
-    for kw in ({"start_round": 1}, {"carries": []}, {"stop_fn": bool},
-               {"step_timer": object()}):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            sd.train_distributed_streamed(cfg, [], None, None, None,
-                                          mesh=None, device="cpu", **kw)
+    run = functools.partial(sd.train_distributed_streamed, cfg, ds.snapshots,
+                            ds.values, ds.frames, ds.labels,
+                            block_size=WIN, device="cpu")
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        for kw in ({"start_round": 1}, {"carries": []}):
+            with pytest.raises(ValueError, match="one epoch segment"):
+                run(mesh=dist.group.WORLD, num_epochs=2, **kw)
+        stopped = run(mesh=dist.group.WORLD, num_epochs=2, stop_fn=bool)
+        timer = StepTimer()
+        tail = run(mesh=dist.group.WORLD, start_round=1, step_timer=timer)
+        whole = run(mesh=dist.group.WORLD)
+    finally:
+        dist.destroy_process_group()
+    assert len(stopped.losses) == 2            # stop_fn(1) is True
+    assert timer.step_idx == len(tail.losses) == T // WIN - 1
+    assert stopped.losses == whole.losses[:2]
     with pytest.raises(ValueError, match="a2a_chunks"):
         sd.make_dist_stream_step(cfg, None, adamw.AdamWConfig(),
                                  a2a_chunks=0)
@@ -1040,8 +1067,9 @@ def test_engine_and_trainer_refuse_what_waits_for_item_8():
     (["--mesh", "2"], "requires --stream"),
     (["--stream", "--pipeline-rounds"], "pipeline_rounds"),
     (["--stream", "--compression", "int8_a2a"], "compression"),
-    (["--stream", "--mesh", "2", "--rescale-at", "1:1"], "item 8"),
-    (["--stream", "--mesh", "2", "--trace", "t.json"], "item 8")])
+    (["--stream", "--mesh", "2", "--rescale-at", "1:1"],
+     "process group of 2 ranks"),
+    (["--stream", "--mesh", "2", "--trace", "t.json"], "item 8c")])
 def test_launcher_refusals_for_the_distributed_stream(flags, match):
     from repro_torch.launch import train as launch_train
     with pytest.raises(SystemExit, match=match):

@@ -589,40 +589,68 @@ def test_engine_evaluate_and_launcher_print_the_done_line(capsys):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--rescale-at", "2:2"], "item 8"), (["--trace", "t.json"], "item 8"),
-    (["--sampled", "--trace", "t.json"], "item 8"),
-    (["--rescale-on-preempt", "2"], "item 8"),
-    (["--ckpt-dir", "x"], "item 8")])
-def test_launcher_refuses_unported_flags(flag, item):
-    with pytest.raises(SystemExit, match=item):
-        launch_train.main(["--arch", "tmgcn", "--device", "cpu", *flag])
+    (["--rescale-at", "2:2"], "require --stream --mesh P"),
+    (["--trace", "t.json"], "item 8c"),
+    (["--sampled", "--trace", "t.json"], "item 8c"),
+    (["--rescale-on-preempt", "2"], "require --stream --mesh P"),
+    (["--ckpt-dir"], None)])
+def test_launcher_refuses_unported_flags(flag, item, tmp_path, capsys):
+    """``--trace`` still waits for its ROADMAP item; the rescale flags
+    without ``--stream`` exit with the reference's message; ``--ckpt-dir``
+    runs: a 50-step run saves at step 50 (``CheckpointSpec``'s default
+    ``every``) and a relaunch to 52 steps resumes there."""
+    if item is not None:
+        with pytest.raises(SystemExit, match=item):
+            launch_train.main(["--arch", "tmgcn", "--device", "cpu", *flag])
+        return
+    ck = str(tmp_path / "ck")
+    base = ["--arch", "tmgcn", "--device", "cpu", *flag, ck]
+    launch_train.main(base + ["--steps", "50"])
+    assert "done: 50 steps, final loss " in capsys.readouterr().out
+    launch_train.main(base + ["--steps", "52"])
+    out = capsys.readouterr().out
+    assert "resumed from checkpoint step 50" in out
+    assert "done: 52 steps, final loss " in out
 
 
 @pytest.mark.parametrize("plan,item", [
-    # the sampled schedule and device_budget_bytes run now
-    # (tests/test_torch_hoststore.py); the elastic knobs beside them do not
+    # the elastic knobs run now (tests/test_torch_elastic.py): the plans
+    # validate as the reference's do, and outside a pool of their widths
+    # resolve() says what is missing
     (ExecutionPlan(mode="streamed_mesh", shards=2, rescale=((1, 1),),
-                   device_budget_bytes=1 << 20), "item 8"),
-    (ExecutionPlan(mode="streamed_mesh", rescale=((1, 2),)), "item 8"),
+                   device_budget_bytes=1 << 20), "process group of 2 ranks"),
+    (ExecutionPlan(mode="streamed_mesh", rescale=((1, 2),)),
+     "rescale width 2 exceeds the 1 attached devices"),
     (ExecutionPlan(mode="streamed_mesh", shards=4, rescale=((2, 4),)),
-     "item 8"),
+     "rescale width 4 exceeds the 1 attached devices"),
     (ExecutionPlan(mode="streamed_mesh", shards=4, rescale_on_preempt=2),
-     "item 8"),
+     "rescale width 2 exceeds the 1 attached devices"),
     (ExecutionPlan(mode="streamed_mesh", rescale_on_preempt=1,
-                   device_budget_bytes=1 << 20), "item 8")])
+                   device_budget_bytes=1 << 20), "process group of 1 ranks")])
 def test_unported_schedules_raise_naming_their_roadmap_item(plan, item):
-    with pytest.raises(NotImplementedError, match=item):
-        Engine(RunConfig(model=_tcfg("tmgcn"),
-                         data=_trace(SyntheticTrace, "tmgcn"), plan=plan),
-               device="cpu")
+    jplan = JPlan(**{f.name: getattr(plan, f.name)
+                     for f in dataclasses.fields(plan)})
+    jplan.validate()
+    assert jplan.rescale_widths == plan.rescale_widths
+    eng = Engine(RunConfig(model=_tcfg("tmgcn"),
+                           data=_trace(SyntheticTrace, "tmgcn"), plan=plan,
+                           log_fn=_silent), device="cpu")
+    with pytest.raises(ValueError, match=item):
+        eng.resolve()
 
 
-def test_checkpointing_and_resume_raise_naming_their_roadmap_item():
-    rc = RunConfig(model=_tcfg("tmgcn"), data=_trace(SyntheticTrace, "tmgcn"))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        Engine(dataclasses.replace(rc, checkpoint=CheckpointSpec("d")),
-               device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
+def test_checkpointing_and_resume_raise_naming_their_roadmap_item(tmp_path):
+    """Checkpointing runs now (tests/test_torch_ft.py): a CheckpointSpec
+    is accepted, and resume() refuses as the reference does without one
+    or without a checkpoint to resume."""
+    rc = RunConfig(model=_tcfg("tmgcn"), data=_trace(SyntheticTrace, "tmgcn"),
+                   plan=ExecutionPlan(num_steps=2), log_fn=_silent)
+    ck = dataclasses.replace(rc, checkpoint=CheckpointSpec(
+        str(tmp_path / "d"), every=1))
+    with pytest.raises(FileNotFoundError, match="no checkpoint under"):
+        Engine(ck, device="cpu").resume()
+    assert Engine(ck, device="cpu").fit().state.step == 2
+    with pytest.raises(ValueError, match="resume.. needs RunConfig"):
         Engine(rc, device="cpu").resume()
     with pytest.raises(ValueError, match="process group"):
         trainer.make_dyngnn_train_step(_tcfg("tmgcn"), None,
