@@ -146,8 +146,10 @@ which exits non-zero on failure:
    grid of four spawned gloo ranks sharing cuda:0 at N = 65,536, T = 8,
    held to CPU gloo and to the card's 1 x 1 grid and eager forward (1e-4);
 4k. the sampled schedule over the one-rank NCCL group: ``paper_dyngnn``
-   on the train trace (N = 755,200, T = 32; 2 epochs of 4 rounds of
-   block 8), the launcher's defaults (N / 4 seeds, fanouts 10, 10), the
+   on the train trace (N = 755,200, T = 32; one epoch of 4 rounds of
+   block 8: a second epoch cost ~90 s of host sampling, and the carry
+   store's epoch reset runs in the 2-epoch runs below), the launcher's
+   defaults (N / 4 seeds, fanouts 10, 10), the
    union capped at the largest snapshot's edges, through
    ``Engine(plan=ExecutionPlan(mode="sampled", mesh=group,
    device_budget_bytes=B))`` with B between the sampled and the full-graph
@@ -179,6 +181,28 @@ which exits non-zero on failure:
    card a rank) stopped by a real SIGTERM after its first logged step,
    exiting 0 with a checkpoint, and relaunched to the uninterrupted
    run's final loss;
+4m. the training trace (the trace group): the distributed stream at
+   full width, P = 1 over the one-rank NCCL group, 2 epochs of 4 rounds
+   through ``Engine(ExecutionPlan(mode="streamed_mesh", shards=1))``,
+   untraced and traced in turns (every count zeroed just before each fit
+   and read just after): losses and parameters equal (max|diff| 0.0);
+   24 / 2 / 2 / 0 launches and 16 CSR builds a round, the traced fits'
+   probe adding exactly three one-rank rounds; each round's ``round``,
+   ``round.transfer``, ``round.step`` and derived ``round.spatial`` /
+   ``round.a2a`` / ``round.temporal`` spans, the derived three summing to
+   the step; the calibration report's 8 rows; the probe's seconds and the
+   observer effect; the spans exported as ``.json`` and ``.jsonl``, each
+   valid; the launcher with ``--trace`` on the card (eager, smoke
+   config), its ``trace:`` line and a valid file;
+4n. edge-list data (the data group): the train trace's raw snapshots
+   (30,207,991 rows) written as ``.npz`` by ``write_edgelist``, read back
+   in memory and in chunks (byte-identical to the generator's lists; the
+   peak RSS of each read in a child process), built by ``EdgeListDTDG``
+   into the train phase's dataset array for array, and 10 eager steps on
+   the card from it: the train phase's losses at max|diff| 0.0 (160 / 12
+   / 8 / 0 launches a step, 64 CSR builds); cut: the ``.tsv`` form at N =
+   65,536, T = 8; the committed fixture ``tests/fixtures/
+   epinions_tiny.tsv`` trained on the card and on the CPU (1e-4);
 5. the LM path: Yi-6B at full width (32 layers, d 4096, 32 query heads
    over 4 KV heads, D 128, bf16, random weights drawn on the card from a
    seed) served through ``ServeEngine(device="cuda").generate()``: one
@@ -219,20 +243,28 @@ sleep); ``wrapper_ms`` is the wrapper's host time plus device time.
 
 Prints the card line, the per-phase numbers, one JSON line each of the
 streamed, the partitioned, the distributed-stream, the hybrid, the
-sampled and the fault-tolerance phases' numbers, one JSON line of the
-kernels and, last, ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
-repository around it, it exits non-zero and prints no result.  ``--only
-serve,train,stream,partition,dstream,hybrid,sampled,ft,lm`` runs the
-build and the named groups of phases (1–4, 4a–4c, 4d, 4e–4g, 4h–4i, 4j,
-4k, 4l, 5–7; partition is held to train's run, so it needs train) and
-prints no result line.
+sampled, the fault-tolerance, the trace and the data phases' numbers,
+one JSON line of the kernels and, last, ``{"ok": true, "device":
+{...}}``.  Before that line it stops every process it started that is
+still running (the shared sampling pools, ``multiprocessing``'s resource
+tracker, any child or orphaned grandchild: the script is their
+subreaper) and fails if any but those two was left; at exit it stops
+them again.  Without a CUDA device, or without the repository around
+it, it exits non-zero and prints no result.  ``--only
+serve,train,stream,partition,dstream,hybrid,sampled,ft,trace,data,lm``
+runs the build and the named groups of phases (1–4, 4a–4c, 4d, 4e–4g,
+4h–4i, 4j, 4k, 4l, 4m, 4n, 5–7; partition and data are held to train's
+run, so they need train) and prints no result line.
 """
 
 from __future__ import annotations
 
+import atexit
 import dataclasses
 import gc
 import json
+import os
+import signal
 import statistics
 import subprocess
 import sys
@@ -273,7 +305,7 @@ DRIFT_ATOL = 1e-3            # tests/test_compression_drift.py:43
 HYBRID_REPS = 4              # the forward timed in turns with the eager one
 HYBRID_SHARED_N, HYBRID_SHARED_T = 65_536, 8
 SAMPLED_BLOCK = 8            # the train trace's T = 32: 4 rounds an epoch
-SAMPLED_EPOCHS = 2
+SAMPLED_EPOCHS = 1           # 2 took ~90 s more of host sampling
 SAMPLED_SMALL_N, SAMPLED_SMALL_T, SAMPLED_SMALL_BLOCK = 65_536, 8, 4
 SAMPLED_SMALL_EPOCHS = 2     # the carry store's epoch reset runs too
 FT_EVERY = 5                 # eager: 5 steps, checkpoint, resume() to 10
@@ -282,6 +314,11 @@ FT_SIGTERM_ROUND = 2         # ... and a SIGTERM in round 2: cursor 3
 FT_SHARED_N, FT_SHARED_T, FT_SHARED_NB = 65_536, 8, 2
 FT_SCHEDULE = ((1, 1), (3, 2))   # widths 2 -> 1 -> 2, both mid-epoch
 FT_LAUNCH_STEPS = 400        # the launcher at the smoke config
+PROBE_STEPS = 3              # the traced stream's probe: warm + best of 2
+TRACE_LAUNCH_STEPS = 20      # the launcher with --trace, smoke config
+DATA_ROWS = 30_207_991       # the train trace's raw edge rows (T = 32)
+DATA_CHUNK = 1 << 22         # rows a chunk of the out-of-core read
+DATA_TSV_N, DATA_TSV_T = 65_536, 8   # the .tsv form, cut
 
 LM_BATCH = 8
 LM_PROMPT = 4096
@@ -298,6 +335,67 @@ def card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()
     return out[0].strip()
+
+
+def adopt_orphans() -> None:
+    """Make this process the subreaper of everything it starts (Linux),
+    so a grandchild whose parent exits becomes its child and
+    :func:`stop_children` finds it."""
+    import ctypes
+
+    try:
+        ctypes.CDLL(None, use_errno=True).prctl(36, 1, 0, 0, 0)
+    except (AttributeError, OSError):   # PR_SET_CHILD_SUBREAPER is Linux's
+        pass
+
+
+def children() -> dict[int, tuple[str, str]]:
+    """This process's children -> (state, command line)."""
+    me, out = os.getpid(), {}
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+            with open(f"/proc/{entry}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace")
+        except OSError:
+            continue
+        if int(fields[1]) == me:
+            out[int(entry)] = (fields[0], cmd.strip()[:200])
+    return out
+
+
+def stop_children(grace_s: float = 5.0) -> list[str]:
+    """Stop every process this one started that is still there: the
+    shared sampling pools (``hoststore.sampled.close_worker_pools``),
+    ``multiprocessing``'s resource tracker (left alone, it outlives the
+    script by the moment it takes to see its pipe close), then any other
+    child, SIGTERM and after ``grace_s`` SIGKILL; every exited child is
+    reaped -> the command lines of the others that were still running."""
+    sampled = sys.modules.get("repro_torch.hoststore.sampled")
+    if sampled is not None:
+        sampled.close_worker_pools()
+    if "multiprocessing.resource_tracker" in sys.modules:
+        sys.modules["multiprocessing.resource_tracker"] \
+            ._resource_tracker._stop()
+    left = {pid: cmd for pid, (state, cmd) in children().items()
+            if state not in "ZX"}
+    for pid in left:
+        os.kill(pid, signal.SIGTERM)
+    end = time.monotonic() + grace_s
+    while (alive := [pid for pid, (state, _) in children().items()
+                     if state not in "ZX"]) and time.monotonic() < end:
+        time.sleep(0.05)
+    for pid in alive:
+        os.kill(pid, signal.SIGKILL)
+    for pid in children():
+        try:
+            os.waitpid(pid, 0)
+        except ChildProcessError:
+            pass
+    return [f"{pid}: {cmd}" for pid, cmd in left.items()]
 
 
 # ------------------------------------------------------------ timing -------
@@ -2232,8 +2330,9 @@ def dstream_path(torch, kernels, obs, ds, pipe, group, timer):
         f"stream {runs['int8_all']['per_shard_bytes'][0]:,} B against "
         f"{per_shard[0]:,} (encoded in {enc8_s:.1f} s)")
 
-    # the round's phases: fenced spans serialize the schedule
-    tracer = obs.configure(enabled=True, fence=True)
+    # the round's phases: fenced spans serialize the schedule (the derived
+    # phases and their probe are the trace group's)
+    tracer = obs.configure(enabled=True, fence=True, phases=False)
     fenced = dstream_run(torch, kernels, obs, cfg, ds, pipe, group, stream,
                          overlap=False)
     spans = tracer.spans()
@@ -2720,10 +2819,10 @@ def hybrid_shared_card(torch, group) -> dict:
 
 # ------------------------------------------------------------ sampled ------
 
-def sampled_path(torch, kernels, obs, ds, group):
+def sampled_path(torch, kernels, obs, ds, pipe, group):
     """The sampled schedule at full width over the one-rank NCCL group:
     ``paper_dyngnn`` on the train phase's trace (N = 755,200, T = 32),
-    block 8 (2 epochs of 4 rounds), through ``Engine(plan=
+    block 8 (one epoch of 4 rounds), through ``Engine(plan=
     ExecutionPlan(mode="sampled", mesh=group), device="cuda")`` with the
     launcher's defaults (N / 4 seeds a round, fanouts 10, 10) and the
     union's edges capped at the largest snapshot's; the budget gate set
@@ -2732,7 +2831,8 @@ def sampled_path(torch, kernels, obs, ds, group):
     the fit and read just after (per round the slice step's 24 / 2 / 2 / 0
     and 16 CSR builds); fenced spans per round (host sampling, staging,
     the carries' gather, all-gather and scatter, the step, its CSR
-    pairs) -> the path's numbers."""
+    pairs) -> the path's numbers.  ``pipe``, the stream phase's pipeline
+    over the same trace and blocks, is reused where there is one."""
     import numpy as np
 
     from repro_torch import hoststore as hs
@@ -2750,7 +2850,9 @@ def sampled_path(torch, kernels, obs, ds, group):
                               checkpoint_blocks=t // win)
     layers = cfg.num_layers
     t0 = time.perf_counter()
-    pipe = DTDGPipeline(sub, nb=t // win, device="cuda")
+    reused = pipe is not None and pipe.ds is sub and pipe.nb == t // win
+    if not reused:
+        pipe = DTDGPipeline(sub, nb=t // win, device="cuda")
     pipe_s = time.perf_counter() - t0
     e_max = max(s.shape[0] for s in sub.snapshots)
     spec = SamplingSpec(batch_nodes=n // 4, fanouts=(10, 10),
@@ -2831,7 +2933,8 @@ def sampled_path(torch, kernels, obs, ds, group):
         f"{rep.dropped_edges} edges; {rep.sampled_edges} union edges staged")
     log(f"[sampled] {rounds} rounds in {fit_s:.1f} s of fit (store ingest "
         f"{store_s:.1f} s, {store_bytes / 1e6:.1f} MB on the host, before "
-        f"it; pipeline {pipe_s:.1f} s); losses "
+        f"it; pipeline {pipe_s:.1f} s"
+        + (", the stream phase's" if reused else "") + "); losses "
         + ", ".join(f"{v:.5f}" for v in losses))
     for k, v in per_round.items():
         log(f"[sampled]   {k}: " + ", ".join(f"{x:.1f}" for x in v) + " ms")
@@ -2861,7 +2964,7 @@ def sampled_path(torch, kernels, obs, ds, group):
             "sampled_round_bytes": sampled_b, "full_round_bytes": full_b,
             "budget": budget, "peak_bytes": peak, "base_bytes": base,
             "fit_s": fit_s, "store_s": store_s, "store_bytes": store_bytes,
-            "pipeline_s": pipe_s}
+            "pipeline_s": pipe_s, "pipeline_reused": reused}
 
 
 def sampled_small(torch, dev: str, group, full: bool) -> dict:
@@ -3132,8 +3235,6 @@ def ft_stream(torch, kernels, obs, ds, pipe, group):
     against the uninterrupted run (fenced, traced: its round's median) at
     rtol 1e-5; then one save and restore of the loop's checkpoint tree
     (params, AdamW, the full-N carries: 144,998,400 B for TM-GCN)."""
-    import os
-    import signal
     import tempfile
 
     from repro_torch.configs import registry
@@ -3274,6 +3375,8 @@ def _ft_shared_rank(rank: int, src: str, store: str, out_dir: str):
         with open(Path(out_dir) / f"rank{rank}.pkl", "wb") as f:
             pickle.dump(res, f)
     finally:
+        from repro_torch.elastic import drop_width_groups
+        drop_width_groups()      # no group may outlive the teardown
         dist.destroy_process_group()
 
 
@@ -3349,9 +3452,6 @@ def ft_launcher(torch) -> dict:
     logged step: it exits 0 with a checkpoint, and a relaunch with the
     same ``--ckpt-dir`` resumes and completes; its final loss equals an
     uninterrupted in-process run's."""
-    import os
-    import signal
-    import subprocess
     import tempfile
 
     from repro_torch.configs import registry
@@ -3416,6 +3516,421 @@ def ft_launcher(torch) -> dict:
         f"uninterrupted run's final loss {ref.losses[-1]:.4f}")
     return {"stopped_at": steps[0], "final": done[0],
             "first_s": first_s, "relaunch_s": second_s}
+
+
+# ------------------------------------------------------------ trace path ---
+
+def trace_fit(torch, kernels, obs, eng, stamps: list, traced: bool
+              ) -> dict:
+    """One fit of ``eng`` with the tracer on (fenced, with derived phases)
+    or off, every count zeroed just before and read just after -> {losses,
+    params, launches, counters, spans, round_ms}.  ``stamps`` is filled by
+    the engine's ``log_fn``, called as each round's loss reaches the host:
+    ``round_ms`` are the host-clock gaps between consecutive rounds."""
+    from repro_torch.kernels.build import reset_counts
+    from repro_torch.kernels.segment_spmm import ops as spmm_ops
+
+    tracer = obs.configure(enabled=traced)
+    reset_counts(kernels)
+    spmm_ops.csr_builds = 0
+    stamps.clear()
+    res = eng.fit()
+    launches = {k.name: k.launches for k in kernels}
+    launches["csr_builds"] = spmm_ops.csr_builds
+    spans = tracer.spans()
+    obs.configure(enabled=False)
+    return {"losses": res.losses, "params": res.state.params,
+            "launches": launches, "counters": res.metrics["counters"],
+            "spans": spans,
+            "round_ms": [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]}
+
+
+def trace_path(torch, kernels, obs, ds, pipe, group) -> dict:
+    """The training trace at full size: ``paper_dyngnn`` (TM-GCN, N =
+    755,200, T = 32, block 8) through ``Engine(ExecutionPlan(mode=
+    "streamed_mesh", shards=1, num_epochs=2))`` at P = 1 over the one-rank
+    NCCL group, untraced and traced in turns (U T T U), every count zeroed
+    just before each fit and read just after: the losses and final
+    parameters of every run equal (max|diff| 0.0); the untraced runs' 24
+    / 2 / 2 / 0 launches and 16 CSR builds a round, the traced runs' the
+    same plus the probe's three one-rank rounds (and 3 x 8 all-to-alls);
+    each of the 8 rounds carries ``round``, ``round.transfer``,
+    ``round.step`` (and ``stream.csr_pair``, 3 more from the probe's
+    steps) and the derived spatial / a2a / temporal spans, which
+    sum to the step; the calibration report's 8 rows; the probe's seconds
+    and the traced round against the untraced one (host-clock gaps between
+    consecutive rounds' losses, after one warm fit that encodes the
+    rank's stream); the spans exported as
+    ``.json`` and ``.jsonl``, each valid; then the launcher with
+    ``--trace`` on the card (eager at the smoke config), its ``trace:``
+    line and its file."""
+    import tempfile
+
+    from repro_torch.configs import registry
+    from repro_torch.run import Engine, ExecutionPlan, InMemoryDTDG, RunConfig
+
+    cfg = registry.get_arch("paper_dyngnn").make_config()
+    cfg = dataclasses.replace(cfg, num_nodes=ds.num_nodes,
+                              num_steps=ds.num_steps)
+    layers, win = cfg.num_layers, pipe.bsize
+    rounds = DSTREAM_EPOCHS * ds.num_steps // win
+    stamps: list = []
+    eng = Engine(RunConfig(model=cfg, data=InMemoryDTDG(ds, pipeline=pipe),
+                           plan=ExecutionPlan(mode="streamed_mesh", shards=1,
+                                              num_epochs=DSTREAM_EPOCHS),
+                           log_every=1,
+                           log_fn=lambda _m: stamps.append(
+                               time.perf_counter())), device="cuda")
+    if eng.resolve().mesh is not group:
+        raise SystemExit("trace: the plan did not take the one-rank group")
+    t0 = time.perf_counter()
+    trace_fit(torch, kernels, obs, eng, stamps, False)
+    warm_s = time.perf_counter() - t0
+    runs = [trace_fit(torch, kernels, obs, eng, stamps, traced)
+            for traced in (False, True, True, False)]
+    base, traced = runs[0], runs[1]
+    for r in runs[1:]:
+        if r["losses"] != base["losses"] or not same_params(r["params"],
+                                                            base["params"]):
+            gap = drift(r["losses"], base["losses"])
+            raise SystemExit(f"trace: a run's losses or parameters differ "
+                             f"(losses max|diff| {gap})")
+    for r in (runs[0], runs[3]):
+        check_stream_counts("trace (untraced)", r["launches"], rounds, win,
+                            layers)
+    one_rank_round = {"segment_spmm": (2 * layers - 1) * win,
+                      "banded_ttm": layers, "banded_ttm_t": layers,
+                      "flash_decode": 0, "csr_builds": 2 * win}
+    for r in (runs[1], runs[2]):
+        got = {k: r["launches"][k] - base["launches"][k]
+               for k in one_rank_round}
+        want = {k: PROBE_STEPS * v for k, v in one_rank_round.items()}
+        a2a = (r["counters"].get("partition.a2a_calls", 0)
+               - base["counters"].get("partition.a2a_calls", 0))
+        if got != want or a2a != PROBE_STEPS * 4 * layers:
+            raise SystemExit(f"trace: the probe added {got} and {a2a} "
+                             f"all-to-alls, expected {want} and "
+                             f"{PROBE_STEPS * 4 * layers}")
+        if r["counters"].get("stream.rounds") != rounds:
+            raise SystemExit("trace: stream.rounds "
+                             f"{r['counters'].get('stream.rounds')}")
+    spans = traced["spans"]
+    names = {"round", "round.transfer", "round.step", "round.spatial",
+             "round.a2a", "round.temporal"}
+    per_round: dict = {}
+    for sp in spans:
+        if "round" in sp.attrs and sp.name.startswith("round"):
+            per_round.setdefault(sp.attrs["round"], {})[sp.name] = sp
+    if sorted(per_round) != list(range(rounds)) or any(
+            set(v) != names for v in per_round.values()):
+        raise SystemExit(f"trace: round spans {sorted(per_round)}: "
+                         f"{[sorted(v) for v in per_round.values()]}")
+    worst = 0.0
+    for v in per_round.values():
+        derived = sum(v[f"round.{p}"].dur_s
+                      for p in ("spatial", "a2a", "temporal"))
+        worst = max(worst, abs(derived - v["round.step"].dur_s))
+        if not all(v[f"round.{p}"].cat == "phase.derived"
+                   and v[f"round.{p}"].attrs.get("derived") is True
+                   for p in ("spatial", "a2a", "temporal")):
+            raise SystemExit("trace: a derived span lacks its category")
+    if worst > 1e-9:
+        raise SystemExit(f"trace: derived spans miss the step by {worst} s")
+    probes = [sp.dur_s for sp in spans if sp.name == "round.probe"]
+    pairs = sum(sp.name == "stream.csr_pair" for sp in spans)
+    if len(probes) != 2 or pairs != rounds + PROBE_STEPS:
+        raise SystemExit(f"trace: {len(probes)} round.probe spans, {pairs} "
+                         f"stream.csr_pair spans")
+    rep = obs.calibration_report(spans)
+    if len(rep.rows) != rounds or rep.extra["skipped"]:
+        raise SystemExit(f"trace: calibration rows {len(rep.rows)}, "
+                         f"skipped {rep.extra['skipped']}")
+    for line in rep.summary().splitlines():
+        log(f"[trace] {line}")
+    med = {name: statistics.median(v[name].dur_s * 1e3
+                                   for v in per_round.values())
+           for name in sorted(names)}
+    traced_round = [v["round"].dur_s * 1e3 for v in per_round.values()]
+    gaps = {k: [statistics.median(r["round_ms"]) for r in pair]
+            for k, pair in (("untraced", (runs[0], runs[3])),
+                            ("traced", (runs[1], runs[2])))}
+    share = med["round.a2a"] / med["round.step"]
+    log(f"[trace] 8 rounds x 6 spans in each traced run; derived spans sum "
+        f"to the step within {worst:.1e} s; span medians (ms): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in med.items())
+        + f"; a2a share of the step {share:.4f}")
+    log(f"[trace] the probe: {', '.join(f'{v * 1e3:.2f}' for v in probes)} "
+        f"ms (comp_ref = the faster), {PROBE_STEPS} steps on the card "
+        f"after round 0; the observer effect: the traced round (fenced "
+        f"span) median {statistics.median(traced_round):.2f} ms; the "
+        f"median gap between consecutive rounds' losses (host clock) "
+        f"untraced {', '.join(f'{v:.2f}' for v in gaps['untraced'])} ms, "
+        f"traced {', '.join(f'{v:.2f}' for v in gaps['traced'])} ms (U T T "
+        f"U after a warm fit of {warm_s:.1f} s that encoded the rank's "
+        f"stream); losses and parameters of U T T U equal (max|diff| 0.0)")
+    with tempfile.TemporaryDirectory() as d:
+        sizes = {}
+        for suffix in (".json", ".jsonl"):
+            path = obs.export_trace(Path(d) / f"trace{suffix}", spans=spans)
+            events, _ = obs.load_trace(path)
+            problems = obs.validate_trace(events)
+            phases = obs.phase_durations(events)
+            if problems or len(phases) != rounds:
+                raise SystemExit(f"trace: {path.name}: {problems[:3]}, "
+                                 f"{len(phases)} rounds")
+            sizes[suffix] = path.stat().st_size
+        out = Path(d) / "launch.json"
+        env = dict(os.environ, PYTHONPATH=str(SRC))
+        t0 = time.perf_counter()
+        launched = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+             "paper_dyngnn", "--steps", str(TRACE_LAUNCH_STEPS), "--trace",
+             str(out), "--device", "cuda"], capture_output=True, text=True,
+            env=env, cwd=ROOT, timeout=300)
+        launch_s = time.perf_counter() - t0
+        line = [ln for ln in launched.stdout.splitlines()
+                if ln.startswith("trace: ")]
+        events = obs.load_trace(out)[0] if out.exists() else []
+        steps = sum(e["name"] == "train.step" for e in events)
+        if (launched.returncode != 0 or len(line) != 1
+                or not line[0].endswith(f" -> {out}")
+                or obs.validate_trace(events) or steps != TRACE_LAUNCH_STEPS):
+            raise SystemExit(f"trace: the launcher exited "
+                             f"{launched.returncode}, {line}, {steps} "
+                             f"train.step spans\n{launched.stderr[-2000:]}")
+        launch_bytes = out.stat().st_size
+    log(f"[trace] exported {sizes['.json']} B (.json), {sizes['.jsonl']} B "
+        "(.jsonl), both valid with every phase of every round; the "
+        f"launcher on the card: '{line[0].split(' -> ')[0]}', "
+        f"{launch_bytes} B, valid ({launch_s:.1f} s)")
+    return {"rounds": rounds, "losses": base["losses"],
+            "launches": traced["launches"],
+            "launches_untraced": base["launches"],
+            "span_ms_median": med, "a2a_share": share,
+            "derived_vs_step_s": worst, "probe_ms": [v * 1e3 for v in probes],
+            "traced_round_ms": traced_round, "round_gap_ms": {
+                k: [r["round_ms"] for r in pair]
+                for k, pair in (("untraced", (runs[0], runs[3])),
+                                ("traced", (runs[1], runs[2])))},
+            "round_gap_ms_median": gaps, "warm_fit_s": warm_s,
+            "calibration": {"baseline_s": rep.baseline_s,
+                            "residual_s": [row.residual_s
+                                           for row in rep.rows],
+                            "predicted_s": [row.predicted_s
+                                            for row in rep.rows]},
+            "export_bytes": sizes, "launcher_trace_bytes": launch_bytes,
+            "launcher_s": launch_s}
+
+
+# ------------------------------------------------------------- data path ---
+
+_RSS_CHILD = """\
+import os, sys, threading
+page = os.sysconf("SC_PAGE_SIZE")
+
+
+def rss():
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * page
+
+
+peak = [rss()]
+done = threading.Event()
+
+
+def watch():
+    while not done.wait(0.002):
+        peak[0] = max(peak[0], rss())
+
+
+watcher = threading.Thread(target=watch, daemon=True)
+watcher.start()
+sys.path.insert(0, sys.argv[1])
+from repro_torch.run import read_edgelist
+if sys.argv[2] != "-":
+    read_edgelist(sys.argv[2], chunk_edges=int(sys.argv[3]) or None)
+done.set()
+watcher.join()
+print(max(peak[0], rss()))
+"""
+
+
+def read_rss_mb(path: str, chunk: int) -> float | None:
+    """Peak resident MB of a fresh process that imports the port's readers
+    and reads ``path`` (``-``: reads nothing) in memory (``chunk`` 0) or
+    in chunks of ``chunk`` rows: its resident pages (``/proc/self/statm``)
+    sampled every 2 ms on a thread.  (``ru_maxrss`` would carry over the
+    forking parent's peak.)  None, with the child's error logged, where
+    the machine cannot report it."""
+    out = subprocess.run([sys.executable, "-c", _RSS_CHILD, str(SRC), path,
+                          str(chunk)], capture_output=True, text=True,
+                         timeout=300)
+    if out.returncode != 0:
+        log(f"[data] peak RSS not measured: {out.stderr.strip()[-300:]}")
+        return None
+    return int(out.stdout.split()[-1]) / 2**20
+
+
+def mb(v: float | None) -> str:
+    return "not measured" if v is None else f"{v:.0f} MB"
+
+
+def same_snapshots(name: str, got: list, want: list) -> None:
+    import numpy as np
+
+    if len(got) != len(want) or any(
+            a.dtype != np.int32 or a.shape != b.shape or not np.array_equal(
+                a, b) for a, b in zip(got, want, strict=True)):
+        raise SystemExit(f"data: {name}: the snapshots differ")
+
+
+def same_dataset(name: str, got, want) -> None:
+    import numpy as np
+
+    same_snapshots(name, got.snapshots, want.snapshots)
+    if got.num_nodes != want.num_nodes or any(
+            a.dtype != b.dtype or not np.array_equal(a, b)
+            for a, b in zip(got.values, want.values, strict=True)) or any(
+            getattr(got, k).dtype != getattr(want, k).dtype
+            or not np.array_equal(getattr(got, k), getattr(want, k))
+            for k in ("frames", "labels")):
+        raise SystemExit(f"data: {name}: the dataset differs")
+
+
+def data_path(torch, kernels, ds, train_losses: list) -> dict:
+    """Edge-list data at the train trace's size: its raw snapshots
+    (``graph.generate.evolving_dynamic_graph(755_200, 32, 1.25, 0.1, 0)``,
+    30,207,991 rows) written by ``write_edgelist`` as ``.npz``, read back
+    in memory and in chunks (each byte-identical to the generator's lists;
+    each read's peak RSS in a child process), built by ``EdgeListDTDG``
+    (M-transform, window 5, chunked) into the train phase's dataset array
+    for array, and trained for 10 eager steps on the card from that
+    dataset, every count zeroed just before and read just after (160 / 12
+    / 8 / 0 a step, 64 CSR builds): the train phase's loss stream at
+    max|diff| 0.0.  Cut: the ``.tsv`` form at N = 65,536, T = 8
+    (``np.loadtxt`` of 30 M rows would take minutes).  Then the committed
+    KONECT-format fixture ``tests/fixtures/epinions_tiny.tsv``, trained on
+    the card and on the CPU (losses within 1e-4 relative)."""
+    import tempfile
+
+    from repro_torch.configs import registry
+    from repro_torch.graph.generate import evolving_dynamic_graph
+    from repro_torch.kernels.build import reset_counts
+    from repro_torch.kernels.segment_spmm import ops as spmm_ops
+    from repro_torch.run import (EdgeListDTDG, Engine, ExecutionPlan,
+                                 InMemoryDTDG, RunConfig, read_edgelist,
+                                 write_edgelist)
+
+    cfg = registry.get_arch("paper_dyngnn").make_config()
+    n, t = ds.num_nodes, ds.num_steps
+    secs = {}
+    t0 = time.perf_counter()
+    snaps = evolving_dynamic_graph(n, t, TRAIN_DENSITY, 0.1, 0)
+    secs["generate"] = time.perf_counter() - t0
+    rows = sum(len(s) for s in snaps)
+    if rows != DATA_ROWS:
+        raise SystemExit(f"data: {rows} rows, expected {DATA_ROWS}")
+    with tempfile.TemporaryDirectory() as d:
+        path = Path(d) / "trace.npz"
+        t0 = time.perf_counter()
+        write_edgelist(path, snaps)
+        secs["write"] = time.perf_counter() - t0
+        npz_bytes = path.stat().st_size
+        for name, chunk in (("read", None), ("read_chunked", DATA_CHUNK)):
+            t0 = time.perf_counter()
+            got, n_seen = read_edgelist(path, chunk_edges=chunk)
+            secs[name] = time.perf_counter() - t0
+            same_snapshots(name, got, snaps)
+            if n_seen > n:
+                raise SystemExit(f"data: {name} saw {n_seen} vertices")
+            del got
+        rss = {"import": read_rss_mb("-", 0),
+               "read": read_rss_mb(str(path), 0),
+               "read_chunked": read_rss_mb(str(path), DATA_CHUNK)}
+        t0 = time.perf_counter()
+        built = EdgeListDTDG(str(path), num_nodes=n,
+                             smoothing_mode="mproduct", window=cfg.window,
+                             chunk_edges=DATA_CHUNK).build()
+        secs["build"] = time.perf_counter() - t0
+        same_dataset("EdgeListDTDG.build", built, ds)
+        small = evolving_dynamic_graph(DATA_TSV_N, DATA_TSV_T, TRAIN_DENSITY,
+                                       0.1, 0)
+        tsv = Path(d) / "small.tsv"
+        t0 = time.perf_counter()
+        write_edgelist(tsv, small)
+        secs["tsv_write"] = time.perf_counter() - t0
+        tsv_bytes = tsv.stat().st_size
+        for name, chunk in (("tsv_read", None),
+                            ("tsv_read_chunked", DATA_CHUNK // 16)):
+            t0 = time.perf_counter()
+            got, _ = read_edgelist(tsv, chunk_edges=chunk)
+            secs[name] = time.perf_counter() - t0
+            same_snapshots(name, got, small)
+    del snaps
+    log(f"[data] {rows:,} rows (N {n:,}, T {t}) generated in "
+        f"{secs['generate']:.1f} s; .npz {npz_bytes:,} B written in "
+        f"{secs['write']:.1f} s, read in memory {secs['read']:.1f} s and in "
+        f"chunks of {DATA_CHUNK:,} rows {secs['read_chunked']:.1f} s, both "
+        f"byte-identical to the generator's lists; peak RSS (a child "
+        f"process) {mb(rss['read'])} in memory, {mb(rss['read_chunked'])} "
+        f"chunked, {mb(rss['import'])} for the imports alone; "
+        f"EdgeListDTDG.build (chunked, M-transform w {cfg.window}) "
+        f"{secs['build']:.1f} s, equal to the train phase's dataset array "
+        f"for array")
+    log(f"[data] cut: .tsv at N {DATA_TSV_N:,}, T {DATA_TSV_T} "
+        f"({sum(len(s) for s in small):,} rows, {tsv_bytes:,} B): written "
+        f"{secs['tsv_write']:.1f} s, read {secs['tsv_read']:.1f} s, chunked "
+        f"{secs['tsv_read_chunked']:.1f} s, byte-identical")
+
+    eng = Engine(RunConfig(model=cfg, data=InMemoryDTDG(built),
+                           plan=ExecutionPlan(num_steps=TRAIN_STEPS),
+                           log_fn=lambda _m: None), device="cuda")
+    t0 = time.perf_counter()
+    rr = eng.resolve()
+    secs["pipeline"] = time.perf_counter() - t0
+    reset_counts(kernels)
+    spmm_ops.csr_builds = 0
+    t0 = time.perf_counter()
+    res = eng.fit()
+    torch.cuda.synchronize()
+    secs["fit"] = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in kernels}
+    launches["csr_builds"] = spmm_ops.csr_builds
+    check_launches("data", launches,
+                   train_launches(cfg.num_layers, t,
+                                  rr.cfg.checkpoint_blocks))
+    if launches["csr_builds"] != 2 * t:
+        raise SystemExit(f"data: {launches['csr_builds']} CSR builds")
+    if res.losses != train_losses:
+        raise SystemExit(f"data: losses {res.losses} against the train "
+                         f"phase's {train_losses}")
+    log(f"[data] {TRAIN_STEPS} eager steps on the card from the file's "
+        f"dataset (pipeline {secs['pipeline']:.1f} s, fit {secs['fit']:.1f} "
+        f"s): the train phase's losses, max|diff| 0.0")
+    del eng, rr, res, built
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    fixture = ROOT / "tests" / "fixtures" / "epinions_tiny.tsv"
+    small_cfg = registry.get_arch("paper_dyngnn").make_smoke_config()
+    fx = {}
+    for dev in ("cuda", "cpu"):
+        fx[dev] = Engine(RunConfig(
+            model=small_cfg, data=EdgeListDTDG(
+                str(fixture), smoothing_mode="mproduct",
+                window=small_cfg.window),
+            plan=ExecutionPlan(num_steps=TRAIN_STEPS),
+            log_fn=lambda _m: None), device=dev).fit().losses
+    rel = worst_rel(fx["cuda"], fx["cpu"])
+    if not (len(fx["cuda"]) == TRAIN_STEPS and rel <= 1e-4):
+        raise SystemExit(f"data: the fixture's losses {fx}")
+    log(f"[data] the fixture {fixture.relative_to(ROOT)}: "
+        f"{TRAIN_STEPS} eager steps, card against CPU {rel:.1e} relative "
+        f"(limit 1e-4); final loss {fx['cuda'][-1]:.5f}")
+    return {"rows": rows, "npz_bytes": npz_bytes, "tsv_bytes": tsv_bytes,
+            "seconds": secs, "peak_rss_mb": rss, "launches": launches,
+            "losses": train_losses,
+            "fixture_losses": fx["cuda"], "fixture_card_vs_cpu_rel": rel}
 
 
 # ------------------------------------------------------------- LM path -----
@@ -3727,7 +4242,7 @@ def lm_parity(torch):
 # ---------------------------------------------------------------- main -----
 
 GROUPS = ("serve", "train", "stream", "partition", "dstream", "hybrid",
-          "sampled", "ft", "lm")
+          "sampled", "ft", "trace", "data", "lm")
 
 
 def kernel_entry(name: str, source: str, replaces: str, launches: dict,
@@ -3752,10 +4267,11 @@ def main(argv: list[str] | None = None) -> int:
     if argv[:1] == ["--only"] and len(argv) == 2:
         groups = tuple(argv[1].split(","))
     if argv and (groups == GROUPS or not set(groups) <= set(GROUPS)
-                 or ("partition" in groups and "train" not in groups)):
+                 or ({"partition", "data"} & set(groups)
+                     and "train" not in groups)):
         print(f"usage: chip_smoke.py [--only {','.join(GROUPS)}] "
-              "(partition is held to train's run: name both)",
-              file=sys.stderr)
+              "(partition and data are held to train's run: name train "
+              "too)", file=sys.stderr)
         return 2
     if not (SRC / "repro_torch" / "csrc").is_dir():
         print("chip_smoke: run it from the root of a checkout (no "
@@ -3766,6 +4282,7 @@ def main(argv: list[str] | None = None) -> int:
         print("chip_smoke: no CUDA device; this check runs on the card",
               file=sys.stderr)
         return 2
+    adopt_orphans()
     sys.path.insert(0, str(SRC))
     from repro_torch import kernels as kmod
     from repro_torch import obs
@@ -3839,7 +4356,8 @@ def main(argv: list[str] | None = None) -> int:
         stream_stats["parity"] = phase("stream parity", stream_parity,
                                        torch)
         stream_stats.update(stream_checks)
-    if {"partition", "dstream", "hybrid", "sampled", "ft"} & set(groups):
+    if {"partition", "dstream", "hybrid", "sampled", "ft", "trace"} \
+            & set(groups):
         import torch.distributed as dist
         group = nccl_group(torch)
         try:
@@ -3872,7 +4390,7 @@ def main(argv: list[str] | None = None) -> int:
                 dstream_stats["shared_card"] = phase(
                     "dstream shared card", dstream_shared_card, torch,
                     group)
-            if {"hybrid", "sampled", "ft"} & set(groups) \
+            if {"hybrid", "sampled", "ft", "trace"} & set(groups) \
                     and train_ds is None:
                 t0 = time.perf_counter()
                 train_ds = train_trace(n_nodes, 5).build()
@@ -3886,7 +4404,8 @@ def main(argv: list[str] | None = None) -> int:
                     "hybrid shared card", hybrid_shared_card, torch, group)
             if "sampled" in groups:
                 sampled_stats = phase("sampled path", sampled_path, torch,
-                                      kernels, obs, train_ds, group)
+                                      kernels, obs, train_ds, stream_pipe,
+                                      group)
                 launches["sampled"] = sampled_stats["launches"]
                 sampled_stats["equivalence"] = phase(
                     "sampled equivalence", sampled_equivalence, torch,
@@ -3921,8 +4440,28 @@ def main(argv: list[str] | None = None) -> int:
                                                 ft_shared_card, torch)
                 ft_stats["launcher"] = phase("ft launcher", ft_launcher,
                                              torch)
+            if "trace" in groups:
+                gc.collect()
+                torch.cuda.empty_cache()
+                if stream_pipe is None:
+                    from repro_torch.data.dyngnn import DTDGPipeline
+                    t0 = time.perf_counter()
+                    stream_pipe = DTDGPipeline(train_ds, nb=TRAIN_NB,
+                                               device="cuda")
+                    log(f"[trace] pipeline {time.perf_counter() - t0:.1f} s "
+                        "on the host (no stream phase)")
+                trace_stats = phase("trace path", trace_path, torch,
+                                    kernels, obs, train_ds, stream_pipe,
+                                    group)
+                launches["trace"] = trace_stats["launches"]
         finally:
             dist.destroy_process_group()
+    if "data" in groups:
+        gc.collect()
+        torch.cuda.empty_cache()
+        data_stats = phase("data path", data_path, torch, kernels, train_ds,
+                           train_stats["losses"])
+        launches["data"] = data_stats["launches"]
     del train_ds, stream_pipe
     gc.collect()
     torch.cuda.empty_cache()
@@ -3997,6 +4536,10 @@ def main(argv: list[str] | None = None) -> int:
         log(json.dumps({"sampled_path": sampled_stats}))
     if "ft" in groups:
         log(json.dumps({"ft_path": ft_stats}))
+    if "trace" in groups:
+        log(json.dumps({"trace_path": trace_stats}))
+    if "data" in groups:
+        log(json.dumps({"data_path": data_stats}))
     if "lm" in groups:
         report.append(kernel_entry(
             "flash_decode", "src/repro_torch/csrc/flash_decode.cu",
@@ -4006,6 +4549,11 @@ def main(argv: list[str] | None = None) -> int:
     log("[done] kernels launched on the paths driven and checked against "
         "their plain versions: " + ", ".join(k["name"] for k in report))
     log(json.dumps({"kernels": report}))
+    left = stop_children()
+    if left:
+        raise SystemExit("chip_smoke: processes left running at the end, "
+                         "now stopped:\n" + "\n".join(left))
+    log("[done] every process the script started has ended")
     if groups != GROUPS:
         log(f"[done] partial run ({','.join(groups)}): no result line")
         return 0
@@ -4016,4 +4564,8 @@ def main(argv: list[str] | None = None) -> int:
 
 
 if __name__ == "__main__":
+    # registered before anything imports multiprocessing, so it runs last
+    # at exit, after the finalizers that may restart the resource tracker;
+    # a failed phase's processes are stopped there too
+    atexit.register(stop_children)
     raise SystemExit(main())

@@ -24,8 +24,6 @@ measured pipelined round time.
 
 from __future__ import annotations
 
-from repro_torch.core import partition as _partition
-
 
 def overlap_time_model(t_comp: float, t_comm: float, chunks: int) -> dict:
     """Pipelined execution time of two phases split into ``chunks``.
@@ -101,5 +99,8 @@ def snapshot_partition_forward_overlapped(cfg, group, num_chunks: int = 2):
     """Snapshot-partitioned forward with chunked (overlappable)
     redistributions — identical outputs to the plain schedule.  ``group``
     is the process group (the reference's mesh and its axis)."""
-    return _partition.snapshot_partition_forward(cfg, group,
-                                                 a2a_chunks=num_chunks)
+    # imported here: ``obs.calibrate`` imports this module, and
+    # ``core.partition`` imports ``obs``
+    from repro_torch.core import partition
+    return partition.snapshot_partition_forward(cfg, group,
+                                                a2a_chunks=num_chunks)

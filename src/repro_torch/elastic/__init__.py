@@ -27,7 +27,8 @@ pins P = 4 -> 8 -> 2 on 8 gloo ranks against the JAX serial reference).
 
 from repro_torch.elastic.controller import (RescaleController, RescaleEvent,
                                             RescaleReport, validate_schedule)
-from repro_torch.elastic.reshard import (broadcast_state, gather_carries,
+from repro_torch.elastic.reshard import (broadcast_state,
+                                         drop_width_groups, gather_carries,
                                          rescale_payload_bytes,
                                          slice_carries, tree_bytes,
                                          width_groups)
@@ -37,7 +38,8 @@ from repro_torch.elastic.train import (ElasticRuntime, ElasticStreamState,
 
 __all__ = [
     "ElasticRuntime", "ElasticStreamState", "RescaleController",
-    "RescaleEvent", "RescaleReport", "broadcast_state", "gather_carries",
+    "RescaleEvent", "RescaleReport", "broadcast_state",
+    "drop_width_groups", "gather_carries",
     "rescale_payload_bytes", "slice_carries", "train_elastic_streamed",
     "tree_bytes", "validate_schedule", "validate_widths", "width_groups",
 ]

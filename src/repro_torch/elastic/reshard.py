@@ -56,6 +56,15 @@ def width_groups(widths, pool) -> dict:
     return out
 
 
+def drop_width_groups() -> None:
+    """Forget every cached width group.  Call it before
+    ``dist.destroy_process_group()``: a group the cache kept alive past
+    that teardown is destroyed at interpreter exit instead, where gloo can
+    abort a process whose run succeeded (``terminate called without an
+    active exception``, exit -6)."""
+    _GROUPS.clear()
+
+
 def tree_bytes(tree) -> int:
     """Total bytes of every tensor leaf in ``tree`` (0 for None): a
     ``ParamTree``, a dict, or nested lists / tuples of tensors."""

@@ -57,20 +57,48 @@ rescales: ...``::
         --arch paper_dyngnn --stream --mesh 2 --rescale-at 1:4 \
         --ckpt-dir ckpt --device cpu
 
-``--trace`` is known by name and exits naming the ROADMAP item that
-ports it.
+``--trace OUT.json`` (or ``.jsonl``) turns on the ``repro_torch.obs``
+tracer and exports the run's spans as a Perfetto-loadable Chrome trace;
+the process prints ``trace: N spans -> OUT``, and a ``--stream --mesh P``
+run also prints the ``round_time_model`` calibration summary of its
+rounds.  Under ``torchrun`` rank 0 writes ``OUT`` and prints, and rank
+r > 0 writes ``<stem>.rank<r><suffix>`` beside it (each file's events
+carry its own process id, so they open together)::
+
+    torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.train \
+        --arch paper_dyngnn --stream --mesh 2 --trace trace.json \
+        --device cpu
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+from pathlib import Path
 
-#: the reference's flags the port does not run yet -> (argparse kwargs,
-#: the ROADMAP item that ports them)
-_NOT_PORTED = {
-    "--trace": ({"default": None}, "Queue 1, item 8c"),
-}
+
+def _finish_trace(path: str | None, result, rank: int) -> None:
+    """Export the session trace (``--trace``) and, on rank 0 of a mesh
+    run, print the model-vs-measured calibration summary."""
+    if not path:
+        return
+    from repro_torch import obs
+    trc = obs.get_tracer()
+    if rank:
+        p = Path(path)
+        path = p.with_name(f"{p.stem}.rank{rank}{p.suffix}")
+    out = obs.export_trace(path)
+    if rank:
+        return
+    dropped = f" ({trc.dropped} spans dropped)" if trc.dropped else ""
+    print(f"trace: {len(trc.spans())} spans -> {out}{dropped}")
+    if result.per_shard_bytes is not None:
+        # int8 wire formats quarter the a2a bytes the model predicts
+        ratio = 0.25 if result.compression != "none" else 1.0
+        rep = obs.calibration_report(
+            trc.spans(), chunks=result.a2a_chunks,
+            pipeline_rounds=result.pipeline_rounds, a2a_wire_ratio=ratio)
+        print(rep.summary())
 
 
 def _parse_rescale(spec: str) -> tuple[int, int]:
@@ -149,14 +177,16 @@ def main(argv: list[str] | None = None) -> None:
                     help="with --stream --mesh: absorb SIGTERM by "
                          "shrinking to width P at the next block "
                          "boundary instead of stopping")
-    for flag, (kwargs, _) in _NOT_PORTED.items():
-        ap.add_argument(flag, **kwargs, help=argparse.SUPPRESS)
+    ap.add_argument("--trace", default=None, metavar="OUT.json",
+                    help="enable the repro_torch.obs tracer and export a "
+                         "Perfetto-loadable Chrome trace of the run "
+                         "(phase spans + counters; .jsonl for one event "
+                         "per line); --stream --mesh runs also print the "
+                         "round_time_model calibration residuals")
     args = ap.parse_args(argv)
-    for flag, (kwargs, item) in _NOT_PORTED.items():
-        if getattr(args, flag[2:].replace("-", "_")) != kwargs.get(
-                "default", False):
-            raise SystemExit(f"{flag} is not ported to PyTorch yet "
-                             f"(ROADMAP {item})")
+    if args.trace:
+        from repro_torch import obs
+        obs.configure(enabled=True)
     world = int(os.environ.get("WORLD_SIZE", "1"))
     dp = args.data_parallel or world
     if world > 1 and dp != world:
@@ -199,6 +229,9 @@ def main(argv: list[str] | None = None) -> None:
         _train(args, dp, world, rescale)
     finally:
         import torch.distributed as dist
+
+        from repro_torch.elastic import drop_width_groups
+        drop_width_groups()      # no group may outlive the teardown
         if dist.is_initialized():
             dist.destroy_process_group()
 
@@ -292,7 +325,8 @@ def _train(args, dp: int, world: int, rescale: tuple) -> None:
     if world > 1 or args.sampled:
         resolve_device(args.device)       # no card: raise before joining
         _join_group(args.device, world)
-    lead = int(os.environ.get("RANK", "0")) == 0
+    rank = int(os.environ.get("RANK", "0"))
+    lead = rank == 0
     try:
         engine = Engine(RunConfig(model=cfg, data=data, plan=plan,
                                   checkpoint=ckpt,
@@ -308,6 +342,7 @@ def _train(args, dp: int, world: int, rescale: tuple) -> None:
     except DeviceBudgetError as e:
         # the budget gate refusing is the answer the flag asks for
         raise SystemExit(f"refused: {e}") from None
+    _finish_trace(args.trace, result, rank)
     final = f"{result.losses[-1]:.4f}" if result.losses else "n/a"
     if not lead:
         return

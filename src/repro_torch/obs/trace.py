@@ -25,7 +25,9 @@ clock.  CUDA work is asynchronous — with ``fence=True`` (the default
 for an enabled tracer) a span exit calls ``torch.cuda.synchronize`` on
 the device of whatever the span registered via ``Span.fence(obj)``, so
 device phases measure *execution*, not dispatch.  Fencing serializes
-the dispatch pipeline: a traced run measures a serial schedule.
+the dispatch pipeline: a traced run measures a serial schedule (the
+observer effect the calibration report accounts for by comparing against
+``round_time_model``'s ``serial_s``).
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ from __future__ import annotations
 import threading
 import time
 from collections import deque
-from typing import Any
+from typing import Any, Iterator
 
 __all__ = ["Span", "Stopwatch", "Tracer", "NULL_SPAN"]
 
@@ -179,9 +181,12 @@ class Tracer:
     """
 
     def __init__(self, enabled: bool = False, capacity: int = 65536,
-                 fence: bool = True):
+                 fence: bool = True, phases: bool = True):
         self.enabled = bool(enabled)
         self.fencing = bool(fence)
+        # derive per-round spatial/a2a/temporal spans from the comp-ref
+        # probe in the distributed trainer (see stream/distributed.py)
+        self.phases = bool(phases)
         self.capacity = int(capacity)
         self.recorded = 0          # total spans ever recorded
         self._spans: deque[Span] = deque(maxlen=self.capacity)
@@ -200,6 +205,20 @@ class Tracer:
                   **attrs: Any) -> Stopwatch:
         """Always-measuring stopwatch (span recorded only if enabled)."""
         return Stopwatch(self, name, cat, attrs)
+
+    def add_span(self, name: str, start_s: float, dur_s: float,
+                 cat: str = "derived", tid: int | None = None,
+                 **attrs: Any) -> None:
+        """Inject a span with explicit timing (derived phases, replayed
+        measurements).  No-op when disabled."""
+        if not self.enabled:
+            return
+        sp = Span(self, name, cat, attrs)
+        sp.start_s = float(start_s)
+        sp.dur_s = float(dur_s)
+        if tid is not None:
+            sp.tid = tid
+        self._record(sp)
 
     def _record(self, span: Span) -> None:
         with self._lock:
@@ -227,6 +246,11 @@ class Tracer:
                 return []
             return list(self._spans)[-n:]
 
+    def clear(self) -> None:
+        with self._lock:
+            self._spans.clear()
+            self.recorded = 0
+
     @property
     def dropped(self) -> int:
         """Spans evicted from the ring (recorded but no longer stored)."""
@@ -245,3 +269,6 @@ class Tracer:
         for agg in out.values():
             agg["mean_s"] = agg["total_s"] / agg["count"]
         return out
+
+    def __iter__(self) -> Iterator[Span]:
+        return iter(self.spans())

@@ -17,24 +17,27 @@ stream, §3.2), ``streamed_mesh`` (per-rank delta streams under
 snapshot partitioning, §3.2 x §4.2) and ``sampled`` (out-of-core
 fanout-sampled training over the host-resident store, with
 ``SamplingSpec``; ``device_budget_bytes`` gates every mode and raises
-``DeviceBudgetError``).  ``CheckpointSpec`` checkpoints the eager and
-streamed_mesh schedules (``Engine.resume()``), and the streamed_mesh
-plan's ``rescale`` / ``rescale_on_preempt`` change its width mid-run
-(``repro_torch.elastic``).
+``DeviceBudgetError``).  The data is a ``SyntheticTrace``, an
+``EdgeListDTDG`` (a timestamped ``.tsv`` / ``.npz`` edge-list file,
+written by ``write_edgelist``) or an ``InMemoryDTDG``.
+``CheckpointSpec`` checkpoints the eager and streamed_mesh schedules
+(``Engine.resume()``), and the streamed_mesh plan's ``rescale`` /
+``rescale_on_preempt`` change its width mid-run (``repro_torch.elastic``).
 """
 
 from repro_torch.hoststore import (DeviceBudgetError, SampleReport,
                                    SamplingSpec)
 from repro_torch.run.config import (CheckpointSpec, ResolvedRun, RunConfig,
                                     RunResult)
-from repro_torch.run.data import (DataSource, InMemoryDTDG, SyntheticTrace,
-                                  pad_dataset)
+from repro_torch.run.data import (DataSource, EdgeListDTDG, InMemoryDTDG,
+                                  SyntheticTrace, pad_dataset, read_edgelist,
+                                  write_edgelist)
 from repro_torch.run.engine import Engine
 from repro_torch.run.plan import ExecutionPlan
 
 __all__ = [
-    "CheckpointSpec", "DataSource", "DeviceBudgetError", "Engine",
-    "ExecutionPlan", "InMemoryDTDG", "ResolvedRun", "RunConfig",
+    "CheckpointSpec", "DataSource", "DeviceBudgetError", "EdgeListDTDG",
+    "Engine", "ExecutionPlan", "InMemoryDTDG", "ResolvedRun", "RunConfig",
     "RunResult", "SampleReport", "SamplingSpec", "SyntheticTrace",
-    "pad_dataset",
+    "pad_dataset", "read_edgelist", "write_edgelist",
 ]

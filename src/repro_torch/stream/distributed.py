@@ -56,13 +56,27 @@ them, and every rank leaves the loop after the same round.  Every round
 feeds its wall time to a ``StepTimer`` (``step_timer``; the straggler
 watchdog's ``straggler.flags`` counter).
 
+A traced run (an enabled, fencing tracer with ``phases`` on) also
+records the reference's derived ``round.spatial`` / ``round.a2a`` /
+``round.temporal`` spans inside each fenced ``round.step``.  The step has
+no per-phase fence, so after round 0's step of each call rank 0 times the
+same step over a one-rank group on the round's whole data (its
+communication-free compute reference, ``round.probe``), and every rank
+splits its steps by it (``_dist_phase_probe``, ``_emit_phase_spans``;
+``obs.calibrate`` joins them against ``dist.overlap.round_time_model``).
+The probe runs on copies: a traced run's losses and parameters equal an
+untraced run's bit for bit.  Its three steps on rank 0 add to the
+kernels' launch counts, the CSR-build count and ``partition.a2a_*`` what
+three steps of a one-rank round of ``win`` snapshots add, and three
+``stream.csr_pair`` spans to the trace, and nothing else.
+
 Not ported here: the reference's ``lowered_step_hlo`` (XLA HLO; the
-``partition.a2a_*`` byte counters take its place) and its derived phase
-spans (``obs.calibrate``, ROADMAP Queue 1, item 8c).
+``partition.a2a_*`` byte counters take its place).
 """
 
 from __future__ import annotations
 
+import copy
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -73,7 +87,7 @@ from repro_torch import obs, resolve_device
 from repro_torch.core import models as mdl
 from repro_torch.core import partition
 from repro_torch.dist import compression as compression_lib
-from repro_torch.dist.sharding import group_rank, group_size
+from repro_torch.dist.sharding import all_gather, group_rank, group_size
 from repro_torch.ft.straggler import StepTimer
 from repro_torch.optim import adamw
 from repro_torch.stream import encoder as enc
@@ -234,6 +248,86 @@ def agreed(flag: bool, group, device) -> bool:
     return bool(buf.item())
 
 
+def _probe_group(mesh):
+    """The probe's one-rank group: ``mesh`` itself at P = 1, else a new
+    group of ``mesh``'s rank 0 alone (None on the other ranks).  Every rank
+    of ``mesh`` calls this, in one order, before the round loop; local
+    synchronization spares the ranks outside ``mesh`` (an elastic pool's
+    idle ranks) from joining the creation."""
+    if group_size(mesh) == 1:
+        return mesh
+    return dist.new_group([dist.get_global_rank(mesh, 0)],
+                          use_local_synchronization=True)
+
+
+def _dist_phase_probe(cfg, opt_cfg, params, opt_state, blk, frames,
+                      labels, t0: int, mesh, group1, dev
+                      ) -> tuple[float, float]:
+    """One-time comp-reference measurement for derived phase spans.
+
+    The round step has no fence between its phases, so the spatial / a2a
+    / temporal phases cannot be timed inside it.  As the reference does,
+    rank 0 runs the SAME step over a one-rank group (``group1``, where the
+    two all-to-alls are local copies) on this round's whole data, gathered
+    from every rank: that is the round's communication-free compute
+    reference (best of 2 timed runs after a warm one, each a
+    ``round.probe`` stopwatch).  Per round, ``a2a = step - comp_ref`` and
+    the remaining compute splits between the spatial and temporal stages
+    by their analytic flop ratio.  The step updates its parameters in
+    place, so every run gets its own copy of the parameters and AdamW
+    state, and fresh zero carries; the caller's are never touched.  Every
+    rank calls this (the gathers and the broadcast are collectives) ->
+    ``(comp_ref_s, f_spatial)`` on every rank."""
+    whole = [all_gather(x, mesh).flatten(0, 1)
+             for x in (*blk, frames, labels)]
+    out = torch.zeros(2, dtype=torch.float64, device=dev)
+    if group1 is not None:
+        edges, mask, values, fr, lab = whole
+        step1 = make_dist_stream_step(cfg, group1, opt_cfg)
+        opt1 = copy.deepcopy(opt_state)
+        carries1 = init_sharded_carries(cfg, params, group1)
+        trc = obs.get_tracer()
+
+        def run(params1):
+            loss = step1(params1, opt1, carries1, None, fr, edges, mask,
+                         values, lab, t0)[-1]
+            loss.item()                       # wait for the device
+
+        copies = [copy.deepcopy(params) for _ in range(3)]
+        run(copies.pop())                     # warm
+        best = None
+        while copies:
+            params1 = copies.pop()
+            with trc.stopwatch("round.probe", cat="probe") as sw:
+                run(params1)
+            best = sw.seconds if best is None else min(best, sw.seconds)
+        e_mean = float(mask.sum(dtype=torch.float64)) / mask.shape[0]
+        feat = cfg.hidden
+        fl_spatial = 2 * e_mean * 2 * feat + 2 * cfg.num_nodes * feat * feat
+        fl_temporal = 2 * cfg.window * cfg.num_nodes * feat * feat
+        out[0], out[1] = best, fl_spatial / (fl_spatial + fl_temporal)
+    dist.broadcast(out, src=dist.get_global_rank(mesh, 0), group=mesh)
+    comp_ref, f_sp = out.tolist()
+    return comp_ref, f_sp
+
+
+def _emit_phase_spans(trc, ridx: int, step_span, comp_ref: float,
+                      f_sp: float) -> None:
+    """Derived spatial/a2a/temporal child spans inside one measured
+    ``round.step`` span (marked ``derived``); they sum to its duration."""
+    step_s = step_span.dur_s
+    a2a_s = max(step_s - comp_ref, 0.0)
+    comp_s = step_s - a2a_s
+    sp_s = f_sp * comp_s
+    t0 = step_span.start_s
+    trc.add_span("round.spatial", t0, sp_s, cat="phase.derived",
+                 round=ridx, derived=True)
+    trc.add_span("round.a2a", t0 + sp_s, a2a_s, cat="phase.derived",
+                 round=ridx, derived=True)
+    trc.add_span("round.temporal", t0 + sp_s + a2a_s, comp_s - sp_s,
+                 cat="phase.derived", round=ridx, derived=True)
+
+
 def train_distributed_streamed(cfg: mdl.DynGNNConfig, snapshots, values,
                                frames, labels, *, mesh,
                                block_size: int | None = None,
@@ -348,6 +442,14 @@ def train_distributed_streamed(cfg: mdl.DynGNNConfig, snapshots, values,
     initial_carries = carries
     stopped = False
     obs.inc("stream.payload_bytes", mine)
+    trc = obs.get_tracer()
+    # derived phase spans need fenced (execution-timed) measurements and
+    # the probe, whose gathers and broadcast every rank must join: the
+    # ranks agree on it once
+    derive_phases = agreed(trc.enabled and trc.phases and trc.fencing,
+                           mesh, dev)
+    group1 = _probe_group(mesh) if derive_phases else None
+    probe: tuple[float, float] | None = None      # (comp_ref_s, f_spatial)
     ridx = start_round       # span round index, monotonic across epochs
     for _ in range(num_epochs):
         host = dist_round_stream(shard_stream, frames, labels, win, bsl,
@@ -374,11 +476,11 @@ def train_distributed_streamed(cfg: mdl.DynGNNConfig, snapshots, values,
                     with obs.span("round.transfer", round=ridx) as sp:
                         blk = sp.fence(consume_round(items, appliers[buf],
                                                      stackers[buf]))
-                    with obs.span("round.step", round=ridx) as sp:
+                    with obs.span("round.step", round=ridx) as st_sp:
                         params, opt_state, carries, comm_res, loss = \
                             step_fn(params, opt_state, carries, comm_res,
                                     fr, *blk, lab, gr * win)
-                        sp.fence(loss)
+                        st_sp.fence(loss)
                     if pipeline_rounds:
                         # read round r-1's loss only now: round r's apply
                         # and step are already queued behind it
@@ -389,6 +491,14 @@ def train_distributed_streamed(cfg: mdl.DynGNNConfig, snapshots, values,
                         emit(loss)
                 obs.inc("stream.rounds")
                 timer.observe(round_sw.seconds)  # counts straggler.flags
+                if derive_phases:
+                    if probe is None:
+                        probe = _dist_phase_probe(
+                            cfg, opt_cfg, params, opt_state, blk, fr, lab,
+                            gr * win, mesh, group1, dev)
+                        if group1 is not None and group1 is not mesh:
+                            dist.destroy_process_group(group1)
+                    _emit_phase_spans(trc, ridx, st_sp, *probe)
                 ridx += 1
                 if stop_fn is not None and agreed(stop_fn(gr), mesh, dev):
                     stopped = True

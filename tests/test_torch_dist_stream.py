@@ -93,6 +93,7 @@ DRIFT_ATOL = 1e-3       # tests/test_compression_drift.py:43
 INT8_VS_JAX = {"tmgcn": {"atol": 1e-4}, "cdgcn": {"rtol": 2e-6}}
 MATRIX = [(c, pr) for c in (1, 2) for pr in (False, True)]
 POOL_DEADLINE_S = 150
+LAUNCH_TIMEOUT_S = 120          # one torchrun launch of 2 ranks
 
 
 # ------------------------------------------------------- the rank program ---
@@ -1069,11 +1070,44 @@ def test_engine_and_trainer_refuse_what_waits_for_item_8():
     (["--stream", "--compression", "int8_a2a"], "compression"),
     (["--stream", "--mesh", "2", "--rescale-at", "1:1"],
      "process group of 2 ranks"),
-    (["--stream", "--mesh", "2", "--trace", "t.json"], "item 8c")])
-def test_launcher_refusals_for_the_distributed_stream(flags, match):
+    (["--stream", "--mesh", "2", "--epochs", "2", "--trace"], None)])
+def test_launcher_refusals_for_the_distributed_stream(flags, match,
+                                                      tmp_path):
+    """Each misuse exits with the reference's message.  ``--trace OUT``
+    under ``torchrun --nproc-per-node 2``: rank 0 writes ``OUT``, prints
+    its ``trace:`` line and the calibration summary of the 4 rounds (2
+    epochs of 2), rank 1 writes ``<stem>.rank1<suffix>``; both files are
+    valid and carry every phase of every round."""
     from repro_torch.launch import train as launch_train
-    with pytest.raises(SystemExit, match=match):
-        launch_train.main(["--arch", "tmgcn", "--device", "cpu", *flags])
+    if match is not None:
+        with pytest.raises(SystemExit, match=match):
+            launch_train.main(["--arch", "tmgcn", "--device", "cpu",
+                               *flags])
+        return
+    path = tmp_path / "t.json"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    out = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "2", "-m", "repro_torch.launch.train",
+         "--arch", "paper_dyngnn", "--device", "cpu", *flags, str(path)],
+        capture_output=True, text=True, timeout=LAUNCH_TIMEOUT_S, env=env,
+        cwd=ROOT)
+    assert out.returncode == 0, out.stderr[-4000:]
+    lines = out.stdout.splitlines()
+    traced = [ln for ln in lines if ln.startswith("trace: ")]
+    assert len(traced) == 1 and traced[0].endswith(f" spans -> {path}")
+    assert "calibration (serial model, C=1, pipelined=False): 4 rounds" \
+        in lines
+    assert sum(ln.startswith("  round ") for ln in lines) == 4
+    for f in (path, tmp_path / "t.rank1.json"):
+        events, _ = obs.load_trace(f)
+        assert obs.validate_trace(events) == []
+        per_round = obs.phase_durations(events)
+        assert sorted(per_round) == [0, 1, 2, 3]
+        assert all(set(ph) == {"round", *obs.PHASES}
+                   for ph in per_round.values())
+    n = sum(e["ph"] == "X" for e in obs.load_trace(path)[0])
+    assert traced[0] == f"trace: {n} spans -> {path}"
 
 
 def test_torchrun_launcher_streams_on_two_ranks():

@@ -252,6 +252,7 @@ def _rank_main(rank, store_path, out_dir, jparams):
         with open(Path(out_dir) / f"rank{rank}.pkl", "wb") as f:
             pickle.dump(res, f)
     finally:
+        el.drop_width_groups()
         dist.destroy_process_group()
 
 

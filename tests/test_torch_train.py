@@ -44,7 +44,7 @@ from repro.run import Engine as JEngine
 from repro.run import ExecutionPlan as JPlan
 from repro.run import RunConfig as JRunConfig
 from repro.run import SyntheticTrace as JTrace
-from repro_torch import convert
+from repro_torch import convert, obs
 from repro_torch.configs import registry
 from repro_torch.core import checkpoint as ckpt
 from repro_torch.core import dtdg, gcn, smoothing, temporal
@@ -590,18 +590,40 @@ def test_engine_evaluate_and_launcher_print_the_done_line(capsys):
 
 @pytest.mark.parametrize("flag,item", [
     (["--rescale-at", "2:2"], "require --stream --mesh P"),
-    (["--trace", "t.json"], "item 8c"),
-    (["--sampled", "--trace", "t.json"], "item 8c"),
+    (["--steps", "3", "--trace"], {"train.step", "train.csr_build"}),
+    (["--sampled", "--trace"], {"round", "round.step", "sample.round",
+                                "prefetch.stage", "prefetch.wait"}),
     (["--rescale-on-preempt", "2"], "require --stream --mesh P"),
     (["--ckpt-dir"], None)])
 def test_launcher_refuses_unported_flags(flag, item, tmp_path, capsys):
-    """``--trace`` still waits for its ROADMAP item; the rescale flags
-    without ``--stream`` exit with the reference's message; ``--ckpt-dir``
-    runs: a 50-step run saves at step 50 (``CheckpointSpec``'s default
-    ``every``) and a relaunch to 52 steps resumes there."""
-    if item is not None:
+    """The rescale flags without ``--stream`` exit with the reference's
+    message; ``--trace OUT`` runs, eager and ``--sampled``: the run's
+    spans (those named) export to a valid Chrome trace and the launcher
+    prints ``trace: N spans -> OUT`` (no calibration: neither is a mesh
+    run); ``--ckpt-dir`` runs: a 50-step run saves at step 50
+    (``CheckpointSpec``'s default ``every``) and a relaunch to 52 steps
+    resumes there."""
+    if isinstance(item, str):
         with pytest.raises(SystemExit, match=item):
             launch_train.main(["--arch", "tmgcn", "--device", "cpu", *flag])
+        return
+    if isinstance(item, set):
+        path = tmp_path / "t.json"
+        try:
+            launch_train.main(["--arch", "tmgcn", "--device", "cpu", *flag,
+                               str(path)])
+            n = len(obs.get_tracer().spans())
+        finally:
+            obs.configure(enabled=False)
+        out = capsys.readouterr().out
+        assert [ln for ln in out.splitlines() if ln.startswith("trace: ")] \
+            == [f"trace: {n} spans -> {path}"]
+        assert "calibration" not in out
+        events, meta = obs.load_trace(path)
+        assert obs.validate_trace(events) == []
+        assert item <= {e["name"] for e in events if e["ph"] == "X"}
+        assert sum(e["ph"] == "X" for e in events) == n
+        assert meta["dropped_spans"] == 0
         return
     ck = str(tmp_path / "ck")
     base = ["--arch", "tmgcn", "--device", "cpu", *flag, ck]
