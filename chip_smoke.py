@@ -31,10 +31,12 @@ which exits non-zero on failure:
    read through two pointers, one row written), shown to reject zeros, a
    dropped prefix row and a dropped slice row; the state-advance step
    timed, then profiled;
-4. the same 16 windows replayed through a ``device="cpu"`` engine — where
-   the wrappers run the plain versions — and its embeddings and
-   last-window queries held to the card's; then small-graph serving of
-   all three models, card against CPU, after every window;
+4. the first 6 of the 16 windows replayed through a ``device="cpu"``
+   engine — where the wrappers run the plain versions — and its
+   embeddings and queries after window 6 held to the card's, which the
+   main path kept then (all 16 took ~50 s of host time); then
+   small-graph serving of all three models, card against CPU, after
+   every window;
 4a. the training path: ``paper_dyngnn`` (TM-GCN) at the full config's
    widths trained through ``repro_torch.run.Engine(device="cuda")`` — a
    synthetic trace at N = 755,200 with T = 32 steps (cut from epinions'
@@ -146,9 +148,12 @@ which exits non-zero on failure:
    grid of four spawned gloo ranks sharing cuda:0 at N = 65,536, T = 8,
    held to CPU gloo and to the card's 1 x 1 grid and eager forward (1e-4);
 4k. the sampled schedule over the one-rank NCCL group: ``paper_dyngnn``
-   on the train trace (N = 755,200, T = 32; one epoch of 4 rounds of
-   block 8: a second epoch cost ~90 s of host sampling, and the carry
-   store's epoch reset runs in the 2-epoch runs below), the launcher's
+   on the first 16 steps of the train trace (N = 755,200; one epoch of 2
+   rounds of block 8 over the Engine's own pipeline of those steps, its
+   host seconds counted: the trace's 4
+   rounds cost 30-65 s more of host sampling, a second epoch ~90 s, and
+   the carry store's epoch reset runs in the 2-epoch runs below), the
+   launcher's
    defaults (N / 4 seeds, fanouts 10, 10), the
    union capped at the largest snapshot's edges, through
    ``Engine(plan=ExecutionPlan(mode="sampled", mesh=group,
@@ -177,8 +182,9 @@ which exits non-zero on failure:
    -> 1 -> 2 on two spawned gloo ranks sharing cuda:0 at N = 65,536, T =
    8, against ``train_streamed`` on the card (rtol 1e-5), payloads by
    ``comm_volume.rescale_payload``; the launcher with ``--ckpt-dir`` as a
-   subprocess (eager at the smoke config: the distributed stream needs a
-   card a rank) stopped by a real SIGTERM after its first logged step,
+   subprocess (eager at the smoke config, 100 steps: the distributed
+   stream needs a card a rank) stopped by a real SIGTERM after its first
+   logged step,
    exiting 0 with a checkpoint, and relaunched to the uninterrupted
    run's final loss;
 4m. the training trace (the trace group): the distributed stream at
@@ -198,11 +204,13 @@ which exits non-zero on failure:
    (30,207,991 rows) written as ``.npz`` by ``write_edgelist``, read back
    in memory and in chunks (byte-identical to the generator's lists; the
    peak RSS of each read in a child process), built by ``EdgeListDTDG``
-   into the train phase's dataset array for array, and 10 eager steps on
-   the card from it: the train phase's losses at max|diff| 0.0 (160 / 12
-   / 8 / 0 launches a step, 64 CSR builds); cut: the ``.tsv`` form at N =
-   65,536, T = 8; the committed fixture ``tests/fixtures/
-   epinions_tiny.tsv`` trained on the card and on the CPU (1e-4);
+   into the train phase's dataset array for array; cut: the ``.tsv`` form
+   at N = 65,536, T = 8, and 10 eager steps on the card from an
+   ``EdgeListDTDG`` of that file, held to an ``InMemoryDTDG`` fit on the
+   generator's lists at max|diff| 0.0 (40 / 12 / 8 / 0 launches a step, 16
+   CSR builds; the full-width fit from the file took ~62 s of host
+   pipeline); the committed fixture ``tests/fixtures/epinions_tiny.tsv``
+   trained on the card and on the CPU (1e-4);
 5. the LM path: Yi-6B at full width (32 layers, d 4096, 32 query heads
    over 4 KV heads, D 128, bf16, random weights drawn on the card from a
    seed) served through ``ServeEngine(device="cuda").generate()``: one
@@ -216,7 +224,9 @@ which exits non-zero on failure:
    S 4,160, ragged ``cache_len`` with 1 and S), at ``decode_32k``'s
    (S 32,768) and ``long_500k``'s (B 1, S 524,288) lengths, at D 64 and
    D 256 with G 1 (MiniCPM, Gemma), at G 2 (a head tile of 16, 14
-   padded), with a ``cache_len = 0`` row and at D 64 with G 4, each in
+   padded), with a ``cache_len = 0`` row, at D 64 with G 4, and at
+   OLMoE-1B-7B's decode shape (B 8, S 4,160, 16 heads over 16, D 128: G 1)
+   with the full cache and ragged, each in
    bf16 (G > 1 on the tensor-core instance) and f32 (CUDA cores); at
    each, the check is shown to reject zeros and the kernel's output with
    one split's rows dropped; each timed beside its bound, its plain
@@ -224,7 +234,32 @@ which exits non-zero on failure:
    never calls);
 7. Yi-6B's full widths at 2 layers in f32, card (kernel) against a
    ``device="cpu"`` engine's parameters (plain version): prefill logits
-   and 8 teacher-forced decode steps' logits.
+   and 8 teacher-forced decode steps' logits;
+8. the MoE LMs (the moe group): OLMoE-1B-7B at full width (16 layers, d
+   2048, 16 query heads over 16 KV heads, D 128, 64 experts top-8 of ff
+   1024, vocab 50,304, bf16, 6,919,620,608 random parameters drawn on the
+   card) through ``ServeEngine(device="cuda").generate()``, phase 5's
+   wave (8 prompts of 4,096 tokens, 64 greedy tokens; the prefill's
+   capacity 5,120 slots an expert), every count zeroed just before and
+   read just after (16 layers x 63 steps = 1,008 ``flash_decode``
+   launches on its CUDA-core G = 1 instance, none of the dyngnn
+   kernels); prefill ms, decode ms p50 / p95, tokens/s, peak memory; one
+   decode step profiled (device busy against wall, by kind) beside its
+   bound (every weight but the embedding table, of which B rows are read,
+   and the K/V rows read, at 3.35 TB/s); then Moonlight-16B-A3B's full
+   widths cut to 4 of its 48 layers (B 8, prompt 512, 16 tokens: 4 x 15
+   launches); LM training at OLMoE's widths cut to 4 of 16 layers
+   (1,884,833,792 parameters; ``train_4k``'s sequence of 4,096, batch cut
+   from 256 to 2), 10 ``launch.steps.lm_train_step`` calls: finite
+   losses, step ms, tokens/s, peak; card against CPU in f32 (TF32 off):
+   ``moe_apply`` at OLMoE's widths on 256 tokens at ample and at default
+   capacity (routing first: a token routed differently must sit at a
+   near-tie, its 8th and 9th probabilities under 1e-5 apart; outputs 1e-4
+   on the tokens routed alike, the dropped fraction equal), OLMoE's
+   widths at 2 layers (capacity for every token: prefill and 8 decode
+   steps' logits, 1e-4, rows with a near-tie routing flip reported and
+   left out), and one ``lm_train_step`` at 1 layer, B 1, S 128 (loss and
+   every gradient 1e-4 x each leaf's max).
 
 Tolerances: segment SpMM 1e-4 (abs and rel; fp32 sums in another order
 than the plain ``index_add_``), banded TTM and its transpose 1e-5 (abs
@@ -236,14 +271,17 @@ flash decode, against the plain version's fp32 result, batch row by batch
 row: 1e-4 abs and rel in f32 (``tests/test_kernels.py``'s), and in bf16
 1e-2 x the row's max |plain|, no absolute term (2.56 times the worst
 rounding of a bf16 output, 2^-8 of its size; the output shrinks as
-1 / sqrt(cache rows), so a fixed term would pass zeros at long caches); LM logits 1e-4 (abs and rel; fp32 sums
-of 4,096- and 11,008-long products taken in another order, TF32 off).
+1 / sqrt(cache rows), so a fixed term would pass zeros at long caches);
+LM logits and ``moe_apply`` outputs 1e-4 (abs and rel; fp32 sums of
+4,096- and 11,008-long products taken in another order, TF32 off); MoE
+training gradients 1e-4 x each leaf's max.
 Kernel times are device time only (each call queued behind a device
 sleep); ``wrapper_ms`` is the wrapper's host time plus device time.
 
 Prints the card line, the per-phase numbers, one JSON line each of the
 streamed, the partitioned, the distributed-stream, the hybrid, the
-sampled, the fault-tolerance, the trace and the data phases' numbers,
+sampled, the fault-tolerance, the trace, the data and the moe phases'
+numbers,
 one JSON line of the kernels and, last, ``{"ok": true, "device":
 {...}}``.  Before that line it stops every process it started that is
 still running (the shared sampling pools, ``multiprocessing``'s resource
@@ -251,10 +289,11 @@ tracker, any child or orphaned grandchild: the script is their
 subreaper) and fails if any but those two was left; at exit it stops
 them again.  Without a CUDA device, or without the repository around
 it, it exits non-zero and prints no result.  ``--only
-serve,train,stream,partition,dstream,hybrid,sampled,ft,trace,data,lm``
+serve,train,stream,partition,dstream,hybrid,sampled,ft,trace,data,lm,moe``
 runs the build and the named groups of phases (1–4, 4a–4c, 4d, 4e–4g,
-4h–4i, 4j, 4k, 4l, 4m, 4n, 5–7; partition and data are held to train's
-run, so they need train) and prints no result line.
+4h–4i, 4j, 4k, 4l, 4m, 4n, 5–7, 8 with phase 6's OLMoE rows when lm is
+not named; partition and data are held to train's run, so they need
+train) and prints no result line.
 """
 
 from __future__ import annotations
@@ -282,6 +321,7 @@ TOL_LOGITS = 1e-4
 
 NUM_EVENTS = 3_400_000       # ~2.0 M alive edges at the last window
 NUM_WINDOWS = 16
+REPLAY_WINDOWS = 6           # the CPU replays the first 6 (16 took ~50 s)
 BLOCK_SIZE = 8
 QUERY_REPS = 30
 
@@ -306,6 +346,7 @@ HYBRID_REPS = 4              # the forward timed in turns with the eager one
 HYBRID_SHARED_N, HYBRID_SHARED_T = 65_536, 8
 SAMPLED_BLOCK = 8            # the train trace's T = 32: 4 rounds an epoch
 SAMPLED_EPOCHS = 1           # 2 took ~90 s more of host sampling
+SAMPLED_T = 16               # the first 16 of the trace's 32 steps: 2 rounds
 SAMPLED_SMALL_N, SAMPLED_SMALL_T, SAMPLED_SMALL_BLOCK = 65_536, 8, 4
 SAMPLED_SMALL_EPOCHS = 2     # the carry store's epoch reset runs too
 FT_EVERY = 5                 # eager: 5 steps, checkpoint, resume() to 10
@@ -313,7 +354,7 @@ FT_STREAM_EVERY = 2          # streamed_mesh: a checkpoint every 2 rounds
 FT_SIGTERM_ROUND = 2         # ... and a SIGTERM in round 2: cursor 3
 FT_SHARED_N, FT_SHARED_T, FT_SHARED_NB = 65_536, 8, 2
 FT_SCHEDULE = ((1, 1), (3, 2))   # widths 2 -> 1 -> 2, both mid-epoch
-FT_LAUNCH_STEPS = 400        # the launcher at the smoke config
+FT_LAUNCH_STEPS = 100        # the launcher at the smoke config (was 400)
 PROBE_STEPS = 3              # the traced stream's probe: warm + best of 2
 TRACE_LAUNCH_STEPS = 20      # the launcher with --trace, smoke config
 DATA_ROWS = 30_207_991       # the train trace's raw edge rows (T = 32)
@@ -323,6 +364,11 @@ DATA_TSV_N, DATA_TSV_T = 65_536, 8   # the .tsv form, cut
 LM_BATCH = 8
 LM_PROMPT = 4096
 LM_TOKENS = 64
+MOONLIGHT_LAYERS = 4         # of 48: its 48 would be 28.06 B parameters
+MOONLIGHT_PROMPT, MOONLIGHT_TOKENS = 512, 16
+MOE_TRAIN_LAYERS = 4         # of OLMoE's 16: ~30 GB of state, not ~110
+MOE_TRAIN_BATCH, MOE_TRAIN_SEQ = 2, 4096   # train_4k's sequence, batch 256
+MOE_TRAIN_STEPS = 10
 
 
 def log(msg: str) -> None:
@@ -553,8 +599,11 @@ def by_kind(by_name: dict) -> dict:
 # ------------------------------------------------------------ serving ------
 
 def serve_run(device: str, params, n: int, events, max_edges: int,
-              num_windows: int):
-    """Push each window's events, advance it; -> (engine, per-window ms)."""
+              num_windows: int, windows: int | None = None,
+              on_window=None):
+    """Push each window's events, advance it; -> (engine, per-window ms).
+    ``windows`` stops after the first so many of the ``num_windows``;
+    ``on_window(k, engine)`` runs after window k's advance (untimed)."""
     from repro_torch.configs import registry
     from repro_torch.core.ctdg import EventStream
     from repro_torch.serve import IngestSpec, ServeConfig, ServeEngine
@@ -571,13 +620,15 @@ def serve_run(device: str, params, n: int, events, max_edges: int,
     win = spec.window_of(events.time)
     cuts = [0] + [int((win <= k).sum()) for k in range(num_windows)]
     advance_ms = []
-    for k in range(num_windows):
+    for k in range(windows or num_windows):
         sl = slice(cuts[k], cuts[k + 1])
         eng.ingest(EventStream(events.src[sl], events.dst[sl],
                                events.time[sl], events.kind[sl], n))
         t0 = time.perf_counter()
         eng.advance(1)
         advance_ms.append((time.perf_counter() - t0) * 1e3)
+        if on_window is not None:
+            on_window(k, eng)
     return eng, advance_ms
 
 
@@ -606,12 +657,23 @@ def main_path(torch, kernels, obs, n_nodes: int, max_edges: int):
     events = synthetic_ctdg(n_nodes, NUM_EVENTS, delete_frac=0.2, seed=0)
     log(f"[serve] {len(events)} events generated on the host in "
         f"{time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(2)
+    ids, pairs = rng.integers(0, n_nodes, 64), rng.integers(0, n_nodes,
+                                                           (64, 2))
+    replay = {"ids": ids, "pairs": pairs}
+
+    def keep_state(k, eng):
+        # the served state after the last window the CPU replays
+        if k == REPLAY_WINDOWS - 1:
+            replay.update(z=eng.z.cpu(), nodes=eng.query_nodes(ids),
+                          links=eng.query_links(pairs))
+
     torch.cuda.reset_peak_memory_stats()
     tracer = obs.configure(enabled=True)     # fenced phase spans
     reset_counts(kernels)
     spmm_ops.csr_builds = 0
     eng, advance_ms = serve_run("cuda", None, n_nodes, events, max_edges,
-                                NUM_WINDOWS)
+                                NUM_WINDOWS, on_window=keep_state)
     launches = {k.name: k.launches for k in kernels}
     builds = spmm_ops.csr_builds
     obs.configure(enabled=False)
@@ -666,7 +728,7 @@ def main_path(torch, kernels, obs, n_nodes: int, max_edges: int):
         if out.shape != (64, 2) or not np.isfinite(out).all():
             raise SystemExit(f"query_links: bad logits {out.shape}")
     log(f"[query] links 64 pairs: {percentiles(lat)}")
-    return eng, events, launches
+    return eng, events, launches, replay
 
 
 # ------------------------------------------------------- kernel checks -----
@@ -893,28 +955,29 @@ def profile_step(torch, eng):
 
 # ------------------------------------------------------- plain parity ------
 
-def plain_parity(eng, events):
-    """The whole run replayed on the CPU, where the kernel wrappers run
-    their plain versions: the last window's embeddings and queries, card
-    (kernels) against CPU (plain)."""
+def plain_parity(eng, events, replay: dict):
+    """The run's first ``REPLAY_WINDOWS`` windows replayed on the CPU,
+    where the kernel wrappers run their plain versions: that window's
+    embeddings and queries, card (kernels, kept by the main path) against
+    CPU (plain).  (All 16 windows took 47.5-60.6 s of host time.)"""
     import numpy as np
 
-    rng = np.random.default_rng(2)
     n = eng.model.num_nodes
-    ids = rng.integers(0, n, 64)
-    pairs = rng.integers(0, n, (64, 2))
-    got_n, got_l = eng.query_nodes(ids), eng.query_links(pairs)
     plain, _ = serve_run("cpu", eng.params, n, events,
-                         eng.applier.max_edges, NUM_WINDOWS)
-    z_err = float((eng.z.cpu() - plain.z).abs().max())
-    err = max(np.abs(got_n - plain.query_nodes(ids)).max(),
-              np.abs(got_l - plain.query_links(pairs)).max())
+                         eng.applier.max_edges, NUM_WINDOWS,
+                         windows=REPLAY_WINDOWS)
+    z_err = float((replay["z"] - plain.z).abs().max())
+    err = max(np.abs(replay["nodes"]
+                     - plain.query_nodes(replay["ids"])).max(),
+              np.abs(replay["links"]
+                     - plain.query_links(replay["pairs"])).max())
     if not (err <= TOL_SCORES and z_err <= TOL_SCORES):
         raise SystemExit(f"served state: card (kernels) vs CPU (plain) "
                          f"max |diff| z {z_err:.3e}, scores {err:.3e} > "
                          f"{TOL_SCORES}")
-    log(f"[serve] {NUM_WINDOWS} windows replayed on the CPU (plain "
-        f"versions): last-window z max |diff| {z_err:.2e}, queries max "
+    log(f"[serve] the first {REPLAY_WINDOWS} of {NUM_WINDOWS} windows "
+        f"replayed on the CPU (plain versions): window "
+        f"{REPLAY_WINDOWS - 1}'s z max |diff| {z_err:.2e}, queries max "
         f"|diff| {err:.2e} (tolerance {TOL_SCORES})")
 
 
@@ -1103,7 +1166,7 @@ def train_path(torch, kernels, obs, n_nodes: int):
              "csr_bytes": csr_bytes, "activation_estimate": est,
              "max_edges": pipe.max_edges, "link_pred_acc": acc,
              "launches": launches, "profile": prof}
-    return batch, stats, rr.ds
+    return batch, stats, rr.ds, pipe
 
 
 def check_backward(torch, batch, n: int, window: int, timer):
@@ -1503,7 +1566,7 @@ def check_stream_counts(path: str, launches: dict, steps: int, k: int,
                          f"expected {steps * 2 * k}")
 
 
-def stream_path(torch, kernels, obs, ds):
+def stream_path(torch, kernels, obs, ds, pipe=None):
     """The streamed schedule: ``paper_dyngnn`` (TM-GCN) at the full
     config's widths over the train phase's trace (N = 755,200, T = 32):
     four per-snapshot epochs through ``Engine(mode="streamed",
@@ -1512,7 +1575,10 @@ def stream_path(torch, kernels, obs, ds):
     without and with it untraced; then one epoch of
     ``train_streamed(slice_len=8)``.  Launches and CSR builds are counted
     in each; the four per-snapshot runs' losses and parameters are held
-    bit-identical -> (the phase's numbers, the pipeline)."""
+    bit-identical -> (the phase's numbers, the pipeline).  ``pipe``, the
+    train phase's pipeline over the same trace and blocks (its padded
+    batch dropped), is reused where there is one: building it is one
+    stats pass and one encode pass on the host (~63 s)."""
     import numpy as np
 
     from repro_torch.configs import registry
@@ -1525,14 +1591,19 @@ def stream_path(torch, kernels, obs, ds):
         registry.get_arch("paper_dyngnn").make_config(),
         num_nodes=ds.num_nodes, num_steps=ds.num_steps)
     t0 = time.perf_counter()
-    pipe = DTDGPipeline(ds, nb=cfg.checkpoint_blocks, device="cuda")
+    reused = (pipe is not None and pipe.ds is ds
+              and pipe.nb == cfg.checkpoint_blocks)
+    if not reused:
+        pipe = DTDGPipeline(ds, nb=cfg.checkpoint_blocks, device="cuda")
     setup_s = time.perf_counter() - t0
     t, layers = ds.num_steps, cfg.num_layers
     rep = pipe.transfer_bytes()
     log(f"[stream] trace N={ds.num_nodes} T={t} (the train phase's), "
         f"block {pipe.bsize}, max_edges {pipe.max_edges}, pads "
         f"{pipe.stream_stats.max_drops}/{pipe.stream_stats.max_adds}; "
-        f"pipeline (stats + one encode pass) {setup_s:.1f} s on the host; "
+        + ("the train phase's pipeline; " if reused else
+           f"pipeline (stats + one encode pass) {setup_s:.1f} s on the "
+           "host; ") +
         f"payload {rep['graph_diff']:,} B against naive {rep['naive']:,} B "
         f"(ratio {rep['ratio']:.3f}, {rep['graph_diff'] / t / 1e6:.2f} MB "
         f"a snapshot)")
@@ -1636,8 +1707,9 @@ def stream_path(torch, kernels, obs, ds):
             f"{k} {v:.2f}" for k, v in sl_med.items())
         + " (encode: per snapshot)")
     return {"T": t, "N": ds.num_nodes, "max_edges": pipe.max_edges,
-            "block": pipe.bsize, "pipeline_s": setup_s, "transfer": rep,
-            "losses": losses, "launches": on["launches"],
+            "block": pipe.bsize, "pipeline_s": setup_s,
+            "pipeline_reused": reused, "transfer": rep, "losses": losses,
+            "launches": on["launches"],
             "overlap_on": {"wall_s": on_walls, "ms_per_snapshot": on_ms,
                            "peak_bytes": on["peak"],
                            "base_bytes": on["base"],
@@ -2821,8 +2893,9 @@ def hybrid_shared_card(torch, group) -> dict:
 
 def sampled_path(torch, kernels, obs, ds, pipe, group):
     """The sampled schedule at full width over the one-rank NCCL group:
-    ``paper_dyngnn`` on the train phase's trace (N = 755,200, T = 32),
-    block 8 (one epoch of 4 rounds), through ``Engine(plan=
+    ``paper_dyngnn`` on the first 16 steps of the train phase's trace (N
+    = 755,200, T = 32), block 8 (one epoch of 2 rounds: the whole epoch's
+    4 took 30-65 s more of host sampling), through ``Engine(plan=
     ExecutionPlan(mode="sampled", mesh=group), device="cuda")`` with the
     launcher's defaults (N / 4 seeds a round, fanouts 10, 10) and the
     union's edges capped at the largest snapshot's; the budget gate set
@@ -2832,7 +2905,10 @@ def sampled_path(torch, kernels, obs, ds, pipe, group):
     and 16 CSR builds); fenced spans per round (host sampling, staging,
     the carries' gather, all-gather and scatter, the step, its CSR
     pairs) -> the path's numbers.  ``pipe``, the stream phase's pipeline
-    over the same trace and blocks, is reused where there is one."""
+    over the whole trace, is reused where there is one for the
+    ``streamed_mesh`` refusal; the sampled fit's pipeline over the first
+    16 steps is the Engine's own (``resolve()``, timed), and its store is
+    ingested from that pipeline's stream, as the worker would."""
     import numpy as np
 
     from repro_torch import hoststore as hs
@@ -2843,17 +2919,25 @@ def sampled_path(torch, kernels, obs, ds, pipe, group):
     from repro_torch.run import (Engine, ExecutionPlan, InMemoryDTDG,
                                  RunConfig, SamplingSpec)
 
-    sub, win = ds, SAMPLED_BLOCK
-    n, t = sub.num_nodes, sub.num_steps
+    win = SAMPLED_BLOCK
+    n, t_full = ds.num_nodes, ds.num_steps
+    t0 = time.perf_counter()
+    reused = pipe is not None and pipe.ds is ds and pipe.nb == t_full // win
+    if not reused:
+        pipe = DTDGPipeline(ds, nb=t_full // win, device="cuda")
+    pipe_s = time.perf_counter() - t0
+    # the trace's first SAMPLED_T steps (the first rounds of the whole
+    # trace's epoch), so the host samples SAMPLED_T // win rounds, not
+    # t_full // win; the Engine builds this dataset's pipeline itself
+    t = SAMPLED_T
+    sub = dataclasses.replace(
+        ds, snapshots=ds.snapshots[:t], frames=ds.frames[:t],
+        labels=ds.labels[:t],
+        values=None if ds.values is None else ds.values[:t])
     cfg = dataclasses.replace(registry.get_arch("paper_dyngnn").make_config(),
                               num_nodes=n, num_steps=t,
                               checkpoint_blocks=t // win)
     layers = cfg.num_layers
-    t0 = time.perf_counter()
-    reused = pipe is not None and pipe.ds is sub and pipe.nb == t // win
-    if not reused:
-        pipe = DTDGPipeline(sub, nb=t // win, device="cuda")
-    pipe_s = time.perf_counter() - t0
     e_max = max(s.shape[0] for s in sub.snapshots)
     spec = SamplingSpec(batch_nodes=n // 4, fanouts=(10, 10),
                         max_edges=e_max)
@@ -2861,29 +2945,39 @@ def sampled_path(torch, kernels, obs, ds, pipe, group):
     sampled_b = hs.sampled_round_bytes(resolved, win=win, num_shards=1,
                                        feat_dim=sub.frames.shape[-1])
     full_b = hs.full_graph_round_bytes(
-        "streamed_mesh", num_steps=t, win=win, num_shards=1,
+        "streamed_mesh", num_steps=t_full, win=win, num_shards=1,
         max_edges=pipe.max_edges, num_nodes=n, feat_dim=sub.frames.shape[-1])
     budget = (sampled_b + full_b) // 2
     if not sampled_b < budget < full_b:
         raise SystemExit(f"sampled: no budget between the sampled round's "
                          f"{sampled_b} B and the full one's {full_b} B")
-    data = InMemoryDTDG(sub, pipeline=pipe)
     try:
-        Engine(RunConfig(model=cfg, data=data, plan=ExecutionPlan(
-            mode="streamed_mesh", mesh=group, device_budget_bytes=budget),
+        Engine(RunConfig(model=dataclasses.replace(
+            cfg, num_steps=t_full, checkpoint_blocks=t_full // win),
+            data=InMemoryDTDG(ds, pipeline=pipe), plan=ExecutionPlan(
+                mode="streamed_mesh", mesh=group,
+                device_budget_bytes=budget),
             log_fn=log), device="cuda").fit()
         raise SystemExit("sampled: streamed_mesh trained within a budget "
                          "below its round")
     except hs.DeviceBudgetError as e:
         refusal = str(e)
+    data = InMemoryDTDG(sub)
     eng = Engine(RunConfig(model=cfg, data=data, plan=ExecutionPlan(
         mode="sampled", mesh=group, sampling=spec, num_epochs=SAMPLED_EPOCHS,
         device_budget_bytes=budget), log_every=1, log_fn=log),
         device="cuda")
-    rr = eng.resolve()
     t0 = time.perf_counter()
+    rr = eng.resolve()
+    sub_pipe_s = time.perf_counter() - t0
+    if rr.pipeline is pipe or rr.pipeline.ds is not sub:
+        raise SystemExit("sampled: the Engine did not build the 16 steps' "
+                         "pipeline")
+    t0 = time.perf_counter()
+    # what the sampled worker builds when no store is cached: the store
+    # ingests the pipeline's own delta items
     rr.cache["host_store"] = hs.TemporalCSRStore.from_stream(
-        pipe.host_stream(), n)
+        rr.pipeline.host_stream(), n)
     store_s = time.perf_counter() - t0
     store_bytes = rr.cache["host_store"].nbytes
     gc.collect()
@@ -2925,7 +3019,8 @@ def sampled_path(torch, kernels, obs, ds, pipe, group):
                              f"expected {rounds}")
     staged_round = rep.staged_bytes // rounds
     warm_step = statistics.median(per_round["step"][1:])
-    log(f"[sampled] P = 1 over NCCL, N={n} T={t} block {win}, "
+    log(f"[sampled] P = 1 over NCCL, N={n} T={t} (the first {t} of the "
+        f"trace's {t_full} steps) block {win}, "
         f"{spec.batch_nodes} seeds, fanouts {spec.fanouts}: table_pad "
         f"{resolved.table_pad}, edge_pad {resolved.edge_pad} (the largest "
         f"snapshot's {e_max} edges), table filled up to "
@@ -2933,7 +3028,8 @@ def sampled_path(torch, kernels, obs, ds, pipe, group):
         f"{rep.dropped_edges} edges; {rep.sampled_edges} union edges staged")
     log(f"[sampled] {rounds} rounds in {fit_s:.1f} s of fit (store ingest "
         f"{store_s:.1f} s, {store_bytes / 1e6:.1f} MB on the host, before "
-        f"it; pipeline {pipe_s:.1f} s"
+        f"it; the Engine's pipeline over the {t} steps {sub_pipe_s:.1f} s; "
+        f"the whole trace's {pipe_s:.1f} s"
         + (", the stream phase's" if reused else "") + "); losses "
         + ", ".join(f"{v:.5f}" for v in losses))
     for k, v in per_round.items():
@@ -2950,7 +3046,8 @@ def sampled_path(torch, kernels, obs, ds, pipe, group):
     del eng, rr, res, pipe, data
     gc.collect()
     torch.cuda.empty_cache()
-    return {"N": n, "T": t, "block": win, "rounds": rounds,
+    return {"N": n, "T": t, "T_trace": t_full, "block": win,
+            "rounds": rounds,
             "seeds": spec.batch_nodes, "fanouts": list(spec.fanouts),
             "table_pad": resolved.table_pad, "edge_pad": resolved.edge_pad,
             "largest_snapshot_edges": e_max,
@@ -2964,7 +3061,8 @@ def sampled_path(torch, kernels, obs, ds, pipe, group):
             "sampled_round_bytes": sampled_b, "full_round_bytes": full_b,
             "budget": budget, "peak_bytes": peak, "base_bytes": base,
             "fit_s": fit_s, "store_s": store_s, "store_bytes": store_bytes,
-            "pipeline_s": pipe_s, "pipeline_reused": reused}
+            "pipeline_s": pipe_s, "pipeline_reused": reused,
+            "sub_pipeline_s": sub_pipe_s}
 
 
 def sampled_small(torch, dev: str, group, full: bool) -> dict:
@@ -3797,23 +3895,27 @@ def same_dataset(name: str, got, want) -> None:
         raise SystemExit(f"data: {name}: the dataset differs")
 
 
-def data_path(torch, kernels, ds, train_losses: list) -> dict:
+def data_path(torch, kernels, ds) -> dict:
     """Edge-list data at the train trace's size: its raw snapshots
     (``graph.generate.evolving_dynamic_graph(755_200, 32, 1.25, 0.1, 0)``,
     30,207,991 rows) written by ``write_edgelist`` as ``.npz``, read back
     in memory and in chunks (each byte-identical to the generator's lists;
     each read's peak RSS in a child process), built by ``EdgeListDTDG``
     (M-transform, window 5, chunked) into the train phase's dataset array
-    for array, and trained for 10 eager steps on the card from that
-    dataset, every count zeroed just before and read just after (160 / 12
-    / 8 / 0 a step, 64 CSR builds): the train phase's loss stream at
-    max|diff| 0.0.  Cut: the ``.tsv`` form at N = 65,536, T = 8
-    (``np.loadtxt`` of 30 M rows would take minutes).  Then the committed
+    for array (which fixes every input a fit from it would see).  Cut:
+    the ``.tsv`` form at N = 65,536, T = 8 (``np.loadtxt`` of 30 M rows
+    would take minutes), written, read back in memory and in chunks, and
+    trained for 10 eager steps on the card from an ``EdgeListDTDG`` of the
+    file, every count zeroed just before and read just after (40 / 12 /
+    8 / 0 a step, 16 CSR builds): the loss stream of an ``InMemoryDTDG``
+    fit on the generator's lists at max|diff| 0.0 (the full-width fit from
+    the file took its pipeline's ~62 s of host passes).  Then the committed
     KONECT-format fixture ``tests/fixtures/epinions_tiny.tsv``, trained on
     the card and on the CPU (losses within 1e-4 relative)."""
     import tempfile
 
     from repro_torch.configs import registry
+    from repro_torch.data.dyngnn import dataset_from_snapshots
     from repro_torch.graph.generate import evolving_dynamic_graph
     from repro_torch.kernels.build import reset_counts
     from repro_torch.kernels.segment_spmm import ops as spmm_ops
@@ -3844,15 +3946,21 @@ def data_path(torch, kernels, ds, train_losses: list) -> dict:
             if n_seen > n:
                 raise SystemExit(f"data: {name} saw {n_seen} vertices")
             del got
-        rss = {"import": read_rss_mb("-", 0),
-               "read": read_rss_mb(str(path), 0),
-               "read_chunked": read_rss_mb(str(path), DATA_CHUNK)}
+        # three child processes, side by side: each reports its own peak
+        from concurrent.futures import ThreadPoolExecutor
+        with ThreadPoolExecutor(3) as pool:
+            futs = {"import": pool.submit(read_rss_mb, "-", 0),
+                    "read": pool.submit(read_rss_mb, str(path), 0),
+                    "read_chunked": pool.submit(read_rss_mb, str(path),
+                                                DATA_CHUNK)}
+            rss = {k: f.result() for k, f in futs.items()}
         t0 = time.perf_counter()
         built = EdgeListDTDG(str(path), num_nodes=n,
                              smoothing_mode="mproduct", window=cfg.window,
                              chunk_edges=DATA_CHUNK).build()
         secs["build"] = time.perf_counter() - t0
         same_dataset("EdgeListDTDG.build", built, ds)
+        del built
         small = evolving_dynamic_graph(DATA_TSV_N, DATA_TSV_T, TRAIN_DENSITY,
                                        0.1, 0)
         tsv = Path(d) / "small.tsv"
@@ -3866,6 +3974,42 @@ def data_path(torch, kernels, ds, train_losses: list) -> dict:
             got, _ = read_edgelist(tsv, chunk_edges=chunk)
             secs[name] = time.perf_counter() - t0
             same_snapshots(name, got, small)
+        # the eager fit from the file, on the cut: the full-size build is
+        # held above to the train phase's dataset, array for array
+        fits, fit_launches = {}, {}
+        for name, source in (
+                ("file", EdgeListDTDG(str(tsv), num_nodes=DATA_TSV_N,
+                                      smoothing_mode="mproduct",
+                                      window=cfg.window,
+                                      chunk_edges=DATA_CHUNK // 16)),
+                ("lists", InMemoryDTDG(dataset_from_snapshots(
+                    small, DATA_TSV_N, "mproduct", cfg.window)))):
+            small_cfg = dataclasses.replace(cfg, num_nodes=DATA_TSV_N,
+                                            num_steps=DATA_TSV_T)
+            eng = Engine(RunConfig(model=small_cfg, data=source,
+                                   plan=ExecutionPlan(num_steps=TRAIN_STEPS),
+                                   log_fn=lambda _m: None), device="cuda")
+            t0 = time.perf_counter()
+            rr = eng.resolve()
+            secs[f"pipeline_{name}"] = time.perf_counter() - t0
+            reset_counts(kernels)
+            spmm_ops.csr_builds = 0
+            t0 = time.perf_counter()
+            fits[name] = eng.fit().losses
+            torch.cuda.synchronize()
+            secs[f"fit_{name}"] = time.perf_counter() - t0
+            counts = {k.name: k.launches for k in kernels}
+            counts["csr_builds"] = spmm_ops.csr_builds
+            check_launches(f"data ({name})", counts,
+                           train_launches(cfg.num_layers, DATA_TSV_T,
+                                          rr.cfg.checkpoint_blocks))
+            if counts["csr_builds"] != 2 * DATA_TSV_T:
+                raise SystemExit(f"data ({name}): {counts['csr_builds']} "
+                                 "CSR builds")
+            fit_launches[name] = counts
+            del eng, rr
+    # the path's counts are the file fit's, zeroed just before it
+    launches = fit_launches["file"]
     del snaps
     log(f"[data] {rows:,} rows (N {n:,}, T {t}) generated in "
         f"{secs['generate']:.1f} s; .npz {npz_bytes:,} B written in "
@@ -3881,33 +4025,13 @@ def data_path(torch, kernels, ds, train_losses: list) -> dict:
         f"({sum(len(s) for s in small):,} rows, {tsv_bytes:,} B): written "
         f"{secs['tsv_write']:.1f} s, read {secs['tsv_read']:.1f} s, chunked "
         f"{secs['tsv_read_chunked']:.1f} s, byte-identical")
-
-    eng = Engine(RunConfig(model=cfg, data=InMemoryDTDG(built),
-                           plan=ExecutionPlan(num_steps=TRAIN_STEPS),
-                           log_fn=lambda _m: None), device="cuda")
-    t0 = time.perf_counter()
-    rr = eng.resolve()
-    secs["pipeline"] = time.perf_counter() - t0
-    reset_counts(kernels)
-    spmm_ops.csr_builds = 0
-    t0 = time.perf_counter()
-    res = eng.fit()
-    torch.cuda.synchronize()
-    secs["fit"] = time.perf_counter() - t0
-    launches = {k.name: k.launches for k in kernels}
-    launches["csr_builds"] = spmm_ops.csr_builds
-    check_launches("data", launches,
-                   train_launches(cfg.num_layers, t,
-                                  rr.cfg.checkpoint_blocks))
-    if launches["csr_builds"] != 2 * t:
-        raise SystemExit(f"data: {launches['csr_builds']} CSR builds")
-    if res.losses != train_losses:
-        raise SystemExit(f"data: losses {res.losses} against the train "
-                         f"phase's {train_losses}")
-    log(f"[data] {TRAIN_STEPS} eager steps on the card from the file's "
-        f"dataset (pipeline {secs['pipeline']:.1f} s, fit {secs['fit']:.1f} "
-        f"s): the train phase's losses, max|diff| 0.0")
-    del eng, rr, res, built
+    if fits["file"] != fits["lists"]:
+        raise SystemExit(f"data: losses from the .tsv {fits['file']} "
+                         f"against the generator's lists {fits['lists']}")
+    log(f"[data] {TRAIN_STEPS} eager steps on the card from the .tsv's "
+        f"EdgeListDTDG (pipeline {secs['pipeline_file']:.1f} s, fit "
+        f"{secs['fit_file']:.1f} s): the losses of an InMemoryDTDG fit on "
+        f"the generator's lists at max|diff| 0.0 ({launches})")
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3929,33 +4053,37 @@ def data_path(torch, kernels, ds, train_losses: list) -> dict:
         f"(limit 1e-4); final loss {fx['cuda'][-1]:.5f}")
     return {"rows": rows, "npz_bytes": npz_bytes, "tsv_bytes": tsv_bytes,
             "seconds": secs, "peak_rss_mb": rss, "launches": launches,
-            "losses": train_losses,
+            "losses": fits["file"],
             "fixture_losses": fx["cuda"], "fixture_card_vs_cpu_rel": rel}
 
 
 # ------------------------------------------------------------- LM path -----
 
-def lm_path(torch, kernels, obs):
-    """Phase 5: Yi-6B at full width through ``ServeEngine.generate``."""
+def lm_path(torch, kernels, obs, cfg, tag: str = "lm",
+            batch: int = LM_BATCH, prompt: int = LM_PROMPT,
+            new_tokens: int = LM_TOKENS):
+    """Phase 5 (Yi-6B) and the moe group (OLMoE-1B-7B, Moonlight-16B-A3B):
+    ``cfg`` at its widths through ``ServeEngine.generate``, one wave of
+    ``batch`` prompts of ``prompt`` tokens and ``new_tokens`` greedy
+    tokens, every count zeroed just before and read just after."""
     import numpy as np
 
-    from repro_torch.configs import yi_6b
     from repro_torch.kernels.build import reset_counts
     from repro_torch.serve import ServeConfig, ServeEngine
 
-    cfg = yi_6b.make_config()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    eng = ServeEngine(ServeConfig(model=cfg, batch_sizes=(LM_BATCH,),
-                                  prompt_len=LM_PROMPT,
-                                  max_tokens=LM_TOKENS), device="cuda")
+    eng = ServeEngine(ServeConfig(model=cfg, batch_sizes=(batch,),
+                                  prompt_len=prompt,
+                                  max_tokens=new_tokens), device="cuda")
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(eng.params))
-    log(f"[lm] {cfg.name}: {n_params:,} parameters ({cfg.dtype}) drawn on "
-        f"the card in {time.perf_counter() - t0:.2f} s, "
+    log(f"[{tag}] {cfg.name}: {n_params:,} parameters ({cfg.dtype}, "
+        f"{cfg.num_layers} layers) drawn on the card in "
+        f"{time.perf_counter() - t0:.2f} s, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     if n_params != cfg.param_count():
-        raise SystemExit(f"lm: {n_params} parameters, the config says "
+        raise SystemExit(f"{tag}: {n_params} parameters, the config says "
                          f"{cfg.param_count()}")
     torch.cuda.reset_peak_memory_stats()
     tracer = obs.configure(enabled=True)     # fenced prefill/decode spans
@@ -3963,14 +4091,14 @@ def lm_path(torch, kernels, obs):
     tokens = eng.generate()
     launches = {k.name: k.launches for k in kernels}
     obs.configure(enabled=False)
-    steps = LM_TOKENS - 1
-    check_launches("lm", launches, {"segment_spmm": 0, "banded_ttm": 0,
-                                    "banded_ttm_t": 0,
-                                    "flash_decode": cfg.num_layers * steps})
+    steps = new_tokens - 1
+    check_launches(tag, launches, {"segment_spmm": 0, "banded_ttm": 0,
+                                   "banded_ttm_t": 0,
+                                   "flash_decode": cfg.num_layers * steps})
     r = eng.result()
-    if tokens.shape != (LM_BATCH, LM_TOKENS) or not (
+    if tokens.shape != (batch, new_tokens) or not (
             (tokens >= 0) & (tokens < cfg.padded_vocab)).all():
-        raise SystemExit(f"lm: bad tokens {tokens.shape}, range "
+        raise SystemExit(f"{tag}: bad tokens {tokens.shape}, range "
                          f"[{tokens.min()}, {tokens.max()}]")
     spans = {}
     for sp in tracer.spans():
@@ -3978,26 +4106,32 @@ def lm_path(torch, kernels, obs):
     prefill_ms = spans["serve.prefill"][0]
     decode_ms = spans["serve.decode"]
     if len(decode_ms) != steps:
-        raise SystemExit(f"lm: {len(decode_ms)} decode spans, expected "
+        raise SystemExit(f"{tag}: {len(decode_ms)} decode spans, expected "
                          f"{steps}")
     wall = r.query_seconds
+    kv_bytes = 2 * cfg.num_layers * batch * (prompt + new_tokens) \
+        * cfg.num_kv_heads * cfg.head_dim * torch.finfo(cfg.dtype).bits // 8
     stats = {
+        "arch": cfg.name, "layers": cfg.num_layers, "params": n_params,
+        "batch": batch, "prompt": prompt, "new_tokens": new_tokens,
         "prefill_ms": prefill_ms,
         "decode_ms_p50": statistics.median(decode_ms),
         "decode_ms_p95": sorted(decode_ms)[int(0.95 * (steps - 1))],
-        "decode_tokens_per_s": LM_BATCH * steps / (sum(decode_ms) / 1e3),
+        "decode_tokens_per_s": batch * steps / (sum(decode_ms) / 1e3),
         "tokens_per_s": tokens.size / wall, "generate_s": wall,
         "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "kv_cache_gb": kv_bytes / 1e9,
         "launches": launches["flash_decode"]}
-    log(f"[lm] generate: B={LM_BATCH}, prompt {LM_PROMPT}, {LM_TOKENS} "
+    log(f"[{tag}] generate: B={batch}, prompt {prompt}, {new_tokens} "
         f"tokens, {wall:.3f} s -> {stats['tokens_per_s']:.1f} tokens/s "
         f"(fenced spans)")
-    log(f"[lm] prefill {prefill_ms:.1f} ms; decode per step p50 "
+    log(f"[{tag}] prefill {prefill_ms:.1f} ms; decode per step p50 "
         f"{stats['decode_ms_p50']:.3f} ms, p95 {stats['decode_ms_p95']:.3f}"
         f" ms over {steps} steps -> {stats['decode_tokens_per_s']:.1f} "
         f"decode tokens/s")
-    log(f"[lm] peak device memory {stats['peak_gib']:.2f} GiB; tokens in "
-        f"[0, {cfg.padded_vocab}): {tokens.shape}, first row "
+    log(f"[{tag}] peak device memory {stats['peak_gib']:.2f} GiB (the KV "
+        f"cache {kv_bytes / 1e9:.2f} GB); tokens in [0, "
+        f"{cfg.padded_vocab}): {tokens.shape}, first row "
         f"{np.asarray(tokens[0, :8]).tolist()}")
     return eng, stats
 
@@ -4010,16 +4144,24 @@ def _leaves(tree):
         yield tree
 
 
-def profile_decode(torch, eng):
-    """One Yi-6B decode step at the path's shape: warm steady time, then
-    one step under ``torch.profiler`` (device busy, idle share, top ops)."""
+def profile_decode(torch, eng, tag: str = "profile-lm",
+                   batch: int = LM_BATCH, prompt: int = LM_PROMPT,
+                   new_tokens: int = LM_TOKENS):
+    """One decode step at the path's shape: warm steady time, then one step
+    under ``torch.profiler`` (device busy, idle share, top ops), beside
+    its bound: every weight but the embedding table (of which a step reads
+    B rows) and the K/V rows it reads, read once at 3.35 TB/s.  For an MoE
+    model that bound counts the experts the profiled step routes to (its
+    inputs run once more under ``RoutingLog`` before it: the same tokens
+    route alike and rewrite the same K/V row); the bound of the dense
+    (E, C, d) dispatch, every expert's weights, is reported beside it."""
     from repro_torch.models import lm
 
     cfg, params = eng.model, eng.params
     gen = torch.Generator(device="cuda").manual_seed(5)
-    prompts = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
+    prompts = torch.randint(0, cfg.vocab_size, (batch, prompt),
                             generator=gen, device="cuda")
-    logits, cache = lm.prefill(cfg, params, prompts, LM_PROMPT + LM_TOKENS)
+    logits, cache = lm.prefill(cfg, params, prompts, prompt + new_tokens)
     tok = torch.argmax(logits, -1)
 
     def step():
@@ -4034,28 +4176,77 @@ def profile_decode(torch, eng):
         fd = sum(sum(v) for n, v in by_name.items() if "flash_decode" in n)
         return wall_us, busy, fd, by_name
 
+    rows_read = int(cache["len"].sum()) + batch   # the new token's row too
+    routed = None
+    if cfg.is_moe:
+        with RoutingLog() as rl:
+            lm.decode_step(cfg, params, cache, tok)
+        routed = [int(torch.unique(top).numel()) for top, _ in rl.calls]
+        if len(routed) != cfg.num_layers:
+            raise SystemExit(f"{tag}: {len(routed)} MoE calls in a step")
     wall_us, busy, fd, by_name = profiled(step)
-    weight_bytes = sum(t.nbytes for t in _leaves(params))
-    # the K/V rows the profiled step reads, in bf16
-    kv_bytes = 2 * cfg.num_layers * int(cache["len"].sum()) \
-        * cfg.num_kv_heads * cfg.head_dim * 2
-    bound = (weight_bytes + kv_bytes) / 3.35e12 * 1e3
+    embed = params["embed"]
+    weight_bytes = sum(t.nbytes for t in _leaves(params)) - embed.nbytes \
+        + batch * embed[0].nbytes
+    esize = torch.finfo(cfg.dtype).bits // 8
+    kv_bytes = 2 * cfg.num_layers * rows_read * cfg.num_kv_heads \
+        * cfg.head_dim * esize
+    dense_bound = bound = (weight_bytes + kv_bytes) / 3.35e12 * 1e3
+    unread = 0
+    if routed is not None:
+        ffn = params["layers"]["ffn"]
+        expert_bytes = sum(ffn[k][0, 0].nbytes
+                           for k in ("wi_gate", "wi_up", "wo"))
+        unread = sum(cfg.moe_experts - r for r in routed) * expert_bytes
+        bound = (weight_bytes - unread + kv_bytes) / 3.35e12 * 1e3
     res = {"steady_ms": steady, "wall_ms": wall_us / 1e3,
            "busy_ms": busy / 1e3, "idle_share": 1 - busy / wall_us,
            "flash_decode_ms": fd / 1e3, "bound_ms": bound,
-           "activities": sum(map(len, by_name.values()))}
-    log(f"[profile-lm] decode step (warm, host clock + sync, median of 6):"
+           "dense_dispatch_bound_ms": dense_bound,
+           "routed_experts": routed,
+           "weight_bytes": weight_bytes - unread, "kv_bytes": kv_bytes,
+           "activities": sum(map(len, by_name.values())),
+           "by_kind_ms": {}}
+    for name, v in by_name.items():
+        kind = next((k for k, subs in DECODE_KINDS
+                     if any(x in name for x in subs)), "other")
+        res["by_kind_ms"][kind] = res["by_kind_ms"].get(kind, 0.0) \
+            + sum(v) / 1e3
+    log(f"[{tag}] decode step (warm, host clock + sync, median of 6):"
         f" {steady:.3f} ms; bound {bound:.3f} ms "
-        f"({weight_bytes / 1e9:.2f} GB of weights + "
+        f"({(weight_bytes - unread) / 1e9:.2f} GB of weights + "
         f"{kv_bytes / 1e9:.2f} GB of K/V at 3.35 TB/s)")
-    log(f"[profile-lm] one step under the profiler: wall "
+    if routed is not None:
+        log(f"[{tag}] the profiled step routes to {min(routed)}-"
+            f"{max(routed)} of {cfg.moe_experts} experts a layer (mean "
+            f"{sum(routed) / len(routed):.1f}); the dense (E, C, d) "
+            f"dispatch reads every expert's weights: its bound "
+            f"{dense_bound:.3f} ms ({weight_bytes / 1e9:.2f} GB of "
+            f"weights)")
+    log(f"[{tag}] one step under the profiler: wall "
         f"{res['wall_ms']:.3f} ms, device busy {res['busy_ms']:.3f} ms, "
         f"idle share {res['idle_share']:.3f}, {res['activities']} device "
-        f"activities, flash_decode {res['flash_decode_ms']:.3f} ms")
+        f"activities, flash_decode {res['flash_decode_ms']:.3f} ms; by kind "
+        + ", ".join(f"{k} {v:.3f}" for k, v in sorted(
+            res["by_kind_ms"].items(), key=lambda kv: -kv[1])))
     for name, v in sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:12]:
-        log(f"[profile-lm]   {sum(v) / 1e3:8.3f} ms  x{len(v):<4d} "
+        log(f"[{tag}]   {sum(v) / 1e3:8.3f} ms  x{len(v):<4d} "
             f"{name[:90]}")
     return res
+
+
+#: a decode step's device activities by kind, first match wins
+DECODE_KINDS = (("flash_decode", ("flash_decode",)),
+                ("gemm", ("gemm", "Gemm", "gemv", "cutlass", "nvjet",
+                          "xmma", "sm90_")),
+                ("sort / scan", ("sort", "Sort", "scan", "Scan",
+                                 "radix", "cumsum", "bincount")),
+                ("index / scatter", ("index", "Index", "scatter",
+                                     "gather", "put_")),
+                ("copy / fill", ("copy", "Copy", "fill", "Fill",
+                                 "Memset", "Memcpy")),
+                ("elementwise / reduce", ("elementwise", "reduce",
+                                          "Reduce", "softmax")))
 
 
 def fd_excess(dtype: str, got, want32) -> tuple[float, float]:
@@ -4083,7 +4274,31 @@ def dropped_split_lens(lens: list[int], s: int, splits: int) -> list[int]:
     return out
 
 
-def check_flash_decode(torch, timer):
+S_PATH = LM_PROMPT + LM_TOKENS
+#: flash_decode's cases: name, B, Hq, KVH, D, S, cache_len
+FD_CASES = [
+    ("path", 8, 32, 4, 128, S_PATH, [LM_PROMPT + 32] * 8),
+    ("path ragged", 8, 32, 4, 128, S_PATH,
+     [1, S_PATH, 4097, 2000, 3000, 17, 4100, 9999]),
+    ("decode_32k", 8, 32, 4, 128, 32768,
+     [32768, 1, 30000, 16384, 32767, 5000, 20000, 32768]),
+    ("long_500k", 1, 32, 4, 128, 524288, [524288]),
+    ("D64 G1", 8, 36, 36, 64, S_PATH, [LM_PROMPT + 32] * 8),
+    ("D256 G1", 8, 16, 16, 256, S_PATH, [LM_PROMPT + 32] * 8),
+    ("G2", 2, 8, 4, 128, 300, [300, 123]),
+    ("cache_len 0", 2, 32, 4, 128, S_PATH, [0, S_PATH]),
+    ("D64 G4", 2, 16, 4, 64, 1000, [1000, 77]),
+]
+#: OLMoE-1B-7B's decode shape (G = 1, D = 128): the last step's full cache,
+#: then ragged
+FD_MOE_CASES = [
+    ("OLMoE", 8, 16, 16, 128, S_PATH, [S_PATH] * 8),
+    ("OLMoE ragged", 8, 16, 16, 128, S_PATH,
+     [1, S_PATH, 4097, 2000, 3000, 17, 4100, 9999]),
+]
+
+
+def check_flash_decode(torch, timer, cases=FD_CASES + FD_MOE_CASES):
     """Phase 6: the kernel against its plain version, and timed.  Each
     case also shows that its check rejects two faulty outputs made on the
     card: zeros, and the kernel's own output with one split's rows
@@ -4092,20 +4307,6 @@ def check_flash_decode(torch, timer):
 
     from repro_torch.kernels.flash_decode import ops, ref
 
-    s_path = LM_PROMPT + LM_TOKENS
-    cases = [  # name, B, Hq, KVH, D, S, cache_len
-        ("path", 8, 32, 4, 128, s_path, [LM_PROMPT + 32] * 8),
-        ("path ragged", 8, 32, 4, 128, s_path,
-         [1, s_path, 4097, 2000, 3000, 17, 4100, 9999]),
-        ("decode_32k", 8, 32, 4, 128, 32768,
-         [32768, 1, 30000, 16384, 32767, 5000, 20000, 32768]),
-        ("long_500k", 1, 32, 4, 128, 524288, [524288]),
-        ("D64 G1", 8, 36, 36, 64, s_path, [LM_PROMPT + 32] * 8),
-        ("D256 G1", 8, 16, 16, 256, s_path, [LM_PROMPT + 32] * 8),
-        ("G2", 2, 8, 4, 128, 300, [300, 123]),
-        ("cache_len 0", 2, 32, 4, 128, s_path, [0, s_path]),
-        ("D64 G4", 2, 16, 4, 64, 1000, [1000, 77]),
-    ]
     gen = torch.Generator(device="cuda").manual_seed(3)
     rows, err_all = [], 0.0
     for dtype in (torch.bfloat16, torch.float32):
@@ -4208,41 +4409,350 @@ def check_flash_decode(torch, timer):
 def lm_parity(torch):
     """Phase 7: Yi-6B's full widths at 2 layers in f32, the card's kernel
     path against the CPU's plain path on the same parameters."""
-    import dataclasses
-
     from repro_torch.configs import yi_6b
-    from repro_torch.models import lm
-    from repro_torch.serve import ServeConfig, ServeEngine
 
     cfg = dataclasses.replace(yi_6b.make_config(), num_layers=2,
                               dtype=torch.float32)
-    sc = ServeConfig(model=cfg, batch_sizes=(2,), prompt_len=256,
-                     max_tokens=8)
+    return model_parity(torch, cfg, "parity-lm")
+
+
+def model_parity(torch, cfg, tag: str, routing=None) -> dict:
+    """``cfg`` (f32) served card (kernel) and CPU (plain) on the same
+    parameters: prefill logits over B 2 x 256 tokens and 8 teacher-forced
+    decode steps' logits, 1e-4 abs and rel.  With ``routing`` (a pair of
+    :class:`RoutingLog`, card and CPU, for an MoE model at a capacity that
+    drops nothing, so the batch rows are independent) a row whose routing
+    differs from the CPU's at a near-tie is reported and not compared."""
+    import contextlib
+
+    from repro_torch.models import lm
+    from repro_torch.serve import ServeConfig, ServeEngine
+
+    prompt, steps = 256, 8
+    sc = ServeConfig(model=cfg, batch_sizes=(2,), prompt_len=prompt,
+                     max_tokens=steps)
     gpu = ServeEngine(sc, device="cuda")
     cpu = ServeEngine(sc, params=gpu.params, device="cpu")
     gen = torch.Generator().manual_seed(4)
-    toks = torch.randint(0, cfg.vocab_size, (2, 256 + 8), generator=gen)
-    max_len = 256 + 8
-    glog, gcache = lm.prefill(cfg, gpu.params, toks[:, :256].cuda(),
-                              max_len)
-    clog, ccache = lm.prefill(cfg, cpu.params, toks[:, :256], max_len)
-    errs = [check_close("lm prefill logits", glog.cpu(), clog, TOL_LOGITS)]
-    for t in range(256, 256 + 8):
-        glog, gcache = lm.decode_step(cfg, gpu.params, gcache,
-                                      toks[:, t].cuda())
-        clog, ccache = lm.decode_step(cfg, cpu.params, ccache, toks[:, t])
-        errs.append(check_close(f"lm decode step {t - 255} logits",
-                                glog.cpu(), clog, TOL_LOGITS))
-    limit = TOL_LOGITS * (1.0 + float(clog.abs().max()))
-    log(f"[parity-lm] yi-6b widths, 2 layers, f32, B 2, prompt 256: card "
-        f"(kernel) vs CPU (plain) logits max |diff| prefill {errs[0]:.2e},"
-        f" decode steps {max(errs[1:]):.2e} (limit ~{limit:.2e})")
+    toks = torch.randint(0, cfg.vocab_size, (2, prompt + steps),
+                         generator=gen)
+    logs = routing or (contextlib.nullcontext(), contextlib.nullcontext())
+    out = {"gpu": [], "cpu": []}
+    for (name, eng, dev), log_ in zip((("gpu", gpu, "cuda"),
+                                       ("cpu", cpu, "cpu")), logs):
+        with log_:
+            lg, cache = lm.prefill(cfg, eng.params,
+                                   toks[:, :prompt].to(dev), prompt + steps)
+            out[name].append(lg.cpu())
+            for t in range(prompt, prompt + steps):
+                lg, cache = lm.decode_step(cfg, eng.params, cache,
+                                           toks[:, t].to(dev))
+                out[name].append(lg.cpu())
+    rows = [0, 1]
+    res = {}
+    if routing:
+        flips = routing_flips(*routing)
+        flipped = set()
+        for call, tokens in flips["tokens"].items():
+            width = prompt if call < cfg.num_layers else 1   # prefill
+            flipped |= {int(t) // width for t in tokens}
+        rows = [r for r in rows if r not in flipped]
+        res["routing"] = {k: v for k, v in flips.items() if k != "tokens"}
+        res["rows_compared"] = rows
+        if flipped:
+            log(f"[{tag}] ROUTING FLIP: {flips['tokens_differing']} "
+                f"token-layer routings differ card vs CPU, each at a gap "
+                f"< 1e-5 between its k-th and (k+1)-th probabilities "
+                f"(largest {flips['max_gap']:.2e}); rows {sorted(flipped)} "
+                "reported, not compared")
+    errs = [check_close(f"{tag} {'prefill' if i == 0 else f'decode {i}'} "
+                        "logits", g[rows], c[rows], TOL_LOGITS)
+            if rows else float("nan")
+            for i, (g, c) in enumerate(zip(out["gpu"], out["cpu"]))]
+    limit = TOL_LOGITS * (1.0 + float(out["cpu"][-1].abs().max()))
+    log(f"[{tag}] {cfg.name} widths, {cfg.num_layers} layers, f32, B 2, "
+        f"prompt {prompt}: card (kernel) vs CPU (plain) logits max |diff| "
+        f"prefill {errs[0]:.2e}, decode steps {max(errs[1:]):.2e} (limit "
+        f"~{limit:.2e}), rows compared {rows}")
+    res.update(prefill_err=errs[0], decode_err=max(errs[1:]))
+    return res
+
+
+class RoutingLog:
+    """Within it, each ``nn.moe.moe_apply`` call records its tokens' top-k
+    expert sets and each token's gap between its k-th and (k+1)-th
+    router probabilities (the router recomputed beside the call)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.nn import moe
+
+        self._mod, self._real = moe, moe.moe_apply
+
+        def recorded(params, x, top_k, *args, **kwargs):
+            with torch.no_grad():
+                probs = torch.softmax(x.detach().reshape(-1, x.shape[-1])
+                                      .to(torch.float32)
+                                      @ params["router"], dim=-1)
+                top = torch.topk(probs, top_k + 1, dim=-1)
+                self.calls.append((
+                    top.indices[:, :top_k].sort(dim=-1).values.cpu(),
+                    (top.values[:, top_k - 1] - top.values[:, top_k]).cpu()))
+            return self._real(params, x, top_k, *args, **kwargs)
+
+        moe.moe_apply = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.moe_apply = self._real
+
+
+def routing_flips(card: RoutingLog, cpu: RoutingLog) -> dict:
+    """The tokens whose expert sets differ card vs CPU -> {call index:
+    token indices}, their count, the largest CPU gap among them; fails
+    unless every such token's gap is under 1e-5 (a near-tie, which fp32
+    sums in another order may break either way)."""
+    if len(card.calls) != len(cpu.calls):
+        raise SystemExit(f"routing: {len(card.calls)} MoE calls on the card"
+                         f", {len(cpu.calls)} on the CPU")
+    tokens, n, gap, gaps = {}, 0, 0.0, []
+    for i, ((gi, _), (ci, cg)) in enumerate(zip(card.calls, cpu.calls)):
+        diff = (gi != ci).any(dim=-1).nonzero().flatten()
+        gaps.append(float(cg.min()))
+        if len(diff):
+            tokens[i] = diff.tolist()
+            n += len(diff)
+            gap = max(gap, float(cg[diff].max()))
+    if gap >= 1e-5:
+        raise SystemExit(f"routing: {n} token routings differ card vs CPU, "
+                         f"one at a gap of {gap:.2e} between its k-th and "
+                         "(k+1)-th probabilities (>= 1e-5: not a near-tie)")
+    return {"calls": len(card.calls), "tokens_differing": n,
+            "max_gap": gap, "smallest_gap_seen": min(gaps),
+            "tokens": tokens}
+
+
+def moe_apply_parity(torch) -> dict:
+    """``moe_apply`` at OLMoE-1B-7B's widths (d 2048, 64 experts of ff
+    1024, top 8, f32) on one input of 256 tokens, card against CPU: at
+    ample capacity (256 slots an expert: nothing dropped) and at the
+    default 1.25 (40 slots: tokens dropped).  Routing first: a token whose
+    expert set differs must sit at a near-tie (``routing_flips``);
+    outputs within 1e-4 (abs and rel) on the tokens routed alike, and the
+    dropped fraction equal when every token is routed alike."""
+    from repro_torch.configs import olmoe_1b_7b
+    from repro_torch.nn import moe
+
+    cfg = olmoe_1b_7b.make_config()
+    cpu_p = moe.init_moe(torch.Generator().manual_seed(6), cfg.d_model,
+                         cfg.d_ff, cfg.moe_experts, torch.float32)
+    gpu_p = {k: v.cuda() for k, v in cpu_p.items()}
+    x = torch.randn((1, 256, cfg.d_model), generator=torch.Generator()
+                    .manual_seed(7))
+    res = {}
+    for name, cap in (("ample", 256), ("default", None)):
+        logs = RoutingLog(), RoutingLog()
+        with logs[0]:
+            g_out, g_aux = moe.moe_apply(gpu_p, x.cuda(), cfg.moe_top_k,
+                                         capacity=cap)
+        with logs[1]:
+            c_out, c_aux = moe.moe_apply(cpu_p, x, cfg.moe_top_k,
+                                         capacity=cap)
+        flips = routing_flips(*logs)
+        same = torch.ones(256, dtype=torch.bool)
+        same[flips["tokens"].get(0, [])] = False
+        g_out, c_out = g_out.cpu()[0], c_out[0]
+        err = check_close(f"moe_apply {name}", g_out[same], c_out[same],
+                          TOL_LOGITS) if (flips["tokens_differing"] == 0
+                                          or cap == 256) else float("nan")
+        gd, cd = float(g_aux["dropped_frac"]), float(c_aux["dropped_frac"])
+        if flips["tokens_differing"] == 0 and gd != cd:
+            raise SystemExit(f"moe_apply {name}: dropped {gd} on the card, "
+                             f"{cd} on the CPU")
+        res[name] = {"capacity": cap or moe.moe_capacity(
+            256, cfg.moe_top_k, cfg.moe_experts, cfg.moe_capacity_factor),
+            "max_abs_err": err, "dropped_frac": gd,
+            "lb_loss_diff": abs(float(g_aux["lb_loss"])
+                                - float(c_aux["lb_loss"])),
+            **{k: v for k, v in flips.items() if k != "tokens"}}
+        log(f"[parity-moe] moe_apply {name} capacity "
+            f"{res[name]['capacity']}: {flips['tokens_differing']} of 256 "
+            f"tokens routed differently (smallest 8th-9th gap "
+            f"{flips['smallest_gap_seen']:.2e}); max |diff| {err:.2e} on "
+            f"the {int(same.sum())} routed alike (limit {TOL_LOGITS} abs + "
+            f"rel); dropped {gd:.4f} (CPU {cd:.4f})")
+    return res
+
+
+def moe_train_parity(torch) -> dict:
+    """One ``lm_train_step`` at OLMoE-1B-7B's widths, 1 layer, B 1, S 128,
+    f32, card against CPU from the same parameters: the loss and every
+    gradient within 1e-4 x each leaf's max |value| (1e-4 relative for the
+    loss), the routing compared first; then the step itself on the card
+    (its loss, finite, the one just compared)."""
+    import numpy as np
+
+    from repro_torch.configs import olmoe_1b_7b
+    from repro_torch.core.models import ParamTree
+    from repro_torch.launch import steps as lsteps
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+
+    cfg = dataclasses.replace(olmoe_1b_7b.make_config(), num_layers=1,
+                              dtype=torch.float32)
+    cpu_p = ParamTree(lm.init_lm_params(torch.Generator().manual_seed(8),
+                                        cfg))
+    gpu_p = ParamTree(_tree_cuda(lsteps.lm_tree(cpu_p)))
+    rng = np.random.default_rng(9)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, 129)))
+    logs = RoutingLog(), RoutingLog()
+    with logs[0]:
+        g_loss, g_grads = lsteps.lm_loss_and_grads(
+            cfg, gpu_p, toks[:, :-1].cuda(), toks[:, 1:].cuda())
+    with logs[1]:
+        c_loss, c_grads = lsteps.lm_loss_and_grads(cfg, cpu_p, toks[:, :-1],
+                                                   toks[:, 1:])
+    flips = routing_flips(*logs)
+    names = [n for n, _ in cpu_p.named_parameters()]
+    errs = {}
+    compared = flips["tokens_differing"] == 0
+    for name, g, c in zip(names, g_grads, c_grads, strict=True):
+        err = float((g.cpu() - c).abs().max())
+        errs[name] = err / max(float(c.abs().max()), 1e-30)
+        if compared and not errs[name] <= TOL_GRAD:
+            raise SystemExit(f"moe train parity: gradient {name} max |diff|"
+                             f" {err:.3e}, {errs[name]:.2e} x its max")
+    loss_rel = abs(float(g_loss) - float(c_loss)) / abs(float(c_loss))
+    if compared and not loss_rel <= TOL_GRAD:
+        raise SystemExit(f"moe train parity: loss {float(g_loss)} on the "
+                         f"card, {float(c_loss)} on the CPU")
+    if not compared:
+        log(f"[parity-moe] ROUTING FLIP in the train step: "
+            f"{flips['tokens_differing']} token routings differ at near-ties"
+            f" (largest gap {flips['max_gap']:.2e}); gradients reported, "
+            "not compared")
+    # the step itself on the card, from a fresh AdamW state
+    step = lsteps.lm_train_step(cfg)
+    _, _, g_step = step(gpu_p, adamw.init_state(gpu_p), toks[:, :-1].cuda(),
+                        toks[:, 1:].cuda())
+    if not (np.isfinite(float(g_step))
+            and abs(float(g_step) - float(g_loss)) <= 1e-6 * abs(
+                float(g_loss))):
+        raise SystemExit(f"moe train parity: the step's loss {g_step} "
+                         f"against {g_loss}")
+    worst = max(errs, key=errs.get)
+    log(f"[parity-moe] lm_train_step, OLMoE widths, 1 layer, B 1, S 128, "
+        f"f32: loss {float(g_loss):.6f} card vs {float(c_loss):.6f} CPU "
+        f"({loss_rel:.1e} relative); gradients max |diff| / leaf max "
+        f"{errs[worst]:.2e} ({worst}; limit {TOL_GRAD}); routing "
+        f"{flips['tokens_differing']} of {128 * flips['calls']} differ; "
+        f"the card's step: loss {float(g_step):.6f}")
+    return {"loss_card": float(g_loss), "loss_cpu": float(c_loss),
+            "loss_rel": loss_rel, "grad_err_over_max": errs,
+            "compared": compared,
+            **{k: v for k, v in flips.items() if k != "tokens"}}
+
+
+def _tree_cuda(tree):
+    return {k: _tree_cuda(v) if isinstance(v, dict) else v.detach().cuda()
+            for k, v in tree.items()}
+
+
+def moe_parity(torch) -> dict:
+    """The moe group's card-against-CPU checks (TF32 off, f32)."""
+    from repro_torch.configs import olmoe_1b_7b
+
+    res = {"moe_apply": moe_apply_parity(torch)}
+    gc.collect()
+    # 2 layers; capacity factor E / k, so every expert has a slot for
+    # every token: nothing drops and the batch rows stay independent
+    cfg = olmoe_1b_7b.make_config()
+    cfg = dataclasses.replace(cfg, num_layers=2, dtype=torch.float32,
+                              moe_capacity_factor=cfg.moe_experts
+                              / cfg.moe_top_k)
+    res["model"] = model_parity(torch, cfg, "parity-moe",
+                                routing=(RoutingLog(), RoutingLog()))
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["train_step"] = moe_train_parity(torch)
+    return res
+
+
+def moe_train(torch, kernels, obs) -> dict:
+    """LM training at OLMoE-1B-7B's widths, cut to 4 of its 16 layers
+    (1.885 B parameters: bf16 parameters and gradients and AdamW's fp32
+    m, v and master take ~30 GB, 16 layers would need ~110 GB), at
+    ``train_4k``'s sequence of 4,096 tokens, batch cut from 256 to 2:
+    ``MOE_TRAIN_STEPS`` ``lm_train_step`` calls from ``init_lm_params`` and
+    ``adamw.init_state``, every count zeroed just before and read just
+    after (no kernel: training decodes nothing).  Losses finite; step ms
+    (host clock + sync, the median after the first), tokens/s, peak
+    device memory."""
+    import numpy as np
+
+    from repro_torch.configs import olmoe_1b_7b
+    from repro_torch.kernels.build import reset_counts
+    from repro_torch.launch import steps as lsteps
+
+    cfg = dataclasses.replace(olmoe_1b_7b.make_config(),
+                              num_layers=MOE_TRAIN_LAYERS)
+    t0 = time.perf_counter()
+    params, opt = lsteps.lm_train_state(
+        torch.Generator(device="cuda").manual_seed(0), cfg)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in params.parameters())
+    if n != cfg.param_count():
+        raise SystemExit(f"moe train: {n} parameters, the config says "
+                         f"{cfg.param_count()}")
+    state_gb = torch.cuda.memory_allocated() / 1e9
+    log(f"[moe-train] {cfg.name} widths, {cfg.num_layers} of 16 layers: "
+        f"{n:,} parameters and AdamW state ({state_gb:.2f} GB) made on the "
+        f"card in {time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(0)
+    seq = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                       (MOE_TRAIN_BATCH, MOE_TRAIN_SEQ + 1)),
+                          device="cuda")
+    toks, tgts = seq[:, :-1], seq[:, 1:]
+    step = lsteps.lm_train_step(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(kernels)
+    losses, step_ms = [], []
+    for _ in range(MOE_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, loss = step(params, opt, toks, tgts)
+        losses.append(float(loss))          # reads the loss: a sync
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = {k.name: k.launches for k in kernels}
+    check_launches("moe-train", launches, {k: 0 for k in launches})
+    if not np.isfinite(losses).all():
+        raise SystemExit(f"moe train: losses {losses}")
+    warm = statistics.median(step_ms[1:])
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    tokens = MOE_TRAIN_BATCH * MOE_TRAIN_SEQ
+    log(f"[moe-train] {MOE_TRAIN_STEPS} steps of B {MOE_TRAIN_BATCH} x S "
+        f"{MOE_TRAIN_SEQ}: losses " + ", ".join(f"{v:.5f}" for v in losses))
+    log(f"[moe-train] step ms " + ", ".join(f"{v:.1f}" for v in step_ms)
+        + f"; warm median {warm:.1f} ms -> {tokens / warm * 1e3:.0f} "
+        f"tokens/s; peak device memory {peak:.2f} GB ({state_gb:.2f} of "
+        "parameters and AdamW state)")
+    del params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"layers": cfg.num_layers, "params": n, "batch": MOE_TRAIN_BATCH,
+            "seq": MOE_TRAIN_SEQ, "losses": losses, "step_ms": step_ms,
+            "warm_step_ms": warm, "tokens_per_s": tokens / warm * 1e3,
+            "peak_gb": peak, "state_gb": state_gb, "launches": launches}
 
 
 # ---------------------------------------------------------------- main -----
 
 GROUPS = ("serve", "train", "stream", "partition", "dstream", "hybrid",
-          "sampled", "ft", "trace", "data", "lm")
+          "sampled", "ft", "trace", "data", "lm", "moe")
 
 
 def kernel_entry(name: str, source: str, replaces: str, launches: dict,
@@ -4313,29 +4823,32 @@ def main(argv: list[str] | None = None) -> int:
     timer = Timer(torch)
     launches, report = {}, []
     if "serve" in groups:
-        eng, events, launches["serve"] = phase(
+        eng, events, launches["serve"], replay = phase(
             "main path", main_path, torch, kernels, obs, n_nodes, max_edges)
         spmm_rows, spmm_err, skew_err, skew_rows = phase(
             "segment_spmm check", check_spmm, torch, eng, timer)
         ttm = phase("banded_ttm check", check_ttm, torch, n_nodes,
                     eng.model.window, timer)
         step_prof = phase("profile", profile_step, torch, eng)
-        phase("plain-path parity", plain_parity, eng, events)
+        phase("plain-path parity", plain_parity, eng, events, replay)
         phase("small-graph parity", small_parity, torch)
         # the engine sits in a reference cycle: collect it now, or its
         # device state stays allocated under the train phase's peak
-        del eng, events
+        del eng, events, replay
         gc.collect()
         torch.cuda.empty_cache()
     train_ds = stream_pipe = None
     if "train" in groups:
-        batch, train_stats, train_ds = phase("train path", train_path,
-                                             torch, kernels, obs, n_nodes)
+        batch, train_stats, train_ds, stream_pipe = phase(
+            "train path", train_path, torch, kernels, obs, n_nodes)
         launches["train"] = train_stats["launches"]
         spmm_bwd, ttm_train_rows, ttm_t_rows, ttm_sweep, ttm_t_sweep = \
             phase("train-shape kernel checks", check_backward, torch, batch,
                   n_nodes, 5, timer)
+        # the pipeline goes on to the streamed phases; its padded batch
+        # (2.5 GB with its CSR pairs) would sit under their peaks
         del batch
+        stream_pipe._batch = None
         gc.collect()
         torch.cuda.empty_cache()
         train_par = phase("train parity", train_parity, torch)
@@ -4346,7 +4859,8 @@ def main(argv: list[str] | None = None) -> int:
             log(f"[stream] trace made on the host in "
                 f"{time.perf_counter() - t0:.1f} s (no train phase)")
         stream_stats, stream_pipe = phase("stream path", stream_path, torch,
-                                          kernels, obs, train_ds)
+                                          kernels, obs, train_ds,
+                                          stream_pipe)
         launches["stream"] = stream_stats["launches"]
         stream_checks = phase("stream-shape kernel checks",
                               stream_kernel_checks, torch, stream_pipe, 5,
@@ -4459,14 +4973,15 @@ def main(argv: list[str] | None = None) -> int:
     if "data" in groups:
         gc.collect()
         torch.cuda.empty_cache()
-        data_stats = phase("data path", data_path, torch, kernels, train_ds,
-                           train_stats["losses"])
+        data_stats = phase("data path", data_path, torch, kernels, train_ds)
         launches["data"] = data_stats["launches"]
     del train_ds, stream_pipe
     gc.collect()
     torch.cuda.empty_cache()
     if "lm" in groups:
-        lm_eng, lm_stats = phase("lm path", lm_path, torch, kernels, obs)
+        from repro_torch.configs import yi_6b
+        lm_eng, lm_stats = phase("lm path", lm_path, torch, kernels, obs,
+                                 yi_6b.make_config())
         launches["lm"] = {"flash_decode": lm_stats["launches"]}
         lm_prof = phase("lm profile", profile_decode, torch, lm_eng)
         del lm_eng
@@ -4474,7 +4989,38 @@ def main(argv: list[str] | None = None) -> int:
         torch.cuda.empty_cache()
         fd_rows, fd_err = phase("flash_decode check", check_flash_decode,
                                 torch, timer)
-        phase("lm parity", lm_parity, torch)
+        lm_stats["parity"] = phase("lm parity", lm_parity, torch)
+    if "moe" in groups:
+        from repro_torch.configs import moonshot_v1_16b_a3b, olmoe_1b_7b
+        moe_eng, olmoe = phase("moe path", lm_path, torch, kernels, obs,
+                               olmoe_1b_7b.make_config(), "moe")
+        olmoe["decode_profile"] = phase("moe profile", profile_decode,
+                                        torch, moe_eng, "profile-moe")
+        del moe_eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        moon_cfg = dataclasses.replace(moonshot_v1_16b_a3b.make_config(),
+                                       num_layers=MOONLIGHT_LAYERS)
+        moe_eng, moon = phase("moe moonlight", lm_path, torch, kernels, obs,
+                              moon_cfg, "moe-moonlight", LM_BATCH,
+                              MOONLIGHT_PROMPT, MOONLIGHT_TOKENS)
+        del moe_eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        moe_stats = {"olmoe": olmoe, "moonlight": moon}
+        launches["moe"] = {"flash_decode": olmoe["launches"]
+                           + moon["launches"]}
+        moe_stats["train"] = phase("moe train", moe_train, torch, kernels,
+                                   obs)
+        moe_stats["parity"] = phase("moe parity", moe_parity, torch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        if "lm" not in groups:
+            fd_rows, fd_err = phase("flash_decode check (OLMoE)",
+                                    check_flash_decode, torch, timer,
+                                    FD_MOE_CASES)
+        moe_stats["flash_decode"] = [r for r in fd_rows if r["case"] in
+                                     {c[0] for c in FD_MOE_CASES}]
 
     if "serve" in groups:
         spmm_main = next(r for r in spmm_rows if r["F"] == 6)  # layer 2
@@ -4540,12 +5086,15 @@ def main(argv: list[str] | None = None) -> int:
         log(json.dumps({"trace_path": trace_stats}))
     if "data" in groups:
         log(json.dumps({"data_path": data_stats}))
-    if "lm" in groups:
+    if "moe" in groups:
+        log(json.dumps({"moe_path": moe_stats}))
+    if {"lm", "moe"} & set(groups):
         report.append(kernel_entry(
             "flash_decode", "src/repro_torch/csrc/flash_decode.cu",
             "src/repro/kernels/flash_decode/flash_decode.py:69", launches,
             dict(fd_rows[0], max_abs_err=fd_err), shapes=fd_rows,
-            lm_path=lm_stats, decode_profile=lm_prof))
+            **({"lm_path": lm_stats, "decode_profile": lm_prof}
+               if "lm" in groups else {})))
     log("[done] kernels launched on the paths driven and checked against "
         "their plain versions: " + ", ".join(k["name"] for k in report))
     log(json.dumps({"kernels": report}))

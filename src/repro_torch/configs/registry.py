@@ -1,9 +1,10 @@
 """Architecture registry of the port: ``arch=<id>`` selects a config.
 
 Port of ``repro.configs.registry`` for the dyngnn archs (``tmgcn``,
-``cdgcn``, ``evolvegcn``, ``paper_dyngnn``) and the dense LM archs
-(``yi-6b``, ``gemma-7b``, ``minicpm-2b``).  The seed's MoE LM, recsys and
-static-GNN archs are known by name and family only: asking for one raises
+``cdgcn``, ``evolvegcn``, ``paper_dyngnn``) and the LM archs (dense
+``yi-6b``, ``gemma-7b``, ``minicpm-2b``; MoE ``olmoe-1b-7b``,
+``moonshot-v1-16b-a3b``).  The seed's recsys and static-GNN archs are
+known by name and family only: asking for one raises
 ``NotImplementedError`` until ROADMAP Queue 1, item 9 ports them.
 """
 
@@ -28,12 +29,13 @@ ARCH_MODULES = [
     "repro_torch.configs.yi_6b",
     "repro_torch.configs.gemma_7b",
     "repro_torch.configs.minicpm_2b",
+    "repro_torch.configs.olmoe_1b_7b",
+    "repro_torch.configs.moonshot_v1_16b_a3b",
     "repro_torch.configs.paper_dyngnn",
 ]
 
 #: archs of the JAX package the port does not serve yet -> their family
 NOT_PORTED = {
-    "olmoe-1b-7b": "lm", "moonshot-v1-16b-a3b": "lm",
     "gatedgcn": "gnn", "pna": "gnn", "schnet": "gnn",
     "equiformer-v2": "gnn", "din": "recsys",
 }

@@ -47,8 +47,18 @@ def params_from_jax(tree: dict) -> ParamTree:
 def lm_params_from_jax(tree: dict) -> dict:
     """A JAX LM parameter tree (``repro.models.lm.init_lm_params``) as
     numpy arrays -> the same nested dict of CPU tensors, the tree
-    ``repro_torch.models.lm`` takes."""
+    ``repro_torch.models.lm`` takes.  Each leaf keeps its dtype: an MoE
+    layer's fp32 router beside its bf16 experts."""
     return _numpy_tree(tree)
+
+
+def lm_train_state_from_jax(params: dict, state: dict
+                            ) -> tuple[ParamTree, dict]:
+    """A JAX LM parameter tree and its AdamW state (as numpy arrays) ->
+    (the tree as a ``ParamTree``, the port's AdamW state over it), what
+    ``repro_torch.launch.steps.lm_train_step`` takes: a JAX train step and
+    the port's then start from the same state."""
+    return ParamTree(_numpy_tree(params)), opt_state_from_jax(state)
 
 
 def params_to_numpy(params: ParamTree) -> dict[str, np.ndarray]:
@@ -79,9 +89,9 @@ def carries_to_numpy(carries: Any) -> Any:
 
 def opt_state_from_jax(state: dict) -> dict:
     """A JAX AdamW state (``repro.optim.adamw.init_state``'s tree as numpy
-    arrays) -> the port's: ``m`` / ``v`` / ``master`` keyed by the
-    ``ParamTree`` parameter names in its order, ``step`` a 0-d int32
-    tensor on the host."""
+    arrays, of a dyngnn or an LM tree) -> the port's: ``m`` / ``v`` /
+    ``master`` keyed by the ``ParamTree`` parameter names in its order,
+    ``step`` a 0-d int32 tensor on the host."""
     names = [k for k, _ in ParamTree(_numpy_tree(state["m"]))
              .named_parameters()]
 

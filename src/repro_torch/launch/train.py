@@ -1,8 +1,8 @@
 """Training launcher: ``python -m repro_torch.launch.train --arch <id>``.
 
-Port of the dyngnn single-device branches of ``repro.launch.train``: it
-trains a dynamic-GNN arch (``paper_dyngnn``, ``tmgcn``, ``cdgcn``,
-``evolvegcn``) through ``repro_torch.run.Engine`` on a synthetic trace.
+Port of ``repro.launch.train`` for the dyngnn and LM families.  A
+dynamic-GNN arch (``paper_dyngnn``, ``tmgcn``, ``cdgcn``, ``evolvegcn``)
+trains through ``repro_torch.run.Engine`` on a synthetic trace.
 By default the blocked trainer runs ``--steps`` steps, evaluates link
 prediction and prints the reference's ``done: ...`` line; ``--stream``
 runs ``--epochs`` passes of per-snapshot training over the graph-diff
@@ -10,6 +10,21 @@ delta stream (the prefetch thread on a side CUDA stream, or inline with
 ``--no-overlap``) and prints ``streamed ... snapshot steps, final loss
 ..., transfer ratio ... vs naive``.  ``--device`` defaults to ``cuda``;
 ``--device cpu`` runs the kernels' plain versions on the host.
+
+An LM arch (``yi-6b``, ``gemma-7b``, ``minicpm-2b``, ``olmoe-1b-7b``,
+``moonshot-v1-16b-a3b``; the smoke config unless ``--full-config``) takes
+``--steps`` AdamW steps of ``launch.steps.lm_train_step`` on the
+reference's smoke batch -- 2 sequences of 128 tokens, tokens and targets
+from ``np.random.default_rng(0).integers(0, 2, .)`` -- and prints the
+reference's ``step i loss x`` lines (every ``steps // 10``) and ``done``.
+Its parameters come from ``init_lm_params`` and its AdamW state from
+``adamw.init_state``: the reference fills both with N(0, 0.1) draws, a
+negative second moment included, and its losses go NaN after step 0.  LM
+training runs in one process; under ``torchrun`` it is refused until
+ROADMAP Queue 1, item 9d::
+
+    python -m repro_torch.launch.train --arch olmoe-1b-7b --steps 10 \
+        --device cpu
 
 Snapshot-partitioned training runs one process per rank under
 ``torchrun``, which the launcher reads from the environment::
@@ -92,7 +107,7 @@ def _finish_trace(path: str | None, result, rank: int) -> None:
         return
     dropped = f" ({trc.dropped} spans dropped)" if trc.dropped else ""
     print(f"trace: {len(trc.spans())} spans -> {out}{dropped}")
-    if result.per_shard_bytes is not None:
+    if result is not None and result.per_shard_bytes is not None:
         # int8 wire formats quarter the a2a bytes the model predicts
         ratio = 0.25 if result.compression != "none" else 1.0
         rep = obs.calibration_report(
@@ -260,6 +275,9 @@ def _train(args, dp: int, world: int, rescale: tuple) -> None:
         ExecutionPlan, RunConfig, SamplingSpec, SyntheticTrace
 
     arch = registry.get_arch(args.arch)
+    if arch.family == "lm":
+        _train_lm(args, arch, world)
+        return
     if arch.family != "dyngnn":
         raise SystemExit(f"training the {arch.family} family is not ported "
                          "to PyTorch yet (ROADMAP Queue 1, item 9)")
@@ -392,6 +410,55 @@ def _train(args, dp: int, world: int, rescale: tuple) -> None:
     acc = engine.evaluate(result)
     print(f"done: {result.state.step} steps, final loss {final}, "
           f"link-pred acc {acc:.3f}")
+
+
+LM_BATCH, LM_SEQ = 2, 128      # the reference launcher's smoke batch
+
+
+def _train_lm(args, arch, world: int) -> None:
+    """``--steps`` LM train steps on the reference's smoke batch (module
+    docstring); prints ``step i loss x`` and ``done``."""
+    if world > 1:
+        raise SystemExit("LM training runs in one process: training over "
+                         f"{world} ranks waits for ROADMAP Queue 1, item 9d")
+    flags = {"--stream": args.stream, "--sampled": args.sampled,
+             "--mesh": args.mesh, "--data-parallel": args.data_parallel,
+             "--ckpt-dir": args.ckpt_dir,
+             "--device-budget": args.device_budget,
+             "--pipeline-rounds": args.pipeline_rounds,
+             "--a2a-chunks": args.a2a_chunks != 1,
+             "--compression": args.compression != "none"}
+    given = [f for f, on in flags.items() if on]
+    if given:
+        raise SystemExit(f"{', '.join(given)} configure the dyngnn "
+                         "schedules; the lm family trains one LM step at a "
+                         "time on one device")
+    import numpy as np
+    import torch
+
+    from repro_torch import obs, resolve_device
+    from repro_torch.launch.steps import lm_train_state, lm_train_step
+
+    dev = resolve_device(args.device)
+    cfg = (arch.make_config() if args.full_config
+           else arch.make_smoke_config())
+    rng = np.random.default_rng(0)
+    tokens, targets = (torch.as_tensor(rng.integers(0, 2, (LM_BATCH,
+                                                           LM_SEQ)),
+                                       dtype=torch.int32, device=dev)
+                       for _ in range(2))
+    params, opt_state = lm_train_state(
+        torch.Generator(device=dev).manual_seed(0), cfg)
+    step = lm_train_step(cfg)
+    for i in range(args.steps):
+        with obs.span("train.step", cat="train", step=i) as sp:
+            params, opt_state, loss = step(params, opt_state, tokens,
+                                           targets)
+            sp.fence(loss)
+        if i % max(args.steps // 10, 1) == 0:
+            print(f"step {i} loss {float(loss):.4f}")
+    _finish_trace(args.trace, None, 0)
+    print("done")
 
 
 def _quiet(_msg: str) -> None:

@@ -213,3 +213,24 @@ class ServeResult:
         if self.ingest_seconds <= 0:
             return float("nan")
         return self.events_ingested / self.ingest_seconds
+
+    def summary(self) -> str:
+        """One line of the session's counters (the reference's)."""
+        parts = [f"family={self.family}"]
+        if self.arch:
+            parts.append(f"arch={self.arch}")
+        if self.events_ingested:
+            parts.append(f"ingested {self.events_ingested} events over "
+                         f"{self.windows_advanced} windows "
+                         f"({self.events_per_s:.0f} ev/s, "
+                         f"{self.resyncs} resyncs)")
+        if self.queries:
+            parts.append(f"{self.queries} queries in "
+                         f"{self.query_batches} batches "
+                         f"(p50 {self.p50_ms:.2f} ms, "
+                         f"p95 {self.p95_ms:.2f} ms)")
+        if self.tokens_generated:
+            parts.append(f"{self.tokens_generated} tokens")
+        if self.guard_trips:
+            parts.append(f"{self.guard_trips} concurrent entries rejected")
+        return "; ".join(parts)

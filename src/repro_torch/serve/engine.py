@@ -12,9 +12,9 @@ Port of ``repro.serve.engine`` for the dyngnn and lm families.
   against that cache: no re-encoding, no model re-run.  After window t the
   served scores equal the JAX package's on the same events and parameters
   to <=1e-5 on the CPU (``tests/test_torch_serve.py``).
-* lm — prefill + greedy KV-cache decode behind ``generate()``; each
-  decode step's attention runs the ``flash_decode`` CUDA kernel on the
-  card.  The tokens equal the JAX engine's for the same parameters and
+* lm — prefill + greedy KV-cache decode behind ``generate()``, dense
+  and MoE archs alike; each decode step's attention runs the
+  ``flash_decode`` CUDA kernel on the card.  The tokens equal the JAX engine's for the same parameters and
   seed on the CPU (``tests/test_torch_lm.py``).
 
 The recsys family raises ``NotImplementedError`` until ROADMAP Queue 1,

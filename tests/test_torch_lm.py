@@ -11,6 +11,8 @@ reaches the ``flash_decode`` kernel's plain version through its wrapper;
 ``chip_smoke.py`` holds the CUDA kernel to it on the card.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -36,7 +38,9 @@ from repro_torch.serve import ServeConfig, ServeEngine
 
 TOL = 1e-4
 INVARIANT_TOL = 2e-3
-ARCHS = ("yi-6b", "gemma-7b", "minicpm-2b")
+DENSE_ARCHS = ("yi-6b", "gemma-7b", "minicpm-2b")
+MOE_ARCHS = ("olmoe-1b-7b", "moonshot-v1-16b-a3b")
+ARCHS = DENSE_ARCHS + MOE_ARCHS
 
 
 def _close(got, want, tol=TOL):
@@ -211,11 +215,15 @@ def test_configs_copy_the_reference(arch):
         for f in ("name", "num_layers", "d_model", "num_heads",
                   "num_kv_heads", "head_dim", "d_ff", "vocab_size",
                   "activation", "rope_theta", "norm_eps", "rms_plus_one",
-                  "embed_scale", "moe_experts", "q_chunk", "lr_schedule"):
+                  "embed_scale", "moe_experts", "moe_top_k",
+                  "moe_capacity_factor", "aux_loss_weight", "remat",
+                  "loss_chunk", "q_chunk", "lr_schedule"):
             assert getattr(tc, f) == getattr(jc, f), (make, f)
         assert str(tc.dtype).split(".")[-1] == jnp.dtype(jc.dtype).name
         assert tc.padded_vocab == jc.padded_vocab
+        assert tc.is_moe == jc.is_moe == (arch in MOE_ARCHS)
         assert tc.param_count() == jc.param_count()
+        assert tc.active_param_count() == jc.active_param_count()
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -266,8 +274,13 @@ def test_prefill_and_decode_match_jax(arch):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_decode_matches_training_forward(arch):
     """The reference's KV-cache invariant on the port: decode logits equal
-    the training forward's, position by position."""
+    the training forward's, position by position.  An MoE layer drops
+    tokens past its capacity, which depends on the tokens routed together
+    (B x S in the forward, B in a decode step), so the MoE archs are held
+    to it with capacity to spare (nothing dropped on either side)."""
     _, tcfg, _, tparams = _models(arch, seed=3)
+    if tcfg.is_moe:
+        tcfg = dataclasses.replace(tcfg, moe_capacity_factor=16.0)
     toks = _t(np.random.default_rng(0).integers(0, 512, (2, 12)))
     logits_f = lm.forward(tcfg, tparams, toks)
     plog, cache = lm.prefill(tcfg, tparams, toks[:, :6], max_len=16)
@@ -296,6 +309,18 @@ def test_serve_engine_generates_the_jax_engines_tokens():
     np.testing.assert_array_equal(eng.generate(prompts), np.asarray(want))
 
 
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_serve_engine_generates_the_jax_engines_tokens(arch):
+    sc = dict(arch=arch, batch_sizes=(3,), prompt_len=8, max_tokens=5)
+    jcfg = jregistry.get_arch(arch).make_smoke_config()
+    jparams = jlm.init_lm_params(jax.random.PRNGKey(12), jcfg)
+    want = JEngine(JConfig(**sc), params=jparams).generate()
+    tparams = convert.lm_params_from_jax(jax.tree.map(np.asarray, jparams))
+    eng = ServeEngine(ServeConfig(**sc), params=tparams, device="cpu")
+    np.testing.assert_array_equal(eng.generate(), np.asarray(want))
+    assert eng.result().tokens_generated == 15
+
+
 def test_generate_spans_and_family_guards():
     from repro_torch import obs
     tracer = obs.configure(enabled=True)
@@ -321,7 +346,6 @@ def test_generate_spans_and_family_guards():
 
 def test_bf16_params_cross_bit_exactly():
     jcfg = jregistry.get_arch("yi-6b").make_smoke_config()
-    import dataclasses
     jcfg = dataclasses.replace(jcfg, dtype=jnp.bfloat16)
     jparams = jax.tree.map(np.asarray,
                            jlm.init_lm_params(jax.random.PRNGKey(2), jcfg))
@@ -344,10 +368,32 @@ def test_bf16_params_cross_bit_exactly():
                                   arr.view(np.int16))
 
 
+def test_moe_params_cross_with_an_fp32_router():
+    """An MoE tree in bf16: the experts cross bit for bit in bf16, the
+    router (fp32 in the reference) in fp32."""
+    jcfg = dataclasses.replace(
+        jregistry.get_arch("olmoe-1b-7b").make_smoke_config(),
+        dtype=jnp.bfloat16)
+    jparams = jax.tree.map(np.asarray,
+                           jlm.init_lm_params(jax.random.PRNGKey(5), jcfg))
+    tparams = convert.lm_params_from_jax(jparams)
+    for path, leaf in jax.tree_util.tree_flatten_with_path(jparams)[0]:
+        node = tparams
+        for key in path:
+            node = node[key.key]
+        name = jax.tree_util.keystr(path)
+        if "router" in name:
+            assert node.dtype == torch.float32 and leaf.dtype == np.float32
+            np.testing.assert_array_equal(node.numpy(), leaf)
+        else:
+            assert node.dtype == torch.bfloat16, name
+            np.testing.assert_array_equal(node.view(torch.int16).numpy(),
+                                          leaf.view(np.int16))
+
+
 # ------------------------------------------------------------ refusals ----
 
-@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "moonshot-v1-16b-a3b",
-                                  "din"])
+@pytest.mark.parametrize("arch", ["gatedgcn", "schnet", "din"])
 def test_unported_archs_raise(arch):
     with pytest.raises(NotImplementedError, match="Queue 1, item 9"):
         registry.get_arch(arch)
@@ -356,12 +402,27 @@ def test_unported_archs_raise(arch):
 
 
 def test_moe_config_raises():
-    cfg = lm.LMConfig(num_layers=1, d_model=32, moe_experts=4,
-                      dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        lm.init_lm_params(torch.Generator().manual_seed(0), cfg)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        ServeEngine(ServeConfig(model=cfg), device="cpu")
+    """An MoE LMConfig builds the MoE tree (stacked router, experts) and is
+    served; one whose top-k exceeds its experts raises in the router."""
+    cfg = lm.LMConfig(num_layers=3, d_model=32, num_heads=2, num_kv_heads=2,
+                      head_dim=16, d_ff=24, vocab_size=256, moe_experts=4,
+                      moe_top_k=2, dtype=torch.bfloat16)
+    params = lm.init_lm_params(torch.Generator().manual_seed(0), cfg)
+    ffn = params["layers"]["ffn"]
+    assert {k: tuple(v.shape) for k, v in ffn.items()} == {
+        "router": (3, 32, 4), "wi_gate": (3, 4, 32, 24),
+        "wi_up": (3, 4, 32, 24), "wo": (3, 4, 24, 32)}
+    assert ffn["router"].dtype == torch.float32
+    assert ffn["wo"].dtype == torch.bfloat16
+    n = sum(x.numel() for x in jax.tree.leaves(params))
+    assert n == cfg.param_count()
+    eng = ServeEngine(ServeConfig(model=cfg, batch_sizes=(2,), prompt_len=4,
+                                  max_tokens=3), device="cpu")
+    assert eng.generate().shape == (2, 3)
+    bad = dataclasses.replace(cfg, moe_top_k=5, dtype=torch.float32)
+    with pytest.raises(RuntimeError):
+        lm.forward(bad, lm.init_lm_params(torch.Generator(), bad),
+                   torch.zeros((1, 4), dtype=torch.long))
 
 
 def test_flash_decode_wrapper_runs_the_plain_version_on_the_cpu(monkeypatch):

@@ -243,7 +243,7 @@ def test_unported_families_and_wires_raise():
     with pytest.raises(NotImplementedError, match="Queue 1, item 9"):
         registry.get_arch("din")
     with pytest.raises(NotImplementedError, match="Queue 1, item 9"):
-        ServeEngine(ServeConfig(arch="olmoe-1b-7b"), device="cpu")
+        ServeEngine(ServeConfig(arch="din"), device="cpu")
     cfg = registry.get_arch("paper_dyngnn").make_config()
     assert (cfg.model, cfg.feat_in, cfg.hidden, cfg.out_dim,
             cfg.num_layers, cfg.window) == ("tmgcn", 2, 6, 6, 2, 5)
