@@ -103,9 +103,9 @@ which exits non-zero on failure:
    (8, lead 4) x N/4 x 6 = 1,132,800 columns, t_offset -4 and +4, held to
    their plain versions, shown to reject faults, timed beside bound, plain
    version and cuBLAS's dense band;
-4g. P = 2 ranks sharing the card over gloo with CUDA tensors: two spawned
-   processes (each with a join deadline) train TM-GCN at N = 65,536, T =
-   8 partitioned, then on the CPU; their losses and first-step gradients
+4g. P = 2 ranks sharing the card over gloo with CUDA tensors (the
+   shared-card phase's pair, 4o): TM-GCN at N = 65,536, T = 8
+   partitioned, then on the CPU; their losses and first-step gradients
    held to each other, to the CPU's and to the card's P = 1 run over NCCL
    (1e-4 relative and 1e-4 x each leaf's max);
 4h. the distributed stream at P = 1 over the one-rank NCCL group:
@@ -125,8 +125,8 @@ which exits non-zero on failure:
    and step), ``pipeline_rounds`` off and on in turns, peak memory; one
    layer's int8 all-to-all, its quantize and dequantize passes apart,
    beside the f32 one and their copy bounds;
-4i. P = 2 ranks sharing the card over gloo with CUDA tensors: two
-   spawned processes run the distributed stream (TM-GCN, N = 65,536, T =
+4i. P = 2 ranks sharing the card over gloo with CUDA tensors (4o's
+   pair) run the distributed stream (TM-GCN, N = 65,536, T =
    8, block 4) on cuda:0, then on the CPU, for ``none`` and ``int8_a2a``;
    their losses held to each other, to the CPU's (1e-4 relative) and to
    the card's P = 1 (``none`` 1e-4 relative, ``int8_a2a`` 1e-3);
@@ -145,7 +145,7 @@ which exits non-zero on failure:
    plain version, shown to reject zeros and a dropped edge per row, timed
    beside its bound (the x rows the CSR reads), plain version and
    ``torch.sparse.mm``; then a 2 x 2
-   grid of four spawned gloo ranks sharing cuda:0 at N = 65,536, T = 8,
+   grid of four gloo ranks sharing cuda:0 (4o) at N = 65,536, T = 8,
    held to CPU gloo and to the card's 1 x 1 grid and eager forward (1e-4);
 4k. the sampled schedule over the one-rank NCCL group: ``paper_dyngnn``
    on the first 16 steps of the train trace (N = 755,200; one epoch of 2
@@ -165,7 +165,7 @@ which exits non-zero on failure:
    all-gather / scatter, step and CSR-pair spans, the staged bytes beside
    the full round's and the peak beside ``sampled_round_bytes``; every
    vertex a seed with full fanout at N = 65,536, T = 8, 2 epochs, against
-   the distributed stream on the card (rtol 1e-5); and two spawned gloo
+   the distributed stream on the card (rtol 1e-5); and 4o's two gloo
    ranks sharing cuda:0 for 2 epochs, card against CPU and the card's P =
    1 (1e-4);
 4l. fault tolerance and elastic rescale (the ft group): eager
@@ -179,14 +179,13 @@ which exits non-zero on failure:
    end, against the uninterrupted run (rtol 1e-5; 24 / 2 / 2 / 0 and 16
    CSR builds a round); each beside a cold and a warm ``Checkpointer``
    save's blocking ms and write s, the bytes on disk and a restore; P = 2
-   -> 1 -> 2 on two spawned gloo ranks sharing cuda:0 at N = 65,536, T =
+   -> 1 -> 2 on 4o's two gloo ranks sharing cuda:0 at N = 65,536, T =
    8, against ``train_streamed`` on the card (rtol 1e-5), payloads by
    ``comm_volume.rescale_payload``; the launcher with ``--ckpt-dir`` as a
    subprocess (eager at the smoke config, 100 steps: the distributed
-   stream needs a card a rank) stopped by a real SIGTERM after its first
-   logged step,
-   exiting 0 with a checkpoint, and relaunched to the uninterrupted
-   run's final loss;
+   stream needs a card a rank; run beside 4o) stopped by a real SIGTERM
+   after its first logged step, exiting 0 with a checkpoint, and
+   relaunched to the uninterrupted run's final loss;
 4m. the training trace (the trace group): the distributed stream at
    full width, P = 1 over the one-rank NCCL group, 2 epochs of 4 rounds
    through ``Engine(ExecutionPlan(mode="streamed_mesh", shards=1))``,
@@ -201,7 +200,8 @@ which exits non-zero on failure:
    valid; the launcher with ``--trace`` on the card (eager, smoke
    config), its ``trace:`` line and a valid file;
 4n. edge-list data (the data group): the train trace's raw snapshots
-   (30,207,991 rows) written as ``.npz`` by ``write_edgelist``, read back
+   (30,207,991 rows, kept by the train phase, which made the trace in its
+   two stages) written as ``.npz`` by ``write_edgelist``, read back
    in memory and in chunks (byte-identical to the generator's lists; the
    peak RSS of each read in a child process), built by ``EdgeListDTDG``
    into the train phase's dataset array for array; cut: the ``.tsv`` form
@@ -211,6 +211,13 @@ which exits non-zero on failure:
    CSR builds; the full-width fit from the file took ~62 s of host
    pipeline); the committed fixture ``tests/fixtures/epinions_tiny.tsv``
    trained on the card and on the CPU (1e-4);
+4o. the shared-card checks of 4g, 4i, 4j, 4k and 4l at once, after the
+   ft group: one spawned pair of gloo ranks runs the partition,
+   distributed-stream, sampled and elastic checks in turn, four more
+   ranks the hybrid's 2 x 2 grid beside them (``SHARED_THREADS`` CPU
+   threads a rank, one join deadline for all), while this process makes
+   each check's P = 1 reference on the card and the ft launcher's runs go
+   on in a thread; then each group's comparison;
 5. the LM path: Yi-6B at full width (32 layers, d 4096, 32 query heads
    over 4 KV heads, D 128, bf16, random weights drawn on the card from a
    seed) served through ``ServeEngine(device="cuda").generate()``: one
@@ -259,7 +266,25 @@ which exits non-zero on failure:
    widths at 2 layers (capacity for every token: prefill and 8 decode
    steps' logits, 1e-4, rows with a near-tie routing flip reported and
    left out), and one ``lm_train_step`` at 1 layer, B 1, S 128 (loss and
-   every gradient 1e-4 x each leaf's max).
+   every gradient 1e-4 x each leaf's max);
+9. the static GNNs (the gnn group): GatedGCN, PNA, SchNet and
+   EquiformerV2 at their full configs' widths, 10 AdamW steps each of
+   ``launch.steps.gnn_train_step`` from ``init_params`` (drawn on the
+   card) and ``adamw.init_state``, at ``molecule`` (128 graphs: 3,840
+   nodes, 8,192 edges) and ``full_graph_sm`` (2,708 nodes, 10,624 edge
+   lanes, 1,433 features, 7 classes), and GatedGCN, PNA and SchNet at
+   ``minibatch_lg`` (1,024 seeds, fanouts 15 and 10: 169,984 nodes,
+   168,960 edges, 602 features, 41 classes), each shape's batch made once
+   on the card; every count zeroed just before each run and read just
+   after (no kernel: the GNNs aggregate with ``index_add`` and
+   ``scatter_reduce``); per run finite losses, the parameter count, step
+   ms, peak memory, one profiled step (device busy, idle share, device
+   time by kind); the cuts' reckoning (``ogb_products`` for every arch,
+   EquiformerV2 at ``minibatch_lg``); card against CPU (TF32 off): one
+   step's loss and gradients for each arch's smoke config on the
+   launcher's smoke batch and EquiformerV2's full widths at 2 layers on
+   ``molecule``, while the launcher trains EquiformerV2 at its full
+   config for 5 steps in a subprocess on the card.
 
 Tolerances: segment SpMM 1e-4 (abs and rel; fp32 sums in another order
 than the plain ``index_add_``), banded TTM and its transpose 1e-5 (abs
@@ -274,14 +299,15 @@ rounding of a bf16 output, 2^-8 of its size; the output shrinks as
 1 / sqrt(cache rows), so a fixed term would pass zeros at long caches);
 LM logits and ``moe_apply`` outputs 1e-4 (abs and rel; fp32 sums of
 4,096- and 11,008-long products taken in another order, TF32 off); MoE
-training gradients 1e-4 x each leaf's max.
+training gradients 1e-4 x each leaf's max; GNN losses 1e-4 relative and
+gradients 1e-4 x each leaf's max.
 Kernel times are device time only (each call queued behind a device
 sleep); ``wrapper_ms`` is the wrapper's host time plus device time.
 
 Prints the card line, the per-phase numbers, one JSON line each of the
 streamed, the partitioned, the distributed-stream, the hybrid, the
-sampled, the fault-tolerance, the trace, the data and the moe phases'
-numbers,
+sampled, the fault-tolerance, the trace, the data, the moe and the gnn
+phases' numbers,
 one JSON line of the kernels and, last, ``{"ok": true, "device":
 {...}}``.  Before that line it stops every process it started that is
 still running (the shared sampling pools, ``multiprocessing``'s resource
@@ -289,10 +315,11 @@ tracker, any child or orphaned grandchild: the script is their
 subreaper) and fails if any but those two was left; at exit it stops
 them again.  Without a CUDA device, or without the repository around
 it, it exits non-zero and prints no result.  ``--only
-serve,train,stream,partition,dstream,hybrid,sampled,ft,trace,data,lm,moe``
+serve,train,stream,partition,dstream,hybrid,sampled,ft,trace,data,lm,moe,gnn``
 runs the build and the named groups of phases (1–4, 4a–4c, 4d, 4e–4g,
 4h–4i, 4j, 4k, 4l, 4m, 4n, 5–7, 8 with phase 6's OLMoE rows when lm is
-not named; partition and data are held to train's run, so they need
+not named, 9; each of partition, dstream, hybrid, sampled and ft with
+its part of 4o; partition and data are held to train's run, so they need
 train) and prints no result line.
 """
 
@@ -337,7 +364,8 @@ STREAM_PARITY_N, STREAM_PARITY_T = 65_536, 8
 PART_P4 = 4                  # the rank count whose per-rank shapes are timed
 PART_SHARED_N, PART_SHARED_T, PART_SHARED_NB = 65_536, 8, 2
 PART_SHARED_STEPS = 4
-RANK_DEADLINE_S = 300        # a spawned rank that hangs fails its phase
+SHARED_DEADLINE_S = 600      # the shared-card ranks, all checks, start
+SHARED_THREADS = 2           # CPU threads a shared-card rank: 6 run at once
 DSTREAM_EPOCHS = 2           # the distributed stream: 4 rounds an epoch
 DSTREAM_PAIRS = 3            # pipeline_rounds off / on, 1-epoch turns
 DSTREAM_SHARED_N, DSTREAM_SHARED_T, DSTREAM_SHARED_NB = 65_536, 8, 2
@@ -369,6 +397,13 @@ MOONLIGHT_PROMPT, MOONLIGHT_TOKENS = 512, 16
 MOE_TRAIN_LAYERS = 4         # of OLMoE's 16: ~30 GB of state, not ~110
 MOE_TRAIN_BATCH, MOE_TRAIN_SEQ = 2, 4096   # train_4k's sequence, batch 256
 MOE_TRAIN_STEPS = 10
+GNN_ARCHS = ("gatedgcn", "pna", "schnet", "equiformer-v2")
+#: the gnn group's runs at full width: each shape with the archs it takes
+GNN_RUNS = (("molecule", GNN_ARCHS), ("full_graph_sm", GNN_ARCHS),
+            ("minibatch_lg", GNN_ARCHS[:3]))
+GNN_STEPS = 10
+GNN_PARITY_LAYERS = 2        # EquiformerV2's full widths, card vs CPU
+GNN_LAUNCH_STEPS = 5
 
 
 def log(msg: str) -> None:
@@ -534,7 +569,7 @@ def alternating_walls(torch, variants: dict, rounds: int, warm: int = 1
 
 
 def device_profile(torch, fn, ranges: dict | None = None,
-                   host_top: list | None = None
+                   host_top: list | None = None, host: bool = True
                    ) -> tuple[float, float, dict]:
     """``fn()`` once under ``torch.profiler`` -> (wall us, device busy us,
     {device activity name: [us, ...]}).  Device activities only (kernels,
@@ -543,13 +578,15 @@ def device_profile(torch, fn, ranges: dict | None = None,
     work (NCCL's ``nccl:all_to_all`` spans its copy) are not activities:
     they go to ``ranges`` ({name: [us, ...]}) when it is given; the 15
     host operations of most self time to ``host_top`` ([(name, us,
-    calls)]), when it is given."""
+    calls)]), when it is given.  ``host=False`` records the device alone,
+    which collects faster for a step of tens of thousands of host
+    operations."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA] + (
+            [ProfilerActivity.CPU] if host else [])) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -1046,18 +1083,28 @@ def train_path(torch, kernels, obs, n_nodes: int):
     steps of the blocked-checkpoint trainer (nb 4) over a T = 32 synthetic
     trace at N = 755,200, then link-prediction evaluation -> (the padded
     batch, the path's numbers, the trace's dataset, which the streamed
-    phase trains on again)."""
+    phase trains on again, and its raw snapshots, which the data group
+    writes).  The trace is ``train_trace``'s, made in its two stages so
+    the raw snapshots are kept."""
     import numpy as np
 
     from repro_torch.configs import registry
     from repro_torch.core import checkpoint as ckpt
+    from repro_torch.data.dyngnn import dataset_from_snapshots
+    from repro_torch.graph.generate import evolving_dynamic_graph
     from repro_torch.kernels.build import reset_counts
     from repro_torch.kernels.segment_spmm import ops as spmm_ops
-    from repro_torch.run import Engine, ExecutionPlan, RunConfig
+    from repro_torch.run import Engine, ExecutionPlan, InMemoryDTDG, \
+        RunConfig
 
     cfg = registry.get_arch("paper_dyngnn").make_config()
-    data = train_trace(n_nodes, cfg.window)
+    spec = train_trace(n_nodes, cfg.window)
     t0 = time.perf_counter()
+    raw = evolving_dynamic_graph(spec.num_nodes, spec.num_steps,
+                                 spec.density, spec.churn, spec.seed)
+    data = InMemoryDTDG(dataset_from_snapshots(
+        raw, spec.num_nodes, smoothing_mode=spec.smoothing_mode,
+        window=spec.window, edge_life=spec.edge_life))
     eng = Engine(RunConfig(model=cfg, data=data,
                            plan=ExecutionPlan(num_steps=TRAIN_STEPS),
                            log_fn=log), device="cuda")
@@ -1166,7 +1213,7 @@ def train_path(torch, kernels, obs, n_nodes: int):
              "csr_bytes": csr_bytes, "activation_estimate": est,
              "max_edges": pipe.max_edges, "link_pred_acc": acc,
              "launches": launches, "profile": prof}
-    return batch, stats, rr.ds, pipe
+    return batch, stats, rr.ds, pipe, raw
 
 
 def check_backward(torch, batch, n: int, window: int, timer):
@@ -2098,43 +2145,41 @@ def partition_small(torch, dev: str, group) -> dict:
             "grads": [g.cpu().numpy() for g in grads]}
 
 
-def _shared_card_rank(rank: int, src: str, store: str, out_dir: str):
-    """One of two ranks sharing cuda:0 over gloo: the small partitioned run
-    on the card, then on the CPU, written to ``out_dir``."""
+def _rank_setup(rank: int, src: str, store: str, world: int):
+    """A spawned rank sharing cuda:0: the repository on the path, TF32
+    off, ``SHARED_THREADS`` CPU threads, rank ``rank`` of a gloo group of
+    ``world`` over ``store`` -> (torch, dist)."""
     import datetime
-    import pickle
 
     sys.path.insert(0, src)
     import torch
     import torch.distributed as dist
 
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_num_threads(SHARED_THREADS)
     torch.cuda.set_device(0)
-    dist.init_process_group("gloo", store=dist.FileStore(store, 2),
-                            rank=rank, world_size=2,
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world,
                             timeout=datetime.timedelta(seconds=120))
-    try:
-        res = {dev: partition_small(torch, dev, dist.group.WORLD)
-               for dev in ("cuda", "cpu")}
-        with open(Path(out_dir) / f"rank{rank}.pkl", "wb") as f:
-            pickle.dump(res, f)
-    finally:
-        dist.destroy_process_group()
+    return torch, dist
 
 
-def run_ranks(fn, nprocs: int, args: tuple, deadline_s: float) -> None:
-    """Spawn ``nprocs`` ranks of ``fn(rank, *args)`` and join them by the
-    deadline; a failure, or the deadline, kills the rest and fails."""
+def start_ranks(fn, nprocs: int, args: tuple):
+    """Spawn ``nprocs`` ranks of ``fn(rank, *args)`` -> their context."""
     import torch.multiprocessing as mp
 
-    ctx = mp.start_processes(fn, args=args, nprocs=nprocs, join=False,
-                             start_method="spawn")
-    end = time.monotonic() + deadline_s
+    return mp.start_processes(fn, args=args, nprocs=nprocs, join=False,
+                              start_method="spawn")
+
+
+def join_ranks(ctx, name: str, end: float) -> None:
+    """Join the ranks of ``ctx`` by ``end`` (``time.monotonic()``); a
+    failure, or the deadline, kills them and fails."""
     try:
         while not ctx.join(timeout=max(end - time.monotonic(), 0.0)):
             if time.monotonic() >= end:
-                raise SystemExit(f"{nprocs} ranks still running after "
-                                 f"{deadline_s} s")
+                raise SystemExit(f"{name}: ranks still running at the "
+                                 "deadline")
     finally:
         for p in ctx.processes:
             if p.is_alive():
@@ -2162,24 +2207,11 @@ def small_close(name: str, got: dict, want: dict) -> float:
     return worst
 
 
-def partition_shared_card(torch, group) -> dict:
-    """P = 2 ranks sharing the one card over gloo, with CUDA tensors:
-    two spawned processes run the small partitioned TM-GCN on cuda:0, then
+def partition_shared_check(one: dict, res: list, ranks_s: float) -> dict:
+    """P = 2 ranks sharing the one card over gloo, with CUDA tensors (the
+    pair of ``shared_card``): the small partitioned TM-GCN on cuda:0, then
     on the CPU; held to each other (rank 0 = rank 1), card against CPU and
-    against the card's P = 1 run over NCCL."""
-    import pickle
-    import tempfile
-
-    one = partition_small(torch, "cuda", group)
-    with tempfile.TemporaryDirectory() as d:
-        t0 = time.perf_counter()
-        run_ranks(_shared_card_rank, 2,
-                  (str(SRC), str(Path(d) / "store"), d), RANK_DEADLINE_S)
-        ranks_s = time.perf_counter() - t0
-        res = []
-        for r in range(2):
-            with open(Path(d) / f"rank{r}.pkl", "rb") as f:
-                res.append(pickle.load(f))
+    against the card's P = 1 run over NCCL (``one``)."""
     for dev in ("cuda", "cpu"):
         a, b = res[0][dev], res[1][dev]
         if a["losses"] != b["losses"] or not all(
@@ -2190,8 +2222,7 @@ def partition_shared_card(torch, group) -> dict:
     two = res[0]["cuda"]
     vs_cpu = small_close("P = 2 card vs CPU", two, res[0]["cpu"])
     vs_one = small_close("P = 2 vs P = 1 on the card", two, one)
-    log(f"[partition-shared] P = 2 gloo ranks on cuda:0 ({ranks_s:.1f} s "
-        f"with their start): losses "
+    log(f"[partition-shared] P = 2 gloo ranks on cuda:0: losses "
         + ", ".join(f"{v:.6f}" for v in two["losses"])
         + f"; card vs CPU gloo P = 2 within {vs_cpu:.3f} of the limits, vs "
         f"the card's P = 1 within {vs_one:.3f} (loss 1e-4 relative, "
@@ -2517,53 +2548,20 @@ def dstream_small(torch, dev: str, group, compression: str) -> list:
         pipeline_rounds=True, device=dev).losses
 
 
-def _dstream_shared_rank(rank: int, src: str, store: str, out_dir: str):
-    """One of two ranks sharing cuda:0 over gloo: the small distributed
-    stream on the card, then on the CPU, for ``none`` and ``int8_a2a``,
-    written to ``out_dir``."""
-    import datetime
-    import pickle
-
-    sys.path.insert(0, src)
-    import torch
-    import torch.distributed as dist
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.cuda.set_device(0)
-    dist.init_process_group("gloo", store=dist.FileStore(store, 2),
-                            rank=rank, world_size=2,
-                            timeout=datetime.timedelta(seconds=120))
-    try:
-        res = {(comp, dev): dstream_small(torch, dev, dist.group.WORLD,
-                                          comp)
-               for comp in ("none", "int8_a2a") for dev in ("cuda", "cpu")}
-        with open(Path(out_dir) / f"rank{rank}.pkl", "wb") as f:
-            pickle.dump(res, f)
-    finally:
-        dist.destroy_process_group()
+def dstream_shared_ref(torch, group) -> dict:
+    """The card's P = 1 small distributed streams over NCCL, per
+    compression."""
+    return {c: dstream_small(torch, "cuda", group, c)
+            for c in ("none", "int8_a2a")}
 
 
-def dstream_shared_card(torch, group) -> dict:
-    """P = 2 ranks sharing the one card over gloo, with CUDA tensors: the
-    small distributed stream on cuda:0, then on the CPU, for ``none`` and
-    ``int8_a2a``; held to each other (rank 0 = rank 1), card against CPU
-    gloo P = 2 (1e-4 relative) and against the card's P = 1 over NCCL
-    (``none`` 1e-4 relative; ``int8_a2a`` within DRIFT_ATOL: its pieces,
-    and so its scales, differ with P)."""
-    import pickle
-    import tempfile
-
-    one = {c: dstream_small(torch, "cuda", group, c)
-           for c in ("none", "int8_a2a")}
-    with tempfile.TemporaryDirectory() as d:
-        t0 = time.perf_counter()
-        run_ranks(_dstream_shared_rank, 2,
-                  (str(SRC), str(Path(d) / "store"), d), RANK_DEADLINE_S)
-        ranks_s = time.perf_counter() - t0
-        res = []
-        for r in range(2):
-            with open(Path(d) / f"rank{r}.pkl", "rb") as f:
-                res.append(pickle.load(f))
+def dstream_shared_check(one: dict, res: list, ranks_s: float) -> dict:
+    """P = 2 ranks sharing the one card over gloo, with CUDA tensors (the
+    pair of ``shared_card``): the small distributed stream on cuda:0, then
+    on the CPU, for ``none`` and ``int8_a2a``; held to each other (rank 0
+    = rank 1), card against CPU gloo P = 2 (1e-4 relative) and against the
+    card's P = 1 over NCCL (``one``; ``none`` 1e-4 relative; ``int8_a2a``
+    within DRIFT_ATOL: its pieces, and so its scales, differ with P)."""
     out = {"N": DSTREAM_SHARED_N, "T": DSTREAM_SHARED_T, "ranks_s": ranks_s,
            "p1": one}
     for c in ("none", "int8_a2a"):
@@ -2585,7 +2583,6 @@ def dstream_shared_card(torch, group) -> dict:
             + f"; vs CPU gloo P = 2 {vs_cpu:.2e} relative (limit "
             f"{TOL_GRAD}), vs the card's P = 1 {vs_one:.2e} (limit "
             f"{limit_one}{' relative' if c == 'none' else ' absolute'})")
-    log(f"[dstream-shared] ranks took {ranks_s:.1f} s with their start")
     return out
 
 
@@ -2815,20 +2812,10 @@ def _hybrid_shared_rank(rank: int, src: str, store: str, out_dir: str):
     """One of four ranks sharing cuda:0 over gloo as a 2 x 2 grid: the
     small hybrid forward on the card, then on the CPU, written to
     ``out_dir``."""
-    import datetime
     import pickle
 
-    sys.path.insert(0, src)
-    import torch
-    import torch.distributed as dist
-
+    torch, dist = _rank_setup(rank, src, store, 4)
     from repro_torch.dist import sharding
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.cuda.set_device(0)
-    dist.init_process_group("gloo", store=dist.FileStore(store, 4),
-                            rank=rank, world_size=4,
-                            timeout=datetime.timedelta(seconds=120))
     try:
         grid = sharding.make_grid(2, 2)
         res = {dev: hybrid_small(torch, dev, grid) for dev in ("cuda", "cpu")}
@@ -2838,29 +2825,21 @@ def _hybrid_shared_rank(rank: int, src: str, store: str, out_dir: str):
         dist.destroy_process_group()
 
 
-def hybrid_shared_card(torch, group) -> dict:
-    """A 2 x 2 grid of four ranks sharing the one card over gloo, with
-    CUDA tensors: the small hybrid forward on cuda:0, then on the CPU;
-    the ranks' blocks assembled, card against CPU gloo and against the
-    card's 1 x 1 grid over NCCL and its eager forward (1e-4 abs + rel:
-    the kernel sums in another order than the plain version)."""
-    import pickle
-    import tempfile
-
-    import numpy as np
-
+def hybrid_shared_ref(torch, group) -> dict:
+    """The small hybrid forward on the card's 1 x 1 grid over NCCL (and
+    its eager forward)."""
     from repro_torch.dist import sharding
+    return hybrid_small(torch, "cuda", sharding.make_grid(1, 1, group))
 
-    one = hybrid_small(torch, "cuda", sharding.make_grid(1, 1, group))
-    with tempfile.TemporaryDirectory() as d:
-        t0 = time.perf_counter()
-        run_ranks(_hybrid_shared_rank, 4,
-                  (str(SRC), str(Path(d) / "store"), d), RANK_DEADLINE_S)
-        ranks_s = time.perf_counter() - t0
-        res = []
-        for r in range(4):
-            with open(Path(d) / f"rank{r}.pkl", "rb") as f:
-                res.append(pickle.load(f))
+
+def hybrid_shared_check(one: dict, res: list, ranks_s: float) -> dict:
+    """A 2 x 2 grid of four ranks sharing the one card over gloo, with
+    CUDA tensors (the quad of ``shared_card``): the small hybrid forward
+    on cuda:0, then on the CPU; the ranks' blocks assembled, card against
+    CPU gloo and against the card's 1 x 1 grid over NCCL and its eager
+    forward (``one``; 1e-4 abs + rel: the kernel sums in another order
+    than the plain version)."""
+    import numpy as np
 
     def assemble(dev):
         if [r[dev]["place"] for r in res] != [(0, 0), (0, 1), (1, 0),
@@ -2881,11 +2860,10 @@ def hybrid_shared_card(torch, group) -> dict:
             raise SystemExit(f"hybrid shared card: 2 x 2 on the card vs "
                              f"{name}: max|diff| {err:.3e} > {limit:.3e}")
         out[f"vs_{name}"] = err
-    log(f"[hybrid-shared] 2 x 2 gloo ranks on cuda:0 ({ranks_s:.1f} s with "
-        f"their start), N={HYBRID_SHARED_N} T={HYBRID_SHARED_T}: Z max|diff| "
-        f"vs CPU gloo {out['vs_cpu']:.2e}, vs the card's 1 x 1 over NCCL "
-        f"{out['vs_p1']:.2e}, vs its eager forward {out['vs_eager']:.2e} "
-        f"(limit {TOL_SPMM} abs + rel)")
+    log(f"[hybrid-shared] 2 x 2 gloo ranks on cuda:0, N={HYBRID_SHARED_N} "
+        f"T={HYBRID_SHARED_T}: Z max|diff| vs CPU gloo {out['vs_cpu']:.2e}, "
+        f"vs the card's 1 x 1 over NCCL {out['vs_p1']:.2e}, vs its eager "
+        f"forward {out['vs_eager']:.2e} (limit {TOL_SPMM} abs + rel)")
     return out
 
 
@@ -3135,50 +3113,17 @@ def sampled_equivalence(torch, group) -> dict:
             "wall_s": wall}
 
 
-def _sampled_shared_rank(rank: int, src: str, store: str, out_dir: str):
-    """One of two ranks sharing cuda:0 over gloo: the small sampled run
-    (N / 4 seeds, fanouts 10, 10) on the card, then on the CPU, written to
-    ``out_dir``."""
-    import datetime
-    import pickle
-
-    sys.path.insert(0, src)
-    import torch
-    import torch.distributed as dist
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.cuda.set_device(0)
-    dist.init_process_group("gloo", store=dist.FileStore(store, 2),
-                            rank=rank, world_size=2,
-                            timeout=datetime.timedelta(seconds=120))
-    try:
-        res = {dev: sampled_small(torch, dev, dist.group.WORLD,
-                                  full=False)["losses"]
-               for dev in ("cuda", "cpu")}
-        with open(Path(out_dir) / f"rank{rank}.pkl", "wb") as f:
-            pickle.dump(res, f)
-    finally:
-        dist.destroy_process_group()
+def sampled_shared_ref(torch, group) -> list:
+    """The card's P = 1 small sampled run over NCCL -> its losses."""
+    return sampled_small(torch, "cuda", group, full=False)["losses"]
 
 
-def sampled_shared_card(torch, group) -> dict:
-    """P = 2 ranks sharing the one card over gloo, with CUDA tensors: the
-    small sampled run on cuda:0, then on the CPU; held to each other, card
-    against CPU gloo P = 2 and against the card's P = 1 over NCCL (1e-4
-    relative: the rounds are the same samples)."""
-    import pickle
-    import tempfile
-
-    one = sampled_small(torch, "cuda", group, full=False)["losses"]
-    with tempfile.TemporaryDirectory() as d:
-        t0 = time.perf_counter()
-        run_ranks(_sampled_shared_rank, 2,
-                  (str(SRC), str(Path(d) / "store"), d), RANK_DEADLINE_S)
-        ranks_s = time.perf_counter() - t0
-        res = []
-        for r in range(2):
-            with open(Path(d) / f"rank{r}.pkl", "rb") as f:
-                res.append(pickle.load(f))
+def sampled_shared_check(one: list, res: list, ranks_s: float) -> dict:
+    """P = 2 ranks sharing the one card over gloo, with CUDA tensors (the
+    pair of ``shared_card``): the small sampled run on cuda:0, then on the
+    CPU; held to each other, card against CPU gloo P = 2 and against the
+    card's P = 1 over NCCL (``one``; 1e-4 relative: the rounds are the
+    same samples)."""
     if res[0] != res[1]:
         raise SystemExit(f"sampled shared card: the ranks disagree {res}")
     card, cpu = res[0]["cuda"], res[0]["cpu"]
@@ -3186,8 +3131,8 @@ def sampled_shared_card(torch, group) -> dict:
     if not (vs_cpu <= TOL_GRAD and vs_one <= TOL_GRAD):
         raise SystemExit(f"sampled shared card: {card} vs CPU {cpu} and "
                          f"P = 1 {one}")
-    log(f"[sampled-shared] P = 2 gloo ranks on cuda:0 ({ranks_s:.1f} s with "
-        f"their start): losses " + ", ".join(f"{v:.6f}" for v in card)
+    log(f"[sampled-shared] P = 2 gloo ranks on cuda:0: losses "
+        + ", ".join(f"{v:.6f}" for v in card)
         + f"; vs CPU gloo P = 2 {vs_cpu:.2e}, vs the card's P = 1 "
         f"{vs_one:.2e} relative (limit {TOL_GRAD})")
     return {"N": SAMPLED_SMALL_N, "T": SAMPLED_SMALL_T, "losses": card,
@@ -3453,43 +3398,14 @@ def ft_small(torch, dev: str, pool) -> dict:
             "segments": st.report.segments}
 
 
-def _ft_shared_rank(rank: int, src: str, store: str, out_dir: str):
-    """One of two ranks sharing cuda:0 over gloo: the small elastic run on
-    the card, written to ``out_dir``."""
-    import datetime
-    import pickle
-
-    sys.path.insert(0, src)
-    import torch
-    import torch.distributed as dist
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.cuda.set_device(0)
-    dist.init_process_group("gloo", store=dist.FileStore(store, 2),
-                            rank=rank, world_size=2,
-                            timeout=datetime.timedelta(seconds=120))
-    try:
-        res = ft_small(torch, "cuda", dist.group.WORLD)
-        with open(Path(out_dir) / f"rank{rank}.pkl", "wb") as f:
-            pickle.dump(res, f)
-    finally:
-        from repro_torch.elastic import drop_width_groups
-        drop_width_groups()      # no group may outlive the teardown
-        dist.destroy_process_group()
-
-
-def ft_shared_card(torch) -> dict:
-    """P = 2 -> 1 -> 2 on two gloo ranks sharing the card: the ranks agree,
-    their losses equal ``train_streamed(slice_len=win)`` on the card at
-    rtol 1e-5, and each event's payload is ``comm_volume.rescale_payload``
-    of the run's trees."""
-    import pickle
-    import tempfile
-
+def ft_shared_ref(torch, group) -> dict:
+    """``train_streamed(slice_len=win)`` on the card from the small
+    elastic run's parameters, and the run's carry and state bytes (the
+    payload law's terms).  ``group`` is unused: the reference is one
+    device's."""
     from repro_torch.configs import registry
     from repro_torch.core import models as tm
     from repro_torch.data.dyngnn import synthetic_dataset
-    from repro_torch.dist import comm_volume as cv
     from repro_torch.elastic import tree_bytes
     from repro_torch.optim import adamw
     from repro_torch.stream import train_loop as st
@@ -3507,15 +3423,19 @@ def ft_shared_card(torch) -> dict:
                             ds.labels, num_epochs=DSTREAM_EPOCHS,
                             params=params, slice_len=t // nb,
                             device="cuda").losses
-    with tempfile.TemporaryDirectory() as d:
-        t0 = time.perf_counter()
-        run_ranks(_ft_shared_rank, 2,
-                  (str(SRC), str(Path(d) / "store"), d), RANK_DEADLINE_S)
-        ranks_s = time.perf_counter() - t0
-        res = []
-        for r in range(2):
-            with open(Path(d) / f"rank{r}.pkl", "rb") as f:
-                res.append(pickle.load(f))
+    return {"losses": ref, "carry_bytes": carry_b, "state_bytes": state_b}
+
+
+def ft_shared_check(one: dict, res: list, ranks_s: float) -> dict:
+    """P = 2 -> 1 -> 2 on two gloo ranks sharing the card (the pair of
+    ``shared_card``): the ranks agree, their losses equal
+    ``train_streamed(slice_len=win)`` on the card (``one``) at rtol 1e-5,
+    and each event's payload is ``comm_volume.rescale_payload`` of the
+    run's trees."""
+    from repro_torch.dist import comm_volume as cv
+
+    ref, carry_b, state_b = (one["losses"], one["carry_bytes"],
+                             one["state_bytes"])
     if res[0]["losses"] != res[1]["losses"] or \
             res[0]["segments"] != res[1]["segments"]:
         raise SystemExit(f"ft shared card: the ranks disagree {res}")
@@ -3530,31 +3450,142 @@ def ft_shared_card(torch) -> dict:
         raise SystemExit(f"ft shared card: losses {got['losses']} vs "
                          f"{ref}, events {got['events']} (carries "
                          f"{carry_b} B, state {state_b} B)")
-    log(f"[ft-shared] P = 2 -> 1 -> 2 on 2 gloo ranks sharing cuda:0 "
-        f"({ranks_s:.1f} s with their start): losses "
-        + ", ".join(f"{v:.6f}" for v in got["losses"])
+    log(f"[ft-shared] P = 2 -> 1 -> 2 on 2 gloo ranks sharing cuda:0: "
+        "losses " + ", ".join(f"{v:.6f}" for v in got["losses"])
         + f"; vs train_streamed on the card {rel:.2e} rel; events "
         + ", ".join(f"{b}: {o} -> {p}, {pb} B, recompose {s * 1e3:.1f} ms"
                     for b, o, p, pb, s in got["events"])
         + f" (the law: carries {carry_b} B + state {state_b} B a new rank)")
-    return {"N": n, "T": t, "losses": got["losses"], "losses_ref": ref,
-            "worst_rel": rel, "events": got["events"],
+    return {"N": FT_SHARED_N, "T": FT_SHARED_T, "losses": got["losses"],
+            "losses_ref": ref, "worst_rel": rel, "events": got["events"],
             "segments": got["segments"], "carry_bytes": carry_b,
             "state_bytes": state_b, "ranks_s": ranks_s}
 
 
-def ft_launcher(torch) -> dict:
+# --------------------------------------------------- shared-card checks -----
+
+#: the checks of the spawned pair, in their order, and the P = 1 reference
+#: and the check of each group (hybrid's ranks are a quad of their own)
+SHARED_PAIR = ("partition", "dstream", "sampled", "ft")
+SHARED_REF = {"partition": lambda torch, g: partition_small(torch, "cuda",
+                                                             g),
+              "dstream": dstream_shared_ref, "hybrid": hybrid_shared_ref,
+              "sampled": sampled_shared_ref, "ft": ft_shared_ref}
+SHARED_CHECK = {"partition": partition_shared_check,
+                "dstream": dstream_shared_check,
+                "hybrid": hybrid_shared_check,
+                "sampled": sampled_shared_check, "ft": ft_shared_check}
+
+
+def _pair_rank(rank: int, src: str, store: str, out_dir: str,
+               checks: tuple):
+    """One of the two ranks sharing cuda:0 over gloo: each of ``checks`` in
+    turn -- the small partitioned run, distributed stream (``none`` and
+    ``int8_a2a``) and sampled run on the card, then on the CPU, and the
+    small elastic run on the card -- written to ``out_dir``."""
+    import pickle
+
+    torch, dist = _rank_setup(rank, src, store, 2)
+    world = dist.group.WORLD
+    res = {}
+    try:
+        for name in checks:
+            t0 = time.perf_counter()
+            if name == "partition":
+                res[name] = {dev: partition_small(torch, dev, world)
+                             for dev in ("cuda", "cpu")}
+            elif name == "dstream":
+                res[name] = {(comp, dev): dstream_small(torch, dev, world,
+                                                        comp)
+                             for comp in ("none", "int8_a2a")
+                             for dev in ("cuda", "cpu")}
+            elif name == "sampled":
+                res[name] = {dev: sampled_small(torch, dev, world,
+                                                full=False)["losses"]
+                             for dev in ("cuda", "cpu")}
+            else:
+                res[name] = ft_small(torch, "cuda", world)
+            res[name + "_s"] = time.perf_counter() - t0
+        with open(Path(out_dir) / f"rank{rank}.pkl", "wb") as f:
+            pickle.dump(res, f)
+    finally:
+        from repro_torch.elastic import drop_width_groups
+        drop_width_groups()      # no group may outlive the teardown
+        dist.destroy_process_group()
+
+
+def shared_card(torch, group, groups) -> dict:
+    """Every named group's shared-card check at once: one spawned pair of
+    gloo ranks on cuda:0 runs the partition, dstream, sampled and ft
+    checks in turn (``_pair_rank``), four more ranks the hybrid's 2 x 2
+    grid beside them, and meanwhile this process makes each check's
+    reference on the card over the one-rank NCCL ``group``; then each
+    group's check -> {group: its numbers}.  The ranks start once (their
+    imports, CUDA contexts and gloo groups), not once a group."""
+    import pickle
+    import tempfile
+
+    pair = tuple(g for g in SHARED_PAIR if g in groups)
+    named = [g for g in ("partition", "dstream", "hybrid", "sampled", "ft")
+             if g in groups]
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        end = time.monotonic() + SHARED_DEADLINE_S
+        ctxs, dirs = {}, {}
+        for name, fn, n, args in (("pair", _pair_rank, 2, (pair,)),
+                                  ("hybrid", _hybrid_shared_rank, 4, ())):
+            if (name == "pair" and pair) or (name == "hybrid"
+                                             and "hybrid" in groups):
+                dirs[name] = Path(d) / name
+                dirs[name].mkdir()
+                ctxs[name] = (start_ranks(fn, n, (
+                    str(SRC), str(dirs[name] / "store"), str(dirs[name]))
+                    + args), n)
+        walls = {}
+        try:
+            refs = {g: SHARED_REF[g](torch, group) for g in named}
+            ref_s = time.perf_counter() - t0
+            for name, (ctx, _) in ctxs.items():
+                join_ranks(ctx, f"shared card ({name})", end)
+                walls[name] = time.perf_counter() - t0
+        finally:
+            for ctx, _ in ctxs.values():
+                for p in ctx.processes:
+                    if p.is_alive():
+                        p.kill()
+                        p.join()
+        res = {}
+        for name, (_, n) in ctxs.items():
+            res[name] = []
+            for r in range(n):
+                with open(dirs[name] / f"rank{r}.pkl", "rb") as f:
+                    res[name].append(pickle.load(f))
+    out = {}
+    for g in named:
+        ranks = res["hybrid"] if g == "hybrid" else [r[g]
+                                                     for r in res["pair"]]
+        out[g] = SHARED_CHECK[g](refs[g], ranks, walls["hybrid" if g ==
+                                                        "hybrid" else "pair"])
+    if pair:
+        out["pair_s"] = {g: res["pair"][0][g + "_s"] for g in pair}
+    out.update(walls=walls, references_s=ref_s)
+    log(f"[shared] the references on the card over NCCL {ref_s:.1f} s; "
+        + ", ".join(f"the {k} ranks done {v:.1f} s after their start"
+                    for k, v in walls.items())
+        + (" (the pair's checks: " + ", ".join(
+            f"{g} {res['pair'][0][g + '_s']:.1f} s" for g in pair) + ")"
+           if pair else ""))
+    return out
+
+
+def ft_launcher_runs() -> dict:
     """The launcher as a subprocess on the card (``--ckpt-dir``, the eager
     schedule at the smoke config: the distributed stream needs a card a
     rank), stopped by a real SIGTERM from this process after its first
-    logged step: it exits 0 with a checkpoint, and a relaunch with the
-    same ``--ckpt-dir`` resumes and completes; its final loss equals an
-    uninterrupted in-process run's."""
+    logged step: it must exit 0 with a checkpoint; then a relaunch with the
+    same ``--ckpt-dir``.  Subprocesses only, so it may run in a thread
+    beside other phases -> what ``ft_launcher`` checks."""
     import tempfile
-
-    from repro_torch.configs import registry
-    from repro_torch.run import Engine, ExecutionPlan, RunConfig, \
-        SyntheticTrace
 
     env = dict(os.environ, PYTHONPATH=str(SRC), PYTHONUNBUFFERED="1")
     with tempfile.TemporaryDirectory() as d:
@@ -3590,6 +3621,20 @@ def ft_launcher(torch) -> dict:
         again = subprocess.run(cmd, capture_output=True, text=True,
                                env=env, cwd=ROOT, timeout=300)
         second_s = time.perf_counter() - t0
+    return {"steps": steps, "pre": pre, "again": again,
+            "first_s": first_s, "second_s": second_s}
+
+
+def ft_launcher(torch, runs: dict) -> dict:
+    """``ft_launcher_runs``' relaunch resumed and completed, its final
+    loss that of an uninterrupted in-process run (made here, in the main
+    thread: the Engine's preemption guard sets a signal handler)."""
+    from repro_torch.configs import registry
+    from repro_torch.run import Engine, ExecutionPlan, RunConfig, \
+        SyntheticTrace
+
+    steps, pre, again = runs["steps"], runs["pre"], runs["again"]
+    first_s, second_s = runs["first_s"], runs["second_s"]
     out = again.stdout.splitlines()
     done = [ln for ln in out if ln.startswith("done: ")]
     resumed = [ln for ln in out if ln.startswith("resumed from checkpoint")]
@@ -3895,10 +3940,11 @@ def same_dataset(name: str, got, want) -> None:
         raise SystemExit(f"data: {name}: the dataset differs")
 
 
-def data_path(torch, kernels, ds) -> dict:
-    """Edge-list data at the train trace's size: its raw snapshots
-    (``graph.generate.evolving_dynamic_graph(755_200, 32, 1.25, 0.1, 0)``,
-    30,207,991 rows) written by ``write_edgelist`` as ``.npz``, read back
+def data_path(torch, kernels, ds, snaps: list) -> dict:
+    """Edge-list data at the train trace's size: its raw snapshots, which
+    the train phase kept (``snaps``,
+    ``graph.generate.evolving_dynamic_graph(755_200, 32, 1.25, 0.1, 0)``,
+    30,207,991 rows), written by ``write_edgelist`` as ``.npz``, read back
     in memory and in chunks (each byte-identical to the generator's lists;
     each read's peak RSS in a child process), built by ``EdgeListDTDG``
     (M-transform, window 5, chunked) into the train phase's dataset array
@@ -3926,9 +3972,6 @@ def data_path(torch, kernels, ds) -> dict:
     cfg = registry.get_arch("paper_dyngnn").make_config()
     n, t = ds.num_nodes, ds.num_steps
     secs = {}
-    t0 = time.perf_counter()
-    snaps = evolving_dynamic_graph(n, t, TRAIN_DENSITY, 0.1, 0)
-    secs["generate"] = time.perf_counter() - t0
     rows = sum(len(s) for s in snaps)
     if rows != DATA_ROWS:
         raise SystemExit(f"data: {rows} rows, expected {DATA_ROWS}")
@@ -4010,9 +4053,8 @@ def data_path(torch, kernels, ds) -> dict:
             del eng, rr
     # the path's counts are the file fit's, zeroed just before it
     launches = fit_launches["file"]
-    del snaps
-    log(f"[data] {rows:,} rows (N {n:,}, T {t}) generated in "
-        f"{secs['generate']:.1f} s; .npz {npz_bytes:,} B written in "
+    log(f"[data] {rows:,} rows (N {n:,}, T {t}), the train phase's; .npz "
+        f"{npz_bytes:,} B written in "
         f"{secs['write']:.1f} s, read in memory {secs['read']:.1f} s and in "
         f"chunks of {DATA_CHUNK:,} rows {secs['read_chunked']:.1f} s, both "
         f"byte-identical to the generator's lists; peak RSS (a child "
@@ -4749,10 +4791,297 @@ def moe_train(torch, kernels, obs) -> dict:
             "peak_gb": peak, "state_gb": state_gb, "launches": launches}
 
 
+# ------------------------------------------------------------ GNN path -----
+
+#: a GNN step's device activities by kind, first match wins
+GNN_KINDS = (("GEMMs", ("gemm", "xmma", "cutlass")),
+             ("gathers (index_select)", ("indexSelect",)),
+             ("scatter-adds (index_add)", ("indexFunc",)),
+             ("scatter_reduce / gather", ("scatter_gather",)),
+             ("stack / cat copies", ("CatArrayBatchedCopy",)),
+             ("other copies", ("copy", "Memcpy")),
+             ("fills", ("FillFunctor", "Memset")),
+             ("reductions", ("reduce_kernel",)),
+             ("norms / softmax", ("norm", "softmax")))
+
+
+def gnn_kinds(by_name: dict) -> list:
+    """{device activity name: [us]} -> [(kind, ms, count)] by time, what
+    no kind names under "other elementwise"."""
+    out: dict[str, list] = {}
+    for name, v in by_name.items():
+        kind = next((k for k, subs in GNN_KINDS
+                     if any(x in name for x in subs)), "other elementwise")
+        acc = out.setdefault(kind, [0.0, 0])
+        acc[0] += sum(v) / 1e3
+        acc[1] += len(v)
+    return sorted(((k, ms, n) for k, (ms, n) in out.items()),
+                  key=lambda r: -r[1])
+
+
+def gnn_shape(name: str):
+    from repro_torch.configs import registry
+    return registry.get_arch("gatedgcn").shapes[name]
+
+
+def gnn_run(torch, kernels, arch: str, shape, batches) -> dict:
+    """``GNN_STEPS`` ``gnn_train_step`` calls of ``arch``'s full config on
+    ``batches`` (on the card) from ``init_params`` (generator seed 0) and
+    ``adamw.init_state``, every count zeroed just before and read just
+    after (no kernel: the GNNs aggregate with index_add / scatter_reduce);
+    losses finite; each step's host-clock ms ending in the loss's read;
+    peak memory; then one more step under the profiler."""
+    import numpy as np
+
+    from repro_torch.configs import registry
+    from repro_torch.kernels.build import reset_counts
+    from repro_torch.launch import steps as lsteps
+
+    cfg = registry.get_arch(arch).make_config()
+    dims = lsteps.gnn_dims(shape)
+    params, opt = lsteps.gnn_train_state(
+        torch.Generator(device="cuda").manual_seed(0), arch, cfg,
+        dims["d_in"], dims["num_classes"])
+    n_params = sum(p.numel() for p in params.parameters())
+    step = lsteps.gnn_train_step(arch, cfg, shape.kind, seeds=dims["seeds"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(kernels)
+    losses, step_ms = [], []
+    for _ in range(GNN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, loss = step(params, opt, batches)
+        losses.append(float(loss))          # reads the loss: a sync
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = {k.name: k.launches for k in kernels}
+    if any(launches.values()):
+        raise SystemExit(f"gnn {arch} {shape.name}: kernel launches "
+                         f"{launches}")
+    if not np.isfinite(losses).all():
+        raise SystemExit(f"gnn {arch} {shape.name}: losses {losses}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    warm = statistics.median(step_ms[1:])
+    holder = [params, opt]
+
+    def one_step():
+        holder[0], holder[1], _ = step(holder[0], holder[1], batches)
+
+    t0 = time.perf_counter()
+    wall_us, busy_us, by_name = device_profile(torch, one_step, host=False)
+    prof_s = time.perf_counter() - t0
+    kinds = gnn_kinds(by_name)
+    top = sorted(((k, sum(v) / 1e3, len(v)) for k, v in by_name.items()),
+                 key=lambda r: -r[1])[:5]
+    launches_n = sum(len(v) for v in by_name.values())
+    log(f"[gnn] {arch} at {shape.name} (full width, {n_params:,} "
+        f"parameters; N {dims['nodes']:,}, E {dims['edges']:,}): losses "
+        + ", ".join(f"{v:.5f}" for v in losses))
+    log(f"[gnn]   step ms " + ", ".join(f"{v:.1f}" for v in step_ms)
+        + f"; warm median {warm:.2f} ms; peak {peak:.3f} GB; profiled step: "
+        f"wall {wall_us / 1e3:.2f} ms, device busy {busy_us / 1e3:.2f} ms, "
+        f"idle share {1 - busy_us / wall_us:.3f}, {launches_n} device "
+        f"activities, {prof_s:.1f} s with the profiler's collection; by "
+        "kind: " + ", ".join(
+            f"{k} {ms:.2f} ({n})" for k, ms, n in kinds[:5]))
+    del params, opt, holder
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"arch": arch, "shape": shape.name, "params": n_params,
+            "nodes": dims["nodes"], "edges": dims["edges"],
+            "losses": losses, "step_ms": step_ms, "warm_step_ms": warm,
+            "peak_gb": peak, "profiled_wall_ms": wall_us / 1e3,
+            "busy_ms": busy_us / 1e3, "idle_share": 1 - busy_us / wall_us,
+            "device_activities": launches_n, "profile_s": prof_s,
+            "kinds": [{"kind": k, "ms": ms, "count": n}
+                      for k, ms, n in kinds],
+            "top": [{"name": k[:120], "ms": ms, "count": n}
+                    for k, ms, n in top],
+            "launches": launches}
+
+
+def gnn_cuts() -> dict:
+    """The runs one card cannot hold, by reckoning in f32: ``ogb_products``
+    for every arch (its edge tensors alone) and EquiformerV2 at
+    ``minibatch_lg`` (its checkpointed layer inputs and one layer's edge
+    tensors)."""
+    from repro_torch.configs import registry
+    from repro_torch.launch import steps as lsteps
+
+    def gb(*dims) -> float:
+        out = 4.0
+        for d in dims:
+            out *= d
+        return out / 1e9
+
+    prod = lsteps.gnn_dims(gnn_shape("ogb_products"))
+    e = prod["edges"]
+    full = {a: registry.get_arch(a).make_config() for a in GNN_ARCHS}
+    eq = full["equiformer-v2"]
+    irreps = (eq.l_max + 1) ** 2
+    cuts = {"ogb_products": {
+        "nodes": prod["nodes"], "edge_lanes": e,
+        "gatedgcn": f"e (E, {full['gatedgcn'].d_hidden}) = "
+                    f"{gb(e, full['gatedgcn'].d_hidden):.1f} GB into each "
+                    f"of {full['gatedgcn'].n_layers} checkpointed layers",
+        "pna": f"one layer's (h_dst || h_src) (E, "
+               f"{2 * full['pna'].d_hidden}) = "
+               f"{gb(e, 2 * full['pna'].d_hidden):.1f} GB",
+        "schnet": f"rbf (E, {full['schnet'].n_rbf}) = "
+                  f"{gb(e, full['schnet'].n_rbf):.1f} GB",
+        "equiformer-v2": f"x (N, {irreps}, {eq.d_hidden}) = "
+                         f"{gb(prod['nodes'], irreps, eq.d_hidden):.1f} GB "
+                         f"a layer input, feats (E, {irreps}, "
+                         f"{2 * eq.d_hidden}) = "
+                         f"{gb(e, irreps, 2 * eq.d_hidden):.1f} GB"}}
+    mb = lsteps.gnn_dims(gnn_shape("minibatch_lg"))
+    x_gb = gb(mb["nodes"], irreps, eq.d_hidden)
+    e_gb = gb(mb["edges"], irreps, eq.d_hidden)
+    cuts["equiformer-v2 minibatch_lg"] = (
+        f"N {mb['nodes']:,}, E {mb['edges']:,}: x (N, {irreps}, "
+        f"{eq.d_hidden}) = {x_gb:.2f} GB, {eq.n_layers} checkpointed layer "
+        f"inputs {eq.n_layers * x_gb:.1f} GB; one layer's recompute holds "
+        f"the gathered and rotated (E, {irreps}, {eq.d_hidden}) tensors "
+        f"({e_gb:.2f} GB each) and feats (E, {irreps}, {2 * eq.d_hidden}) "
+        f"= {2 * e_gb:.2f} GB")
+    for k, v in cuts["ogb_products"].items():
+        if isinstance(v, str):
+            log(f"[gnn] cut: {k} at ogb_products: {v}")
+    log(f"[gnn] cut: equiformer-v2 at minibatch_lg: "
+        f"{cuts['equiformer-v2 minibatch_lg']}")
+    return cuts
+
+
+def gnn_path(torch, kernels) -> dict:
+    """The static GNNs trained at full width on the card: each of
+    ``GNN_RUNS``' shapes' batch made once on the card
+    (``launch.steps.gnn_batches``, seed 0), then each arch's ``gnn_run``
+    on it; the cuts' reckoning."""
+    from repro_torch.launch import steps as lsteps
+
+    runs = []
+    for shape_name, archs in GNN_RUNS:
+        shape = gnn_shape(shape_name)
+        t0 = time.perf_counter()
+        batches = lsteps.gnn_batches(shape, device="cuda")
+        torch.cuda.synchronize()
+        log(f"[gnn] {shape_name} batch made on the card in "
+            f"{time.perf_counter() - t0:.1f} s")
+        for arch in archs:
+            runs.append(gnn_run(torch, kernels, arch, shape, batches))
+        del batches
+        gc.collect()
+        torch.cuda.empty_cache()
+    launches = {k.name: sum(r["launches"][k.name] for r in runs)
+                for k in kernels}
+    return {"runs": runs, "cuts": gnn_cuts(), "launches": launches}
+
+
+def gnn_grads_close(name: str, got, want) -> float:
+    """Loss 1e-4 relative, gradients 1e-4 x each leaf's max |value| ->
+    the worst share of a limit."""
+    (l_got, g_got), (l_want, g_want) = got, want
+    worst = abs(float(l_got) - float(l_want)) / (TOL_GRAD
+                                                 * abs(float(l_want)))
+    for a, b in zip(g_got, g_want, strict=True):
+        a, b = a.detach().cpu(), b.detach().cpu()
+        worst = max(worst, float((a - b).abs().max())
+                    / (TOL_GRAD * max(float(b.abs().max()), 1e-30)))
+    if not worst <= 1.0:
+        raise SystemExit(f"gnn parity {name}: card vs CPU at {worst:.3f} x "
+                         "the limits")
+    return worst
+
+
+def gnn_parity(torch) -> dict:
+    """Card against CPU (TF32 off): one train step's loss and gradients for
+    each arch at its smoke config on the launcher's smoke batch, and
+    EquiformerV2 at full width cut to ``GNN_PARITY_LAYERS`` layers on
+    ``molecule`` (128 graphs); the same parameters (drawn on the host) and
+    batch on both.  Meanwhile the launcher trains EquiformerV2 at its full
+    config on the card in a subprocess (``--full-config --steps 5``) and
+    must print finite losses and ``done``."""
+    import copy
+
+    import numpy as np
+
+    from repro_torch.configs import registry
+    from repro_torch.launch import steps as lsteps
+    from repro_torch.launch.train import GNN_SMOKE_SHAPE
+
+    env = dict(os.environ, PYTHONPATH=str(SRC), PYTHONUNBUFFERED="1")
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+           "equiformer-v2", "--full-config", "--steps",
+           str(GNN_LAUNCH_STEPS)]
+    t_launch = time.perf_counter()
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, env=env,
+                            cwd=ROOT)
+    try:
+        cases = []
+        for arch in GNN_ARCHS:
+            shape = gnn_shape("molecule")
+            cases.append((arch, registry.get_arch(arch).make_smoke_config(),
+                          dataclasses.replace(shape, dims={
+                              **shape.dims, **GNN_SMOKE_SHAPE})))
+        eq_cfg = dataclasses.replace(
+            registry.get_arch("equiformer-v2").make_config(),
+            n_layers=GNN_PARITY_LAYERS)
+        cases.append(("equiformer-v2", eq_cfg, gnn_shape("molecule")))
+        out = []
+        for arch, cfg, shape in cases:
+            dims = lsteps.gnn_dims(shape)
+            params, _ = lsteps.gnn_train_state(
+                torch.Generator().manual_seed(0), arch, cfg, dims["d_in"],
+                dims["num_classes"])
+            fwd = lsteps.gnn_logits_fn(arch, cfg)
+            res = {}
+            for dev in ("cpu", "cuda"):
+                p = params if dev == "cpu" else copy.deepcopy(params).cuda()
+                t0 = time.perf_counter()
+                res[dev] = lsteps.gnn_loss_and_grads(
+                    fwd, shape.kind, p, lsteps.gnn_batches(shape,
+                                                           device=dev))
+                res[dev + "_s"] = time.perf_counter() - t0
+            worst = gnn_grads_close(f"{arch} {cfg.name}", res["cuda"],
+                                    res["cpu"])
+            log(f"[gnn-parity] {arch} ({cfg.name}, "
+                f"{getattr(cfg, 'n_layers', getattr(cfg, 'n_interactions', 0))}"
+                f" layers) at {shape.name} N {dims['nodes']:,}: loss "
+                f"{float(res['cuda'][0]):.6f} (CPU {float(res['cpu'][0]):.6f});"
+                f" card vs CPU within {worst:.3f} of the limits (loss 1e-4 "
+                f"relative, gradients {TOL_GRAD} x each leaf's max; CPU "
+                f"{res['cpu_s']:.1f} s)")
+            out.append({"arch": arch, "config": cfg.name, "shape": shape.name,
+                        "nodes": dims["nodes"],
+                        "loss": float(res["cuda"][0]),
+                        "loss_cpu": float(res["cpu"][0]), "worst": worst})
+            del params, res
+            gc.collect()
+        rest, err = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    launch_s = time.perf_counter() - t_launch
+    lines = rest.splitlines()
+    losses = [float(ln.split()[-1]) for ln in lines
+              if ln.startswith("step ")]
+    if proc.returncode != 0 or lines[-1:] != ["done"] or \
+            len(losses) != GNN_LAUNCH_STEPS or \
+            not np.isfinite(losses).all():
+        raise SystemExit(f"gnn launcher: exit {proc.returncode}:\n{rest}\n"
+                         + err[-2000:])
+    log(f"[gnn-launcher] {' '.join(cmd[2:])}: losses "
+        + ", ".join(f"{v:.4f}" for v in losses)
+        + f", done ({launch_s:.1f} s, beside the parity checks)")
+    return {"cases": out, "launcher": {"losses": losses, "s": launch_s}}
+
+
 # ---------------------------------------------------------------- main -----
 
 GROUPS = ("serve", "train", "stream", "partition", "dstream", "hybrid",
-          "sampled", "ft", "trace", "data", "lm", "moe")
+          "sampled", "ft", "trace", "data", "lm", "moe", "gnn")
 
 
 def kernel_entry(name: str, source: str, replaces: str, launches: dict,
@@ -4839,7 +5168,7 @@ def main(argv: list[str] | None = None) -> int:
         torch.cuda.empty_cache()
     train_ds = stream_pipe = None
     if "train" in groups:
-        batch, train_stats, train_ds, stream_pipe = phase(
+        batch, train_stats, train_ds, stream_pipe, train_raw = phase(
             "train path", train_path, torch, kernels, obs, n_nodes)
         launches["train"] = train_stats["launches"]
         spmm_bwd, ttm_train_rows, ttm_t_rows, ttm_sweep, ttm_t_sweep = \
@@ -4883,11 +5212,6 @@ def main(argv: list[str] | None = None) -> int:
                 part_fwd, part_bwd = phase("partition-shape kernel checks",
                                            partition_band_checks, torch,
                                            n_nodes, 5, timer)
-                gc.collect()
-                torch.cuda.empty_cache()
-                part_stats["shared_card"] = phase(
-                    "partition shared card", partition_shared_card, torch,
-                    group)
                 part_stats["band_rows"] = part_fwd
                 part_stats["band_t_rows"] = part_bwd
             if "dstream" in groups:
@@ -4901,9 +5225,6 @@ def main(argv: list[str] | None = None) -> int:
                                       kernels, obs, train_ds, stream_pipe,
                                       group, timer)
                 launches["dstream"] = dstream_stats["launches"]
-                dstream_stats["shared_card"] = phase(
-                    "dstream shared card", dstream_shared_card, torch,
-                    group)
             if {"hybrid", "sampled", "ft", "trace"} & set(groups) \
                     and train_ds is None:
                 t0 = time.perf_counter()
@@ -4914,8 +5235,6 @@ def main(argv: list[str] | None = None) -> int:
                 hybrid_stats = phase("hybrid path", hybrid_path, torch,
                                      kernels, train_ds, group, timer)
                 launches["hybrid"] = hybrid_stats["launches"]
-                hybrid_stats["shared_card"] = phase(
-                    "hybrid shared card", hybrid_shared_card, torch, group)
             if "sampled" in groups:
                 sampled_stats = phase("sampled path", sampled_path, torch,
                                       kernels, obs, train_ds, stream_pipe,
@@ -4923,9 +5242,6 @@ def main(argv: list[str] | None = None) -> int:
                 launches["sampled"] = sampled_stats["launches"]
                 sampled_stats["equivalence"] = phase(
                     "sampled equivalence", sampled_equivalence, torch,
-                    group)
-                sampled_stats["shared_card"] = phase(
-                    "sampled shared card", sampled_shared_card, torch,
                     group)
             if "ft" in groups:
                 gc.collect()
@@ -4948,12 +5264,35 @@ def main(argv: list[str] | None = None) -> int:
                     k: ft_stats["eager"]["launches"].get(k, 0)
                     + ft_stats["stream"]["launches"].get(k, 0)
                     for k in ft_stats["eager"]["launches"]}
+            shared = {"partition", "dstream", "hybrid", "sampled",
+                      "ft"} & set(groups)
+            if shared:
+                # the shared-card ranks, this process's references and the
+                # ft launcher's two runs (each a subprocess) side by side
+                from concurrent.futures import ThreadPoolExecutor
                 gc.collect()
                 torch.cuda.empty_cache()
-                ft_stats["shared_card"] = phase("ft shared card",
-                                                ft_shared_card, torch)
-                ft_stats["launcher"] = phase("ft launcher", ft_launcher,
-                                             torch)
+                with ThreadPoolExecutor(1) as pool:
+                    launcher = (pool.submit(ft_launcher_runs)
+                                if "ft" in groups else None)
+                    t0 = time.perf_counter()
+                    shared_stats = phase("shared card", shared_card, torch,
+                                         group, groups)
+                    if launcher is not None:
+                        ft_stats["launcher"] = ft_launcher(
+                            torch, launcher.result())
+                        log(f"[phase] shared card and ft launcher: "
+                            f"{time.perf_counter() - t0:.1f} s")
+                if "partition" in shared:
+                    part_stats["shared_card"] = shared_stats["partition"]
+                if "dstream" in shared:
+                    dstream_stats["shared_card"] = shared_stats["dstream"]
+                if "hybrid" in shared:
+                    hybrid_stats["shared_card"] = shared_stats["hybrid"]
+                if "sampled" in shared:
+                    sampled_stats["shared_card"] = shared_stats["sampled"]
+                if "ft" in shared:
+                    ft_stats["shared_card"] = shared_stats["ft"]
             if "trace" in groups:
                 gc.collect()
                 torch.cuda.empty_cache()
@@ -4973,7 +5312,9 @@ def main(argv: list[str] | None = None) -> int:
     if "data" in groups:
         gc.collect()
         torch.cuda.empty_cache()
-        data_stats = phase("data path", data_path, torch, kernels, train_ds)
+        data_stats = phase("data path", data_path, torch, kernels, train_ds,
+                           train_raw)
+        del train_raw
         launches["data"] = data_stats["launches"]
     del train_ds, stream_pipe
     gc.collect()
@@ -5021,6 +5362,13 @@ def main(argv: list[str] | None = None) -> int:
                                     FD_MOE_CASES)
         moe_stats["flash_decode"] = [r for r in fd_rows if r["case"] in
                                      {c[0] for c in FD_MOE_CASES}]
+
+    if "gnn" in groups:
+        gc.collect()
+        torch.cuda.empty_cache()
+        gnn_stats = phase("gnn path", gnn_path, torch, kernels)
+        launches["gnn"] = gnn_stats["launches"]
+        gnn_stats["parity"] = phase("gnn parity", gnn_parity, torch)
 
     if "serve" in groups:
         spmm_main = next(r for r in spmm_rows if r["F"] == 6)  # layer 2
@@ -5088,6 +5436,8 @@ def main(argv: list[str] | None = None) -> int:
         log(json.dumps({"data_path": data_stats}))
     if "moe" in groups:
         log(json.dumps({"moe_path": moe_stats}))
+    if "gnn" in groups:
+        log(json.dumps({"gnn_path": gnn_stats}))
     if {"lm", "moe"} & set(groups):
         report.append(kernel_entry(
             "flash_decode", "src/repro_torch/csrc/flash_decode.cu",

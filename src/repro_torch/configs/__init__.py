@@ -1,1 +1,1 @@
-"""Architecture registry of the port (dyngnn and dense LM archs)."""
+"""Architecture registry of the port (dyngnn, LM and static-GNN archs)."""

@@ -1,7 +1,9 @@
 """Parameter and carry conversion between the JAX package and the port.
 
 The JAX package's dyngnn parameter tree (nested dicts/lists of ``w/b``,
-``wx/wh/b``, ``w0``, ``classifier.u/b``) maps one to one onto the port's
+``wx/wh/b``, ``w0``, ``classifier.u/b``) and its static-GNN trees (a
+``layers`` / ``blocks`` list of dicts, EquiformerV2's ``so2`` dicts and
+stacked (L + 1, C, C) leaves) map one to one onto the port's
 :class:`~repro_torch.core.models.ParamTree`; its LM tree (``embed``,
 stacked ``layers.attn/ffn/ln1/ln2``, ``final_norm``, ``out``) onto the
 same nested dict of tensors.  Both directions take and give numpy arrays,
@@ -40,7 +42,8 @@ def _numpy_tree(tree: Any) -> Any:
 
 def params_from_jax(tree: dict) -> ParamTree:
     """A JAX parameter tree as numpy arrays -> the port's ``ParamTree`` (on
-    the CPU; move it with ``.to(device)``).  Works for all three models."""
+    the CPU; move it with ``.to(device)``).  Works for the three dyngnn
+    models and the four static GNNs."""
     return ParamTree(_numpy_tree(tree))
 
 

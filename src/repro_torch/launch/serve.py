@@ -12,7 +12,7 @@ and the same ``DeprecationWarning``::
 An arch id serves its smoke config with seed-keyed random weights, one
 ``generate()`` a request wave.  ``--device`` defaults to ``cuda`` (raises
 without a card); ``--device cpu`` runs the plain versions.  The recsys
-family (``din``) is refused until ROADMAP Queue 1, item 9 ports it.
+family (``din``) is refused until ROADMAP Queue 1, item 9c ports it.
 """
 
 from __future__ import annotations
@@ -43,7 +43,7 @@ def main(argv: list[str] | None = None) -> None:
             arch=args.arch, batch_sizes=(args.batch,),
             prompt_len=args.prompt_len, max_tokens=args.tokens),
             device=args.device)
-    except NotImplementedError as e:    # the recsys family: item 9
+    except NotImplementedError as e:    # the recsys family: item 9c
         raise SystemExit(str(e)) from None
     for wave in range(args.requests):
         eng.generate(batch_size=args.batch)

@@ -1,6 +1,6 @@
 """Training launcher: ``python -m repro_torch.launch.train --arch <id>``.
 
-Port of ``repro.launch.train`` for the dyngnn and LM families.  A
+Port of ``repro.launch.train`` for the dyngnn, LM and GNN families.  A
 dynamic-GNN arch (``paper_dyngnn``, ``tmgcn``, ``cdgcn``, ``evolvegcn``)
 trains through ``repro_torch.run.Engine`` on a synthetic trace.
 By default the blocked trainer runs ``--steps`` steps, evaluates link
@@ -19,11 +19,26 @@ from ``np.random.default_rng(0).integers(0, 2, .)`` -- and prints the
 reference's ``step i loss x`` lines (every ``steps // 10``) and ``done``.
 Its parameters come from ``init_lm_params`` and its AdamW state from
 ``adamw.init_state``: the reference fills both with N(0, 0.1) draws, a
-negative second moment included, and its losses go NaN after step 0.  LM
-training runs in one process; under ``torchrun`` it is refused until
-ROADMAP Queue 1, item 9d::
+negative second moment included, and its losses go NaN after step 0.
+
+A static-GNN arch (``gatedgcn``, ``pna``, ``schnet``, ``equiformer-v2``)
+takes ``--steps`` AdamW steps of ``launch.steps.gnn_train_step`` at the
+``molecule`` shape: with the smoke config, the reference's smoke override
+(2 graphs of 16 nodes and 32 edges, 8 features, 2 classes); with
+``--full-config``, the shape's own 128 graphs of 30 nodes and 64 edges,
+16 features.  The batch is the reference's ``batch_molecules`` (seed 0),
+the parameters the model's ``init_params`` and the state
+``adamw.init_state``.  It prints the same ``step i loss x`` and ``done``
+lines.  The reference's launcher fills the cell's abstract inputs with
+N(0, 0.1) draws (AdamW's second moment included) and its edges and graph
+ids with 0 or 1, and its losses go NaN after step 0; the port's, from a
+real init and a real batch, stay finite.  LM and GNN training run in one
+process; under ``torchrun`` they are refused until ROADMAP Queue 1, item
+9d::
 
     python -m repro_torch.launch.train --arch olmoe-1b-7b --steps 10 \
+        --device cpu
+    python -m repro_torch.launch.train --arch equiformer-v2 --steps 3 \
         --device cpu
 
 Snapshot-partitioned training runs one process per rank under
@@ -278,9 +293,12 @@ def _train(args, dp: int, world: int, rescale: tuple) -> None:
     if arch.family == "lm":
         _train_lm(args, arch, world)
         return
+    if arch.family == "gnn":
+        _train_gnn(args, arch, world)
+        return
     if arch.family != "dyngnn":
         raise SystemExit(f"training the {arch.family} family is not ported "
-                         "to PyTorch yet (ROADMAP Queue 1, item 9)")
+                         "to PyTorch yet (ROADMAP Queue 1, item 9c)")
     cfg = (arch.make_config() if args.full_config
            else arch.make_smoke_config())
     smooth = {"tmgcn": "mproduct", "evolvegcn": "edgelife",
@@ -415,12 +433,13 @@ def _train(args, dp: int, world: int, rescale: tuple) -> None:
 LM_BATCH, LM_SEQ = 2, 128      # the reference launcher's smoke batch
 
 
-def _train_lm(args, arch, world: int) -> None:
-    """``--steps`` LM train steps on the reference's smoke batch (module
-    docstring); prints ``step i loss x`` and ``done``."""
+def _one_process(args, family: str, world: int) -> None:
+    """Refuse what the lm and gnn families do not take: ranks and the
+    dyngnn schedules' flags."""
     if world > 1:
-        raise SystemExit("LM training runs in one process: training over "
-                         f"{world} ranks waits for ROADMAP Queue 1, item 9d")
+        raise SystemExit(f"{family.upper()} training runs in one process: "
+                         f"training over {world} ranks waits for ROADMAP "
+                         "Queue 1, item 9d")
     flags = {"--stream": args.stream, "--sampled": args.sampled,
              "--mesh": args.mesh, "--data-parallel": args.data_parallel,
              "--ckpt-dir": args.ckpt_dir,
@@ -431,12 +450,33 @@ def _train_lm(args, arch, world: int) -> None:
     given = [f for f, on in flags.items() if on]
     if given:
         raise SystemExit(f"{', '.join(given)} configure the dyngnn "
-                         "schedules; the lm family trains one LM step at a "
-                         "time on one device")
+                         f"schedules; the {family} family trains one step "
+                         "at a time on one device")
+
+
+def _run_steps(args, step, params, opt_state, *batch) -> None:
+    """``--steps`` calls of ``step``, each a fenced ``train.step`` span;
+    prints ``step i loss x`` (every ``steps // 10``) and ``done``."""
+    from repro_torch import obs
+
+    for i in range(args.steps):
+        with obs.span("train.step", cat="train", step=i) as sp:
+            params, opt_state, loss = step(params, opt_state, *batch)
+            sp.fence(loss)
+        if i % max(args.steps // 10, 1) == 0:
+            print(f"step {i} loss {float(loss):.4f}")
+    _finish_trace(args.trace, None, 0)
+    print("done")
+
+
+def _train_lm(args, arch, world: int) -> None:
+    """``--steps`` LM train steps on the reference's smoke batch (module
+    docstring); prints ``step i loss x`` and ``done``."""
+    _one_process(args, "lm", world)
     import numpy as np
     import torch
 
-    from repro_torch import obs, resolve_device
+    from repro_torch import resolve_device
     from repro_torch.launch.steps import lm_train_state, lm_train_step
 
     dev = resolve_device(args.device)
@@ -449,16 +489,40 @@ def _train_lm(args, arch, world: int) -> None:
                        for _ in range(2))
     params, opt_state = lm_train_state(
         torch.Generator(device=dev).manual_seed(0), cfg)
-    step = lm_train_step(cfg)
-    for i in range(args.steps):
-        with obs.span("train.step", cat="train", step=i) as sp:
-            params, opt_state, loss = step(params, opt_state, tokens,
-                                           targets)
-            sp.fence(loss)
-        if i % max(args.steps // 10, 1) == 0:
-            print(f"step {i} loss {float(loss):.4f}")
-    _finish_trace(args.trace, None, 0)
-    print("done")
+    _run_steps(args, lm_train_step(cfg), params, opt_state, tokens,
+               targets)
+
+
+#: the reference launcher's smoke override of the ``molecule`` shape
+GNN_SMOKE_SHAPE = {"n_nodes": 16, "n_edges": 32, "batch": 2, "d_feat": 8,
+                   "num_classes": 2}
+
+
+def _train_gnn(args, arch, world: int) -> None:
+    """``--steps`` GNN train steps at the ``molecule`` shape (module
+    docstring); prints ``step i loss x`` and ``done``."""
+    _one_process(args, "gnn", world)
+    import dataclasses
+
+    import torch
+
+    from repro_torch import resolve_device
+    from repro_torch.launch import steps
+
+    dev = resolve_device(args.device)
+    cfg = (arch.make_config() if args.full_config
+           else arch.make_smoke_config())
+    shape = arch.shapes["molecule"]
+    if not args.full_config:
+        shape = dataclasses.replace(shape, dims={**shape.dims,
+                                                 **GNN_SMOKE_SHAPE})
+    dims = steps.gnn_dims(shape)
+    batches = steps.gnn_batches(shape, device=dev)
+    params, opt_state = steps.gnn_train_state(
+        torch.Generator(device=dev).manual_seed(0), args.arch, cfg,
+        dims["d_in"], dims["num_classes"])
+    _run_steps(args, steps.gnn_train_step(args.arch, cfg, shape.kind),
+               params, opt_state, batches)
 
 
 def _quiet(_msg: str) -> None:

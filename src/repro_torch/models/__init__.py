@@ -1,1 +1,1 @@
-"""Models of the port (the decoder-only LM family)."""
+"""Models of the port (the decoder-only LM family, the static GNNs)."""

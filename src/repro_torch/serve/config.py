@@ -1,7 +1,7 @@
 """Serve configuration: the one declarative description of a serving run.
 
 The port's copy of ``repro.serve.config``, for the dyngnn and lm families
-(the recsys family waits for ROADMAP Queue 1, item 9).  The config
+(the recsys family waits for ROADMAP Queue 1, item 9c).  The config
 separates
 
 * the MODEL — an arch id from the registry (``arch="paper_dyngnn"``)

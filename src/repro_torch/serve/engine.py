@@ -18,7 +18,8 @@ Port of ``repro.serve.engine`` for the dyngnn and lm families.
   seed on the CPU (``tests/test_torch_lm.py``).
 
 The recsys family raises ``NotImplementedError`` until ROADMAP Queue 1,
-item 9 ports it.
+item 9c ports it; a static-GNN arch raises the reference's ``ValueError``
+(it has no serving path).
 """
 
 from __future__ import annotations
@@ -41,7 +42,7 @@ from repro_torch.stream.encoder import StreamReport
 from repro_torch.stream.prefetch import DeltaApplier, stage_item
 
 _NOT_PORTED = ("serving the {} family is not ported to PyTorch yet: "
-               "ROADMAP Queue 1, item 9")
+               "ROADMAP Queue 1, item 9c")
 
 
 def _resolve(config: ServeConfig):
@@ -60,6 +61,10 @@ def _resolve(config: ServeConfig):
                          "expected DynGNNConfig or LMConfig")
     from repro_torch.configs import registry
     arch = registry.get_arch(config.arch)
+    if arch.family == "gnn":
+        raise ValueError(
+            f"arch '{config.arch}' is a static-graph gnn; online serving "
+            "supports the dyngnn, lm, and recsys families")
     return arch.family, arch.make_smoke_config()
 
 

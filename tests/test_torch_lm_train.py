@@ -229,7 +229,7 @@ def test_launcher_refuses_dyngnn_flags_and_ranks(monkeypatch):
                            "--steps", "1"])
     monkeypatch.delenv("WORLD_SIZE")
     with pytest.raises(NotImplementedError, match="Queue 1, item 9"):
-        launch_train.main(["--arch", "schnet", "--device", "cpu"])
+        launch_train.main(["--arch", "din", "--device", "cpu"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             launch_train.main(["--arch", "olmoe-1b-7b", "--steps", "1"])

@@ -283,6 +283,13 @@ def test_port_imports_neither_jax_nor_repro():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20
+    scanned = {f.relative_to(ROOT).as_posix() for f in files}
+    assert {f"src/repro_torch/{m}.py" for m in (
+        "graph/segment", "models/gnn/common", "models/gnn/gatedgcn",
+        "models/gnn/pna", "models/gnn/schnet", "models/gnn/so3",
+        "models/gnn/equiformer_v2", "configs/gatedgcn", "configs/pna",
+        "configs/schnet", "configs/equiformer_v2",
+        "launch/steps")} <= scanned
     hits = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
             for f in files for m in _FORBIDDEN.finditer(f.read_text())]
     assert hits == []
