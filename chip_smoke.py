@@ -284,7 +284,28 @@ which exits non-zero on failure:
    step's loss and gradients for each arch's smoke config on the
    launcher's smoke batch and EquiformerV2's full widths at 2 layers on
    ``molecule``, while the launcher trains EquiformerV2 at its full
-   config for 5 steps in a subprocess on the card.
+   config for 5 steps in a subprocess on the card;
+10. the recsys family (the recsys group): DIN at its full config
+   (embed 18, history 100, attention MLP 80-40, MLP 200-80; 2,010,000
+   table rows, ``configs/din.py``) at the reference's shapes: 10 AdamW
+   steps of ``launch.steps.din_train_step`` at ``train_batch`` (B 65,536,
+   ragged histories drawn by ``din_batch`` on the card) from
+   ``din_train_state`` (drawn on the card): finite losses, every
+   parameter leaf moved, step ms, peak, one profiled step (busy, idle
+   share, device time by kind); then the
+   trained parameters served through ``ServeEngine(ServeConfig(model=
+   DINConfig()), device="cuda").score`` -- 20 waves at ``serve_p99``
+   (512) and 3 at ``serve_bulk`` (262,144), each after a warm wave: p50
+   / p99, peak; then ``din_retrieval_step`` at ``retrieval_cand`` (one
+   user against 1,000,000 candidates) in chunks of 131,072 (unchunked,
+   its (N, L, 4P) features alone are 57.6 GB): total ms, candidates/s,
+   peak; every count zeroed just before each and read just after (no
+   kernel: DIN embeds with gathers and pools with GEMMs); card against
+   CPU (TF32 off): logits, loss and one train step's gradients on 256
+   rows at the full config, and 4,096 candidates scored in chunks of
+   1,000 on the card against unchunked on the CPU, while the launcher
+   trains DIN at its full config (B 65,536) for 3 steps in a subprocess
+   on the card.
 
 Tolerances: segment SpMM 1e-4 (abs and rel; fp32 sums in another order
 than the plain ``index_add_``), banded TTM and its transpose 1e-5 (abs
@@ -299,15 +320,16 @@ rounding of a bf16 output, 2^-8 of its size; the output shrinks as
 1 / sqrt(cache rows), so a fixed term would pass zeros at long caches);
 LM logits and ``moe_apply`` outputs 1e-4 (abs and rel; fp32 sums of
 4,096- and 11,008-long products taken in another order, TF32 off); MoE
-training gradients 1e-4 x each leaf's max; GNN losses 1e-4 relative and
-gradients 1e-4 x each leaf's max.
+training gradients 1e-4 x each leaf's max; GNN and DIN losses 1e-4
+relative and gradients 1e-4 x each leaf's max; DIN logits and retrieval
+scores 1e-4 (abs and rel).
 Kernel times are device time only (each call queued behind a device
 sleep); ``wrapper_ms`` is the wrapper's host time plus device time.
 
 Prints the card line, the per-phase numbers, one JSON line each of the
 streamed, the partitioned, the distributed-stream, the hybrid, the
-sampled, the fault-tolerance, the trace, the data, the moe and the gnn
-phases' numbers,
+sampled, the fault-tolerance, the trace, the data, the moe, the gnn and
+the recsys phases' numbers,
 one JSON line of the kernels and, last, ``{"ok": true, "device":
 {...}}``.  Before that line it stops every process it started that is
 still running (the shared sampling pools, ``multiprocessing``'s resource
@@ -315,10 +337,10 @@ tracker, any child or orphaned grandchild: the script is their
 subreaper) and fails if any but those two was left; at exit it stops
 them again.  Without a CUDA device, or without the repository around
 it, it exits non-zero and prints no result.  ``--only
-serve,train,stream,partition,dstream,hybrid,sampled,ft,trace,data,lm,moe,gnn``
+serve,train,stream,partition,dstream,hybrid,sampled,ft,trace,data,lm,moe,gnn,recsys``
 runs the build and the named groups of phases (1–4, 4a–4c, 4d, 4e–4g,
 4h–4i, 4j, 4k, 4l, 4m, 4n, 5–7, 8 with phase 6's OLMoE rows when lm is
-not named, 9; each of partition, dstream, hybrid, sampled and ft with
+not named, 9, 10; each of partition, dstream, hybrid, sampled and ft with
 its part of 4o; partition and data are held to train's run, so they need
 train) and prints no result line.
 """
@@ -404,6 +426,13 @@ GNN_RUNS = (("molecule", GNN_ARCHS), ("full_graph_sm", GNN_ARCHS),
 GNN_STEPS = 10
 GNN_PARITY_LAYERS = 2        # EquiformerV2's full widths, card vs CPU
 GNN_LAUNCH_STEPS = 5
+RECSYS_STEPS = 10
+RECSYS_WAVES = {"serve_p99": 20, "serve_bulk": 3}   # after one warm wave
+RECSYS_CHUNK = 131_072       # ~18 GB of (chunk, L, 4P) features and hidden
+RECSYS_PARITY_BATCH = 256
+RECSYS_PARITY_CANDIDATES = 4_096
+RECSYS_PARITY_CHUNK = 1_000  # does not divide 4,096: a short last chunk
+RECSYS_LAUNCH_STEPS = 3
 
 
 def log(msg: str) -> None:
@@ -571,8 +600,13 @@ def alternating_walls(torch, variants: dict, rounds: int, warm: int = 1
 def device_profile(torch, fn, ranges: dict | None = None,
                    host_top: list | None = None, host: bool = True
                    ) -> tuple[float, float, dict]:
-    """``fn()`` once under ``torch.profiler`` -> (wall us, device busy us,
-    {device activity name: [us, ...]}).  Device activities only (kernels,
+    """``fn()`` twice under ``torch.profiler``, the first call in its
+    warm-up cycle, the second recorded -> (wall us, device busy us,
+    {device activity name: [us, ...]}) of the second.  A window opened
+    without that cycle late in a long process could lose its first
+    activities (DIN's step read 507 activities and 41.4 ms busy in a whole
+    run against 562 and 66.4 ms alone, its step time the same); ``fn``
+    must bear being called twice.  Device activities only (kernels,
     copies, sets): one stream at a time, so their durations add up to the
     device's busy time without overlap.  The ranges that annotate device
     work (NCCL's ``nccl:all_to_all`` spans its copy) are not activities:
@@ -582,15 +616,21 @@ def device_profile(torch, fn, ranges: dict | None = None,
     which collects faster for a step of tens of thousands of host
     operations."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA] + (
-            [ProfilerActivity.CPU] if host else [])) as prof:
+            [ProfilerActivity.CPU] if host else []),
+            schedule=schedule(wait=0, warmup=1, active=1,
+                              repeat=1)) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+        prof.step()
     by_name: dict[str, list[float]] = {}
     ranges = {} if ranges is None else ranges
     for e in prof.events():
@@ -4213,10 +4253,10 @@ def profile_decode(torch, eng, tag: str = "profile-lm",
 
     steady = alternating_walls(torch, {"step": step}, 8, warm=2)["step"]
 
-    def profiled(fn):
-        wall_us, busy, by_name = device_profile(torch, fn)
-        fd = sum(sum(v) for n, v in by_name.items() if "flash_decode" in n)
-        return wall_us, busy, fd, by_name
+    def replay():
+        # the same tokens route alike and rewrite the same K/V row, so
+        # both of the profiler's calls run the step counted below
+        torch.argmax(lm.decode_step(cfg, params, cache, tok)[0], -1)
 
     rows_read = int(cache["len"].sum()) + batch   # the new token's row too
     routed = None
@@ -4226,7 +4266,8 @@ def profile_decode(torch, eng, tag: str = "profile-lm",
         routed = [int(torch.unique(top).numel()) for top, _ in rl.calls]
         if len(routed) != cfg.num_layers:
             raise SystemExit(f"{tag}: {len(routed)} MoE calls in a step")
-    wall_us, busy, fd, by_name = profiled(step)
+    wall_us, busy, by_name = device_profile(torch, replay)
+    fd = sum(sum(v) for n, v in by_name.items() if "flash_decode" in n)
     embed = params["embed"]
     weight_bytes = sum(t.nbytes for t in _leaves(params)) - embed.nbytes \
         + batch * embed[0].nbytes
@@ -4805,12 +4846,13 @@ GNN_KINDS = (("GEMMs", ("gemm", "xmma", "cutlass")),
              ("norms / softmax", ("norm", "softmax")))
 
 
-def gnn_kinds(by_name: dict) -> list:
-    """{device activity name: [us]} -> [(kind, ms, count)] by time, what
-    no kind names under "other elementwise"."""
+def gnn_kinds(by_name: dict, table: tuple = GNN_KINDS) -> list:
+    """{device activity name: [us]} -> [(kind, ms, count)] by time, the
+    kinds of ``table`` (first match wins), what none names under "other
+    elementwise"."""
     out: dict[str, list] = {}
     for name, v in by_name.items():
-        kind = next((k for k, subs in GNN_KINDS
+        kind = next((k for k, subs in table
                      if any(x in name for x in subs)), "other elementwise")
         acc = out.setdefault(kind, [0.0, 0])
         acc[0] += sum(v) / 1e3
@@ -5078,10 +5120,354 @@ def gnn_parity(torch) -> dict:
     return {"cases": out, "launcher": {"losses": losses, "s": launch_s}}
 
 
+# ------------------------------------------------------------- recsys -----
+
+#: the recsys group's device activities by kind, first match wins
+RECSYS_KINDS = (("GEMMs", ("gemm", "xmma", "cutlass")),
+                ("embedding gathers (index_select)",
+                 ("indexSelect", "gather")),
+                ("embedding backward (sort, segment sums)",
+                 ("embedding", "RadixSort", "radix", "segment",
+                  "partial", "grad_weight")),
+                ("cat copies", ("CatArrayBatchedCopy",)),
+                ("other copies", ("copy", "Memcpy")),
+                ("fills", ("FillFunctor", "Memset")),
+                ("reductions", ("reduce_kernel",)))
+
+
+def recsys_shape(name: str, **dims):
+    from repro_torch.configs import registry
+    shape = registry.get_arch("din").shapes[name]
+    return dataclasses.replace(shape, dims={**shape.dims, **dims})
+
+
+def recsys_train(torch, kernels, cfg) -> tuple[dict, object]:
+    """``RECSYS_STEPS`` ``din_train_step`` calls at ``train_batch`` (B
+    65,536) on DIN's full config from ``din_train_state`` (generator seed
+    0, on the card) and a ``din_batch`` (seed 0) made on the card; every
+    count zeroed just before and read just after (no kernel: DIN embeds
+    with gathers and pools with GEMMs); losses finite; each step's host
+    ms ending in the loss's read; peak memory; two more steps under the
+    profiler, the second recorded. -> (stats, the trained parameters)."""
+    import numpy as np
+
+    from repro_torch.kernels.build import reset_counts
+    from repro_torch.launch import steps as lsteps
+
+    shape = recsys_shape("train_batch")
+    t0 = time.perf_counter()
+    batch = lsteps.din_batch(cfg, shape, seed=0, device="cuda")
+    labels = batch.pop("labels")
+    params, opt = lsteps.din_train_state(
+        torch.Generator(device="cuda").manual_seed(0), cfg)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    step = lsteps.din_train_step()
+    start = {k: p.detach().cpu() for k, p in params.named_parameters()}
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(kernels)
+    losses, step_ms = [], []
+    for _ in range(RECSYS_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, loss = step(params, opt, batch, labels)
+        losses.append(float(loss))          # reads the loss: a sync
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = {k.name: k.launches for k in kernels}
+    if any(launches.values()):
+        raise SystemExit(f"recsys train: kernel launches {launches}")
+    if not np.isfinite(losses).all():
+        raise SystemExit(f"recsys train: losses {losses}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    # the labels are independent of the features, so the loss stays near
+    # log 2: that the steps train is read from the parameters
+    moved = {k: float((p.detach().cpu() - start[k]).norm())
+             for k, p in params.named_parameters()}
+    if not all(np.isfinite(v) and v > 0 for v in moved.values()):
+        raise SystemExit(f"recsys train: parameter change norms {moved}")
+    moved_norm = sum(v * v for v in moved.values()) ** 0.5
+    del start
+    warm = statistics.median(step_ms[1:])
+    holder = [params, opt]
+
+    def one_step():
+        holder[0], holder[1], _ = step(holder[0], holder[1], batch, labels)
+
+    t0 = time.perf_counter()
+    wall_us, busy_us, by_name = device_profile(torch, one_step, host=False)
+    prof_s = time.perf_counter() - t0
+    kinds = gnn_kinds(by_name, RECSYS_KINDS)
+    top = sorted(((k, sum(v) / 1e3, len(v)) for k, v in by_name.items()),
+                 key=lambda r: -r[1])[:5]
+    n_act = sum(len(v) for v in by_name.values())
+    b = shape.dims["batch"]
+    log(f"[recsys] train at train_batch (full config, {n_params:,} "
+        f"parameters; B {b:,}, L {cfg.seq_len}): batch and state made on "
+        f"the card in {setup_s:.1f} s; losses "
+        + ", ".join(f"{v:.5f}" for v in losses)
+        + f"; every leaf moved, the parameters by norm {moved_norm:.4f}")
+    log("[recsys]   step ms " + ", ".join(f"{v:.1f}" for v in step_ms)
+        + f"; warm median {warm:.2f} ms ({b / warm * 1e3:,.0f} examples/s); "
+        f"peak {peak:.3f} GB; profiled step: wall {wall_us / 1e3:.2f} ms, "
+        f"device busy {busy_us / 1e3:.2f} ms, idle share "
+        f"{1 - busy_us / wall_us:.3f}, {n_act} device activities, "
+        f"{prof_s:.1f} s with the profiler's collection; by kind: "
+        + ", ".join(f"{k} {ms:.2f} ({n})" for k, ms, n in kinds[:6]))
+    log("[recsys]   top device activities: " + "; ".join(
+        f"{k[:80]} {ms:.2f} ms ({n})" for k, ms, n in top))
+    params = holder[0]
+    del opt, holder, batch, labels
+    gc.collect()
+    torch.cuda.empty_cache()
+    stats = {"batch": b, "params": n_params, "losses": losses,
+             "param_change_norm": moved_norm,
+             "step_ms": step_ms, "warm_step_ms": warm,
+             "examples_per_s": b / warm * 1e3, "peak_gb": peak,
+             "profiled_wall_ms": wall_us / 1e3, "busy_ms": busy_us / 1e3,
+             "idle_share": 1 - busy_us / wall_us,
+             "device_activities": n_act, "profile_s": prof_s,
+             "kinds": [{"kind": k, "ms": ms, "count": n}
+                       for k, ms, n in kinds],
+             "top": [{"name": k[:120], "ms": ms, "count": n}
+                     for k, ms, n in top],
+             "launches": launches}
+    return stats, params
+
+
+def recsys_serve(torch, kernels, cfg, params) -> dict:
+    """``ServeEngine(ServeConfig(model=cfg), params, device="cuda")``
+    scoring waves of its synthetic requests at ``serve_p99`` (512) and
+    ``serve_bulk`` (262,144): one warm wave each, then ``RECSYS_WAVES``
+    waves, each ``score(batch_size=B)`` (the stopwatch spans the forward
+    and the logits' copy to the host; the request draw and its copy to
+    the card come before it); logits finite, (B, 2); p50 / p99 per shape;
+    the bulk waves' peak memory; every count zeroed just before the waves
+    and read just after."""
+    import numpy as np
+
+    from repro_torch.kernels.build import reset_counts
+    from repro_torch.serve import ServeConfig, ServeEngine
+
+    sizes = {name: recsys_shape(name).dims["batch"] for name in RECSYS_WAVES}
+    eng = ServeEngine(ServeConfig(model=cfg,
+                                  batch_sizes=tuple(sorted(sizes.values()))),
+                      params=params, device="cuda")
+    out = {}
+    reset_counts(kernels)
+    for name, waves in RECSYS_WAVES.items():
+        b = sizes[name]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        first = len(eng.result().query_latencies_ms)
+        t0 = time.perf_counter()
+        for _ in range(waves + 1):
+            logits = eng.score(batch_size=b)
+            if logits.shape != (b, cfg.num_classes) or \
+                    not np.isfinite(logits).all():
+                raise SystemExit(f"recsys serve {name}: logits "
+                                 f"{logits.shape}, finite "
+                                 f"{np.isfinite(logits).all()}")
+        wall_s = time.perf_counter() - t0
+        lat = eng.result().query_latencies_ms[first:]
+        warm_ms, ms = lat[0], lat[1:]
+        p50, p99 = (float(np.percentile(ms, q)) for q in (50, 99))
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        out[name] = {"batch": b, "waves": waves, "first_ms": warm_ms,
+                     "ms": ms, "p50_ms": p50, "p99_ms": p99,
+                     "queries_per_s": b / p50 * 1e3, "peak_gb": peak,
+                     "wall_s": wall_s}
+        log(f"[recsys] serve {name} (B {b:,}): {waves} waves after a warm "
+            f"one ({warm_ms:.2f} ms): p50 {p50:.3f} ms, p99 {p99:.3f} ms, "
+            f"{b / p50 * 1e3:,.0f} queries/s at p50; peak {peak:.3f} GB; "
+            f"{wall_s:.1f} s with the request draws")
+    launches = {k.name: k.launches for k in kernels}
+    if any(launches.values()):
+        raise SystemExit(f"recsys serve: kernel launches {launches}")
+    r = eng.result()
+    log(f"[recsys]   {r.summary()}")
+    out["launches"] = launches
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def recsys_retrieval(torch, kernels, cfg, params) -> dict:
+    """``din_retrieval_step`` at ``retrieval_cand``: one user's history
+    (``din_batch``, seed 1, on the card) against 1,000,000 candidates in
+    chunks of ``RECSYS_CHUNK``, twice (the first warms the GEMMs' choices
+    at the chunk's shapes); scores finite, in [0, 1], (N,); total ms,
+    candidates/s, peak memory; every count zeroed just before and read
+    just after."""
+    from repro_torch.kernels.build import reset_counts
+    from repro_torch.launch import steps as lsteps
+
+    shape = recsys_shape("retrieval_cand")
+    n = shape.dims["n_candidates"]
+    batch = lsteps.din_batch(cfg, shape, seed=1, device="cuda")
+    items, cates = batch.pop("cand_items"), batch.pop("cand_cates")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(kernels)
+    runs_ms = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scores = lsteps.din_retrieval_step(params, batch, items, cates,
+                                           chunk=RECSYS_CHUNK)
+        torch.cuda.synchronize()
+        runs_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = {k.name: k.launches for k in kernels}
+    if any(launches.values()):
+        raise SystemExit(f"recsys retrieval: kernel launches {launches}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    lo, hi = float(scores.min()), float(scores.max())
+    if scores.shape != (n,) or not bool(torch.isfinite(scores).all()) \
+            or lo < 0.0 or hi > 1.0:
+        raise SystemExit(f"recsys retrieval: scores {tuple(scores.shape)}, "
+                         f"range [{lo}, {hi}]")
+    ms = runs_ms[-1]
+    chunks = -(-n // RECSYS_CHUNK)
+    log(f"[recsys] retrieval_cand: 1 user x {n:,} candidates in {chunks} "
+        f"chunks of {RECSYS_CHUNK:,}: {ms:.2f} ms (first run "
+        f"{runs_ms[0]:.2f}), {n / ms * 1e3:,.0f} candidates/s; scores in "
+        f"[{lo:.4f}, {hi:.4f}]; peak {peak:.3f} GB")
+    del batch, items, cates, scores
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"candidates": n, "chunk": RECSYS_CHUNK, "chunks": chunks,
+            "ms": ms, "first_ms": runs_ms[0],
+            "candidates_per_s": n / ms * 1e3, "score_range": [lo, hi],
+            "peak_gb": peak, "launches": launches}
+
+
+def recsys_parity(torch) -> dict:
+    """Card against CPU (TF32 off), the same parameters (drawn on the
+    host, full config) on both: a batch of ``RECSYS_PARITY_BATCH`` at the
+    full config (``din_batch``, seed 2) -- logits 1e-4, the loss 1e-4
+    relative and one train step's gradients 1e-4 x each leaf's max; and
+    ``RECSYS_PARITY_CANDIDATES`` retrieval candidates (seed 3) scored in
+    chunks of ``RECSYS_PARITY_CHUNK`` on the card against unchunked on the
+    CPU at 1e-4.  Meanwhile the launcher trains DIN at its full config
+    (``--full-config``, B 65,536) on the card in a subprocess and must
+    print finite losses and ``done``."""
+    import copy
+
+    import numpy as np
+
+    from repro_torch.configs import registry
+    from repro_torch.launch import steps as lsteps
+    from repro_torch.models import din
+
+    cfg = registry.get_arch("din").make_config()
+    env = dict(os.environ, PYTHONPATH=str(SRC), PYTHONUNBUFFERED="1")
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", "din",
+           "--full-config", "--steps", str(RECSYS_LAUNCH_STEPS)]
+    t_launch = time.perf_counter()
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, env=env,
+                            cwd=ROOT)
+    try:
+        params, _ = lsteps.din_train_state(torch.Generator().manual_seed(5),
+                                           cfg)
+        shape = recsys_shape("train_batch", batch=RECSYS_PARITY_BATCH)
+        arrays = lsteps.din_batch_arrays(cfg, shape, seed=2)
+        res = {}
+        for dev in ("cpu", "cuda"):
+            p = params if dev == "cpu" else copy.deepcopy(params).cuda()
+            batch = din.batch_to(arrays, dev)
+            labels = batch.pop("labels")
+            logits = lsteps.din_serve_step(p, batch).cpu()
+            loss, grads = lsteps.din_loss_and_grads(p, batch, labels)
+            res[dev] = (logits, loss, grads)
+        (l_gpu, loss_gpu, g_gpu), (l_cpu, loss_cpu, g_cpu) = \
+            res["cuda"], res["cpu"]
+        logit_err = float((l_gpu - l_cpu).abs().max())
+        worst = logit_err / (TOL_LOGITS * (1 + float(l_cpu.abs().max())))
+        worst = max(worst, abs(float(loss_gpu) - float(loss_cpu))
+                    / (TOL_GRAD * abs(float(loss_cpu))))
+        for a, b in zip(g_gpu, g_cpu, strict=True):
+            worst = max(worst, float((a.cpu() - b).abs().max())
+                        / (TOL_GRAD * max(float(b.abs().max()), 1e-30)))
+        if not worst <= 1.0:
+            raise SystemExit(f"recsys parity: card vs CPU at {worst:.3f} x "
+                             "the limits")
+        del res, g_gpu, g_cpu
+        rshape = recsys_shape("retrieval_cand",
+                              n_candidates=RECSYS_PARITY_CANDIDATES)
+        rarr = lsteps.din_batch_arrays(cfg, rshape, seed=3)
+        scores = {}
+        for dev, chunk in (("cpu", None), ("cuda", RECSYS_PARITY_CHUNK)):
+            p = params if dev == "cpu" else copy.deepcopy(params).cuda()
+            batch = din.batch_to(rarr, dev)
+            items, cates = batch.pop("cand_items"), batch.pop("cand_cates")
+            scores[dev] = lsteps.din_retrieval_step(
+                p, batch, items, cates, chunk=chunk).cpu()
+        r_err = float((scores["cuda"] - scores["cpu"]).abs().max())
+        r_worst = r_err / (TOL_SCORES * (1 + float(scores["cpu"].abs()
+                                                   .max())))
+        if not r_worst <= 1.0:
+            raise SystemExit(f"recsys parity: retrieval card vs CPU "
+                             f"max|diff| {r_err:.3e}")
+        log(f"[recsys-parity] full config, B {RECSYS_PARITY_BATCH}: logits "
+            f"max|diff| {logit_err:.3e}, loss {float(loss_gpu):.6f} (CPU "
+            f"{float(loss_cpu):.6f}); logits, loss and gradients within "
+            f"{worst:.3f} of the limits (logits {TOL_LOGITS}, loss "
+            f"{TOL_GRAD} relative, gradients {TOL_GRAD} x each leaf's max); "
+            f"retrieval of {RECSYS_PARITY_CANDIDATES:,} candidates, chunks "
+            f"of {RECSYS_PARITY_CHUNK:,} on the card against unchunked on "
+            f"the CPU: max|diff| {r_err:.3e} ({r_worst:.3f} of the limit)")
+        del params
+        gc.collect()
+        rest, err = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    launch_s = time.perf_counter() - t_launch
+    lines = rest.splitlines()
+    losses = [float(ln.split()[-1]) for ln in lines
+              if ln.startswith("step ")]
+    if proc.returncode != 0 or lines[-1:] != ["done"] or \
+            len(losses) != RECSYS_LAUNCH_STEPS or \
+            not np.isfinite(losses).all():
+        raise SystemExit(f"recsys launcher: exit {proc.returncode}:\n{rest}\n"
+                         + err[-2000:])
+    log(f"[recsys-launcher] {' '.join(cmd[2:])}: losses "
+        + ", ".join(f"{v:.4f}" for v in losses)
+        + f", done ({launch_s:.1f} s, beside the parity checks)")
+    return {"batch": RECSYS_PARITY_BATCH, "logits_max_abs_err": logit_err,
+            "loss": float(loss_gpu), "loss_cpu": float(loss_cpu),
+            "worst": worst, "retrieval_candidates": RECSYS_PARITY_CANDIDATES,
+            "retrieval_chunk": RECSYS_PARITY_CHUNK,
+            "retrieval_max_abs_err": r_err, "retrieval_worst": r_worst,
+            "launcher": {"losses": losses, "s": launch_s}}
+
+
+def recsys_path(torch, kernels) -> dict:
+    """The recsys group: DIN at its full config trained, served and
+    scoring retrieval candidates on the card, then held to the CPU."""
+    from repro_torch.configs import registry
+
+    cfg = registry.get_arch("din").make_config()
+    train, params = recsys_train(torch, kernels, cfg)
+    serve = recsys_serve(torch, kernels, cfg, params)
+    retrieval = recsys_retrieval(torch, kernels, cfg, params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = {k.name: train["launches"][k.name]
+                + serve["launches"][k.name] + retrieval["launches"][k.name]
+                for k in kernels}
+    return {"config": dataclasses.asdict(cfg), "train": train,
+            "serve": serve, "retrieval": retrieval, "launches": launches}
+
+
 # ---------------------------------------------------------------- main -----
 
 GROUPS = ("serve", "train", "stream", "partition", "dstream", "hybrid",
-          "sampled", "ft", "trace", "data", "lm", "moe", "gnn")
+          "sampled", "ft", "trace", "data", "lm", "moe", "gnn", "recsys")
 
 
 def kernel_entry(name: str, source: str, replaces: str, launches: dict,
@@ -5370,6 +5756,13 @@ def main(argv: list[str] | None = None) -> int:
         launches["gnn"] = gnn_stats["launches"]
         gnn_stats["parity"] = phase("gnn parity", gnn_parity, torch)
 
+    if "recsys" in groups:
+        gc.collect()
+        torch.cuda.empty_cache()
+        recsys_stats = phase("recsys path", recsys_path, torch, kernels)
+        launches["recsys"] = recsys_stats["launches"]
+        recsys_stats["parity"] = phase("recsys parity", recsys_parity, torch)
+
     if "serve" in groups:
         spmm_main = next(r for r in spmm_rows if r["F"] == 6)  # layer 2
         spmm_main = dict(spmm_main, max_abs_err=spmm_err)
@@ -5438,6 +5831,8 @@ def main(argv: list[str] | None = None) -> int:
         log(json.dumps({"moe_path": moe_stats}))
     if "gnn" in groups:
         log(json.dumps({"gnn_path": gnn_stats}))
+    if "recsys" in groups:
+        log(json.dumps({"recsys_path": recsys_stats}))
     if {"lm", "moe"} & set(groups):
         report.append(kernel_entry(
             "flash_decode", "src/repro_torch/csrc/flash_decode.cu",

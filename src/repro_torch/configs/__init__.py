@@ -1,1 +1,2 @@
-"""Architecture registry of the port (dyngnn, LM and static-GNN archs)."""
+"""Architecture registry of the port (dyngnn, LM, static-GNN and recsys
+archs)."""

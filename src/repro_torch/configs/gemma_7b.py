@@ -4,7 +4,7 @@ Port of ``repro.configs.gemma_7b``."""
 
 import torch
 
-from repro_torch.configs.registry import ArchSpec, register
+from repro_torch.configs.registry import ArchSpec, lm_shapes, register
 from repro_torch.models.lm import LMConfig
 
 
@@ -24,4 +24,5 @@ def make_smoke_config() -> LMConfig:
 
 
 register(ArchSpec(arch_id="gemma-7b", family="lm", make_config=make_config,
-                  make_smoke_config=make_smoke_config))
+                  make_smoke_config=make_smoke_config,
+                  shapes=lm_shapes()))

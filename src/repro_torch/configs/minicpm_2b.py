@@ -4,7 +4,7 @@ vocab=122753 (padded to 122880), WSD LR schedule.  Port of
 
 import torch
 
-from repro_torch.configs.registry import ArchSpec, register
+from repro_torch.configs.registry import ArchSpec, lm_shapes, register
 from repro_torch.models.lm import LMConfig
 
 
@@ -24,4 +24,5 @@ def make_smoke_config() -> LMConfig:
 
 register(ArchSpec(arch_id="minicpm-2b", family="lm",
                   make_config=make_config,
-                  make_smoke_config=make_smoke_config))
+                  make_smoke_config=make_smoke_config,
+                  shapes=lm_shapes()))

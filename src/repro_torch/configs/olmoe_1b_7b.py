@@ -3,7 +3,7 @@ top-8, expert ff=1024, vocab=50304.  Port of ``repro.configs.olmoe_1b_7b``."""
 
 import torch
 
-from repro_torch.configs.registry import ArchSpec, register
+from repro_torch.configs.registry import ArchSpec, lm_shapes, register
 from repro_torch.models.lm import LMConfig
 
 
@@ -23,4 +23,5 @@ def make_smoke_config() -> LMConfig:
 
 register(ArchSpec(arch_id="olmoe-1b-7b", family="lm",
                   make_config=make_config,
-                  make_smoke_config=make_smoke_config))
+                  make_smoke_config=make_smoke_config,
+                  shapes=lm_shapes()))

@@ -7,7 +7,7 @@ The full configs leave ``num_nodes`` at its default; a caller sizes it
 from ``DATASETS`` (``dataclasses.replace(cfg, num_nodes=...)``).
 """
 
-from repro_torch.configs.registry import ArchSpec, register
+from repro_torch.configs.registry import ArchSpec, ShapeSpec, register
 from repro_torch.core.models import DynGNNConfig
 
 DATASETS = {
@@ -19,6 +19,16 @@ DATASETS = {
     "amlsim": (1_000_000, 256, 4_194_304),
     "weak_scale": (1_048_576, 256, 3_145_728),   # weak-scaling generator
 }
+
+
+def _shapes():
+    """One ``dtdg_train`` shape per dataset scale, as in the reference."""
+    return {
+        f"dtdg_{k}": ShapeSpec(
+            f"dtdg_{k}", "dtdg_train",
+            {"n_nodes": n, "n_steps": t, "edges_per_snap": e})
+        for k, (n, t, e) in DATASETS.items()
+    }
 
 
 def _mk(model: str):
@@ -40,4 +50,4 @@ for _arch, _model in (("tmgcn", "tmgcn"), ("cdgcn", "cdgcn"),
                       ("paper_dyngnn", "tmgcn")):   # the headline alias
     _mc, _ms = _mk(_model)
     register(ArchSpec(arch_id=_arch, family="dyngnn", make_config=_mc,
-                      make_smoke_config=_ms))
+                      make_smoke_config=_ms, shapes=_shapes()))

@@ -5,9 +5,10 @@ Port of ``repro.configs.registry`` for the dyngnn archs (``tmgcn``,
 ``yi-6b``, ``gemma-7b``, ``minicpm-2b``; MoE ``olmoe-1b-7b``,
 ``moonshot-v1-16b-a3b``) and the static-GNN archs (``gatedgcn``, ``pna``,
 ``schnet``, ``equiformer-v2``), which carry the reference's shape set
-(:func:`gnn_shapes`).  The seed's recsys arch ``din`` is known by name and
-family only: asking for it raises ``NotImplementedError`` until ROADMAP
-Queue 1, item 9c ports it.
+(:func:`gnn_shapes`), and the recsys arch ``din`` with its four shapes
+(:func:`recsys_shapes`): every arch the reference registers, each with
+the reference's shape set (the LMs' :func:`lm_shapes`, the dyngnn archs'
+one ``dtdg_train`` shape per dataset scale).
 """
 
 from __future__ import annotations
@@ -20,14 +21,16 @@ from typing import Any, Callable
 @dataclass(frozen=True)
 class ShapeSpec:
     name: str
-    kind: str              # full_graph | minibatch | molecule (the gnn set)
+    kind: str              # train | prefill | decode | dtdg_train |
+    #                        full_graph | minibatch | molecule |
+    #                        recsys_train | recsys_serve | retrieval
     dims: dict
 
 
 @dataclass(frozen=True)
 class ArchSpec:
     arch_id: str
-    family: str            # dyngnn | lm | gnn; recsys: ROADMAP Queue 1, 9c
+    family: str            # dyngnn | lm | gnn | recsys
     make_config: Callable[[], Any]
     make_smoke_config: Callable[[], Any]
     shapes: dict = field(default_factory=dict)
@@ -45,11 +48,9 @@ ARCH_MODULES = [
     "repro_torch.configs.pna",
     "repro_torch.configs.schnet",
     "repro_torch.configs.equiformer_v2",
+    "repro_torch.configs.din",
     "repro_torch.configs.paper_dyngnn",
 ]
-
-#: archs of the JAX package the port does not serve yet -> their family
-NOT_PORTED = {"din": "recsys"}
 
 
 def register(spec: ArchSpec) -> ArchSpec:
@@ -60,19 +61,35 @@ def register(spec: ArchSpec) -> ArchSpec:
 def get_arch(arch_id: str) -> ArchSpec:
     if arch_id not in _REGISTRY:
         load_all()      # one config module imported alone registers one
-    if arch_id in NOT_PORTED:
-        raise NotImplementedError(
-            f"arch '{arch_id}' ({NOT_PORTED[arch_id]} family) is not ported "
-            "to PyTorch yet: ROADMAP Queue 1, item 9c")
     if arch_id not in _REGISTRY:
         raise KeyError(f"unknown arch '{arch_id}'; have "
                        f"{sorted(_REGISTRY)}")
     return _REGISTRY[arch_id]
 
 
+def all_archs() -> dict[str, ArchSpec]:
+    load_all()          # a config module imported alone registers one
+    return dict(_REGISTRY)
+
+
 def load_all() -> None:
     for mod in ARCH_MODULES:
         importlib.import_module(mod)
+
+
+def lm_shapes() -> dict:
+    """The LMs' input shapes, as in the reference."""
+    return {
+        "train_4k": ShapeSpec("train_4k", "train",
+                              {"seq_len": 4096, "global_batch": 256}),
+        "prefill_32k": ShapeSpec("prefill_32k", "prefill",
+                                 {"seq_len": 32768, "global_batch": 32}),
+        "decode_32k": ShapeSpec("decode_32k", "decode",
+                                {"seq_len": 32768, "global_batch": 128}),
+        "long_500k": ShapeSpec("long_500k", "decode",
+                               {"seq_len": 524288, "global_batch": 1,
+                                "kv_seq_shard": True}),
+    }
 
 
 def gnn_shapes() -> dict:
@@ -94,4 +111,18 @@ def gnn_shapes() -> dict:
             "molecule", "molecule",
             {"n_nodes": 30, "n_edges": 64, "batch": 128, "d_feat": 16,
              "num_classes": 2}),
+    }
+
+
+def recsys_shapes() -> dict:
+    """DIN's input shapes, as in the reference."""
+    return {
+        "train_batch": ShapeSpec("train_batch", "recsys_train",
+                                 {"batch": 65536}),
+        "serve_p99": ShapeSpec("serve_p99", "recsys_serve", {"batch": 512}),
+        "serve_bulk": ShapeSpec("serve_bulk", "recsys_serve",
+                                {"batch": 262144}),
+        "retrieval_cand": ShapeSpec("retrieval_cand", "retrieval",
+                                    {"batch": 1,
+                                     "n_candidates": 1_000_000}),
     }

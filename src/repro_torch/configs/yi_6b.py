@@ -3,7 +3,7 @@ vocab=64000.  Port of ``repro.configs.yi_6b``."""
 
 import torch
 
-from repro_torch.configs.registry import ArchSpec, register
+from repro_torch.configs.registry import ArchSpec, lm_shapes, register
 from repro_torch.models.lm import LMConfig
 
 
@@ -21,4 +21,5 @@ def make_smoke_config() -> LMConfig:
 
 
 register(ArchSpec(arch_id="yi-6b", family="lm", make_config=make_config,
-                  make_smoke_config=make_smoke_config))
+                  make_smoke_config=make_smoke_config,
+                  shapes=lm_shapes()))

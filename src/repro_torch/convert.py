@@ -5,8 +5,9 @@ The JAX package's dyngnn parameter tree (nested dicts/lists of ``w/b``,
 ``layers`` / ``blocks`` list of dicts, EquiformerV2's ``so2`` dicts and
 stacked (L + 1, C, C) leaves) map one to one onto the port's
 :class:`~repro_torch.core.models.ParamTree`; its LM tree (``embed``,
-stacked ``layers.attn/ffn/ln1/ln2``, ``final_norm``, ``out``) onto the
-same nested dict of tensors.  Both directions take and give numpy arrays,
+stacked ``layers.attn/ffn/ln1/ln2``, ``final_norm``, ``out``) and its DIN
+tree (``item_table``, ``cate_table``, ``user_table``, the ``attn_mlp`` and
+``mlp`` lists) onto the same nested dicts of tensors.  Both directions take and give numpy arrays,
 so this module imports neither ``jax`` nor ``repro``: the caller converts
 with ``jax.tree.map(np.asarray, params)`` first.  bfloat16 arrays (numpy's
 ``ml_dtypes`` extension type) cross bit-exactly through their 16-bit
@@ -52,6 +53,14 @@ def lm_params_from_jax(tree: dict) -> dict:
     numpy arrays -> the same nested dict of CPU tensors, the tree
     ``repro_torch.models.lm`` takes.  Each leaf keeps its dtype: an MoE
     layer's fp32 router beside its bf16 experts."""
+    return _numpy_tree(tree)
+
+
+def din_params_from_jax(tree: dict) -> dict:
+    """A JAX DIN parameter tree (``repro.models.din.init_params``) as numpy
+    arrays -> the same nested dict of CPU tensors, the tree
+    ``repro_torch.models.din`` takes (wrap it in a ``ParamTree`` to train
+    it)."""
     return _numpy_tree(tree)
 
 

@@ -10,9 +10,9 @@ and the same ``DeprecationWarning``::
     eng.generate()
 
 An arch id serves its smoke config with seed-keyed random weights, one
-``generate()`` a request wave.  ``--device`` defaults to ``cuda`` (raises
-without a card); ``--device cpu`` runs the plain versions.  The recsys
-family (``din``) is refused until ROADMAP Queue 1, item 9c ports it.
+``generate()`` a request wave (``score(batch_size=--batch)`` for the
+recsys arch ``din``).  ``--device`` defaults to ``cuda`` (raises without a
+card); ``--device cpu`` runs the plain versions.
 """
 
 from __future__ import annotations
@@ -38,15 +38,15 @@ def main(argv: list[str] | None = None) -> None:
     args = ap.parse_args(argv)
 
     from repro_torch.serve import ServeConfig, ServeEngine
-    try:
-        eng = ServeEngine(ServeConfig(
-            arch=args.arch, batch_sizes=(args.batch,),
-            prompt_len=args.prompt_len, max_tokens=args.tokens),
-            device=args.device)
-    except NotImplementedError as e:    # the recsys family: item 9c
-        raise SystemExit(str(e)) from None
+    eng = ServeEngine(ServeConfig(
+        arch=args.arch, batch_sizes=(args.batch,),
+        prompt_len=args.prompt_len, max_tokens=args.tokens),
+        device=args.device)
     for wave in range(args.requests):
-        eng.generate(batch_size=args.batch)
+        if eng.family == "recsys":
+            eng.score(batch_size=args.batch)
+        else:
+            eng.generate(batch_size=args.batch)
         r = eng.result()
         print(f"wave {wave}: {r.summary()}")
 

@@ -1,6 +1,7 @@
-"""Per-family step functions of the launcher: the LM and GNN train steps.
+"""Per-family step functions of the launcher: the LM, GNN and recsys
+steps.
 
-Port of the LM and GNN parts of ``repro.launch.steps``:
+Port of the LM, GNN and recsys parts of ``repro.launch.steps``:
 
 * :func:`lm_train_step` is ``_lm_train_cell``'s ``train_step`` --
   ``lm_loss`` and its gradients by autograd, then the repo's AdamW
@@ -12,12 +13,19 @@ Port of the LM and GNN parts of ``repro.launch.steps``:
   (``minibatch``) or per graph (``molecule``), averaged over the replica
   batches (the reference's ``vmap`` then ``mean``), then AdamW
   (``AdamWConfig()``, as there).  :func:`gnn_batches` builds concrete
-  batches at a shape's dims (the cells only describe them abstractly).
+  batches at a shape's dims (the cells only describe them abstractly);
+* the steps of ``_din_cell``: :func:`din_train_step` (``ctr_loss`` and
+  its gradients by autograd, then AdamW with ``AdamWConfig()``),
+  :func:`din_serve_step` (``forward``) and :func:`din_retrieval_step`
+  (``score_candidates``, in chunks on one card where the reference splits
+  the candidates over its data-parallel devices); :func:`din_batch`
+  builds a concrete batch at a recsys shape's dims.
 
 The reference's sharding specs and activation constrainers have no
-counterpart on one device.  The recsys and dyngnn cells, the prefill /
-decode cells and the multi-device specs wait for ROADMAP Queue 1, item 9d
-(the dyngnn schedules train through ``repro_torch.run.Engine``).
+counterpart on one device.  The dyngnn cells, the prefill / decode cells
+and the multi-device specs (``din_param_specs``' vocab-sharded tables
+among them) wait for ROADMAP Queue 1, item 9d (the dyngnn schedules train
+through ``repro_torch.run.Engine``).
 """
 
 from __future__ import annotations
@@ -30,7 +38,7 @@ from torch import nn
 
 from repro_torch.configs.registry import ShapeSpec
 from repro_torch.core.models import ParamTree
-from repro_torch.models import lm
+from repro_torch.models import din, lm
 from repro_torch.models.gnn import (common, equiformer_v2, gatedgcn, pna,
                                     schnet)
 from repro_torch.optim import adamw
@@ -279,3 +287,88 @@ def gnn_train_step(arch_id: str, cfg, kind: str, *,
         return params, opt_state, loss
 
     return train_step
+
+
+# ----------------------------------------------------------- recsys -----
+
+def din_train_state(gen: torch.Generator, cfg: din.DINConfig
+                    ) -> tuple[ParamTree, dict]:
+    """Fresh DIN parameters from ``gen`` (``din.init_params``) as a
+    ``ParamTree`` and their AdamW state (``adamw.init_state``)."""
+    params = ParamTree(din.init_params(gen, cfg))
+    return params, adamw.init_state(params)
+
+
+def din_loss_and_grads(params: ParamTree, batch: dict, labels: torch.Tensor
+                       ) -> tuple[torch.Tensor, tuple[torch.Tensor, ...]]:
+    """``ctr_loss`` and its gradients, in ``params.named_parameters()``
+    order (the tables' gradients dense, as under ``jax.grad``)."""
+    loss = din.ctr_loss(params, batch, labels)
+    return loss.detach(), torch.autograd.grad(loss, list(params.parameters()))
+
+
+def din_train_step() -> Callable:
+    """-> ``step(params, opt_state, batch, labels) -> (params, opt_state,
+    loss)``: one AdamW step on ``ctr_loss`` under the reference's
+    ``AdamWConfig()``.  ``params`` (a ``ParamTree``) is updated in place
+    and returned."""
+    opt_cfg = adamw.AdamWConfig()
+
+    def train_step(params: ParamTree, opt_state: dict, batch: dict,
+                   labels: torch.Tensor):
+        loss, grads = din_loss_and_grads(params, batch, labels)
+        params, opt_state = adamw.apply_updates(opt_cfg, params, grads,
+                                                opt_state)
+        return params, opt_state, loss
+
+    return train_step
+
+
+@torch.no_grad()
+def din_serve_step(params, batch: dict) -> torch.Tensor:
+    """The recsys serve cell: ``forward`` -> logits (B, C)."""
+    return din.forward(params, batch)
+
+
+@torch.no_grad()
+def din_retrieval_step(params, batch: dict, cand_items: torch.Tensor,
+                       cand_cates: torch.Tensor, chunk: int | None = None
+                       ) -> torch.Tensor:
+    """The retrieval cell: ``score_candidates`` of one user's history
+    against (N,) candidates, ``chunk`` at a time -> (N,) scores."""
+    return din.score_candidates(params, batch, cand_items, cand_cates,
+                                chunk=chunk)
+
+
+def din_batch_arrays(cfg: din.DINConfig, shape: ShapeSpec, seed: int = 0
+                     ) -> dict:
+    """Concrete inputs at a recsys ``shape``'s dims as numpy arrays, from
+    ``default_rng(seed)``: ``batch`` rows of ``din.synthetic_requests``,
+    then each row's history length, uniform in [1, seq_len] (the mask
+    keeps its first slots); with ``recsys_train`` ``labels`` in
+    [0, num_classes), with ``retrieval`` ``n_candidates`` candidate items
+    and categories (``cand_items``, ``cand_cates``)."""
+    rng = np.random.default_rng(seed)
+    b = shape.dims["batch"]
+    out = din.synthetic_requests(rng, cfg, b)
+    lengths = rng.integers(1, cfg.seq_len + 1, (b,))
+    out["hist_mask"] = (np.arange(cfg.seq_len)[None, :]
+                        < lengths[:, None]).astype(np.float32)
+    if shape.kind == "recsys_train":
+        out["labels"] = rng.integers(0, cfg.num_classes, (b,)).astype(
+            np.int32)
+    elif shape.kind == "retrieval":
+        n = shape.dims["n_candidates"]
+        out["cand_items"] = rng.integers(0, cfg.item_vocab, (n,)).astype(
+            np.int32)
+        out["cand_cates"] = rng.integers(0, cfg.cate_vocab, (n,)).astype(
+            np.int32)
+    elif shape.kind != "recsys_serve":
+        raise KeyError(shape.kind)
+    return out
+
+
+def din_batch(cfg: din.DINConfig, shape: ShapeSpec, seed: int = 0,
+              device: str | torch.device = "cpu") -> dict:
+    """:func:`din_batch_arrays` as tensors on ``device``."""
+    return din.batch_to(din_batch_arrays(cfg, shape, seed), device)

@@ -1,8 +1,9 @@
 """Training launcher: ``python -m repro_torch.launch.train --arch <id>``.
 
-Port of ``repro.launch.train`` for the dyngnn, LM and GNN families.  A
-dynamic-GNN arch (``paper_dyngnn``, ``tmgcn``, ``cdgcn``, ``evolvegcn``)
-trains through ``repro_torch.run.Engine`` on a synthetic trace.
+Port of ``repro.launch.train`` for the dyngnn, LM, GNN and recsys
+families.  A dynamic-GNN arch (``paper_dyngnn``, ``tmgcn``, ``cdgcn``,
+``evolvegcn``) trains through ``repro_torch.run.Engine`` on a synthetic
+trace.
 By default the blocked trainer runs ``--steps`` steps, evaluates link
 prediction and prints the reference's ``done: ...`` line; ``--stream``
 runs ``--epochs`` passes of per-snapshot training over the graph-diff
@@ -32,14 +33,24 @@ the parameters the model's ``init_params`` and the state
 lines.  The reference's launcher fills the cell's abstract inputs with
 N(0, 0.1) draws (AdamW's second moment included) and its edges and graph
 ids with 0 or 1, and its losses go NaN after step 0; the port's, from a
-real init and a real batch, stay finite.  LM and GNN training run in one
-process; under ``torchrun`` they are refused until ROADMAP Queue 1, item
-9d::
+real init and a real batch, stay finite.
+
+The recsys arch ``din`` takes ``--steps`` AdamW steps of
+``launch.steps.din_train_step`` at the ``train_batch`` shape: 16 examples
+with the smoke config (the reference's smoke override), the shape's own
+65,536 with ``--full-config``.  The batch is ``launch.steps.din_batch``
+(seed 0: ids in [0, vocab), ragged histories, labels 0 or 1), the
+parameters ``din.init_params`` and the state ``adamw.init_state``.  The
+reference's launcher fills the cell's inputs with N(0, 0.1) draws (ids 0
+or 1) and its ``din`` losses go NaN after step 0 as well.  LM, GNN and
+recsys training run in one process; under ``torchrun`` they are refused
+until ROADMAP Queue 1, item 9d::
 
     python -m repro_torch.launch.train --arch olmoe-1b-7b --steps 10 \
         --device cpu
     python -m repro_torch.launch.train --arch equiformer-v2 --steps 3 \
         --device cpu
+    python -m repro_torch.launch.train --arch din --steps 10 --device cpu
 
 Snapshot-partitioned training runs one process per rank under
 ``torchrun``, which the launcher reads from the environment::
@@ -296,9 +307,9 @@ def _train(args, dp: int, world: int, rescale: tuple) -> None:
     if arch.family == "gnn":
         _train_gnn(args, arch, world)
         return
-    if arch.family != "dyngnn":
-        raise SystemExit(f"training the {arch.family} family is not ported "
-                         "to PyTorch yet (ROADMAP Queue 1, item 9c)")
+    if arch.family == "recsys":
+        _train_recsys(args, arch, world)
+        return
     cfg = (arch.make_config() if args.full_config
            else arch.make_smoke_config())
     smooth = {"tmgcn": "mproduct", "evolvegcn": "edgelife",
@@ -434,8 +445,8 @@ LM_BATCH, LM_SEQ = 2, 128      # the reference launcher's smoke batch
 
 
 def _one_process(args, family: str, world: int) -> None:
-    """Refuse what the lm and gnn families do not take: ranks and the
-    dyngnn schedules' flags."""
+    """Refuse what the lm, gnn and recsys families do not take: ranks and
+    the dyngnn schedules' flags."""
     if world > 1:
         raise SystemExit(f"{family.upper()} training runs in one process: "
                          f"training over {world} ranks waits for ROADMAP "
@@ -523,6 +534,36 @@ def _train_gnn(args, arch, world: int) -> None:
         dims["d_in"], dims["num_classes"])
     _run_steps(args, steps.gnn_train_step(args.arch, cfg, shape.kind),
                params, opt_state, batches)
+
+
+#: the reference launcher's smoke override of the ``train_batch`` shape
+DIN_SMOKE_BATCH = 16
+
+
+def _train_recsys(args, arch, world: int) -> None:
+    """``--steps`` DIN train steps at the ``train_batch`` shape (module
+    docstring); prints ``step i loss x`` and ``done``."""
+    _one_process(args, "recsys", world)
+    import dataclasses
+
+    import torch
+
+    from repro_torch import resolve_device
+    from repro_torch.launch import steps
+
+    dev = resolve_device(args.device)
+    cfg = (arch.make_config() if args.full_config
+           else arch.make_smoke_config())
+    shape = arch.shapes["train_batch"]
+    if not args.full_config:
+        shape = dataclasses.replace(shape, dims={**shape.dims,
+                                                 "batch": DIN_SMOKE_BATCH})
+    batch = steps.din_batch(cfg, shape, device=dev)
+    labels = batch.pop("labels")
+    params, opt_state = steps.din_train_state(
+        torch.Generator(device=dev).manual_seed(0), cfg)
+    _run_steps(args, steps.din_train_step(), params, opt_state, batch,
+               labels)
 
 
 def _quiet(_msg: str) -> None:

@@ -1,1 +1,1 @@
-"""Models of the port (the decoder-only LM family, the static GNNs)."""
+"""Models of the port (the decoder-only LM family, the static GNNs, DIN)."""

@@ -1,1 +1,2 @@
-"""Transformer building blocks of the port (RoPE, norms, FFNs, attention)."""
+"""Building blocks of the port (RoPE, norms, FFNs, attention, MoE,
+embedding bags)."""

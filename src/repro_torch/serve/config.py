@@ -1,13 +1,13 @@
 """Serve configuration: the one declarative description of a serving run.
 
-The port's copy of ``repro.serve.config``, for the dyngnn and lm families
-(the recsys family waits for ROADMAP Queue 1, item 9c).  The config
-separates
+The port's copy of ``repro.serve.config``, for the dyngnn, lm and recsys
+families.  The config separates
 
-* the MODEL — an arch id from the registry (``arch="paper_dyngnn"``)
-  and/or an explicit config object (``model=``, which wins; a
-  :class:`repro_torch.core.models.DynGNNConfig` or a
-  :class:`repro_torch.models.lm.LMConfig`);
+* the MODEL — an arch id from the registry (``arch="paper_dyngnn"``,
+  ``"yi-6b"``, ``"din"``) and/or an explicit config object (``model=``,
+  which wins; a :class:`repro_torch.core.models.DynGNNConfig`, a
+  :class:`repro_torch.models.lm.LMConfig` or a
+  :class:`repro_torch.models.din.DINConfig`);
 * the INGEST discretization (:class:`IngestSpec`) — how the
   live CTDG event stream bins into time windows and how the delta
   encoder pads its payloads;
@@ -138,7 +138,7 @@ class ServeConfig:
     traffic runs a handful of query shapes.  ``queue_depth`` bounds the
     pending-request queue (backpressure: a submit into a full queue
     flushes first).  ``seed`` drives param init when no trained state is
-    supplied, and the lm family's synthetic prompts.
+    supplied, and the synthetic requests of the lm/recsys families.
     """
 
     arch: str | None = None

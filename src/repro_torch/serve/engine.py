@@ -1,6 +1,6 @@
 """``ServeEngine`` — online inference against resident state.
 
-Port of ``repro.serve.engine`` for the dyngnn and lm families.
+Port of ``repro.serve.engine`` for the dyngnn, lm and recsys families.
 
 * dyngnn — live CTDG events stream in through
   :class:`~repro_torch.serve.ingest.OnlineIngester`; each closed window's
@@ -16,10 +16,12 @@ Port of ``repro.serve.engine`` for the dyngnn and lm families.
   and MoE archs alike; each decode step's attention runs the
   ``flash_decode`` CUDA kernel on the card.  The tokens equal the JAX engine's for the same parameters and
   seed on the CPU (``tests/test_torch_lm.py``).
+* recsys — batched DIN CTR scoring behind ``score()``; the logits equal
+  the JAX engine's for the same parameters and seed on the CPU
+  (``tests/test_torch_recsys_serve.py``).
 
-The recsys family raises ``NotImplementedError`` until ROADMAP Queue 1,
-item 9c ports it; a static-GNN arch raises the reference's ``ValueError``
-(it has no serving path).
+A static-GNN arch raises the reference's ``ValueError`` (it has no
+serving path).
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ import torch
 
 from repro_torch import obs, resolve_device, sanitize
 from repro_torch.core import models as mdl
-from repro_torch.models import lm
+from repro_torch.models import din, lm
 from repro_torch.serve.batching import QueryBatcher
 from repro_torch.serve.config import ServeConfig, ServeResult
 from repro_torch.serve.ingest import OnlineIngester
@@ -40,9 +42,6 @@ from repro_torch.serve.state import (fresh_carries, make_advance_step,
                                      make_node_query_step)
 from repro_torch.stream.encoder import StreamReport
 from repro_torch.stream.prefetch import DeltaApplier, stage_item
-
-_NOT_PORTED = ("serving the {} family is not ported to PyTorch yet: "
-               "ROADMAP Queue 1, item 9c")
 
 
 def _resolve(config: ServeConfig):
@@ -54,11 +53,11 @@ def _resolve(config: ServeConfig):
             return "dyngnn", m
         if isinstance(m, lm.LMConfig):
             return "lm", m
-        kind = type(m).__name__
-        if kind == "DINConfig":
-            raise NotImplementedError(_NOT_PORTED.format("recsys"))
-        raise ValueError(f"cannot serve a model config of type {kind}; "
-                         "expected DynGNNConfig or LMConfig")
+        if isinstance(m, din.DINConfig):
+            return "recsys", m
+        raise ValueError(f"cannot serve a model config of type "
+                         f"{type(m).__name__}; expected DynGNNConfig, "
+                         "LMConfig, or DINConfig")
     from repro_torch.configs import registry
     arch = registry.get_arch(config.arch)
     if arch.family == "gnn":
@@ -71,6 +70,8 @@ def _resolve(config: ServeConfig):
 def _tree_to(tree, device: torch.device):
     if isinstance(tree, dict):
         return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tree_to(v, device) for v in tree]
     return tree.to(device)
 
 
@@ -81,7 +82,9 @@ class ServeEngine:
     dyngnn it is a :class:`~repro_torch.core.models.ParamTree` (e.g. from
     ``repro_torch.convert.params_from_jax``), of which the engine keeps its
     own copy; for lm the nested dict of ``init_lm_params`` (e.g. from
-    ``repro_torch.convert.lm_params_from_jax``), moved to ``device``.
+    ``repro_torch.convert.lm_params_from_jax``), for recsys that of
+    ``din.init_params`` (e.g. from ``convert.din_params_from_jax``), moved
+    to ``device``.
     ``device`` defaults to ``"cuda"`` and raises without a CUDA device
     unless ``"cpu"`` is asked for.
     """
@@ -102,8 +105,10 @@ class ServeEngine:
         self._rng = np.random.default_rng(config.seed)
         if self.family == "dyngnn":
             self._init_dyngnn(params, keep_history)
-        else:
+        elif self.family == "lm":
             self._init_lm(params)
+        else:
+            self._init_recsys(params)
 
     def _family_guard(self, method: str, *families: str) -> None:
         if self.family not in families:
@@ -330,6 +335,40 @@ class ServeEngine:
         obs.inc("serve.queries", int(prompts.shape[0]))
         obs.inc("serve.tokens_generated", tokens.size)
         return tokens
+
+    # ------------------------------------------------------------ recsys ---
+    def _init_recsys(self, params) -> None:
+        if params is None:
+            gen = torch.Generator(device=self.device).manual_seed(
+                self.config.seed)
+            params = din.init_params(gen, self.model)
+        self.params = _tree_to(params, self.device)
+
+    def synthetic_requests(self, batch_size: int) -> dict:
+        """One synthetic CTR request batch from the seeded generator (the
+        JAX engine's draws), as tensors on the engine's device."""
+        return din.batch_to(din.synthetic_requests(self._rng, self.model,
+                                                   batch_size), self.device)
+
+    def score(self, batch: dict | None = None,
+              batch_size: int | None = None) -> np.ndarray:
+        """Batched CTR logits (B, C) for one request wave; ``batch``
+        defaults to ``synthetic_requests(batch_size)``."""
+        self._family_guard("score", "recsys")
+        if batch is None:
+            batch = self.synthetic_requests(
+                batch_size or self.config.batch_sizes[-1])
+        with obs.stopwatch("serve.score", cat="serve") as sw:
+            with torch.inference_mode():
+                scores = din.forward(self.params, batch).cpu().numpy()
+        dt = sw.seconds
+        r = self._result
+        r.queries += int(scores.shape[0])
+        r.query_batches += 1
+        r.query_seconds += dt
+        r.query_latencies_ms.append(dt * 1e3)
+        obs.inc("serve.queries", int(scores.shape[0]))
+        return scores
 
     # ------------------------------------------------------------ result ---
     def result(self) -> ServeResult:

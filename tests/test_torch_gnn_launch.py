@@ -3,7 +3,7 @@
 
 Finite losses for each of the four archs; its losses equal to
 ``launch.steps.gnn_train_step``'s on the reference's smoke batch; the
-refusals (dyngnn flags, ranks naming item 9d, ``din`` naming item 9); and,
+refusals (dyngnn flags, ranks naming item 9d; ``din`` now trains); and,
 pinned, the reference launcher's NaN after step 0, which the port's
 launcher, from a real init and a real batch, does not share.
 """
@@ -53,7 +53,7 @@ def test_launcher_gnn_matches_the_train_step(capsys):
     assert got == want
 
 
-def test_launcher_refusals(monkeypatch):
+def test_launcher_refusals(monkeypatch, capsys):
     with pytest.raises(SystemExit, match="--stream configure the dyngnn"):
         launch_train.main(["--arch", "schnet", "--device", "cpu",
                            "--stream", "--steps", "1"])
@@ -62,8 +62,10 @@ def test_launcher_refusals(monkeypatch):
         launch_train.main(["--arch", "pna", "--device", "cpu",
                            "--steps", "1"])
     monkeypatch.delenv("WORLD_SIZE")
-    with pytest.raises(NotImplementedError, match="Queue 1, item 9"):
-        launch_train.main(["--arch", "din", "--device", "cpu"])
+    capsys.readouterr()
+    launch_train.main(["--arch", "din", "--device", "cpu", "--steps", "2"])
+    out = capsys.readouterr().out.splitlines()
+    assert out[-1] == "done" and len(out) == 3
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             launch_train.main(["--arch", "gatedgcn", "--steps", "1"])

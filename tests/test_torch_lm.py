@@ -393,17 +393,12 @@ def test_moe_params_cross_with_an_fp32_router():
 
 # ------------------------------------------------------------ refusals ----
 
-@pytest.mark.parametrize("arch", ["gatedgcn", "schnet", "din"])
+@pytest.mark.parametrize("arch", ["gatedgcn", "schnet"])
 def test_unported_archs_raise(arch):
-    """``din`` waits for item 9c; the static GNNs are ported for training
-    but have no serving path, in the reference either: serving one raises
-    the reference's ``ValueError``."""
-    if arch == "din":
-        with pytest.raises(NotImplementedError, match="Queue 1, item 9"):
-            registry.get_arch(arch)
-        with pytest.raises(NotImplementedError, match="Queue 1, item 9"):
-            ServeEngine(ServeConfig(arch=arch), device="cpu")
-        return
+    """The static GNNs are ported for training but have no serving path,
+    in the reference either: serving one raises the reference's
+    ``ValueError``.  (``din`` serves through ``score``:
+    ``tests/test_torch_recsys_serve.py``.)"""
     assert registry.get_arch(arch).family == "gnn"
     with pytest.raises(ValueError, match="static-graph gnn"):
         ServeEngine(ServeConfig(arch=arch), device="cpu")

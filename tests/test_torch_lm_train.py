@@ -216,7 +216,7 @@ def test_launcher_lm_matches_the_train_step(capsys):
     assert got == want
 
 
-def test_launcher_refuses_dyngnn_flags_and_ranks(monkeypatch):
+def test_launcher_refuses_dyngnn_flags_and_ranks(monkeypatch, capsys):
     with pytest.raises(SystemExit, match="--stream configure the dyngnn"):
         launch_train.main(["--arch", "yi-6b", "--device", "cpu", "--stream",
                            "--steps", "1"])
@@ -228,8 +228,9 @@ def test_launcher_refuses_dyngnn_flags_and_ranks(monkeypatch):
         launch_train.main(["--arch", "olmoe-1b-7b", "--device", "cpu",
                            "--steps", "1"])
     monkeypatch.delenv("WORLD_SIZE")
-    with pytest.raises(NotImplementedError, match="Queue 1, item 9"):
-        launch_train.main(["--arch", "din", "--device", "cpu"])
+    capsys.readouterr()
+    launch_train.main(["--arch", "din", "--device", "cpu", "--steps", "2"])
+    assert capsys.readouterr().out.splitlines()[-1] == "done"
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             launch_train.main(["--arch", "olmoe-1b-7b", "--steps", "1"])
@@ -245,15 +246,18 @@ def test_serve_shim_warns_and_serves_the_moe_smoke_config(capsys):
     assert "family=lm; arch=olmoe-1b-7b; 2 queries" in out[0]
     assert out[0].endswith("6 tokens") and out[1].endswith("12 tokens")
     with pytest.warns(DeprecationWarning):
-        with pytest.raises(SystemExit, match="Queue 1, item 9"):
-            launch_serve.main(["--arch", "din", "--device", "cpu"])
+        launch_serve.main(["--arch", "din", "--device", "cpu", "--batch",
+                           "2", "--requests", "1"])
+    out = capsys.readouterr().out.strip().splitlines()
+    assert out == [out[0]] and "family=recsys; arch=din; 2 queries" in out[0]
 
 
 def test_nothing_in_the_launch_package_imports_jax():
     root = os.path.join(os.path.dirname(__file__), "..", "src",
                         "repro_torch")
     for name in ("launch/steps.py", "launch/serve.py", "nn/moe.py",
-                 "configs/olmoe_1b_7b.py", "configs/moonshot_v1_16b_a3b.py"):
+                 "configs/olmoe_1b_7b.py", "configs/moonshot_v1_16b_a3b.py",
+                 "nn/embedding.py", "models/din.py", "configs/din.py"):
         with open(os.path.join(root, name)) as f:
             text = f.read()
         assert "import jax" not in text and "from repro." not in text, name
