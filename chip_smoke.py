@@ -148,19 +148,18 @@ which exits non-zero on failure:
    grid of four gloo ranks sharing cuda:0 (4o) at N = 65,536, T = 8,
    held to CPU gloo and to the card's 1 x 1 grid and eager forward (1e-4);
 4k. the sampled schedule over the one-rank NCCL group: ``paper_dyngnn``
-   on the first 16 steps of the train trace (N = 755,200; one epoch of 2
-   rounds of block 8 over the Engine's own pipeline of those steps, its
-   host seconds counted: the trace's 4
-   rounds cost 30-65 s more of host sampling, a second epoch ~90 s, and
-   the carry store's epoch reset runs in the 2-epoch runs below), the
-   launcher's
+   on the first 8 steps of the train trace (N = 755,200; one epoch of 2
+   rounds of block 4 over one pipeline of those steps, its host seconds
+   counted: the first 16 steps in blocks of 8 cost ~40 s more of host
+   sampling and pipeline, a second epoch ~90 s, and the carry store's
+   epoch reset runs in the 2-epoch runs below), the launcher's
    defaults (N / 4 seeds, fanouts 10, 10), the
    union capped at the largest snapshot's edges, through
    ``Engine(plan=ExecutionPlan(mode="sampled", mesh=group,
    device_budget_bytes=B))`` with B between the sampled and the full-graph
    round's bytes, after ``streamed_mesh`` is shown to refuse B (every
-   count zeroed just before the fit and read just after: per round 24 /
-   2 / 2 / 0 and 16 CSR builds); ``table_pad``, ``edge_pad``, the dropped
+   count zeroed just before the fit and read just after: per round 12 /
+   2 / 2 / 0 and 8 CSR builds); ``table_pad``, ``edge_pad``, the dropped
    lanes, per round the fenced host sampling, staging, carry gather /
    all-gather / scatter, step and CSR-pair spans, the staged bytes beside
    the full round's and the peak beside ``sampled_round_bytes``; every
@@ -269,8 +268,9 @@ which exits non-zero on failure:
    every gradient 1e-4 x each leaf's max);
 9. the static GNNs (the gnn group): GatedGCN, PNA, SchNet and
    EquiformerV2 at their full configs' widths, 10 AdamW steps each of
-   ``launch.steps.gnn_train_step`` from ``init_params`` (drawn on the
-   card) and ``adamw.init_state``, at ``molecule`` (128 graphs: 3,840
+   their cells' own steps (``launch.steps.build_cell``: ``gnn_train_step``
+   on the cell's tensors) from ``init_params`` (drawn on the card) and
+   ``adamw.init_state``, at ``molecule`` (128 graphs: 3,840
    nodes, 8,192 edges) and ``full_graph_sm`` (2,708 nodes, 10,624 edge
    lanes, 1,433 features, 7 classes), and GatedGCN, PNA and SchNet at
    ``minibatch_lg`` (1,024 seeds, fanouts 15 and 10: 169,984 nodes,
@@ -279,8 +279,9 @@ which exits non-zero on failure:
    after (no kernel: the GNNs aggregate with ``index_add`` and
    ``scatter_reduce``); per run finite losses, the parameter count, step
    ms, peak memory, one profiled step (device busy, idle share, device
-   time by kind); the cuts' reckoning (``ogb_products`` for every arch,
-   EquiformerV2 at ``minibatch_lg``); card against CPU (TF32 off): one
+   time by kind); the cuts' reckoning (``launch.dryrun.reckon``:
+   ``ogb_products`` for every arch, EquiformerV2 at ``minibatch_lg``);
+   card against CPU (TF32 off): one
    step's loss and gradients for each arch's smoke config on the
    launcher's smoke batch and EquiformerV2's full widths at 2 layers on
    ``molecule``, while the launcher trains EquiformerV2 at its full
@@ -288,7 +289,8 @@ which exits non-zero on failure:
 10. the recsys family (the recsys group): DIN at its full config
    (embed 18, history 100, attention MLP 80-40, MLP 200-80; 2,010,000
    table rows, ``configs/din.py``) at the reference's shapes: 10 AdamW
-   steps of ``launch.steps.din_train_step`` at ``train_batch`` (B 65,536,
+   steps of the ``train_batch`` cell's step (``din_train_step``) at
+   ``train_batch`` (B 65,536,
    ragged histories drawn by ``din_batch`` on the card) from
    ``din_train_state`` (drawn on the card): finite losses, every
    parameter leaf moved, step ms, peak, one profiled step (busy, idle
@@ -305,9 +307,30 @@ which exits non-zero on failure:
    rows at the full config, and 4,096 candidates scored in chunks of
    1,000 on the card against unchunked on the CPU, while the launcher
    trains DIN at its full config (B 65,536) for 3 steps in a subprocess
-   on the card.
+   on the card;
+11. the cells (the cells group): every (arch x shape) cell of the
+   registry (``launch.steps.all_cells``, 60) built by
+   ``launch.steps.build_cell`` over a one-rank NCCL group and reckoned by
+   ``launch.dryrun.reckon`` against the card's memory (less what the
+   process still holds): argument bytes exact from the cells' abstract
+   inputs, work bytes per family, a reserve; then one step of every
+   cell that fits and that no other group runs at its registry shape,
+   the allocator's segments expandable: the LM decode cells at
+   ``long_500k`` (Yi-6B, and OLMoE-1B-7B when it fits; B 1, 524,288
+   cached rows of random bf16 values; ``flash_decode`` once a layer,
+   counts zeroed just before and read just after; a profiled step gives
+   its device time a launch on the path) and the dyngnn cells at their
+   full T (the paper's datasets' N and T; the snapshot-partitioned step
+   with bf16 payloads and the fused final loss; inputs drawn on the card;
+   per step 5 T ``segment_spmm``, TM-GCN's 2 L nb ``banded_ttm`` and L
+   nb ``banded_ttm_t``, 2 T CSR builds), each with its peak against the
+   reckoning (over it fails) and the analytic roofline beside its ms;
+   then the dyngnn cell's step, card against CPU (gloo), for all three
+   models at N = 65,536, T = 16.
 
-Tolerances: segment SpMM 1e-4 (abs and rel; fp32 sums in another order
+Tolerances: the dyngnn cell card against CPU 1e-2 (its bf16 payloads,
+``tests/test_torch_cells.py``'s); segment SpMM 1e-4 (abs and rel; fp32
+sums in another order
 than the plain ``index_add_``), banded TTM and its transpose 1e-5 (abs
 and rel; the same fp32 operations in the same order, so 0.0 is
 expected), served scores 1e-4 (the whole stack,
@@ -328,8 +351,8 @@ sleep); ``wrapper_ms`` is the wrapper's host time plus device time.
 
 Prints the card line, the per-phase numbers, one JSON line each of the
 streamed, the partitioned, the distributed-stream, the hybrid, the
-sampled, the fault-tolerance, the trace, the data, the moe, the gnn and
-the recsys phases' numbers,
+sampled, the fault-tolerance, the trace, the data, the moe, the gnn, the
+recsys and the cells phases' numbers,
 one JSON line of the kernels and, last, ``{"ok": true, "device":
 {...}}``.  Before that line it stops every process it started that is
 still running (the shared sampling pools, ``multiprocessing``'s resource
@@ -337,10 +360,11 @@ tracker, any child or orphaned grandchild: the script is their
 subreaper) and fails if any but those two was left; at exit it stops
 them again.  Without a CUDA device, or without the repository around
 it, it exits non-zero and prints no result.  ``--only
-serve,train,stream,partition,dstream,hybrid,sampled,ft,trace,data,lm,moe,gnn,recsys``
+serve,train,stream,partition,dstream,hybrid,sampled,ft,trace,data,lm,moe,\
+gnn,recsys,cells``
 runs the build and the named groups of phases (1–4, 4a–4c, 4d, 4e–4g,
 4h–4i, 4j, 4k, 4l, 4m, 4n, 5–7, 8 with phase 6's OLMoE rows when lm is
-not named, 9, 10; each of partition, dstream, hybrid, sampled and ft with
+not named, 9, 10, 11; each of partition, dstream, hybrid, sampled and ft with
 its part of 4o; partition and data are held to train's run, so they need
 train) and prints no result line.
 """
@@ -394,9 +418,9 @@ DSTREAM_SHARED_N, DSTREAM_SHARED_T, DSTREAM_SHARED_NB = 65_536, 8, 2
 DRIFT_ATOL = 1e-3            # tests/test_compression_drift.py:43
 HYBRID_REPS = 4              # the forward timed in turns with the eager one
 HYBRID_SHARED_N, HYBRID_SHARED_T = 65_536, 8
-SAMPLED_BLOCK = 8            # the train trace's T = 32: 4 rounds an epoch
+SAMPLED_BLOCK = 4            # block 8 sampled twice the steps a round
 SAMPLED_EPOCHS = 1           # 2 took ~90 s more of host sampling
-SAMPLED_T = 16               # the first 16 of the trace's 32 steps: 2 rounds
+SAMPLED_T = 8                # the first 8 of the trace's 32 steps: 2 rounds
 SAMPLED_SMALL_N, SAMPLED_SMALL_T, SAMPLED_SMALL_BLOCK = 65_536, 8, 4
 SAMPLED_SMALL_EPOCHS = 2     # the carry store's epoch reset runs too
 FT_EVERY = 5                 # eager: 5 steps, checkpoint, resume() to 10
@@ -433,6 +457,27 @@ RECSYS_PARITY_BATCH = 256
 RECSYS_PARITY_CANDIDATES = 4_096
 RECSYS_PARITY_CHUNK = 1_000  # does not divide 4,096: a short last chunk
 RECSYS_LAUNCH_STEPS = 3
+#: the cells group's card-vs-CPU check of the dyngnn cell: N, T and edges
+#: a snapshot (with N self-loops: 327,680 lanes, a multiple of 1,024)
+CELLS_PARITY = {"n_nodes": 65_536, "n_steps": 16, "edges_per_snap": 262_144}
+#: tests/test_torch_cells.py's BF16_PAYLOAD_TOL: the dyngnn cell's bf16
+#: all-to-all payloads may round an element to the neighbouring bf16 value
+#: where the card's sums and the CPU's differ in their last bits
+TOL_CELL_BF16 = 1e-2
+LM_CELL_WARM = 2             # warm decode steps after the cell's first
+#: the H100 80GB's ``total_memory`` (bytes), which ``CELLS_STEPPED`` holds to
+H100_80GB_BYTES = 85_017_493_504
+#: the cells the cells group steps on such a card: those the reckoning fits
+#: there that no other group runs (tests/test_torch_dryrun.py pins the
+#: same verdicts); OLMoE's long_500k fits with ~1 GB to spare, so memory
+#: that the earlier groups leave held could drop it, which fails the phase
+CELLS_STEPPED = (
+    ("yi-6b", "long_500k"), ("olmoe-1b-7b", "long_500k"),
+    ("tmgcn", "dtdg_epinions"), ("tmgcn", "dtdg_flickr"),
+    ("tmgcn", "dtdg_amlsim"), ("tmgcn", "dtdg_weak_scale"),
+    ("cdgcn", "dtdg_weak_scale"),
+    ("evolvegcn", "dtdg_epinions"), ("evolvegcn", "dtdg_flickr"),
+    ("evolvegcn", "dtdg_amlsim"), ("evolvegcn", "dtdg_weak_scale"))
 
 
 def log(msg: str) -> None:
@@ -2909,24 +2954,24 @@ def hybrid_shared_check(one: dict, res: list, ranks_s: float) -> dict:
 
 # ------------------------------------------------------------ sampled ------
 
-def sampled_path(torch, kernels, obs, ds, pipe, group):
+def sampled_path(torch, kernels, obs, ds, group):
     """The sampled schedule at full width over the one-rank NCCL group:
-    ``paper_dyngnn`` on the first 16 steps of the train phase's trace (N
-    = 755,200, T = 32), block 8 (one epoch of 2 rounds: the whole epoch's
-    4 took 30-65 s more of host sampling), through ``Engine(plan=
-    ExecutionPlan(mode="sampled", mesh=group), device="cuda")`` with the
-    launcher's defaults (N / 4 seeds a round, fanouts 10, 10) and the
-    union's edges capped at the largest snapshot's; the budget gate set
-    between the sampled and the full-graph round: ``streamed_mesh``
-    refuses, ``sampled`` trains within it; every count zeroed just before
-    the fit and read just after (per round the slice step's 24 / 2 / 2 / 0
-    and 16 CSR builds); fenced spans per round (host sampling, staging,
-    the carries' gather, all-gather and scatter, the step, its CSR
-    pairs) -> the path's numbers.  ``pipe``, the stream phase's pipeline
-    over the whole trace, is reused where there is one for the
-    ``streamed_mesh`` refusal; the sampled fit's pipeline over the first
-    16 steps is the Engine's own (``resolve()``, timed), and its store is
-    ingested from that pipeline's stream, as the worker would."""
+    ``paper_dyngnn`` on the first ``SAMPLED_T`` = 8 steps of the train
+    phase's trace (N = 755,200, T = 32), block 4 (one epoch of 2 rounds;
+    16 steps in blocks of 8 took ~40 s more of host sampling and
+    pipeline), through ``Engine(plan=ExecutionPlan(mode="sampled",
+    mesh=group), device="cuda")`` with the launcher's defaults (N / 4
+    seeds a round, fanouts 10, 10) and the union's edges capped at the
+    largest snapshot's; the budget gate set between the sampled and the
+    full-graph round: ``streamed_mesh`` refuses, ``sampled`` trains
+    within it; every count zeroed just before the fit and read just after
+    (per round the slice step's 12 / 2 / 2 / 0 and 8 CSR builds); fenced
+    spans per round (host sampling, staging, the carries' gather,
+    all-gather and scatter, the step, its CSR pairs) -> the path's
+    numbers.  The 8 steps' pipeline is built once (timed) and handed to
+    both the refused ``streamed_mesh`` Engine and the sampled one, whose
+    store is ingested from that pipeline's stream, as the worker
+    would."""
     import numpy as np
 
     from repro_torch import hoststore as hs
@@ -2939,19 +2984,17 @@ def sampled_path(torch, kernels, obs, ds, pipe, group):
 
     win = SAMPLED_BLOCK
     n, t_full = ds.num_nodes, ds.num_steps
-    t0 = time.perf_counter()
-    reused = pipe is not None and pipe.ds is ds and pipe.nb == t_full // win
-    if not reused:
-        pipe = DTDGPipeline(ds, nb=t_full // win, device="cuda")
-    pipe_s = time.perf_counter() - t0
     # the trace's first SAMPLED_T steps (the first rounds of the whole
     # trace's epoch), so the host samples SAMPLED_T // win rounds, not
-    # t_full // win; the Engine builds this dataset's pipeline itself
+    # t_full // win
     t = SAMPLED_T
     sub = dataclasses.replace(
         ds, snapshots=ds.snapshots[:t], frames=ds.frames[:t],
         labels=ds.labels[:t],
         values=None if ds.values is None else ds.values[:t])
+    t0 = time.perf_counter()
+    pipe = DTDGPipeline(sub, nb=t // win, device="cuda")
+    pipe_s = time.perf_counter() - t0
     cfg = dataclasses.replace(registry.get_arch("paper_dyngnn").make_config(),
                               num_nodes=n, num_steps=t,
                               checkpoint_blocks=t // win)
@@ -2963,33 +3006,30 @@ def sampled_path(torch, kernels, obs, ds, pipe, group):
     sampled_b = hs.sampled_round_bytes(resolved, win=win, num_shards=1,
                                        feat_dim=sub.frames.shape[-1])
     full_b = hs.full_graph_round_bytes(
-        "streamed_mesh", num_steps=t_full, win=win, num_shards=1,
+        "streamed_mesh", num_steps=t, win=win, num_shards=1,
         max_edges=pipe.max_edges, num_nodes=n, feat_dim=sub.frames.shape[-1])
     budget = (sampled_b + full_b) // 2
     if not sampled_b < budget < full_b:
         raise SystemExit(f"sampled: no budget between the sampled round's "
                          f"{sampled_b} B and the full one's {full_b} B")
     try:
-        Engine(RunConfig(model=dataclasses.replace(
-            cfg, num_steps=t_full, checkpoint_blocks=t_full // win),
-            data=InMemoryDTDG(ds, pipeline=pipe), plan=ExecutionPlan(
-                mode="streamed_mesh", mesh=group,
-                device_budget_bytes=budget),
+        Engine(RunConfig(
+            model=cfg, data=InMemoryDTDG(sub, pipeline=pipe),
+            plan=ExecutionPlan(mode="streamed_mesh", mesh=group,
+                               device_budget_bytes=budget),
             log_fn=log), device="cuda").fit()
         raise SystemExit("sampled: streamed_mesh trained within a budget "
                          "below its round")
     except hs.DeviceBudgetError as e:
         refusal = str(e)
-    data = InMemoryDTDG(sub)
+    data = InMemoryDTDG(sub, pipeline=pipe)
     eng = Engine(RunConfig(model=cfg, data=data, plan=ExecutionPlan(
         mode="sampled", mesh=group, sampling=spec, num_epochs=SAMPLED_EPOCHS,
         device_budget_bytes=budget), log_every=1, log_fn=log),
         device="cuda")
-    t0 = time.perf_counter()
     rr = eng.resolve()
-    sub_pipe_s = time.perf_counter() - t0
-    if rr.pipeline is pipe or rr.pipeline.ds is not sub:
-        raise SystemExit("sampled: the Engine did not build the 16 steps' "
+    if rr.pipeline is not pipe:
+        raise SystemExit("sampled: the Engine did not take the 8 steps' "
                          "pipeline")
     t0 = time.perf_counter()
     # what the sampled worker builds when no store is cached: the store
@@ -3046,9 +3086,8 @@ def sampled_path(torch, kernels, obs, ds, pipe, group):
         f"{rep.dropped_edges} edges; {rep.sampled_edges} union edges staged")
     log(f"[sampled] {rounds} rounds in {fit_s:.1f} s of fit (store ingest "
         f"{store_s:.1f} s, {store_bytes / 1e6:.1f} MB on the host, before "
-        f"it; the Engine's pipeline over the {t} steps {sub_pipe_s:.1f} s; "
-        f"the whole trace's {pipe_s:.1f} s"
-        + (", the stream phase's" if reused else "") + "); losses "
+        f"it; the pipeline over the {t} steps {pipe_s:.1f} s, before the "
+        "refused Engine); losses "
         + ", ".join(f"{v:.5f}" for v in losses))
     for k, v in per_round.items():
         log(f"[sampled]   {k}: " + ", ".join(f"{x:.1f}" for x in v) + " ms")
@@ -3079,8 +3118,7 @@ def sampled_path(torch, kernels, obs, ds, pipe, group):
             "sampled_round_bytes": sampled_b, "full_round_bytes": full_b,
             "budget": budget, "peak_bytes": peak, "base_bytes": base,
             "fit_s": fit_s, "store_s": store_s, "store_bytes": store_bytes,
-            "pipeline_s": pipe_s, "pipeline_reused": reused,
-            "sub_pipeline_s": sub_pipe_s}
+            "pipeline_s": pipe_s}
 
 
 def sampled_small(torch, dev: str, group, full: bool) -> dict:
@@ -4373,11 +4411,13 @@ FD_CASES = [
     ("D64 G4", 2, 16, 4, 64, 1000, [1000, 77]),
 ]
 #: OLMoE-1B-7B's decode shape (G = 1, D = 128): the last step's full cache,
-#: then ragged
+#: then ragged, then at long_500k's 524,288 rows
 FD_MOE_CASES = [
     ("OLMoE", 8, 16, 16, 128, S_PATH, [S_PATH] * 8),
     ("OLMoE ragged", 8, 16, 16, 128, S_PATH,
      [1, S_PATH, 4097, 2000, 3000, 17, 4100, 9999]),
+    # the cells group's OLMoE-1B-7B long_500k decode step
+    ("OLMoE long_500k", 1, 16, 16, 128, 524288, [524288]),
 ]
 
 
@@ -4866,26 +4906,25 @@ def gnn_shape(name: str):
     return registry.get_arch("gatedgcn").shapes[name]
 
 
-def gnn_run(torch, kernels, arch: str, shape, batches) -> dict:
-    """``GNN_STEPS`` ``gnn_train_step`` calls of ``arch``'s full config on
-    ``batches`` (on the card) from ``init_params`` (generator seed 0) and
-    ``adamw.init_state``, every count zeroed just before and read just
-    after (no kernel: the GNNs aggregate with index_add / scatter_reduce);
-    losses finite; each step's host-clock ms ending in the loss's read;
-    peak memory; then one more step under the profiler."""
+def gnn_run(torch, kernels, cell, params, opt, batch) -> dict:
+    """``GNN_STEPS`` calls of the cell's own step (``launch.steps.
+    build_cell``: ``gnn_train_step`` on the cell's tensors) from
+    ``params`` and ``opt`` (the cell's ``make_inputs(0)``: ``init_params``
+    with generator seed 0 and ``adamw.init_state``, on the card) on
+    ``batch`` (its graph tensors), every count zeroed just before and read
+    just after (no kernel: the GNNs aggregate with index_add /
+    scatter_reduce); losses finite; each step's host-clock ms ending in
+    the loss's read; peak memory; then one more step under the
+    profiler."""
     import numpy as np
 
-    from repro_torch.configs import registry
     from repro_torch.kernels.build import reset_counts
     from repro_torch.launch import steps as lsteps
 
-    cfg = registry.get_arch(arch).make_config()
+    arch, shape = cell.arch_id, cell.shape
     dims = lsteps.gnn_dims(shape)
-    params, opt = lsteps.gnn_train_state(
-        torch.Generator(device="cuda").manual_seed(0), arch, cfg,
-        dims["d_in"], dims["num_classes"])
     n_params = sum(p.numel() for p in params.parameters())
-    step = lsteps.gnn_train_step(arch, cfg, shape.kind, seeds=dims["seeds"])
+    step = cell.step
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts(kernels)
@@ -4893,7 +4932,7 @@ def gnn_run(torch, kernels, arch: str, shape, batches) -> dict:
     for _ in range(GNN_STEPS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        params, opt, loss = step(params, opt, batches)
+        params, opt, loss = step(params, opt, *batch)
         losses.append(float(loss))          # reads the loss: a sync
         step_ms.append((time.perf_counter() - t0) * 1e3)
     launches = {k.name: k.launches for k in kernels}
@@ -4907,7 +4946,7 @@ def gnn_run(torch, kernels, arch: str, shape, batches) -> dict:
     holder = [params, opt]
 
     def one_step():
-        holder[0], holder[1], _ = step(holder[0], holder[1], batches)
+        holder[0], holder[1], _ = step(holder[0], holder[1], *batch)
 
     t0 = time.perf_counter()
     wall_us, busy_us, by_name = device_profile(torch, one_step, host=False)
@@ -4942,81 +4981,63 @@ def gnn_run(torch, kernels, arch: str, shape, batches) -> dict:
             "launches": launches}
 
 
-def gnn_cuts() -> dict:
-    """The runs one card cannot hold, by reckoning in f32: ``ogb_products``
-    for every arch (its edge tensors alone) and EquiformerV2 at
-    ``minibatch_lg`` (its checkpointed layer inputs and one layer's edge
-    tensors)."""
-    from repro_torch.configs import registry
+def gnn_cuts(torch) -> dict:
+    """The static-GNN cells one card cannot hold, by the dry run's
+    reckoning (``launch.dryrun.reckon`` against the card's memory):
+    ``ogb_products`` for every arch and EquiformerV2 at
+    ``minibatch_lg``."""
+    from repro_torch.launch import dryrun
     from repro_torch.launch import steps as lsteps
 
-    def gb(*dims) -> float:
-        out = 4.0
-        for d in dims:
-            out *= d
-        return out / 1e9
-
-    prod = lsteps.gnn_dims(gnn_shape("ogb_products"))
-    e = prod["edges"]
-    full = {a: registry.get_arch(a).make_config() for a in GNN_ARCHS}
-    eq = full["equiformer-v2"]
-    irreps = (eq.l_max + 1) ** 2
-    cuts = {"ogb_products": {
-        "nodes": prod["nodes"], "edge_lanes": e,
-        "gatedgcn": f"e (E, {full['gatedgcn'].d_hidden}) = "
-                    f"{gb(e, full['gatedgcn'].d_hidden):.1f} GB into each "
-                    f"of {full['gatedgcn'].n_layers} checkpointed layers",
-        "pna": f"one layer's (h_dst || h_src) (E, "
-               f"{2 * full['pna'].d_hidden}) = "
-               f"{gb(e, 2 * full['pna'].d_hidden):.1f} GB",
-        "schnet": f"rbf (E, {full['schnet'].n_rbf}) = "
-                  f"{gb(e, full['schnet'].n_rbf):.1f} GB",
-        "equiformer-v2": f"x (N, {irreps}, {eq.d_hidden}) = "
-                         f"{gb(prod['nodes'], irreps, eq.d_hidden):.1f} GB "
-                         f"a layer input, feats (E, {irreps}, "
-                         f"{2 * eq.d_hidden}) = "
-                         f"{gb(e, irreps, 2 * eq.d_hidden):.1f} GB"}}
-    mb = lsteps.gnn_dims(gnn_shape("minibatch_lg"))
-    x_gb = gb(mb["nodes"], irreps, eq.d_hidden)
-    e_gb = gb(mb["edges"], irreps, eq.d_hidden)
-    cuts["equiformer-v2 minibatch_lg"] = (
-        f"N {mb['nodes']:,}, E {mb['edges']:,}: x (N, {irreps}, "
-        f"{eq.d_hidden}) = {x_gb:.2f} GB, {eq.n_layers} checkpointed layer "
-        f"inputs {eq.n_layers * x_gb:.1f} GB; one layer's recompute holds "
-        f"the gathered and rotated (E, {irreps}, {eq.d_hidden}) tensors "
-        f"({e_gb:.2f} GB each) and feats (E, {irreps}, {2 * eq.d_hidden}) "
-        f"= {2 * e_gb:.2f} GB")
-    for k, v in cuts["ogb_products"].items():
-        if isinstance(v, str):
-            log(f"[gnn] cut: {k} at ogb_products: {v}")
-    log(f"[gnn] cut: equiformer-v2 at minibatch_lg: "
-        f"{cuts['equiformer-v2 minibatch_lg']}")
+    cap = torch.cuda.get_device_properties(0).total_memory
+    cuts = {}
+    for arch in GNN_ARCHS:
+        for shape in ("minibatch_lg", "ogb_products"):
+            if (shape, arch) in {(s, a) for s, archs in GNN_RUNS
+                                 for a in archs}:
+                continue
+            rec = dryrun.reckon(lsteps.build_cell(arch, shape), cap)
+            if rec["fits"]:
+                raise SystemExit(f"gnn: {arch} at {shape} fits by the "
+                                 "reckoning but no run takes it")
+            log(f"[gnn] cut: {dryrun.summary(rec)}")
+            cuts[f"{arch} {shape}"] = {
+                "arg_bytes": rec["arg_bytes"], "work": rec["work"],
+                "need_bytes": rec["need_bytes"], "capacity_bytes": cap}
     return cuts
 
 
 def gnn_path(torch, kernels) -> dict:
-    """The static GNNs trained at full width on the card: each of
-    ``GNN_RUNS``' shapes' batch made once on the card
-    (``launch.steps.gnn_batches``, seed 0), then each arch's ``gnn_run``
-    on it; the cuts' reckoning."""
+    """The static GNNs trained at full width on the card through their
+    cells (``launch.steps.build_cell`` at the registry's shapes): each of
+    ``GNN_RUNS``' shapes' graph tensors made once on the card by its first
+    cell's ``make_inputs(0)`` (``gnn_batches``, seed 0), each later
+    arch's parameters and AdamW state by its cell's ``make_state(0)``,
+    then ``gnn_run``; the cuts' reckoning."""
     from repro_torch.launch import steps as lsteps
 
     runs = []
     for shape_name, archs in GNN_RUNS:
-        shape = gnn_shape(shape_name)
-        t0 = time.perf_counter()
-        batches = lsteps.gnn_batches(shape, device="cuda")
-        torch.cuda.synchronize()
-        log(f"[gnn] {shape_name} batch made on the card in "
-            f"{time.perf_counter() - t0:.1f} s")
+        batch = None
         for arch in archs:
-            runs.append(gnn_run(torch, kernels, arch, shape, batches))
-        del batches
+            cell = lsteps.build_cell(arch, shape_name)
+            if batch is None:
+                t0 = time.perf_counter()
+                params, opt, *batch = cell.make_inputs(0)
+                torch.cuda.synchronize()
+                log(f"[gnn] {shape_name} inputs made on the card in "
+                    f"{time.perf_counter() - t0:.1f} s")
+            else:
+                # make_inputs' own draw, without remaking the graph
+                params, opt = cell.make_state(0)
+            runs.append(gnn_run(torch, kernels, cell, params, opt, batch))
+            del params, opt
+        del batch
         gc.collect()
         torch.cuda.empty_cache()
     launches = {k.name: sum(r["launches"][k.name] for r in runs)
                 for k in kernels}
-    return {"runs": runs, "cuts": gnn_cuts(), "launches": launches}
+    return {"runs": runs, "cuts": gnn_cuts(torch), "launches": launches}
 
 
 def gnn_grads_close(name: str, got, want) -> float:
@@ -5142,9 +5163,10 @@ def recsys_shape(name: str, **dims):
 
 
 def recsys_train(torch, kernels, cfg) -> tuple[dict, object]:
-    """``RECSYS_STEPS`` ``din_train_step`` calls at ``train_batch`` (B
-    65,536) on DIN's full config from ``din_train_state`` (generator seed
-    0, on the card) and a ``din_batch`` (seed 0) made on the card; every
+    """``RECSYS_STEPS`` calls of the ``train_batch`` cell's step
+    (``launch.steps.build_cell``: ``din_train_step``; B 65,536) on DIN's
+    full config from the cell's ``make_inputs(0)`` (``din_batch`` seed 0
+    and ``din_train_state`` with generator seed 0, on the card); every
     count zeroed just before and read just after (no kernel: DIN embeds
     with gathers and pools with GEMMs); losses finite; each step's host
     ms ending in the loss's read; peak memory; two more steps under the
@@ -5154,16 +5176,16 @@ def recsys_train(torch, kernels, cfg) -> tuple[dict, object]:
     from repro_torch.kernels.build import reset_counts
     from repro_torch.launch import steps as lsteps
 
-    shape = recsys_shape("train_batch")
+    cell = lsteps.build_cell("din", "train_batch")
+    shape = cell.shape
+    if cell.config != cfg:
+        raise SystemExit(f"recsys: the cell's config {cell.config}")
     t0 = time.perf_counter()
-    batch = lsteps.din_batch(cfg, shape, seed=0, device="cuda")
-    labels = batch.pop("labels")
-    params, opt = lsteps.din_train_state(
-        torch.Generator(device="cuda").manual_seed(0), cfg)
+    params, opt, batch, labels = cell.make_inputs(0)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in params.parameters())
-    step = lsteps.din_train_step()
+    step = cell.step
     start = {k: p.detach().cpu() for k, p in params.named_parameters()}
     torch.cuda.reset_peak_memory_stats()
     reset_counts(kernels)
@@ -5294,16 +5316,20 @@ def recsys_serve(torch, kernels, cfg, params) -> dict:
 
 
 def recsys_retrieval(torch, kernels, cfg, params) -> dict:
-    """``din_retrieval_step`` at ``retrieval_cand``: one user's history
-    (``din_batch``, seed 1, on the card) against 1,000,000 candidates in
-    chunks of ``RECSYS_CHUNK``, twice (the first warms the GEMMs' choices
-    at the chunk's shapes); scores finite, in [0, 1], (N,); total ms,
+    """The ``retrieval_cand`` cell's step (``din_retrieval_step``) with
+    the trained parameters: one user's history (``din_batch``, seed 1, on
+    the card) against 1,000,000 candidates in chunks of ``RECSYS_CHUNK``,
+    twice (the first warms the GEMMs' choices at the chunk's shapes);
+    scores finite, in [0, 1], (N,); total ms,
     candidates/s, peak memory; every count zeroed just before and read
     just after."""
     from repro_torch.kernels.build import reset_counts
     from repro_torch.launch import steps as lsteps
 
-    shape = recsys_shape("retrieval_cand")
+    cell = lsteps.build_cell("din", "retrieval_cand")
+    if cell.config != cfg or lsteps.RETRIEVAL_CHUNK != RECSYS_CHUNK:
+        raise SystemExit("recsys: the retrieval cell's config or chunk")
+    shape = cell.shape
     n = shape.dims["n_candidates"]
     batch = lsteps.din_batch(cfg, shape, seed=1, device="cuda")
     items, cates = batch.pop("cand_items"), batch.pop("cand_cates")
@@ -5314,8 +5340,7 @@ def recsys_retrieval(torch, kernels, cfg, params) -> dict:
     for _ in range(2):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        scores = lsteps.din_retrieval_step(params, batch, items, cates,
-                                           chunk=RECSYS_CHUNK)
+        scores = cell.step(params, batch, items, cates)
         torch.cuda.synchronize()
         runs_ms.append((time.perf_counter() - t0) * 1e3)
     launches = {k.name: k.launches for k in kernels}
@@ -5445,6 +5470,373 @@ def recsys_parity(torch) -> dict:
             "launcher": {"losses": losses, "s": launch_s}}
 
 
+def lm_cell_step(torch, kernels, cell, rec: dict) -> dict:
+    """One decode step of an LM cell at its registry shape (``long_500k``:
+    B 1, 524,288 cached rows) from ``make_inputs(0)`` (bf16 weights and a
+    cache of random values drawn on the card, ``len`` 524,287), every count
+    zeroed just before and read just after (``flash_decode`` once a layer,
+    nothing else); logits finite; the first step's ms, then
+    ``LM_CELL_WARM`` warm steps on the same inputs (each rewrites row
+    524,287); peak memory against the reckoning; one more step profiled:
+    ``flash_decode``'s device time a launch on the path."""
+    from repro_torch.kernels.build import reset_counts
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, cache, token = cell.make_inputs(0)
+    torch.cuda.synchronize()
+    inputs_s = time.perf_counter() - t0
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    logits, out = cell.step(params, cache, token)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    launches = {k.name: k.launches for k in kernels}
+    layers, s = cell.config.num_layers, cell.shape.dims["seq_len"]
+    check_launches(f"cells {cell.arch_id} {cell.shape_name}", launches,
+                   {"segment_spmm": 0, "banded_ttm": 0, "banded_ttm_t": 0,
+                    "flash_decode": layers})
+    if not (bool(torch.isfinite(logits).all())
+            and logits.shape == (1, cell.config.padded_vocab)
+            and out["len"].tolist() == [s]):
+        raise SystemExit(f"cells {cell.arch_id}: logits "
+                         f"{tuple(logits.shape)}, len {out['len'].tolist()}")
+    del logits, out
+    warm = []
+    for _ in range(LM_CELL_WARM):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cell.step(params, cache, token)
+        torch.cuda.synchronize()
+        warm.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    _, busy_us, by_name = device_profile(
+        torch, lambda: cell.step(params, cache, token), host=False)
+    fd = [v for k, v in by_name.items() if "flash_decode" in k]
+    fd_ms = sum(sum(v) for v in fd) / 1e3 / layers
+    reckoned = rec["need_bytes"] - rec["reserve_bytes"]
+    log(f"[cells] {cell.arch_id} x {cell.shape_name} decode (B 1, {s:,} "
+        f"cached rows, bf16): inputs drawn on the card in {inputs_s:.1f} s; "
+        f"first step {first_ms:.1f} ms, warm "
+        f"{', '.join(f'{v:.2f}' for v in warm)} ms; peak {peak / 1e9:.3f} GB against the "
+        f"reckoned {reckoned / 1e9:.3f} (arguments "
+        f"{rec['arg_bytes'] / 1e9:.3f}); profiled step busy "
+        f"{busy_us / 1e3:.2f} ms, flash_decode {fd_ms:.4f} ms a launch on "
+        f"the path ({sum(len(v) for v in fd)} device activities)")
+    if peak > reckoned:
+        raise SystemExit(f"cells {cell.arch_id}: peak {peak} over the "
+                         f"reckoning's {reckoned}")
+    del params, cache, token
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"arch": cell.arch_id, "shape": cell.shape_name,
+            "inputs_s": inputs_s, "first_step_ms": first_ms,
+            "warm_step_ms": warm, "peak_bytes": peak,
+            "reckoned_bytes": reckoned, "arg_bytes": rec["arg_bytes"],
+            "busy_ms": busy_us / 1e3, "flash_decode_ms_per_launch": fd_ms,
+            "launches": launches}
+
+
+def cells_spmm_row(torch, name: str, x, csr, timer) -> dict:
+    """``segment_spmm`` on one CSR held to its plain version, shown to
+    reject zeros and a dropped edge, and timed beside its bound, its plain
+    version and ``torch.sparse.mm``."""
+    from repro_torch.kernels.segment_spmm import ops, ref
+
+    row_ptr, col, w = csr
+    n, f, nnz = row_ptr.shape[0] - 1, x.shape[1], int(row_ptr[-1])
+    got = ops.segment_spmm_csr(x, row_ptr, col, w)
+    want = ref.segment_spmm_csr_ref(x, row_ptr, col, w)
+    torch.cuda.synchronize()
+    err = check_close(name, got, want, TOL_SPMM)
+    faults = spmm_faults(name, ops, x, row_ptr, col, w, want)
+    lib = torch.sparse_csr_tensor(row_ptr, col[:nnz], w[:nnz], size=(n, n),
+                                  check_invariants=False)
+    b_ms, b_by = bound_ms(x.nbytes + row_ptr.nbytes + nnz * 8 + got.nbytes,
+                          2.0 * nnz * f)
+
+    def kern():
+        return ops.segment_spmm_csr(x, row_ptr, col, w)
+
+    row = {"case": name, "N": n, "F": f, "nnz": nnz, "ms": timer(kern),
+           "plain_ms": timer(lambda: ref.segment_spmm_csr_ref(
+               x, row_ptr, col, w)),
+           "library_ms": timer(lambda: torch.sparse.mm(lib, x)),
+           "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
+           "fault_over_limit": faults}
+    log(f"[kernel] {name} ({nnz:,} edges): kernel {row['ms']:.4f} ms, "
+        f"plain {row['plain_ms']:.4f}, torch.sparse.mm "
+        f"{row['library_ms']:.4f}, bound {b_ms:.4f} ({b_by}); max|err| "
+        f"{err:.2e}; faults rejected at x limit: zeros "
+        f"{faults['zeros']:.1f}, last edge dropped "
+        f"{faults['last edge dropped']:.1f}")
+    return row
+
+
+def cells_kernel_checks(torch, cell, inputs, timer) -> dict:
+    """The kernels at a TM-GCN cell's own shapes on the card, each held to
+    its plain version, shown to reject faulty outputs and timed:
+    ``segment_spmm`` on the cell's first snapshot, its CSR at the step's
+    F = 2 (layer 1) and 6 (layer 2) and its transposed CSR at F = 6 (the
+    backward); ``banded_ttm`` on block 0's and block 1's [prefix (w - 1
+    rows); slice (T / nb rows)] of (., N x 6) (blocks 2 on read the same
+    full band as block 1) and ``banded_ttm_t`` on their kept rows'
+    gradient."""
+    from repro_torch.kernels.segment_spmm import ops as spmm_ops
+
+    cfg, n = cell.config, cell.meta["nodes"]
+    edges, ew = inputs[3][0, 0], inputs[4][0, 0]
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    csr, csr_t = spmm_ops.build_csr_pair(edges, ew, n)
+    tag = f"segment_spmm {cell.shape_name}"
+    spmm = [cells_spmm_row(torch, f"{tag} F={f}", torch.randn(
+                (n, f), generator=gen, device="cuda"), csr, timer)
+            for f in (cfg.feat_in, cfg.hidden)]
+    spmm.append(cells_spmm_row(torch, f"{tag} transposed F={cfg.hidden}",
+                               torch.randn((n, cfg.hidden), generator=gen,
+                                           device="cuda"), csr_t, timer))
+    del csr, csr_t
+    bsize, w1 = cfg.num_steps // cfg.checkpoint_blocks, cfg.window - 1
+    fwd = band_rows(torch, gen, n, cfg.window, timer, (
+        (bsize, w1, -w1), (bsize, w1, bsize - w1)))
+    bwd = band_t_rows(torch, gen, n, cfg.window, timer, (
+        (bsize, w1, -w1, False), (bsize, w1, bsize - w1, True)))
+    torch.cuda.empty_cache()
+    return {"segment_spmm": spmm, "banded_ttm": fwd, "banded_ttm_t": bwd}
+
+
+def dyngnn_cell_step(torch, kernels, cell, rec: dict, timer) -> dict:
+    """One step of a dyngnn cell at its registry shape (the full T) over
+    the one-rank NCCL group, from ``make_inputs(0)`` drawn on the card;
+    every count zeroed just before and read just after: per step 5 T
+    ``segment_spmm`` (L T forward, L T recompute, T backward), TM-GCN's
+    ``banded_ttm`` 2 L nb (the fused final loss lies in the block, so its
+    recompute reaches the last band) and ``banded_ttm_t`` L nb, none for
+    CD-GCN and EvolveGCN, 2 T CSR builds; the loss finite; peak memory
+    against the reckoning (the block's floats a (step, vertex) read back
+    from it) and the analytic roofline beside the step's ms; for TM-GCN,
+    whose step runs all three kernels, ``cells_kernel_checks`` on the
+    cell's inputs."""
+    import math
+
+    from repro_torch.kernels.build import reset_counts
+    from repro_torch.kernels.segment_spmm import ops as spmm_ops
+    from repro_torch.launch import dryrun
+
+    cfg, m = cell.config, cell.meta
+    n, t, nb, layers = m["nodes"], m["steps"], cfg.checkpoint_blocks, \
+        cfg.num_layers
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    inputs = cell.make_inputs(0)
+    torch.cuda.synchronize()
+    inputs_s = time.perf_counter() - t0
+    reset_counts(kernels)
+    spmm_ops.csr_builds = 0
+    t0 = time.perf_counter()
+    _, _, loss = cell.step(*inputs)
+    loss = float(loss)                    # reads the loss: a sync
+    step_ms = (time.perf_counter() - t0) * 1e3
+    launches = {k.name: k.launches for k in kernels}
+    launches["csr_builds"] = spmm_ops.csr_builds
+    band = cfg.model == "tmgcn"
+    check_launches(f"cells {cell.arch_id} {cell.shape_name}", launches,
+                   {"segment_spmm": (2 * layers + 1) * t,
+                    "banded_ttm": 2 * layers * nb if band else 0,
+                    "banded_ttm_t": layers * nb if band else 0,
+                    "flash_decode": 0, "csr_builds": 2 * t})
+    if not (math.isfinite(loss) and 0.0 < loss < 2.0):
+        raise SystemExit(f"cells {cell.arch_id} {cell.shape_name}: loss "
+                         f"{loss}")
+    peak = torch.cuda.max_memory_allocated()
+    reckoned = rec["need_bytes"] - rec["reserve_bytes"]
+    block = (peak - rec["arg_bytes"] - rec["work"]["CSR pairs"]
+             - rec["work"]["block carries"]) / (4 * (t // nb) * n)
+    cost, coll = dryrun.dyngnn_analytic(m, cfg, 1)
+    rl = dryrun.roofline(cost, coll)
+    log(f"[cells] {cell.arch_id} x {cell.shape_name} (N {n:,}, T {t}, nb "
+        f"{nb}, {m['edges_per_snap']:,} lanes a snapshot): inputs drawn on "
+        f"the card in {inputs_s:.1f} s; step {step_ms:.1f} ms (host clock, "
+        f"the loss read), loss {loss:.5f}; peak "
+        f"{peak / 1e9:.3f} GB against the reckoned {reckoned / 1e9:.3f} "
+        f"(a block {block:.1f} floats a (step, vertex) against "
+        f"{dryrun.DYNGNN_BLOCK_FLOATS[cfg.model]}); analytic roofline "
+        f"{rl['bound_s'] * 1e3:.2f} ms ({rl['dominant']}; "
+        f"{cost['flops'] / 1e9:.1f} GFLOP, "
+        f"{cost['bytes accessed'] / 1e9:.1f} GB): the step "
+        f"{step_ms / (rl['bound_s'] * 1e3):.1f}x it")
+    if peak > reckoned:
+        raise SystemExit(f"cells {cell.arch_id} {cell.shape_name}: peak "
+                         f"{peak} over the reckoning's {reckoned}")
+    checks = cells_kernel_checks(torch, cell, inputs, timer) if band else {}
+    del inputs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"arch": cell.arch_id, "shape": cell.shape_name, "N": n, "T": t,
+            "inputs_s": inputs_s, "step_ms": step_ms, "loss": loss,
+            "peak_bytes": peak, "reckoned_bytes": reckoned,
+            "arg_bytes": rec["arg_bytes"], "block_floats": block,
+            "roofline_ms": rl["bound_s"] * 1e3, "dominant": rl["dominant"],
+            "flops": cost["flops"], "bytes": cost["bytes accessed"],
+            "launches": launches, "kernel_checks": checks}
+
+
+def cells_parity(torch, grid) -> dict:
+    """The dyngnn cell's step on the card (NCCL, kernels) against the
+    same step on the CPU (a one-rank gloo group, plain versions) from the
+    card's inputs, for all three models at ``CELLS_PARITY``: the loss and
+    every leaf of the step's output -- the parameters and AdamW's m
+    ((1 - b1) x the clipped gradient), v and master -- within
+    ``TOL_CELL_BF16`` (the loss relative, leaves x each leaf's max)."""
+    import copy
+
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.launch import steps as lsteps
+
+    cpu_grid = lmesh.make_host_mesh(1, 1, group=dist.new_group(
+        backend="gloo"))
+    out = {}
+    for model in ("tmgcn", "cdgcn", "evolvegcn"):
+        t0 = time.perf_counter()
+        card = lsteps.build_cell(model, "dtdg_epinions", grid,
+                                 shape_override=CELLS_PARITY)
+        cpu = lsteps.build_cell(model, "dtdg_epinions", cpu_grid,
+                                shape_override=CELLS_PARITY, device="cpu")
+        inputs = card.make_inputs(0)
+        params, opt, *arrays = inputs
+        host = (copy.deepcopy(params).to("cpu"),
+                {k: ({n: v.cpu() for n, v in d.items()}
+                     if isinstance(d, dict) else d.cpu())
+                 for k, d in opt.items()}) + tuple(a.cpu() for a in arrays)
+        got = lsteps.input_leaves(card.step(*inputs))
+        want = lsteps.input_leaves(cpu.step(*host))
+        worst, worst_leaf = 0.0, ""
+        for k, w in want.items():
+            g = got[k].detach().cpu().double()
+            w = w.detach().double()
+            if not w.is_floating_point():
+                if not torch.equal(g, w):
+                    raise SystemExit(f"cells parity {model}: {k} differs")
+                continue
+            if k == "2":
+                err = abs(float(g) - float(w)) / abs(float(w))
+            else:
+                err = float((g - w).abs().max()) / max(
+                    float(w.abs().max()), 1e-30)
+            if err > worst:
+                worst, worst_leaf = err, k
+        loss_err = abs(float(got["2"]) - float(want["2"])) / abs(
+            float(want["2"]))
+        log(f"[cells] card vs CPU, {model} cell at N "
+            f"{CELLS_PARITY['n_nodes']:,}, T {CELLS_PARITY['n_steps']}: loss {float(got['2']):.6f} vs "
+            f"{float(want['2']):.6f} ({loss_err:.2e} relative); the worst "
+            f"leaf {worst_leaf} at {worst:.2e} of its max (limit "
+            f"{TOL_CELL_BF16}; {time.perf_counter() - t0:.1f} s)")
+        if worst > TOL_CELL_BF16:
+            raise SystemExit(f"cells parity {model}: {worst_leaf} at "
+                             f"{worst:.3e}")
+        out[model] = {"loss_rel": loss_err, "worst": worst,
+                      "worst_leaf": worst_leaf}
+        del inputs, host, params, opt, arrays
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def cells_path(torch, kernels, card: str, timer) -> dict:
+    """The cells on one card (``launch.steps.build_cell`` over the
+    one-rank NCCL group this group opens and ends): the reckoning of all
+    60 (``launch.dryrun.reckon``, against the card's memory less what the
+    process still holds), then one step of every cell it reckons to fit
+    that no other group runs at its registry shape -- the LM decode cells
+    (``lm_cell_step``) and the 15 distinct dyngnn cells (``paper_dyngnn``
+    is ``tmgcn``'s; ``dyngnn_cell_step``) -- with the allocator's segments
+    expandable; the dyngnn cell card against CPU (``cells_parity``).  On
+    an H100 80GB the cells stepped must be ``CELLS_STEPPED``: the
+    reckoning against the whole card gives them, and the memory this
+    process holds may drop none."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.launch import steps as lsteps
+
+    gc.collect()
+    # cuBLAS keeps a 32 MiB workspace for the process's life; made while
+    # an earlier group's freed segment lay cached, it sits in it and holds
+    # all of it (5.9 GB after the lm group alone): cleared, empty_cache
+    # returns the segment, and the next GEMM makes a workspace anew
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:
+        clear()
+    torch.cuda.empty_cache()
+    total = torch.cuda.get_device_properties(0).total_memory
+    held = torch.cuda.memory_reserved()
+    cap = total - held
+    dryrun.expandable_segments(True)
+    group = nccl_group(torch)
+    try:
+        grid = lmesh.make_host_mesh(1, 1)
+        log(f"[cells] {card}: capacity {cap:,} B (total_memory {total:,} "
+            f"less {held:,} this process holds, "
+            f"{torch.cuda.memory_allocated():,} of it allocated); the "
+            "reckoning of "
+            f"{len(lsteps.all_cells())} cells (arguments exact, work per "
+            f"family, reserve {dryrun.RESERVE:,} B):")
+        t0 = time.perf_counter()
+        cells, recs = {}, {}
+        for arch, shape in lsteps.all_cells():
+            cells[arch, shape] = lsteps.build_cell(arch, shape, grid)
+            recs[arch, shape] = dryrun.reckon(cells[arch, shape], cap)
+            log(f"[cells]   {dryrun.summary(recs[arch, shape])}")
+        reckon_s = time.perf_counter() - t0
+        fits = [k for k, r in recs.items() if r["fits"]]
+        log(f"[cells] {len(fits)} of {len(recs)} fit ({reckon_s:.1f} s)")
+        elsewhere = {k for k in fits if recs[k]["family"] in ("gnn",
+                                                               "recsys")}
+        stepped = [k for k in fits
+                   if k not in elsewhere and k[0] != "paper_dyngnn"]
+        whole = {k for k in recs if k not in elsewhere
+                 and k[0] != "paper_dyngnn"
+                 and dryrun.reckon(cells[k], total)["fits"]}
+        if total == H100_80GB_BYTES and whole != set(CELLS_STEPPED):
+            raise SystemExit(
+                f"cells: against the whole H100 80GB the reckoning steps "
+                f"{sorted(whole)}, not the pinned CELLS_STEPPED")
+        if set(stepped) != whole:
+            raise SystemExit(
+                f"cells: the {held:,} B this process holds drop "
+                f"{sorted(whole - set(stepped))} from the cells stepped")
+        runs = []
+        for k in stepped:
+            if recs[k]["family"] == "lm":
+                runs.append(lm_cell_step(torch, kernels, cells[k], recs[k]))
+            else:
+                runs.append(dyngnn_cell_step(torch, kernels, cells[k],
+                                             recs[k], timer))
+        parity = cells_parity(torch, grid)
+    finally:
+        dist.destroy_process_group()
+        dryrun.expandable_segments(False)
+        gc.collect()
+        torch.cuda.empty_cache()
+    launches = {k.name: sum(r["launches"][k.name] for r in runs)
+                for k in kernels}
+    return {"capacity_bytes": cap, "total_memory": total,
+            "held_bytes": held, "reckon_s": reckon_s,
+            "reckoning": [[r["arch"], r["shape"], r["arg_bytes"],
+                           r["need_bytes"], r["fits"]]
+                          for r in recs.values()],
+            "fits": [list(k) for k in fits],
+            "stepped": [list(k) for k in stepped],
+            "run_elsewhere": sorted(list(k) for k in elsewhere),
+            "runs": runs, "parity": parity, "launches": launches}
+
+
 def recsys_path(torch, kernels) -> dict:
     """The recsys group: DIN at its full config trained, served and
     scoring retrieval candidates on the card, then held to the CPU."""
@@ -5467,7 +5859,8 @@ def recsys_path(torch, kernels) -> dict:
 # ---------------------------------------------------------------- main -----
 
 GROUPS = ("serve", "train", "stream", "partition", "dstream", "hybrid",
-          "sampled", "ft", "trace", "data", "lm", "moe", "gnn", "recsys")
+          "sampled", "ft", "trace", "data", "lm", "moe", "gnn", "recsys",
+          "cells")
 
 
 def kernel_entry(name: str, source: str, replaces: str, launches: dict,
@@ -5531,7 +5924,10 @@ def main(argv: list[str] | None = None) -> int:
     def phase(name, fn, *args):
         t0 = time.perf_counter()
         out = fn(*args)
-        log(f"[phase] {name}: {time.perf_counter() - t0:.1f} s")
+        log(f"[phase] {name}: {time.perf_counter() - t0:.1f} s (device "
+            f"memory after it: {torch.cuda.memory_allocated() / 1e9:.3f} "
+            f"GB allocated, {torch.cuda.memory_reserved() / 1e9:.3f} "
+            "reserved)")
         return out
 
     n_nodes, _, max_edges = DATASETS["epinions"]
@@ -5623,8 +6019,7 @@ def main(argv: list[str] | None = None) -> int:
                 launches["hybrid"] = hybrid_stats["launches"]
             if "sampled" in groups:
                 sampled_stats = phase("sampled path", sampled_path, torch,
-                                      kernels, obs, train_ds, stream_pipe,
-                                      group)
+                                      kernels, obs, train_ds, group)
                 launches["sampled"] = sampled_stats["launches"]
                 sampled_stats["equivalence"] = phase(
                     "sampled equivalence", sampled_equivalence, torch,
@@ -5763,6 +6158,17 @@ def main(argv: list[str] | None = None) -> int:
         launches["recsys"] = recsys_stats["launches"]
         recsys_stats["parity"] = phase("recsys parity", recsys_parity, torch)
 
+    if "cells" in groups:
+        gc.collect()
+        torch.cuda.empty_cache()
+        cells_stats = phase("cells path", cells_path, torch, kernels, card,
+                            timer)
+        launches["cells"] = cells_stats["launches"]
+        cells_checks = {k: [row for r in cells_stats["runs"]
+                            for row in r.get("kernel_checks", {}).get(k, [])]
+                        for k in ("segment_spmm", "banded_ttm",
+                                  "banded_ttm_t")}
+
     if "serve" in groups:
         spmm_main = next(r for r in spmm_rows if r["F"] == 6)  # layer 2
         spmm_main = dict(spmm_main, max_abs_err=spmm_err)
@@ -5778,6 +6184,8 @@ def main(argv: list[str] | None = None) -> int:
             extra["csr_pair_build"] = stream_stats["csr_pair"]
         if "hybrid" in groups:
             extra["rectangular"] = hybrid_stats["rectangular"]
+        if "cells" in groups:
+            extra["cells_shapes"] = cells_checks["segment_spmm"]
         report.append(kernel_entry(
             "segment_spmm", "src/repro_torch/csrc/segment_spmm.cu",
             "src/repro/kernels/segment_spmm/segment_spmm.py:55", launches,
@@ -5789,7 +6197,9 @@ def main(argv: list[str] | None = None) -> int:
                             "sweep": ttm_sweep}
                            if "train" in groups else {}),
             **({"partition_shapes": part_stats["band_rows"]}
-               if "partition" in groups else {})))
+               if "partition" in groups else {}),
+            **({"cells_shapes": cells_checks["banded_ttm"]}
+               if "cells" in groups else {})))
     if "train" in groups:
         ttm_t_main = ttm_t_rows[1]     # block 1: dZ (8, N x 6), lead 4, +4
         report.append(kernel_entry(
@@ -5802,7 +6212,9 @@ def main(argv: list[str] | None = None) -> int:
                                  if "stream" in groups else [])
             + (part_stats["band_t_rows"] if "partition" in groups else []),
             sweep=ttm_t_sweep, train_path=train_stats,
-            train_parity=train_par))
+            train_parity=train_par,
+            **({"cells_shapes": cells_checks["banded_ttm_t"]}
+               if "cells" in groups else {})))
     if "stream" in groups:
         # the streamed schedule's own numbers (the kernels' lines above
         # count its launches in their "stream" path)
@@ -5833,6 +6245,8 @@ def main(argv: list[str] | None = None) -> int:
         log(json.dumps({"gnn_path": gnn_stats}))
     if "recsys" in groups:
         log(json.dumps({"recsys_path": recsys_stats}))
+    if "cells" in groups:
+        log(json.dumps({"cells_path": cells_stats}))
     if {"lm", "moe"} & set(groups):
         report.append(kernel_entry(
             "flash_decode", "src/repro_torch/csrc/flash_decode.cu",

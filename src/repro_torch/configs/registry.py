@@ -68,8 +68,13 @@ def get_arch(arch_id: str) -> ArchSpec:
 
 
 def all_archs() -> dict[str, ArchSpec]:
+    """Every arch, in ``ARCH_MODULES``' order (the reference's, where a
+    fresh process imports them in that order), whichever module a caller
+    imported first."""
     load_all()          # a config module imported alone registers one
-    return dict(_REGISTRY)
+    rank = {m: i for i, m in enumerate(ARCH_MODULES)}
+    return dict(sorted(_REGISTRY.items(),
+                       key=lambda kv: rank[kv[1].make_config.__module__]))
 
 
 def load_all() -> None:

@@ -22,12 +22,11 @@ def _merge(edge_sets: list[np.ndarray],
     key = all_edges[:, 0].astype(np.int64) * (all_edges.max() + 1 if
                                               all_edges.size else 1) \
         + all_edges[:, 1].astype(np.int64)
-    uniq, inv = np.unique(key, return_inverse=True)
+    # the first occurrence of each unique key (np.unique's index)
+    uniq, first, inv = np.unique(key, return_index=True,
+                                 return_inverse=True)
     w = np.zeros(uniq.shape[0], dtype=np.float32)
     np.add.at(w, inv, all_w)
-    # First occurrence of each unique key.
-    first = np.full(uniq.shape[0], np.iinfo(np.int64).max, dtype=np.int64)
-    np.minimum.at(first, inv, np.arange(all_edges.shape[0]))
     return all_edges[first].astype(np.int32), w
 
 

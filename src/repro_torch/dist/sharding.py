@@ -2,7 +2,7 @@
 partitioning (paper §4.2, Fig. 3b).
 
 Port of the snapshot-partitioning part of ``repro.dist.sharding`` (its LM
-and DIN spec trees wait for ROADMAP Queue 1, item 9d).  The reference runs
+and DIN spec trees wait for ROADMAP Queue 1, item 9d-2).  The reference runs
 P devices in one process under ``shard_map`` over the mesh axis
 ``"data"``; the port runs one process per rank in a ``torch.distributed``
 process group — gloo on the CPU, NCCL on the card with rank r on

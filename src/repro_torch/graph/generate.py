@@ -13,11 +13,19 @@ from __future__ import annotations
 import numpy as np
 
 
+def _unique_rows(edges: np.ndarray, n: int) -> np.ndarray:
+    """``np.unique(edges, axis=0)`` for (E, 2) ids in [0, n), as int32:
+    the distinct rows sorted by (src, dst), through one int64 key a row
+    (a sort of integers, not of row records: the same rows in the same
+    order, several times faster)."""
+    key = np.unique(edges[:, 0].astype(np.int64) * n + edges[:, 1])
+    return np.stack([key // n, key % n], axis=1).astype(np.int32)
+
+
 def _random_edges(rng: np.random.Generator, n: int, m: int) -> np.ndarray:
     src = rng.integers(0, n, size=m, dtype=np.int64)
     dst = rng.integers(0, n, size=m, dtype=np.int64)
-    edges = np.stack([src, dst], axis=1)
-    return np.unique(edges, axis=0).astype(np.int32)
+    return _unique_rows(np.stack([src, dst], axis=1), n)
 
 
 def random_dynamic_graph(num_nodes: int, num_steps: int, density: float,
@@ -40,14 +48,15 @@ def evolving_dynamic_graph(num_nodes: int, num_steps: int, density: float,
         keep = rng.random(prev.shape[0]) >= churn
         kept = prev[keep]
         fresh = _random_edges(rng, num_nodes, max(m - kept.shape[0], 0))
-        nxt = np.unique(np.concatenate([kept, fresh], axis=0), axis=0)
-        snaps.append(nxt.astype(np.int32))
+        snaps.append(_unique_rows(np.concatenate([kept, fresh], axis=0),
+                                  num_nodes))
     return snaps
 
 
 def degree_features(edges: np.ndarray, num_nodes: int) -> np.ndarray:
     """(in-degree, out-degree) input features, as used by the paper (§6.1)."""
     f = np.zeros((num_nodes, 2), dtype=np.float32)
-    np.add.at(f[:, 0], edges[:, 1], 1.0)
-    np.add.at(f[:, 1], edges[:, 0], 1.0)
+    # integer counts, exact in float32 (below 2^24): np.add.at's sums
+    f[:, 0] = np.bincount(edges[:, 1], minlength=num_nodes)
+    f[:, 1] = np.bincount(edges[:, 0], minlength=num_nodes)
     return f

@@ -1,43 +1,70 @@
-"""Per-family step functions of the launcher: the LM, GNN and recsys
-steps.
+"""Step builders and abstract inputs for every (arch x shape) cell.
 
-Port of the LM, GNN and recsys parts of ``repro.launch.steps``:
+Port of ``repro.launch.steps``.  ``build_cell(arch_id, shape_name, mesh)``
+returns a :class:`Cell`: its ``step``, its ``abstract_inputs`` (meta
+tensors with the reference's leaf paths, shapes and dtypes: no memory, no
+numbers) and ``make_inputs(seed, device)``, concrete inputs the step
+accepts.  Train cells take a FULL training step (loss, gradients by
+autograd, the repo's AdamW, ``repro_torch.optim.adamw``); decode, prefill
+and recsys-serve cells take a serve step.  :func:`all_cells` names the
+reference's 60 (arch x shape) pairs in its order.
+
+The per-family steps the cells dispatch to:
 
 * :func:`lm_train_step` is ``_lm_train_cell``'s ``train_step`` --
-  ``lm_loss`` and its gradients by autograd, then the repo's AdamW
-  (``repro_torch.optim.adamw``) on the LM tree held as a
-  ``core.models.ParamTree``;
+  ``lm_loss`` and its gradients, then AdamW on the LM tree held as a
+  ``core.models.ParamTree``; the prefill and decode cells call
+  ``models.lm.prefill`` and ``decode_step`` (the KV cache written in
+  place);
 * :func:`gnn_train_step` is the ``train_step`` of ``_gnn_full_graph_cell``
   and ``_gnn_replica_cell`` for the four static GNNs: the node loss over
   ``node_mask`` (``full_graph``), over the first ``seeds`` rows
   (``minibatch``) or per graph (``molecule``), averaged over the replica
   batches (the reference's ``vmap`` then ``mean``), then AdamW
   (``AdamWConfig()``, as there).  :func:`gnn_batches` builds concrete
-  batches at a shape's dims (the cells only describe them abstractly);
+  batches at a shape's dims;
 * the steps of ``_din_cell``: :func:`din_train_step` (``ctr_loss`` and
-  its gradients by autograd, then AdamW with ``AdamWConfig()``),
-  :func:`din_serve_step` (``forward``) and :func:`din_retrieval_step`
-  (``score_candidates``, in chunks on one card where the reference splits
-  the candidates over its data-parallel devices); :func:`din_batch`
-  builds a concrete batch at a recsys shape's dims.
+  its gradients, then AdamW with ``AdamWConfig()``), :func:`din_serve_step`
+  (``forward``) and :func:`din_retrieval_step` (``score_candidates``, in
+  chunks of :data:`RETRIEVAL_CHUNK` on one card where the reference
+  splits the candidates over its data-parallel devices); :func:`din_batch`
+  builds a concrete batch at a recsys shape's dims;
+* the dyngnn cell (``_dyngnn_cell``) is the snapshot-partitioned,
+  checkpointed train step over the grid's data group:
+  ``partition.snapshot_partition_loss`` with bf16 all-to-all payloads and
+  the final layer's loss fused in the vertex-sharded domain, one gradient
+  ``all_reduce`` a leaf, then ``AdamWConfig()``
+  (``train.trainer.make_dyngnn_train_step``).  ``paper_dyngnn`` is
+  ``tmgcn``'s config.
 
-The reference's sharding specs and activation constrainers have no
-counterpart on one device.  The dyngnn cells, the prefill / decode cells
-and the multi-device specs (``din_param_specs``' vocab-sharded tables
-among them) wait for ROADMAP Queue 1, item 9d (the dyngnn schedules train
-through ``repro_torch.run.Engine``).
+A mesh is a ``dist.sharding.Grid`` (``launch.mesh.make_host_mesh``).  The
+dyngnn cell runs over its data group at any width (``make_inputs`` then
+gives the rank's share); the LM, GNN and recsys cells take one rank (a
+1 x 1 grid, or ``None``: no process group) and refuse more: their
+multi-rank layouts (the reference's ``in_shardings`` / ``out_shardings``,
+``din_param_specs``' vocab-sharded tables, the LM tensor-parallel and
+FSDP specs) wait for ROADMAP Queue 1, item 9d-2, so a cell has no
+sharding fields.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Sequence
+import dataclasses
+import functools
+from dataclasses import dataclass
+from typing import Any, Callable, Sequence
 
 import numpy as np
 import torch
 from torch import nn
 
+from repro_torch import resolve_device
+from repro_torch.configs import registry
 from repro_torch.configs.registry import ShapeSpec
+from repro_torch.core import models as dyn_models
 from repro_torch.core.models import ParamTree
+from repro_torch.dist.sharding import ShardLayout
+from repro_torch.graph import segment
 from repro_torch.models import din, lm
 from repro_torch.models.gnn import (common, equiformer_v2, gatedgcn, pna,
                                     schnet)
@@ -372,3 +399,487 @@ def din_batch(cfg: din.DINConfig, shape: ShapeSpec, seed: int = 0,
               device: str | torch.device = "cpu") -> dict:
     """:func:`din_batch_arrays` as tensors on ``device``."""
     return din.batch_to(din_batch_arrays(cfg, shape, seed), device)
+
+
+# ------------------------------------------------------------ cells -----
+
+#: candidates ``din_retrieval_step`` scores at a time in the retrieval
+#: cell: unchunked, 1,000,000 candidates' (N, L, 144) features alone take
+#: 57.6 GB; a chunk of 131,072 takes ~18 GB with its hidden tensors
+RETRIEVAL_CHUNK = 131_072
+
+
+@dataclass
+class Cell:
+    """One (arch x shape) cell.
+
+    ``step(*inputs)`` runs it on inputs shaped as ``abstract_inputs`` (meta
+    tensors in the reference's leaf structure: a ``ParamTree`` for the
+    parameters a train step updates, AdamW's ``m`` / ``v`` / ``master`` /
+    ``step`` state, nested dicts of tensors for the rest; made by
+    ``abstract`` on first access, as tracing a full-size init starts
+    ``FakeTensorMode``, a few seconds a process);
+    ``make_inputs(seed=0, device=...)`` makes concrete ones on ``device``
+    (default: the one ``build_cell`` was given): parameters from the
+    model's own init drawn from a ``torch.Generator`` seeded with
+    ``seed``, ``adamw.init_state``, ids in range, masks, graphs whose
+    padded lanes carry weight 0, and for a decode cell a cache of random
+    values with ``len = seq_len - 1``.
+    A train cell's ``make_state(seed=0, device=...)`` is the first two of
+    its inputs alone, the parameters and their AdamW state, drawn as
+    ``make_inputs`` draws them (``None`` for a serve cell).
+    ``donate`` names the inputs the step may overwrite (the reference's
+    donated argnums: the port updates parameters and caches in place),
+    ``meta`` the reference's sizes.  ``in_shardings`` / ``out_shardings``
+    have no counterpart at one rank (ROADMAP Queue 1, item 9d-2)."""
+
+    arch_id: str
+    shape_name: str
+    step: Callable
+    abstract: Callable[[], tuple]
+    make_inputs: Callable
+    donate: tuple = ()
+    meta: dict | None = None
+    make_state: Callable | None = None
+    family: str = ""
+    kind: str = ""
+    config: Any = None
+    shape: ShapeSpec | None = None
+
+    @functools.cached_property
+    def abstract_inputs(self) -> tuple:
+        return self.abstract()
+
+
+def _tree_map(fn: Callable, tree):
+    """``fn`` on every tensor of a tree of dicts, lists and tuples (a
+    ``ParamTree``: a new one of meta parameters only)."""
+    if isinstance(tree, nn.Module):
+        for mod in tree.modules():
+            for k, p in list(mod._parameters.items()):
+                mod._parameters[k] = nn.Parameter(fn(p.detach()),
+                                                  requires_grad=False)
+        return tree
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    return tree
+
+
+def _meta(t: torch.Tensor) -> torch.Tensor:
+    return torch.empty(t.shape, dtype=t.dtype, device="meta")
+
+
+def _sds(shape: tuple, dtype: torch.dtype) -> torch.Tensor:
+    """The reference's ``ShapeDtypeStruct``: a meta tensor."""
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def abstract_tree(init: Callable[[torch.Generator], Any]):
+    """The tree ``init(gen)`` returns, as meta tensors: traced under
+    ``FakeTensorMode`` (no memory, no numbers), so a full-size init costs
+    nothing."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode():
+        tree = init(torch.Generator())
+    return _tree_map(_meta, tree)
+
+
+def _abstract_train(init: Callable) -> tuple[ParamTree, dict]:
+    """Meta parameters as a ``ParamTree`` and their AdamW state."""
+    params = ParamTree(abstract_tree(init))
+    return params, _tree_map(_meta, adamw.init_state(params))
+
+
+def input_leaves(tree) -> dict[str, torch.Tensor]:
+    """A cell's inputs (or any tree of them) -> {path: tensor}, the path
+    the keys and indices from the root joined by '.' (a ``ParamTree``'s
+    parameter names and AdamW's state keys are already dotted), as
+    ``jax.tree_util.tree_flatten_with_path`` walks the reference's."""
+    out: dict[str, torch.Tensor] = {}
+
+    def walk(x, path: tuple):
+        if isinstance(x, nn.Module):
+            for k, p in x.named_parameters():
+                out[".".join(path + (k,))] = p
+        elif isinstance(x, dict):
+            for k, v in x.items():
+                walk(v, path + (str(k),))
+        elif isinstance(x, (list, tuple)):
+            for i, v in enumerate(x):
+                walk(v, path + (str(i),))
+        elif isinstance(x, torch.Tensor):
+            out[".".join(path)] = x
+
+    walk(tree, ())
+    return out
+
+
+def input_bytes(tree) -> int:
+    """Bytes of every tensor of a cell's inputs (meta or concrete)."""
+    return sum(t.numel() * t.element_size()
+               for t in input_leaves(tree).values())
+
+
+def _ids(rng: np.random.Generator, high: int, shape: tuple,
+         dev: torch.device) -> torch.Tensor:
+    return torch.as_tensor(rng.integers(0, high, shape), dtype=torch.int32,
+                           device=dev)
+
+
+# .............................................................. LM .....
+
+def _lm_train_cell(arch, shape: ShapeSpec, cfg, device) -> Cell:
+    b, s = shape.dims["global_batch"], shape.dims["seq_len"]
+
+    def abstract():
+        a_params, a_opt = _abstract_train(
+            lambda g: lm.init_lm_params(g, cfg))
+        a_tok = _sds((b, s), torch.int32)
+        return a_params, a_opt, a_tok, a_tok
+
+    def make_state(seed: int = 0, device=device):
+        return lm_train_state(torch.Generator(
+            device=resolve_device(device)).manual_seed(seed), cfg)
+
+    def make_inputs(seed: int = 0, device=device):
+        dev = resolve_device(device)
+        params, opt = make_state(seed, dev)
+        rng = np.random.default_rng(seed)
+        tokens, targets = (_ids(rng, cfg.vocab_size, (b, s), dev)
+                           for _ in range(2))
+        return params, opt, tokens, targets
+
+    return Cell(arch.arch_id, shape.name, lm_train_step(cfg), abstract,
+                make_inputs, donate=(0, 1), meta={"tokens": b * s},
+                make_state=make_state)
+
+
+def _lm_decode_cell(arch, shape: ShapeSpec, cfg, device) -> Cell:
+    b, s = shape.dims["global_batch"], shape.dims["seq_len"]
+
+    def abstract():
+        return (abstract_tree(lambda g: lm.init_lm_params(g, cfg)),
+                _tree_map(_meta, lm.init_kv_cache(cfg, b, s, device="meta")),
+                _sds((b,), torch.int32))
+
+    def serve_step(params, cache, token):
+        return lm.decode_step(cfg, params, cache, token)
+
+    def make_inputs(seed: int = 0, device=device):
+        dev = resolve_device(device)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        params = lm.init_lm_params(gen, cfg)
+        kv = (cfg.num_layers, b, s, cfg.num_kv_heads, cfg.head_dim)
+        cache = {k: torch.randn(kv, generator=gen, dtype=cfg.dtype,
+                                device=dev) for k in ("k", "v")}
+        cache["len"] = torch.full((b,), s - 1, dtype=torch.int32,
+                                  device=dev)
+        rng = np.random.default_rng(seed)
+        return params, cache, _ids(rng, cfg.vocab_size, (b,), dev)
+
+    return Cell(arch.arch_id, shape.name, serve_step, abstract, make_inputs,
+                donate=(1,), meta={"tokens": b, "kv_len": s})
+
+
+def _lm_prefill_cell(arch, shape: ShapeSpec, cfg, device) -> Cell:
+    b, s = shape.dims["global_batch"], shape.dims["seq_len"]
+
+    def abstract():
+        return (abstract_tree(lambda g: lm.init_lm_params(g, cfg)),
+                _sds((b, s), torch.int32))
+
+    def serve_step(params, tokens):
+        return lm.prefill(cfg, params, tokens, max_len=s)
+
+    def make_inputs(seed: int = 0, device=device):
+        dev = resolve_device(device)
+        params = lm.init_lm_params(
+            torch.Generator(device=dev).manual_seed(seed), cfg)
+        rng = np.random.default_rng(seed)
+        return params, _ids(rng, cfg.vocab_size, (b, s), dev)
+
+    return Cell(arch.arch_id, shape.name, serve_step, abstract, make_inputs,
+                meta={"tokens": b * s})
+
+
+# ............................................................. GNN .....
+
+def _gnn_cell(arch, shape: ShapeSpec, cfg, device) -> Cell:
+    """``_gnn_full_graph_cell`` (``full_graph``: one graph, no replica
+    axis) or ``_gnn_replica_cell`` (``minibatch`` / ``molecule``: a
+    leading axis of R = 1 replica batches, with graph ids)."""
+    kind = shape.kind
+    dims = gnn_dims(shape)
+    d_in, n_cls = dims["d_in"], dims["num_classes"]
+    n, e, seeds = dims["nodes"], dims["edges"], dims["seeds"]
+    full = kind == "full_graph"
+    graph_level = kind == "molecule"
+    inner = gnn_train_step(arch.arch_id, cfg, kind, seeds=seeds or None)
+
+    def abstract():
+        a_params, a_opt = _abstract_train(
+            lambda g: gnn_init_params(g, arch.arch_id, cfg, d_in, n_cls))
+        f32, i32 = torch.float32, torch.int32
+        lead = () if full else (1,)
+        lab_n = seeds if graph_level else n
+        out = (a_params, a_opt, _sds(lead + (e, 2), i32),
+               _sds(lead + (e,), f32), _sds(lead + (n, d_in), f32),
+               _sds(lead + (n, 3), f32), _sds(lead + (lab_n,), i32),
+               _sds(lead + (n,), f32))
+        return out if full else out + (_sds(lead + (n,), i32),)
+
+    def train_step(params, opt_state, edges, emask, feats, pos, labels,
+                   nmask, gid=None):
+        if full:
+            batches = [common.GraphBatch(edges, emask, feats, nmask, pos,
+                                         None, 1, labels)]
+        else:
+            batches = [common.GraphBatch(
+                edges[r], emask[r], feats[r], nmask[r], pos[r],
+                gid[r] if graph_level else None,
+                seeds if graph_level else 1, labels[r])
+                for r in range(edges.shape[0])]
+        return inner(params, opt_state, batches)
+
+    def make_state(seed: int = 0, device=device):
+        return gnn_train_state(torch.Generator(
+            device=resolve_device(device)).manual_seed(seed), arch.arch_id,
+            cfg, d_in, n_cls)
+
+    def make_inputs(seed: int = 0, device=device):
+        dev = resolve_device(device)
+        a = gnn_batch_arrays(shape, 1, seed)[0]
+        params, opt = make_state(seed, dev)
+        keys = ["edges", "edge_mask", "node_feat", "positions", "labels",
+                "node_mask"]
+        if not full:
+            if a["graph_id"] is None:
+                a["graph_id"] = np.zeros((n,), np.int32)
+            keys.append("graph_id")
+        return (params, opt) + tuple(
+            torch.from_numpy(a[k] if full else a[k][None]).to(dev)
+            for k in keys)
+
+    meta = ({"edges": e, "nodes": n} if full else
+            {"replicas": 1, "edges_per_replica": e, "nodes_per_replica": n})
+    return Cell(arch.arch_id, shape.name, train_step, abstract, make_inputs,
+                donate=(0, 1), meta=meta, make_state=make_state)
+
+
+# .......................................................... recsys .....
+
+def _din_batch_abstract(cfg: din.DINConfig, batch: int) -> dict:
+    i32, ell = torch.int32, cfg.seq_len
+    return {"user_id": _sds((batch,), i32),
+            "hist_items": _sds((batch, ell), i32),
+            "hist_cates": _sds((batch, ell), i32),
+            "hist_mask": _sds((batch, ell), torch.float32),
+            "target_item": _sds((batch,), i32),
+            "target_cate": _sds((batch,), i32)}
+
+
+def _din_cell(arch, shape: ShapeSpec, cfg, device) -> Cell:
+    kind = shape.kind
+    batch = shape.dims.get("batch", 1)
+    init = lambda g: din.init_params(g, cfg)      # noqa: E731
+
+    if kind == "recsys_train":
+        def abstract():
+            return _abstract_train(init) + (_din_batch_abstract(cfg, batch),
+                                            _sds((batch,), torch.int32))
+
+        def make_state(seed: int = 0, device=device):
+            return din_train_state(torch.Generator(
+                device=resolve_device(device)).manual_seed(seed), cfg)
+
+        def make_inputs(seed: int = 0, device=device):
+            dev = resolve_device(device)
+            b = din_batch(cfg, shape, seed, dev)
+            labels = b.pop("labels")
+            params, opt = make_state(seed, dev)
+            return params, opt, b, labels
+
+        return Cell(arch.arch_id, shape.name, din_train_step(), abstract,
+                    make_inputs, donate=(0, 1), meta={"batch": batch},
+                    make_state=make_state)
+
+    def params_and_batch(seed: int, dev: torch.device):
+        b = din_batch(cfg, shape, seed, dev)
+        return init(torch.Generator(device=dev).manual_seed(seed)), b
+
+    if kind == "recsys_serve":
+        def make_inputs(seed: int = 0, device=device):
+            return params_and_batch(seed, resolve_device(device))
+
+        return Cell(arch.arch_id, shape.name, din_serve_step,
+                    lambda: (abstract_tree(init),
+                             _din_batch_abstract(cfg, batch)), make_inputs,
+                    meta={"batch": batch})
+
+    if kind != "retrieval":
+        raise KeyError(kind)
+    n_cand = shape.dims["n_candidates"]
+
+    def retrieval_step(params, batch_in, cand_items, cand_cates):
+        return din_retrieval_step(params, batch_in, cand_items, cand_cates,
+                                  chunk=RETRIEVAL_CHUNK)
+
+    def make_inputs(seed: int = 0, device=device):
+        params, b = params_and_batch(seed, resolve_device(device))
+        items, cates = b.pop("cand_items"), b.pop("cand_cates")
+        return params, b, items, cates
+
+    i32 = torch.int32
+    return Cell(arch.arch_id, shape.name, retrieval_step,
+                lambda: (abstract_tree(init), _din_batch_abstract(cfg, 1),
+                         _sds((n_cand,), i32), _sds((n_cand,), i32)),
+                make_inputs, meta={"candidates": n_cand})
+
+
+# .......................................................... dyngnn .....
+
+def dyngnn_blocks(cfg: dyn_models.DynGNNConfig, edges_per_snap: int,
+                  e_pad: int, gen: torch.Generator,
+                  device: torch.device) -> tuple:
+    """A dyngnn cell's graph inputs, drawn on ``device`` from ``gen``:
+    frames (nb, bsize, N, F) uniform in [0, 1); per snapshot
+    ``edges_per_snap`` random (src, dst) lanes, N self-loops (the ``A +
+    I`` of Eq. 1) and zero lanes up to ``e_pad``, which carry weight 0 as
+    ``core.dtdg`` pads them; the Laplacian weights
+    (``graph.segment.gcn_edge_weights``); labels in [0, num_classes).
+    Made one snapshot at a time: no temporary is larger than a snapshot."""
+    n, t, nb = cfg.num_nodes, cfg.num_steps, cfg.checkpoint_blocks
+    i32 = torch.int32
+    edges = torch.zeros((t, e_pad, 2), dtype=i32, device=device)
+    loops = torch.arange(n, dtype=i32, device=device)
+    mask = torch.zeros((e_pad,), dtype=torch.float32, device=device)
+    mask[:edges_per_snap + n] = 1.0
+    weights = torch.empty((t, e_pad), dtype=torch.float32, device=device)
+    for i in range(t):
+        edges[i, :edges_per_snap].random_(0, n, generator=gen)
+        edges[i, edges_per_snap:edges_per_snap + n] = loops[:, None]
+        weights[i] = segment.gcn_edge_weights(edges[i], n, mask)
+    frames = torch.rand((t, n, cfg.feat_in), generator=gen, device=device)
+    labels = torch.randint(0, cfg.num_classes, (t, n), generator=gen,
+                           dtype=i32, device=device)
+
+    def blk(a):
+        return a.reshape((nb, t // nb) + tuple(a.shape[1:]))
+
+    return blk(frames), blk(edges), blk(weights), blk(labels)
+
+
+def _dyngnn_cell(arch, shape: ShapeSpec, cfg, grid, device) -> Cell:
+    """The paper's workload: the snapshot-partitioned, checkpointed train
+    step over ``grid``'s data group, bf16 payloads and the final layer's
+    loss fused (``trainer.make_dyngnn_train_step``)."""
+    from repro_torch.train import trainer
+
+    if grid is None:
+        raise ValueError("a dyngnn cell runs over a process group: pass "
+                         "launch.mesh.make_host_mesh(...) (one process: "
+                         "launch.mesh.join_one_rank)")
+    d = shape.dims
+    n, t = d["n_nodes"], d["n_steps"]
+    e_pad = _round_up(d["edges_per_snap"] + n, 1024)
+    cfg = dataclasses.replace(cfg, num_nodes=n, num_steps=t)
+    nb = cfg.checkpoint_blocks
+    layout = ShardLayout(grid.data_index, grid.pd, nb, t // nb, n)
+    fuse = cfg.model != "evolvegcn"
+    step = trainer.make_dyngnn_train_step(
+        cfg, grid.data, adamw.AdamWConfig(), comm_dtype=torch.bfloat16,
+        fuse_final=True)
+    def abstract():
+        a_params = _tree_map(_meta, dyn_models.init_params(
+            torch.Generator().manual_seed(0), cfg))
+        bsize, f32 = t // nb, torch.float32
+        return (a_params, _tree_map(_meta, adamw.init_state(a_params)),
+                _sds((nb, bsize, n, cfg.feat_in), f32),
+                _sds((nb, bsize, e_pad, 2), torch.int32),
+                _sds((nb, bsize, e_pad), f32),
+                _sds((nb, bsize, n), torch.int32))
+
+    def make_state(seed: int = 0, device=device):
+        params = dyn_models.init_params(
+            torch.Generator().manual_seed(seed), cfg).to(
+                resolve_device(device))
+        return params, adamw.init_state(params)
+
+    def make_inputs(seed: int = 0, device=device):
+        """This rank's share (at P = 1 the whole arrays): its steps of
+        each block, and with the fused loss its vertices' labels."""
+        dev = resolve_device(device)
+        params, opt = make_state(seed, dev)
+        frames, edges, ew, labels = dyngnn_blocks(
+            cfg, d["edges_per_snap"], e_pad,
+            torch.Generator(device=dev).manual_seed(seed), dev)
+        labels = (layout.local_vertices(labels) if fuse
+                  else layout.local(labels))
+        return (params, opt) + tuple(
+            a.contiguous() for a in (layout.local(frames),
+                                     layout.local(edges), layout.local(ew),
+                                     labels))
+
+    return Cell(arch.arch_id, shape.name, step, abstract, make_inputs,
+                donate=(0, 1),
+                meta={"edges_per_snap": e_pad, "nodes": n, "steps": t},
+                make_state=make_state)
+
+
+# ........................................................ dispatch .....
+
+def build_cell(arch_id: str, shape_name: str, mesh=None,
+               smoke: bool = False, shape_override: dict | None = None,
+               config_override: dict | None = None,
+               device: str | torch.device = "cuda") -> Cell:
+    """The cell of ``arch_id`` at ``shape_name`` (its dims updated by
+    ``shape_override``), at the smoke config with ``smoke``, the config's
+    fields replaced by ``config_override``; ``make_inputs`` defaults to
+    ``device``, which must exist (``device="cpu"`` without a card).  A
+    dyngnn cell runs over ``mesh`` (a ``Grid``); any other family takes a
+    1 x 1 grid or ``None`` and refuses more ranks."""
+    device = resolve_device(device)
+    arch = registry.get_arch(arch_id)
+    shape = arch.shapes[shape_name]
+    if shape_override:
+        shape = ShapeSpec(shape.name, shape.kind,
+                          {**shape.dims, **shape_override})
+    cfg = arch.make_smoke_config() if smoke else arch.make_config()
+    if config_override:
+        cfg = dataclasses.replace(cfg, **config_override)
+    ranks = 1 if mesh is None else mesh.pd * mesh.pm
+    if arch.family != "dyngnn" and ranks != 1:
+        raise ValueError(f"the {arch.family} cells run on one rank; "
+                         f"{arch_id} x {shape_name} over {ranks} ranks "
+                         "waits for ROADMAP Queue 1, item 9d-2")
+    if arch.family == "lm" and shape.kind == "train":
+        cell = _lm_train_cell(arch, shape, cfg, device)
+    elif arch.family == "lm" and shape.kind == "prefill":
+        cell = _lm_prefill_cell(arch, shape, cfg, device)
+    elif arch.family == "lm" and shape.kind == "decode":
+        cell = _lm_decode_cell(arch, shape, cfg, device)
+    elif arch.family == "gnn" and shape.kind in ("full_graph", "minibatch",
+                                                  "molecule"):
+        cell = _gnn_cell(arch, shape, cfg, device)
+    elif arch.family == "recsys":
+        cell = _din_cell(arch, shape, cfg, device)
+    elif arch.family == "dyngnn":
+        cell = _dyngnn_cell(arch, shape, cfg, mesh, device)
+        cfg = dataclasses.replace(cfg, num_nodes=shape.dims["n_nodes"],
+                                  num_steps=shape.dims["n_steps"])
+    else:
+        raise KeyError((arch_id, shape_name))
+    return dataclasses.replace(cell, family=arch.family, kind=shape.kind,
+                               config=cfg, shape=shape)
+
+
+def all_cells() -> list[tuple[str, str]]:
+    """The 40 assigned (arch x shape) pairs and the paper's own cells, in
+    the registry's order."""
+    return [(arch_id, shape_name)
+            for arch_id, arch in registry.all_archs().items()
+            for shape_name in arch.shapes]

@@ -12,39 +12,29 @@ delta stream (the prefetch thread on a side CUDA stream, or inline with
 ..., transfer ratio ... vs naive``.  ``--device`` defaults to ``cuda``;
 ``--device cpu`` runs the kernels' plain versions on the host.
 
-An LM arch (``yi-6b``, ``gemma-7b``, ``minicpm-2b``, ``olmoe-1b-7b``,
-``moonshot-v1-16b-a3b``; the smoke config unless ``--full-config``) takes
-``--steps`` AdamW steps of ``launch.steps.lm_train_step`` on the
-reference's smoke batch -- 2 sequences of 128 tokens, tokens and targets
-from ``np.random.default_rng(0).integers(0, 2, .)`` -- and prints the
-reference's ``step i loss x`` lines (every ``steps // 10``) and ``done``.
-Its parameters come from ``init_lm_params`` and its AdamW state from
-``adamw.init_state``: the reference fills both with N(0, 0.1) draws, a
-negative second moment included, and its losses go NaN after step 0.
-
-A static-GNN arch (``gatedgcn``, ``pna``, ``schnet``, ``equiformer-v2``)
-takes ``--steps`` AdamW steps of ``launch.steps.gnn_train_step`` at the
-``molecule`` shape: with the smoke config, the reference's smoke override
-(2 graphs of 16 nodes and 32 edges, 8 features, 2 classes); with
-``--full-config``, the shape's own 128 graphs of 30 nodes and 64 edges,
-16 features.  The batch is the reference's ``batch_molecules`` (seed 0),
-the parameters the model's ``init_params`` and the state
-``adamw.init_state``.  It prints the same ``step i loss x`` and ``done``
-lines.  The reference's launcher fills the cell's abstract inputs with
-N(0, 0.1) draws (AdamW's second moment included) and its edges and graph
-ids with 0 or 1, and its losses go NaN after step 0; the port's, from a
-real init and a real batch, stay finite.
-
-The recsys arch ``din`` takes ``--steps`` AdamW steps of
-``launch.steps.din_train_step`` at the ``train_batch`` shape: 16 examples
-with the smoke config (the reference's smoke override), the shape's own
-65,536 with ``--full-config``.  The batch is ``launch.steps.din_batch``
-(seed 0: ids in [0, vocab), ragged histories, labels 0 or 1), the
-parameters ``din.init_params`` and the state ``adamw.init_state``.  The
-reference's launcher fills the cell's inputs with N(0, 0.1) draws (ids 0
-or 1) and its ``din`` losses go NaN after step 0 as well.  LM, GNN and
-recsys training run in one process; under ``torchrun`` they are refused
-until ROADMAP Queue 1, item 9d::
+An LM, static-GNN or recsys arch takes ``--steps`` steps of its family's
+train cell (``launch.steps.build_cell``: ``train_4k``, ``molecule`` or
+``train_batch``), from the cell's ``make_inputs(0)``: parameters from the
+model's own init (``torch.Generator`` seed 0), ``adamw.init_state`` and a
+real batch.  With the smoke config the shape takes the reference
+launcher's smoke override (``SMOKE_SHAPE``); ``--full-config`` keeps the
+registry's shape for a GNN or ``din``.  An LM (``yi-6b``, ``gemma-7b``,
+``minicpm-2b``, ``olmoe-1b-7b``, ``moonshot-v1-16b-a3b``) trains on the
+reference's smoke batch with either config -- 2 sequences of 128 tokens,
+tokens and targets from ``np.random.default_rng(0).integers(0, 2, .)`` --
+in place of the cell's (``train_4k``'s 256 x 4,096 tokens would not fit
+one card at full width);
+a GNN (``gatedgcn``, ``pna``, ``schnet``, ``equiformer-v2``) on the
+reference's ``batch_molecules`` (2 graphs of 16 nodes and 32 edges, 8
+features, 2 classes; 128 graphs of 30 nodes and 64 edges with
+``--full-config``); ``din`` on ``launch.steps.din_batch`` (16 examples;
+65,536 with ``--full-config``).  Each prints the reference's ``step i
+loss x`` lines (every ``steps // 10``) and ``done``.  The reference's
+launcher fills the cell's abstract inputs with N(0, 0.1) draws (AdamW's
+second moment included) and its ids with 0 or 1, and its losses go NaN
+after step 0; the port's stay finite.  These families train in one
+process; under ``torchrun`` they are refused until ROADMAP Queue 1, item
+9d-2::
 
     python -m repro_torch.launch.train --arch olmoe-1b-7b --steps 10 \
         --device cpu
@@ -301,14 +291,8 @@ def _train(args, dp: int, world: int, rescale: tuple) -> None:
         ExecutionPlan, RunConfig, SamplingSpec, SyntheticTrace
 
     arch = registry.get_arch(args.arch)
-    if arch.family == "lm":
-        _train_lm(args, arch, world)
-        return
-    if arch.family == "gnn":
-        _train_gnn(args, arch, world)
-        return
-    if arch.family == "recsys":
-        _train_recsys(args, arch, world)
+    if arch.family in SMOKE_SHAPE:
+        _train_cell(args, arch, world)
         return
     cfg = (arch.make_config() if args.full_config
            else arch.make_smoke_config())
@@ -442,6 +426,16 @@ def _train(args, dp: int, world: int, rescale: tuple) -> None:
 
 
 LM_BATCH, LM_SEQ = 2, 128      # the reference launcher's smoke batch
+#: the reference launcher's smoke override of the ``molecule`` shape
+GNN_SMOKE_SHAPE = {"n_nodes": 16, "n_edges": 32, "batch": 2, "d_feat": 8,
+                   "num_classes": 2}
+#: the reference launcher's smoke override of the ``train_batch`` shape
+DIN_SMOKE_BATCH = 16
+#: each family's train cell and its smoke override (one rank)
+SMOKE_SHAPE = {"lm": ("train_4k", {"seq_len": LM_SEQ,
+                                   "global_batch": LM_BATCH}),
+               "gnn": ("molecule", GNN_SMOKE_SHAPE),
+               "recsys": ("train_batch", {"batch": DIN_SMOKE_BATCH})}
 
 
 def _one_process(args, family: str, world: int) -> None:
@@ -450,7 +444,7 @@ def _one_process(args, family: str, world: int) -> None:
     if world > 1:
         raise SystemExit(f"{family.upper()} training runs in one process: "
                          f"training over {world} ranks waits for ROADMAP "
-                         "Queue 1, item 9d")
+                         "Queue 1, item 9d-2")
     flags = {"--stream": args.stream, "--sampled": args.sampled,
              "--mesh": args.mesh, "--data-parallel": args.data_parallel,
              "--ckpt-dir": args.ckpt_dir,
@@ -465,105 +459,43 @@ def _one_process(args, family: str, world: int) -> None:
                          "at a time on one device")
 
 
-def _run_steps(args, step, params, opt_state, *batch) -> None:
-    """``--steps`` calls of ``step``, each a fenced ``train.step`` span;
+def _train_cell(args, arch, world: int) -> None:
+    """``--steps`` steps of the family's train cell (``train_4k``,
+    ``molecule`` or ``train_batch``; with the smoke config at the
+    reference launcher's smoke override, as an LM's always is) from
+    ``make_inputs(0)``; an LM takes the reference's smoke batch in place
+    of the cell's tokens (module docstring).  Each step is a fenced ``train.step`` span;
     prints ``step i loss x`` (every ``steps // 10``) and ``done``."""
-    from repro_torch import obs
+    _one_process(args, arch.family, world)
+    import numpy as np
+    import torch
 
+    from repro_torch import obs, resolve_device
+    from repro_torch.launch import steps
+
+    dev = resolve_device(args.device)
+    shape_name, override = SMOKE_SHAPE[arch.family]
+    if args.full_config and arch.family != "lm":
+        override = None
+    cell = steps.build_cell(args.arch, shape_name,
+                            smoke=not args.full_config,
+                            shape_override=override, device=dev)
+    inputs = list(cell.make_inputs(0))
+    if arch.family == "lm":
+        dims = cell.shape.dims
+        rng = np.random.default_rng(0)
+        inputs[2:] = [torch.as_tensor(
+            rng.integers(0, 2, (dims["global_batch"], dims["seq_len"])),
+            dtype=torch.int32, device=dev) for _ in range(2)]
+    params, opt_state, *batch = inputs
     for i in range(args.steps):
         with obs.span("train.step", cat="train", step=i) as sp:
-            params, opt_state, loss = step(params, opt_state, *batch)
+            params, opt_state, loss = cell.step(params, opt_state, *batch)
             sp.fence(loss)
         if i % max(args.steps // 10, 1) == 0:
             print(f"step {i} loss {float(loss):.4f}")
     _finish_trace(args.trace, None, 0)
     print("done")
-
-
-def _train_lm(args, arch, world: int) -> None:
-    """``--steps`` LM train steps on the reference's smoke batch (module
-    docstring); prints ``step i loss x`` and ``done``."""
-    _one_process(args, "lm", world)
-    import numpy as np
-    import torch
-
-    from repro_torch import resolve_device
-    from repro_torch.launch.steps import lm_train_state, lm_train_step
-
-    dev = resolve_device(args.device)
-    cfg = (arch.make_config() if args.full_config
-           else arch.make_smoke_config())
-    rng = np.random.default_rng(0)
-    tokens, targets = (torch.as_tensor(rng.integers(0, 2, (LM_BATCH,
-                                                           LM_SEQ)),
-                                       dtype=torch.int32, device=dev)
-                       for _ in range(2))
-    params, opt_state = lm_train_state(
-        torch.Generator(device=dev).manual_seed(0), cfg)
-    _run_steps(args, lm_train_step(cfg), params, opt_state, tokens,
-               targets)
-
-
-#: the reference launcher's smoke override of the ``molecule`` shape
-GNN_SMOKE_SHAPE = {"n_nodes": 16, "n_edges": 32, "batch": 2, "d_feat": 8,
-                   "num_classes": 2}
-
-
-def _train_gnn(args, arch, world: int) -> None:
-    """``--steps`` GNN train steps at the ``molecule`` shape (module
-    docstring); prints ``step i loss x`` and ``done``."""
-    _one_process(args, "gnn", world)
-    import dataclasses
-
-    import torch
-
-    from repro_torch import resolve_device
-    from repro_torch.launch import steps
-
-    dev = resolve_device(args.device)
-    cfg = (arch.make_config() if args.full_config
-           else arch.make_smoke_config())
-    shape = arch.shapes["molecule"]
-    if not args.full_config:
-        shape = dataclasses.replace(shape, dims={**shape.dims,
-                                                 **GNN_SMOKE_SHAPE})
-    dims = steps.gnn_dims(shape)
-    batches = steps.gnn_batches(shape, device=dev)
-    params, opt_state = steps.gnn_train_state(
-        torch.Generator(device=dev).manual_seed(0), args.arch, cfg,
-        dims["d_in"], dims["num_classes"])
-    _run_steps(args, steps.gnn_train_step(args.arch, cfg, shape.kind),
-               params, opt_state, batches)
-
-
-#: the reference launcher's smoke override of the ``train_batch`` shape
-DIN_SMOKE_BATCH = 16
-
-
-def _train_recsys(args, arch, world: int) -> None:
-    """``--steps`` DIN train steps at the ``train_batch`` shape (module
-    docstring); prints ``step i loss x`` and ``done``."""
-    _one_process(args, "recsys", world)
-    import dataclasses
-
-    import torch
-
-    from repro_torch import resolve_device
-    from repro_torch.launch import steps
-
-    dev = resolve_device(args.device)
-    cfg = (arch.make_config() if args.full_config
-           else arch.make_smoke_config())
-    shape = arch.shapes["train_batch"]
-    if not args.full_config:
-        shape = dataclasses.replace(shape, dims={**shape.dims,
-                                                 "batch": DIN_SMOKE_BATCH})
-    batch = steps.din_batch(cfg, shape, device=dev)
-    labels = batch.pop("labels")
-    params, opt_state = steps.din_train_state(
-        torch.Generator(device=dev).manual_seed(0), cfg)
-    _run_steps(args, steps.din_train_step(), params, opt_state, batch,
-               labels)
 
 
 def _quiet(_msg: str) -> None:

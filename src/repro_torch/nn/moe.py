@@ -21,7 +21,7 @@ every token has exactly k assignments, so the port puts them back in
 The reference computes all of this outside any Pallas kernel, so the port
 leaves it to PyTorch (cuBLAS for the products).  The expert-parallel
 sharding hook ``ep_constrain`` has no counterpart here: expert
-parallelism waits for ROADMAP Queue 1, item 9d's process groups.
+parallelism waits for ROADMAP Queue 1, item 9d-2's process groups.
 """
 
 from __future__ import annotations

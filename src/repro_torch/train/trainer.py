@@ -40,7 +40,8 @@ class TrainState:
 
 def make_dyngnn_train_step(cfg: dyn_models.DynGNNConfig, mesh,
                            opt_cfg: adamw.AdamWConfig, axis=DATA_AXIS,
-                           a2a_chunks: int = 1):
+                           a2a_chunks: int = 1, comm_dtype=None,
+                           fuse_final: bool = False):
     """The eager train step under snapshot partitioning on the process
     group ``mesh`` -> ``step(params, opt_state, frames, edges, ew, labels,
     csrs=None) -> (params, opt_state, loss)``, run by every rank on its
@@ -56,7 +57,10 @@ def make_dyngnn_train_step(cfg: dyn_models.DynGNNConfig, mesh,
     alike on every rank: an all-reduce hands every rank the same bits.
     The loss reported is the shares' all-reduce, outside autograd.
     ``a2a_chunks`` chunks each redistribution into that many
-    feature-sliced all-to-alls (math-identical).
+    feature-sliced all-to-alls (math-identical); ``comm_dtype`` and
+    ``fuse_final`` are ``partition.snapshot_partition_loss``'s (off: the
+    paper's execution; the reference's dyngnn cell takes bf16 payloads
+    and the fused final layer, ``launch.steps.build_cell``).
     """
     if mesh is None:
         raise ValueError("make_dyngnn_train_step needs a process group "
@@ -66,6 +70,8 @@ def make_dyngnn_train_step(cfg: dyn_models.DynGNNConfig, mesh,
         raise ValueError(f"a process group has the one axis {DATA_AXIS!r}, "
                          f"got axis={axis!r}")
     loss_fn = partition.snapshot_partition_loss(cfg, mesh,
+                                                comm_dtype=comm_dtype,
+                                                fuse_final=fuse_final,
                                                 a2a_chunks=a2a_chunks)
 
     def train_step(params, opt_state, frames, edges, ew, labels, csrs=None):
