@@ -326,7 +326,32 @@ which exits non-zero on failure:
    nb ``banded_ttm_t``, 2 T CSR builds), each with its peak against the
    reckoning (over it fails) and the analytic roofline beside its ms;
    then the dyngnn cell's step, card against CPU (gloo), for all three
-   models at N = 65,536, T = 16.
+   models at N = 65,536, T = 16;
+12. the LM cells over ranks (the ranks group): ``flash_decode``'s
+   log-sum-exp output (``return_lse``) against the plain version's at a
+   ``long_500k`` rank's slice of Yi-6B's cache (full, part-filled, and
+   empty: output 0 and -inf exactly), timed beside the call without it;
+   then four gloo ranks sharing cuda:0 as a 2 x 2 grid run, at full
+   width, Yi-6B's train step (tensor and data parallel, ZeRO AdamW
+   state), prefill, three decode steps on the head-split cache and
+   three of ``long_500k`` (B 1, S 524,288) on the cache split over all
+   four ranks (slice 3 empty), and OLMoE-1B-7B's train step and three
+   decode steps with its 64 experts split 32 + 32 (``RANKS_CELLS``:
+   depth cut to 4 layers, OLMoE's train step to 2), each from its share
+   of ``make_inputs(0)``; each cell runs first at 1 x 1 in this process,
+   in bf16 and on the same values cast to fp32, and the ranks' outputs,
+   handed over as CUDA tensors and gathered leaf by leaf, are held to the
+   bf16 run: each leaf's max |diff| over its max |value| within twice the
+   worst bf16-vs-fp32 one of its kind (parameters, m, v, master, logits,
+   cache; the loss, one number, the run's worst; integers equal); the
+   ranks' ``flash_decode`` launches
+   (zeroed in each rank just before its cell's steps) are the path's;
+   each rank's bytes and peak are printed beside ``launch.dryrun``'s
+   per-rank reckoning, then ``launch.dryrun --grid 2x2`` over the LM
+   cells with the smallest grid of H100s for each one card cannot hold.
+   (The P = 1 check runs in the cells group: each LM cell it steps, built
+   over the one-rank NCCL grid, equals the same cell built for no grid,
+   bit for bit.)
 
 Tolerances: the dyngnn cell card against CPU 1e-2 (its bf16 payloads,
 ``tests/test_torch_cells.py``'s); segment SpMM 1e-4 (abs and rel; fp32
@@ -352,7 +377,7 @@ sleep); ``wrapper_ms`` is the wrapper's host time plus device time.
 Prints the card line, the per-phase numbers, one JSON line each of the
 streamed, the partitioned, the distributed-stream, the hybrid, the
 sampled, the fault-tolerance, the trace, the data, the moe, the gnn, the
-recsys and the cells phases' numbers,
+recsys, the cells and the ranks phases' numbers,
 one JSON line of the kernels and, last, ``{"ok": true, "device":
 {...}}``.  Before that line it stops every process it started that is
 still running (the shared sampling pools, ``multiprocessing``'s resource
@@ -361,10 +386,10 @@ subreaper) and fails if any but those two was left; at exit it stops
 them again.  Without a CUDA device, or without the repository around
 it, it exits non-zero and prints no result.  ``--only
 serve,train,stream,partition,dstream,hybrid,sampled,ft,trace,data,lm,moe,\
-gnn,recsys,cells``
+gnn,recsys,cells,ranks``
 runs the build and the named groups of phases (1–4, 4a–4c, 4d, 4e–4g,
 4h–4i, 4j, 4k, 4l, 4m, 4n, 5–7, 8 with phase 6's OLMoE rows when lm is
-not named, 9, 10, 11; each of partition, dstream, hybrid, sampled and ft with
+not named, 9, 10, 11, 12; each of partition, dstream, hybrid, sampled and ft with
 its part of 4o; partition and data are held to train's run, so they need
 train) and prints no result line.
 """
@@ -642,6 +667,10 @@ def alternating_walls(torch, variants: dict, rounds: int, warm: int = 1
     return {k: statistics.median(v[warm:]) for k, v in walls.items()}
 
 
+#: profiler windows tried before a trace with no device time fails
+PROFILE_ATTEMPTS = 3
+
+
 def device_profile(torch, fn, ranges: dict | None = None,
                    host_top: list | None = None, host: bool = True
                    ) -> tuple[float, float, dict]:
@@ -651,7 +680,10 @@ def device_profile(torch, fn, ranges: dict | None = None,
     without that cycle late in a long process could lose its first
     activities (DIN's step read 507 activities and 41.4 ms busy in a whole
     run against 562 and 66.4 ms alone, its step time the same); ``fn``
-    must bear being called twice.  Device activities only (kernels,
+    must bear being called twice, and twice more for each window that
+    comes back with no device activity at all (up to
+    ``PROFILE_ATTEMPTS`` windows; one did, in a whole run).  Device
+    activities only (kernels,
     copies, sets): one stream at a time, so their durations add up to the
     device's busy time without overlap.  The ranges that annotate device
     work (NCCL's ``nccl:all_to_all`` spans its copy) are not activities:
@@ -663,30 +695,37 @@ def device_profile(torch, fn, ranges: dict | None = None,
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA] + (
-            [ProfilerActivity.CPU] if host else []),
-            schedule=schedule(wait=0, warmup=1, active=1,
-                              repeat=1)) as prof:
-        fn()
+    for attempt in range(PROFILE_ATTEMPTS):
         torch.cuda.synchronize()
-        prof.step()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-        prof.step()
-    by_name: dict[str, list[float]] = {}
-    ranges = {} if ranges is None else ranges
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            annotation = (getattr(e, "is_user_annotation", False)
-                          or e.name.startswith("nccl:"))
-            (ranges if annotation else by_name).setdefault(
-                e.name, []).append(e.time_range.elapsed_us())
-    busy = sum(sum(v) for v in by_name.values())
-    if busy <= 0:
+        with profile(activities=[ProfilerActivity.CUDA] + (
+                [ProfilerActivity.CPU] if host else []),
+                schedule=schedule(wait=0, warmup=1, active=1,
+                                  repeat=1)) as prof:
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+            prof.step()
+        by_name: dict[str, list[float]] = {}
+        found: dict[str, list[float]] = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                annotation = (getattr(e, "is_user_annotation", False)
+                              or e.name.startswith("nccl:"))
+                (found if annotation else by_name).setdefault(
+                    e.name, []).append(e.time_range.elapsed_us())
+        busy = sum(sum(v) for v in by_name.values())
+        if busy > 0:
+            break
+        # the tracer's window once came back empty in a long process
+        log(f"profile: attempt {attempt + 1} recorded no device time")
+    else:
         raise SystemExit("profile: the trace holds no device time")
+    if ranges is not None:
+        ranges.update(found)
     if host_top is not None:
         host_top.extend(sorted(
             ((a.key, a.self_cpu_time_total, a.count)
@@ -5502,7 +5541,19 @@ def lm_cell_step(torch, kernels, cell, rec: dict) -> dict:
             and out["len"].tolist() == [s]):
         raise SystemExit(f"cells {cell.arch_id}: logits "
                          f"{tuple(logits.shape)}, len {out['len'].tolist()}")
-    del logits, out
+    # the ranks group's P = 1 check: the cell built over the one-rank NCCL
+    # grid (the grid code) against the one built for no grid, the same
+    # step on the same inputs (it rewrites the same row): bit for bit
+    from repro_torch.launch import steps as lsteps
+    plain = lsteps.build_cell(cell.arch_id, cell.shape_name, None)
+    again, _ = plain.step(params, cache, token)
+    p1_equal = bool(torch.equal(again, logits))
+    log(f"[ranks] P = 1 over NCCL: {cell.arch_id} x {cell.shape_name} "
+        f"through the grid code equals the one-rank path: {p1_equal}")
+    if not p1_equal:
+        raise SystemExit(f"cells {cell.arch_id}: the 1 x 1 grid's step "
+                         "differs from the one-rank path's")
+    del logits, out, again
     warm = []
     for _ in range(LM_CELL_WARM):
         torch.cuda.synchronize()
@@ -5535,7 +5586,7 @@ def lm_cell_step(torch, kernels, cell, rec: dict) -> dict:
             "warm_step_ms": warm, "peak_bytes": peak,
             "reckoned_bytes": reckoned, "arg_bytes": rec["arg_bytes"],
             "busy_ms": busy_us / 1e3, "flash_decode_ms_per_launch": fd_ms,
-            "launches": launches}
+            "launches": launches, "p1_equal_to_one_rank": p1_equal}
 
 
 def cells_spmm_row(torch, name: str, x, csr, timer) -> dict:
@@ -5837,6 +5888,469 @@ def cells_path(torch, kernels, card: str, timer) -> dict:
             "runs": runs, "parity": parity, "launches": launches}
 
 
+# ---------------------------------------------------------------- ranks ----
+
+#: the LM cells the ranks group runs over a 2 x 2 grid of gloo ranks on
+#: cuda:0, at full width, each held to the same cell at 1 x 1 on the card:
+#: (arch, shape, shape override, layers kept).  Depth is cut to what keeps
+#: the group inside its time and the card's memory: 4 of Yi-6B's 32
+#: layers; 4 of OLMoE-1B-7B's 16 for decode and 2 for its train step (the
+#: 1 x 1 references' AdamW state in bf16 and fp32 beside the ranks' own).
+#: Yi's long_500k keeps its registry S and B.
+RANKS_CELLS = (
+    ("yi-6b", "train_4k", {"seq_len": 512, "global_batch": 4}, 4),
+    ("yi-6b", "prefill_32k", {"seq_len": 512, "global_batch": 4}, 4),
+    ("yi-6b", "decode_32k", {"seq_len": 1024, "global_batch": 4}, 4),
+    ("yi-6b", "long_500k", None, 4),
+    ("olmoe-1b-7b", "train_4k", {"seq_len": 512, "global_batch": 4}, 2),
+    ("olmoe-1b-7b", "decode_32k", {"seq_len": 1024, "global_batch": 4}, 4),
+)
+RANKS_GRID = (2, 2)
+RANKS_DECODE_STEPS = 3
+#: long_500k's cache length before its decode steps: slices 0 and 1 full,
+#: slice 2 part-filled, slice 3 empty (its weight in the merge exactly 0)
+RANKS_LONG_LEN = 300_000
+RANKS_DEADLINE_S = 600
+RANKS_THREADS = 2           # CPU threads a rank: gloo reduces on the host
+#: flash_decode's log-sum-exp output: a long_500k rank's slice of Yi-6B's
+#: cache (B 1, S 524,288 / 4), full, ragged and empty
+FD_LSE_CASES = [
+    ("long_500k slice", 1, 32, 4, 128, 131072, [131072]),
+    ("long_500k slice, part", 1, 32, 4, 128, 131072, [44_288]),
+    ("long_500k slice, empty", 1, 32, 4, 128, 131072, [0]),
+]
+TOL_LSE = 1e-4              # abs + rel: fp32 sums of the same products
+
+
+def ranks_cell(steps, arch: str, shape: str, over, layers: int, grid,
+               dtype=None, device="cuda"):
+    """One of ``RANKS_CELLS`` over ``grid`` (None: one rank)."""
+    cfg = {"num_layers": layers}
+    if dtype is not None:
+        cfg["dtype"] = dtype
+    return steps.build_cell(arch, shape, grid, shape_override=over,
+                            config_override=cfg, device=device)
+
+
+def ranks_inputs(cell) -> list:
+    """``make_inputs(0)``; a decode cell's cache then steps back, so its
+    ``RANKS_DECODE_STEPS`` steps fit (long_500k's to ``RANKS_LONG_LEN``)."""
+    inputs = list(cell.make_inputs(0))
+    if cell.kind == "decode":
+        cache = inputs[1]
+        back = (cell.shape.dims["seq_len"] - RANKS_LONG_LEN
+                if cell.shape_name == "long_500k" else RANKS_DECODE_STEPS)
+        cache["len"] = cache["len"] - back
+    return inputs
+
+
+def ranks_run(cell, inputs: list) -> dict:
+    """The cell's step(s) -> {output path: tensor}: a train step's
+    parameters (``0.*``), AdamW state (``1.*``) and loss (``2``); a
+    prefill's logits (``0``) and cache (``1.*``); each decode step's
+    logits (``0.step<i>``) and the last cache (``1.*``)."""
+    from repro_torch.launch import steps
+
+    if cell.kind != "decode":
+        return steps.input_leaves(cell.step(*inputs))
+    params, cache, token = inputs
+    out = {}
+    for i in range(RANKS_DECODE_STEPS):       # the same token each step
+        logits, cache = cell.step(params, cache, token)
+        out[f"0.step{i}"] = logits
+    out.update({f"1.{k}": v for k, v in cache.items()})
+    return out
+
+
+def ranks_specs(cell) -> dict:
+    """{output path: spec} of :func:`ranks_run`'s outputs."""
+    from repro_torch.launch import dryrun
+
+    flat = dryrun.flat_in_specs(cell.out_specs)
+    if cell.kind == "decode":
+        logits = flat.pop("0")
+        flat.update({f"0.step{i}": logits
+                     for i in range(RANKS_DECODE_STEPS)})
+    return flat
+
+
+def ranks_kind(path: str) -> str:
+    """The kind of an output leaf its bound is taken over: a train step's
+    ``params``, ``m``, ``v``, ``master`` or ``loss``, a serve step's
+    ``logits`` or ``cache``."""
+    parts = path.split(".")
+    if parts[0] == "1" and len(parts) > 2:
+        return parts[1]
+    return {"0": "params" if len(parts) > 1 and not parts[1]
+            .startswith("step") else "logits", "1": "cache",
+            "2": "loss"}[parts[0]]
+
+
+def _ranks_rank(rank: int, src: str, store: str, q_out, q_go) -> None:
+    """A rank of the 2 x 2 grid on cuda:0: each of ``RANKS_CELLS`` when the
+    main process says go, its outputs' shares handed over as CUDA tensors
+    (IPC, no copy) with its launches, peak and seconds; it holds them
+    until the main process has read them."""
+    torch, dist = _rank_setup(rank, src, store, 4)
+    torch.set_num_threads(RANKS_THREADS)
+    from repro_torch import kernels as kmod
+    from repro_torch.kernels.build import reset_counts
+    from repro_torch.launch import mesh, steps
+
+    try:
+        grid = mesh.make_host_mesh(*RANKS_GRID)
+        for i, (arch, shape, over, layers) in enumerate(RANKS_CELLS):
+            if q_go[rank].get() != i:
+                raise RuntimeError(f"rank {rank}: out of step at cell {i}")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            cell = ranks_cell(steps, arch, shape, over, layers, grid)
+            inputs = ranks_inputs(cell)
+            held = torch.cuda.memory_allocated()
+            torch.cuda.synchronize()
+            peak_inputs = torch.cuda.max_memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts(kmod.ALL)
+            t1 = time.perf_counter()
+            out = ranks_run(cell, inputs)
+            torch.cuda.synchronize()
+            step_s = time.perf_counter() - t1
+            step_peak = torch.cuda.max_memory_allocated()
+            meta = {"launches": {k.name: k.launches for k in kmod.ALL},
+                    "peak_bytes": max(peak_inputs, step_peak),
+                    "step_peak_bytes": step_peak,
+                    "input_bytes": held, "step_s": step_s,
+                    "cell_s": time.perf_counter() - t0}
+            q_out.put((rank, i, {k: v.detach() for k, v in out.items()},
+                       meta))
+            if q_go[rank].get() != ("done", i):
+                raise RuntimeError(f"rank {rank}: no release of cell {i}")
+            del cell, inputs, out
+            gc.collect()
+            # the blocks handed over stay this process's until it collects
+            # them once the main process has let go
+            torch.cuda.ipc_collect()
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+
+
+def ranks_compare(torch, shd, specs: dict, shares: list, want: dict,
+                  floor: dict) -> dict:
+    """Each output leaf gathered from the ranks' shares (one leaf at a
+    time, on the card) against the 1 x 1 run: its max |diff| over its max
+    |value| (integers equal) -> {path: ratio}; fails if a ratio passes
+    twice the worst bf16-vs-fp32 ratio of its kind (``floor``; the loss,
+    a single number whose bf16 noise one sample does not measure, twice
+    the run's worst)."""
+    grid = shd.Grid(*RANKS_GRID, 0, None, None)
+    out = {}
+    for path, w in want.items():
+        g = shd.gather_tree([{"x": s[path]} for s in shares],
+                            {"x": specs[path]}, grid)["x"]
+        if tuple(g.shape) != tuple(w.shape):
+            raise SystemExit(f"ranks: {path} gathered {tuple(g.shape)}, "
+                             f"1 x 1 {tuple(w.shape)}")
+        if not w.is_floating_point():
+            if not torch.equal(g, w):
+                raise SystemExit(f"ranks: {path} differs from 1 x 1")
+            continue
+        ratio = rel_diff(g, w)
+        kind = ranks_kind(path)
+        # a kind's leaves against its own worst; the loss, one number,
+        # against the run's worst
+        lim = floor[kind] if kind != "loss" else max(floor.values())
+        if not ratio <= 2 * lim:
+            raise SystemExit(f"ranks: {path} at {ratio:.3e} of its max, "
+                             f"over twice the bf16-vs-fp32 {lim:.3e} of "
+                             f"its kind ({kind})")
+        out[path] = ratio
+        del g
+    return out
+
+
+def rel_diff(a, b, chunk: int = 1 << 24) -> float:
+    """max |a - b| over max |b|, in fp32 a chunk of ``chunk`` elements at
+    a time (a leaf's fp32 copy would not fit beside the ranks' state)."""
+    a, b = a.detach().reshape(-1), b.detach().reshape(-1)
+    diff = top = 0.0
+    for i in range(0, b.numel(), chunk):
+        x, y = a[i:i + chunk].float(), b[i:i + chunk].float()
+        diff = max(diff, float((x - y).abs().max()))
+        top = max(top, float(y.abs().max()))
+    return diff / max(top, 1e-30)
+
+
+def ranks_fp32(torch, steps, arch, shape, over, layers, inputs: list
+               ) -> dict:
+    """The same cell at 1 x 1 in fp32 on copies of ``inputs`` cast to
+    fp32 (a train cell's AdamW state made anew: master = the cast
+    parameters, m = v = 0, as in bf16) -> its outputs."""
+    from repro_torch.core.models import ParamTree
+    from repro_torch.optim import adamw
+
+    cell = ranks_cell(steps, arch, shape, over, layers, None,
+                      dtype=torch.float32)
+
+    def f32(x):
+        if isinstance(x, dict):
+            return {k: f32(v) for k, v in x.items()}
+        return x.detach().to(torch.float32, copy=True) \
+            if x.is_floating_point() else x.clone()
+
+    if cell.kind == "train":
+        params = ParamTree(f32(steps.lm_tree(inputs[0])))
+        cast = [params, adamw.init_state(params)] + inputs[2:]
+    else:
+        cast = [f32(x) if isinstance(x, dict) else x for x in inputs]
+    return ranks_run(cell, cast)
+
+
+def ranks_floor(want: dict, got32: dict) -> dict:
+    """The worst |bf16 - fp32| over each leaf's max, by kind: the bf16
+    noise the 2 x 2 run is bounded by."""
+    floor: dict = {}
+    for path, w in want.items():
+        if w.is_floating_point():
+            kind = ranks_kind(path)
+            floor[kind] = max(floor.get(kind, 0.0),
+                              rel_diff(w, got32[path]))
+    return floor
+
+
+def lse_checks(torch, timer) -> list[dict]:
+    """``flash_decode``'s log-sum-exp output (``return_lse``) against the
+    plain version's at ``FD_LSE_CASES`` in bf16: the output as the other
+    bf16 checks hold it, the log-sum-exp within ``TOL_LSE`` (abs + rel),
+    an empty slice's output exactly 0 and its log-sum-exp exactly -inf;
+    each check shown to reject zeros and a dropped split; the output the
+    same bits as the call without it; timed beside the call without it
+    (in turns), the plain version and SDPA."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_decode import ops, ref
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rows = []
+    for name, b, hq, kvh, d, s, lens in FD_LSE_CASES:
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda")
+                   .to(torch.bfloat16) for shape in
+                   ((b, hq, d), (b, s, kvh, d), (b, s, kvh, d)))
+        cl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        o, lse = ops.decode_attention(q, k, v, cl, return_lse=True)
+        o32, lse32 = ref.flash_decode_ref(q.float(), k.float(), v.float(),
+                                          cl, return_lse=True)
+        pl = ops.plan(b, s, hq, kvh, d, True, ops._sm_count(0))
+        if lens[0] <= 0:
+            if not (bool((o == 0).all()) and bool(torch.isneginf(lse).all())
+                    and bool((o32 == 0).all())
+                    and bool(torch.isneginf(lse32).all())):
+                raise SystemExit(f"flash_decode lse {name}: an empty slice "
+                                 "must give 0 and -inf")
+            err, ratio, lse_err = 0.0, 0.0, 0.0
+            faults = {}
+        else:
+            err, ratio = fd_excess("bfloat16", o.float(), o32)
+            lse_err = float(((lse - lse32).abs()
+                             / (1.0 + lse32.abs())).max())
+            if not (ratio <= 1.0 and lse_err <= TOL_LSE):
+                raise SystemExit(f"flash_decode lse {name}: output "
+                                 f"{ratio:.3f} x its limit, lse {lse_err:.2e}")
+            if not torch.equal(o, ops.decode_attention(q, k, v, cl)):
+                raise SystemExit(f"flash_decode lse {name}: the output "
+                                 "differs from the call without lse")
+            cut = torch.tensor(dropped_split_lens(lens, s, pl[1]),
+                               dtype=torch.int32, device="cuda")
+            _, lse_cut = ops.decode_attention(q, k, v, cut, return_lse=True)
+            faults = {"zeros": fd_excess("bfloat16", torch.zeros_like(
+                o).float(), o32)[1], "lse of a split dropped": float(
+                ((lse_cut - lse32).abs() / (1.0 + lse32.abs())).max())
+                / TOL_LSE}
+            if min(faults.values()) <= 1.0:
+                raise SystemExit(f"flash_decode lse {name}: the check would "
+                                 f"pass a faulty kernel: {faults}")
+        n_rows = [min(x, s) if x > 0 else 0 for x in lens]
+        nbytes = 2 * q.nbytes + cl.nbytes + lse.nbytes \
+            + 2 * sum(n_rows) * kvh * d * q.element_size()
+        b_ms, b_by = bound_ms(nbytes, 4.0 * sum(n_rows) * hq * d)
+        kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+        mask = (torch.arange(s, device="cuda")[None, :]
+                < torch.tensor([max(x, 1) for x in n_rows],
+                               device="cuda")[:, None])[:, None, None, :]
+
+        def lib(q=q, kt=kt, vt=vt, mask=mask):
+            return F.scaled_dot_product_attention(
+                q[:, :, None, :], kt, vt, attn_mask=mask,
+                enable_gqa=True)[:, :, 0]
+
+        t = timer.turns({
+            "lse": lambda: ops.decode_attention(q, k, v, cl,
+                                                return_lse=True),
+            "no_lse": lambda: ops.decode_attention(q, k, v, cl)})
+        row = {"case": name, "dtype": "bfloat16", "B": b, "Hq": hq,
+               "KVH": kvh, "D": d, "S": s, "cache_len": lens, "plan": pl,
+               "ms": t["lse"], "ms_without_lse": t["no_lse"],
+               "plain_ms": timer(lambda: ref.flash_decode_ref(
+                   q, k, v, cl, return_lse=True)),
+               "library_ms": timer(lib), "bound_ms": b_ms,
+               "bound_by": b_by, "max_abs_err": err,
+               "err_over_limit": ratio, "lse_err": lse_err,
+               "fault_over_limit": faults}
+        log(f"[ranks] flash_decode lse {name} (B {b}, Hq {hq}, KVH {kvh}, "
+            f"D {d}, S {s}, cache_len {lens}, plan {pl}): with lse "
+            f"{row['ms']:.4f} ms, without {row['ms_without_lse']:.4f}, "
+            f"plain {row['plain_ms']:.4f}, sdpa {row['library_ms']:.4f}, "
+            f"bound {b_ms:.4f} ({b_by}); output max|err| {err:.3e} "
+            f"({ratio:.3f} x limit), lse {lse_err:.2e} (limit {TOL_LSE}); "
+            f"faults rejected at x limit: {faults}")
+        rows.append(row)
+        del q, k, v, o, lse, o32, lse32, kt, vt
+    return rows
+
+
+def ranks_path(torch, kernels, card: str, timer) -> dict:
+    """The ranks group: the LM cells over ranks on the one card.
+
+    A 2 x 2 grid of gloo ranks sharing cuda:0 (``_ranks_rank``) runs each
+    of ``RANKS_CELLS`` at full width -- Yi-6B's train step (tensor and
+    data parallel, ZeRO state), prefill, decode on the head-split cache
+    and long_500k's decode on the cache split over all four ranks;
+    OLMoE-1B-7B's train step and decode with its 64 experts split 32 + 32
+    -- each from its share of ``make_inputs(0)``.  This process runs the
+    same cell at 1 x 1 first, in bf16 and on the same values cast to fp32,
+    then gathers the ranks' outputs leaf by leaf (handed over as CUDA
+    tensors) and holds each within twice the bf16-vs-fp32 difference of
+    its kind.  The ranks' launches (counted in each rank, zeroed just
+    before its cell's step(s)) are the group's; ``flash_decode``'s
+    log-sum-exp output is checked and timed (``lse_checks``); each rank's
+    bytes and peak are printed beside ``launch.dryrun``'s per-rank
+    reckoning, then ``launch.dryrun --grid 2x2`` over the 20 LM cells."""
+    import queue
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import steps as lsteps
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    total = torch.cuda.get_device_properties(0).total_memory
+    lse_rows = lse_checks(torch, timer)
+    ctx = mp.get_context("spawn")
+    q_out = ctx.Queue()
+    q_go = [ctx.Queue() for _ in range(4)]
+    store = tempfile.mktemp(prefix="ranks_store_")
+    t_all = time.perf_counter()
+    procs = mp.start_processes(
+        _ranks_rank, args=(str(SRC), store, q_out, q_go), nprocs=4,
+        join=False, start_method="spawn")
+    end = time.monotonic() + RANKS_DEADLINE_S
+    runs, launches = [], {k.name: 0 for k in kernels}
+    try:
+        for i, (arch, shape, over, layers) in enumerate(RANKS_CELLS):
+            t0 = time.perf_counter()
+            one = ranks_cell(lsteps, arch, shape, over, layers, None)
+            inputs = ranks_inputs(one)
+            got32 = ranks_fp32(torch, lsteps, arch, shape, over, layers,
+                               inputs)
+            want = ranks_run(one, inputs)
+            floor = ranks_floor(want, got32)
+            del inputs, got32
+            gc.collect()
+            torch.cuda.empty_cache()
+            ref_s = time.perf_counter() - t0
+            for q in q_go:
+                q.put(i)
+            shares, metas = [None] * 4, [None] * 4
+            while any(s is None for s in shares):
+                if time.monotonic() > end or any(
+                        p.exitcode not in (None, 0) for p in procs.processes):
+                    raise SystemExit(f"ranks: cell {i} ({arch} {shape}): "
+                                     "a rank failed or the deadline passed")
+                try:
+                    r, j, out, meta = q_out.get(timeout=5)
+                except queue.Empty:
+                    continue
+                if j != i:
+                    raise SystemExit(f"ranks: rank {r} sent cell {j} at {i}")
+                shares[r], metas[r] = out, meta
+                del out
+            grid_cell = ranks_cell(lsteps, arch, shape, over, layers,
+                                   shd.Grid(*RANKS_GRID, 0, None, None))
+            ratios = ranks_compare(torch, shd, ranks_specs(grid_cell),
+                                   shares, want, floor)
+            del shares, want
+            for q in q_go:
+                q.put(("done", i))
+            gc.collect()
+            torch.cuda.empty_cache()
+            rec = dryrun.reckon(grid_cell, total, grid_cell.layout.grid)
+            for m in metas:
+                for k, v in m["launches"].items():
+                    launches[k] += v
+            worst = {}
+            for path, ratio in ratios.items():
+                kind = ranks_kind(path)
+                worst[kind] = max(worst.get(kind, 0.0), ratio)
+            run = {"arch": arch, "shape": shape, "override": over,
+                   "layers": layers, "ratios_by_kind": worst,
+                   "floor_by_kind": floor, "ranks": metas,
+                   "reckoned_bytes": rec["need_bytes"]
+                   - rec["reserve_bytes"],
+                   "reckoned_arg_bytes": rec["arg_bytes"],
+                   "reference_s": ref_s,
+                   "cell_s": time.perf_counter() - t0}
+            log(f"[ranks] {arch} x {shape} ({layers} layers, "
+                f"{over or 'registry shape'}) on 2 x 2 gloo ranks of cuda:0 "
+                f"against 1 x 1: " + ", ".join(
+                    f"{k} {worst.get(k, 0.0):.2e} (bf16 vs fp32 "
+                    f"{floor[k]:.2e})" for k in floor)
+                + f"; ranks' inputs "
+                f"{', '.join(f'{m['input_bytes'] / 1e9:.3f}' for m in metas)}"
+                f" GB, peaks (the inputs' draw included) "
+                f"{', '.join(f'{m['peak_bytes'] / 1e9:.3f}' for m in metas)}"
+                f" GB, the step(s)' "
+                f"{', '.join(f'{m['step_peak_bytes'] / 1e9:.3f}' for m in metas)}"
+                f" GB against the reckoned {run['reckoned_bytes'] / 1e9:.3f}"
+                f" (arguments {rec['arg_bytes'] / 1e9:.3f}); step(s) "
+                f"{', '.join(f'{m['step_s']:.2f}' for m in metas)} s; "
+                f"flash_decode launches "
+                f"{[m['launches']['flash_decode'] for m in metas]}; "
+                f"1 x 1 bf16 + fp32 {ref_s:.1f} s, cell {run['cell_s']:.1f}"
+                " s")
+            runs.append(run)
+        join_ranks(procs, "ranks", end)
+    finally:
+        for p in procs.processes:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    ranks_s = time.perf_counter() - t_all
+    want_fd = sum(4 * layers * RANKS_DECODE_STEPS
+                  for arch, shape, _, layers in RANKS_CELLS
+                  if shape in ("decode_32k", "long_500k"))
+    check_launches("ranks", launches, {"segment_spmm": 0, "banded_ttm": 0,
+                                       "banded_ttm_t": 0,
+                                       "flash_decode": want_fd})
+    log(f"[ranks] launch.dryrun --grid 2x2 over the LM cells ({card}, "
+        f"capacity {total:,} B):")
+    grid_recs = dryrun.grid_run(
+        [c for c in lsteps.all_cells()
+         if c[0] in ("yi-6b", "gemma-7b", "minicpm-2b", "olmoe-1b-7b",
+                     "moonshot-v1-16b-a3b")], *RANKS_GRID, total, "cuda",
+        log=lambda m: log(f"[ranks]   {m}"))
+    smallest = {f"{r['one_card']['arch']} x {r['one_card']['shape']}":
+                (r["smallest"]["grid"], r["smallest"]["need_bytes"])
+                for r in grid_recs if r.get("smallest")}
+    return {"runs": runs, "lse_rows": lse_rows, "launches": launches,
+            "ranks_s": ranks_s, "smallest_grids": smallest}
+
+
+
+
 def recsys_path(torch, kernels) -> dict:
     """The recsys group: DIN at its full config trained, served and
     scoring retrieval candidates on the card, then held to the CPU."""
@@ -5860,7 +6374,7 @@ def recsys_path(torch, kernels) -> dict:
 
 GROUPS = ("serve", "train", "stream", "partition", "dstream", "hybrid",
           "sampled", "ft", "trace", "data", "lm", "moe", "gnn", "recsys",
-          "cells")
+          "cells", "ranks")
 
 
 def kernel_entry(name: str, source: str, replaces: str, launches: dict,
@@ -6169,6 +6683,13 @@ def main(argv: list[str] | None = None) -> int:
                         for k in ("segment_spmm", "banded_ttm",
                                   "banded_ttm_t")}
 
+    if "ranks" in groups:
+        gc.collect()
+        torch.cuda.empty_cache()
+        ranks_stats = phase("ranks path", ranks_path, torch, kernels, card,
+                            timer)
+        launches["ranks"] = ranks_stats["launches"]
+
     if "serve" in groups:
         spmm_main = next(r for r in spmm_rows if r["F"] == 6)  # layer 2
         spmm_main = dict(spmm_main, max_abs_err=spmm_err)
@@ -6247,13 +6768,17 @@ def main(argv: list[str] | None = None) -> int:
         log(json.dumps({"recsys_path": recsys_stats}))
     if "cells" in groups:
         log(json.dumps({"cells_path": cells_stats}))
+    if "ranks" in groups:
+        log(json.dumps({"ranks_path": ranks_stats}))
     if {"lm", "moe"} & set(groups):
         report.append(kernel_entry(
             "flash_decode", "src/repro_torch/csrc/flash_decode.cu",
             "src/repro/kernels/flash_decode/flash_decode.py:69", launches,
             dict(fd_rows[0], max_abs_err=fd_err), shapes=fd_rows,
             **({"lm_path": lm_stats, "decode_profile": lm_prof}
-               if "lm" in groups else {})))
+               if "lm" in groups else {}),
+            **({"lse_rows": ranks_stats["lse_rows"]}
+               if "ranks" in groups else {})))
     log("[done] kernels launched on the paths driven and checked against "
         "their plain versions: " + ", ".join(k["name"] for k in report))
     log(json.dumps({"kernels": report}))

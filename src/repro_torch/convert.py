@@ -11,7 +11,10 @@ tree (``item_table``, ``cate_table``, ``user_table``, the ``attn_mlp`` and
 so this module imports neither ``jax`` nor ``repro``: the caller converts
 with ``jax.tree.map(np.asarray, params)`` first.  bfloat16 arrays (numpy's
 ``ml_dtypes`` extension type) cross bit-exactly through their 16-bit
-pattern.
+pattern.  ``lm_params_from_jax`` with a cell's specs and a rank's grid
+gives that rank's shards (``dist.sharding.shard_tree``), so a rank of a
+sharded LM cell starts from the JAX tree without depending on matching
+random generators.
 """
 
 from __future__ import annotations
@@ -48,11 +51,17 @@ def params_from_jax(tree: dict) -> ParamTree:
     return ParamTree(_numpy_tree(tree))
 
 
-def lm_params_from_jax(tree: dict) -> dict:
+def lm_params_from_jax(tree: dict, specs: dict | None = None,
+                       grid=None) -> dict:
     """A JAX LM parameter tree (``repro.models.lm.init_lm_params``) as
     numpy arrays -> the same nested dict of CPU tensors, the tree
     ``repro_torch.models.lm`` takes.  Each leaf keeps its dtype: an MoE
-    layer's fp32 router beside its bf16 experts."""
+    layer's fp32 router beside its bf16 experts.  With the cell's
+    parameter ``specs`` and a rank's ``grid``: that rank's shards
+    (``dist.sharding.shard_tree``, sliced before they become tensors)."""
+    if specs is not None:
+        from repro_torch.dist.sharding import shard_tree
+        tree = shard_tree(tree, specs, grid)
     return _numpy_tree(tree)
 
 

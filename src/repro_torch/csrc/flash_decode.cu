@@ -5,6 +5,13 @@
 // answer under its -1e30 mask: every score equal, so the uniform mean of V
 // over all S rows (no NaN).
 //
+// On request (lse != nullptr) it also writes each (b, head)'s log-sum-exp
+// of the scores over its rows, lse = ln sum_s exp(score_s), a (B, Hq)
+// fp32 tensor: what a cache split by rows over ranks merges its slices'
+// outputs by, o = sum_r exp(lse_r - lse) o_r.  There a slice with
+// cache_len <= 0 holds no valid row: it reads none and gives o = 0 and
+// lse = -inf, a weight of exactly 0 in the merge.
+//
 // Replaces: src/repro/kernels/flash_decode/flash_decode.py, flash_decode
 //   (body _kernel), the TPU drop-in for repro.nn.attention's
 //   decode_attention_jnp.  On the TPU the grid (B, KVH, S / kv_block) walks
@@ -153,7 +160,7 @@ flash_decode_partial(const T* __restrict__ q, const T* __restrict__ k,
                      const int* __restrict__ cache_len,
                      float* __restrict__ part_ml,
                      float* __restrict__ part_acc, int S, int Hq, int KVH,
-                     int D, int G, int P, int splits) {
+                     int D, int G, int P, int splits, int lse_mode) {
   extern __shared__ float smem[];
   const int split = blockIdx.x;
   const int n_groups = (G + GT - 1) / GT;
@@ -171,7 +178,8 @@ flash_decode_partial(const T* __restrict__ q, const T* __restrict__ k,
 
   const int len = cache_len[b];
   const bool none_valid = len <= 0;          // every score is the mask
-  const int n_rows = none_valid ? S : min(len, S);
+  // ... or, merged by log-sum-exp, no row at all
+  const int n_rows = none_valid ? (lse_mode ? 0 : S) : min(len, S);
   const int per = (n_rows + splits - 1) / splits;
   const int lo = min(split * per, n_rows);
   const int hi = min(lo + per, n_rows);
@@ -325,7 +333,8 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads)
 flash_decode_combine(const float* __restrict__ part_ml,
                      const float* __restrict__ part_acc,
-                     T* __restrict__ out, int Hq, int D, int splits) {
+                     T* __restrict__ out, float* __restrict__ lse,
+                     int Hq, int D, int splits) {
   const size_t bh = static_cast<size_t>(blockIdx.y) * Hq + blockIdx.x;
   const float* ml = part_ml + bh * splits * 2;
   const float* acc = part_acc + bh * splits * D;
@@ -339,6 +348,14 @@ flash_decode_combine(const float* __restrict__ part_ml,
       sum_acc = fmaf(acc[static_cast<size_t>(s) * D + d], w, sum_acc);
     }
     store(out + bh * D + d, sum_l > 0.f ? sum_acc / sum_l : 0.f);
+  }
+  if (lse != nullptr && threadIdx.x == 0) {
+    // M and L in log2 units: lse = (M + log2 L) ln 2; no rows: -inf
+    float sum_l = 0.f;
+    for (int s = 0; s < splits; ++s)
+      sum_l = fmaf(ml[2 * s + 1], exp2f(ml[2 * s] - mx), sum_l);
+    lse[bh] = sum_l > 0.f ? (mx + log2f(sum_l)) * 0.6931471805599453f
+                          : -INFINITY;
   }
 }
 
@@ -448,7 +465,8 @@ flash_decode_partial_tc(const __nv_bfloat16* __restrict__ q,
                         const int* __restrict__ cache_len,
                         float* __restrict__ part_ml,
                         float* __restrict__ part_acc, int S, int Hq,
-                        int KVH, int D, int G, int splits) {
+                        int KVH, int D, int G, int splits,
+                        int lse_mode) {
   constexpr int RS = DT + 8;                 // smem row stride, elements
   constexpr int TILE = kTcRows * RS;         // one K or V tile, elements
   constexpr int KT = DT / 16;                // MMA k-steps over D
@@ -467,7 +485,8 @@ flash_decode_partial_tc(const __nv_bfloat16* __restrict__ q,
 
   const int len = cache_len[b];
   const bool none_valid = len <= 0;          // every score is the mask
-  const int n_rows = none_valid ? S : min(len, S);
+  // ... or, merged by log-sum-exp, no row at all
+  const int n_rows = none_valid ? (lse_mode ? 0 : S) : min(len, S);
   const int per = (n_rows + splits - 1) / splits;
   const int lo = min(split * per, n_rows);
   const int hi = min(lo + per, n_rows);
@@ -655,8 +674,8 @@ flash_decode_partial_tc(const __nv_bfloat16* __restrict__ q,
 template <int DT>
 cudaError_t launch_tc(const void* q, const void* k, const void* v,
                       const void* cache_len, void* part_ml, void* part_acc,
-                      void* out, int B, int S, int Hq, int KVH, int D,
-                      int splits, cudaStream_t stream) {
+                      void* out, void* lse, int B, int S, int Hq, int KVH,
+                      int D, int splits, cudaStream_t stream) {
   const int G = Hq / KVH;
   constexpr size_t smem = tc_smem_bytes(DT);
   cudaError_t err = cudaFuncSetAttribute(
@@ -669,12 +688,14 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v,
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v),
       static_cast<const int*>(cache_len), static_cast<float*>(part_ml),
-      static_cast<float*>(part_acc), S, Hq, KVH, D, G, splits);
+      static_cast<float*>(part_acc), S, Hq, KVH, D, G, splits,
+      lse != nullptr);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   flash_decode_combine<__nv_bfloat16><<<dim3(Hq, B), kThreads, 0, stream>>>(
       static_cast<const float*>(part_ml), static_cast<const float*>(part_acc),
-      static_cast<__nv_bfloat16*>(out), Hq, D, splits);
+      static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), Hq, D,
+      splits);
   return cudaGetLastError();
 }
 
@@ -683,8 +704,8 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v,
 template <typename T, int GT>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* cache_len, void* part_ml, void* part_acc,
-                   void* out, int B, int S, int Hq, int KVH, int D,
-                   int splits, cudaStream_t stream) {
+                   void* out, void* lse, int B, int S, int Hq, int KVH,
+                   int D, int splits, cudaStream_t stream) {
   // rows per group per step; two steps' K/V are in registers at a time
   constexpr int TR = sizeof(T) == 2 ? 2 : 1;
   const int G = Hq / KVH;
@@ -697,25 +718,26 @@ cudaError_t launch(const void* q, const void* k, const void* v,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int*>(cache_len),
       static_cast<float*>(part_ml), static_cast<float*>(part_acc), S, Hq,
-      KVH, D, G, P, splits);
+      KVH, D, G, P, splits, lse != nullptr);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   flash_decode_combine<T><<<dim3(Hq, B), kThreads, 0, stream>>>(
       static_cast<const float*>(part_ml), static_cast<const float*>(part_acc),
-      static_cast<T*>(out), Hq, D, splits);
+      static_cast<T*>(out), static_cast<float*>(lse), Hq, D, splits);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch(int group_tile, const void* q, const void* k,
                      const void* v, const void* cache_len, void* part_ml,
-                     void* part_acc, void* out, int B, int S, int Hq,
-                     int KVH, int D, int splits, cudaStream_t stream) {
+                     void* part_acc, void* out, void* lse, int B, int S,
+                     int Hq, int KVH, int D, int splits,
+                     cudaStream_t stream) {
   switch (group_tile) {
     case 1: return launch<T, 1>(q, k, v, cache_len, part_ml, part_acc, out,
-                                B, S, Hq, KVH, D, splits, stream);
+                                lse, B, S, Hq, KVH, D, splits, stream);
     case 8: return launch<T, 8>(q, k, v, cache_len, part_ml, part_acc, out,
-                                B, S, Hq, KVH, D, splits, stream);
+                                lse, B, S, Hq, KVH, D, splits, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -734,10 +756,13 @@ const char* repro_cuda_error_string(int code) {
 // group_tile picks the instance: 16 the tensor-core one (bf16, D <= 128;
 // 16 query heads share a CTA, a group of fewer heads is zero-padded), 1 or
 // 8 the CUDA-core one (a group of G < 8 heads runs in a tile of 8 with the
-// rest masked).  Returns the cudaError_t of the launches (0 = launched).
+// rest masked).  lse, when not null, receives the (B, Hq) fp32
+// log-sum-exp of each head's scores (a row with cache_len <= 0 then reads
+// no row: out 0, lse -inf).  Returns the cudaError_t of the launches
+// (0 = launched).
 int flash_decode(const void* q, const void* k, const void* v,
                  const void* cache_len, void* part_ml, void* part_acc,
-                 void* out, int B, int S, int Hq, int KVH, int D,
+                 void* out, void* lse, int B, int S, int Hq, int KVH, int D,
                  int group_tile, int splits, int is_bf16, void* stream) {
   if (B <= 0 || S <= 0 || KVH <= 0 || Hq % KVH != 0 || D <= 0 ||
       D % 8 != 0 || D > 256 || splits <= 0 || splits > 65535 ||
@@ -750,17 +775,18 @@ int flash_decode(const void* q, const void* k, const void* v,
     if (!is_bf16 || D > 128) return static_cast<int>(cudaErrorInvalidValue);
     const cudaError_t err =
         D <= 64 ? launch_tc<64>(q, k, v, cache_len, part_ml, part_acc, out,
-                                B, S, Hq, KVH, D, splits, s)
+                                lse, B, S, Hq, KVH, D, splits, s)
                 : launch_tc<128>(q, k, v, cache_len, part_ml, part_acc, out,
-                                 B, S, Hq, KVH, D, splits, s);
+                                 lse, B, S, Hq, KVH, D, splits, s);
     return static_cast<int>(err);
   }
   const cudaError_t err =
       is_bf16 ? dispatch<__nv_bfloat16>(group_tile, q, k, v, cache_len,
-                                        part_ml, part_acc, out, B, S, Hq,
-                                        KVH, D, splits, s)
+                                        part_ml, part_acc, out, lse, B, S,
+                                        Hq, KVH, D, splits, s)
               : dispatch<float>(group_tile, q, k, v, cache_len, part_ml,
-                                part_acc, out, B, S, Hq, KVH, D, splits, s);
+                                part_acc, out, lse, B, S, Hq, KVH, D, splits,
+                                s);
   return static_cast<int>(err);
 }
 

@@ -1,15 +1,16 @@
-"""Process-group rank layout and the counted all-to-alls of snapshot
-partitioning (paper §4.2, Fig. 3b).
+"""Process-group rank layout: the counted all-to-alls of snapshot
+partitioning (paper §4.2, Fig. 3b) and the LM family's tensor-, expert-
+and data-parallel layouts.
 
-Port of the snapshot-partitioning part of ``repro.dist.sharding`` (its LM
-and DIN spec trees wait for ROADMAP Queue 1, item 9d-2).  The reference runs
+Port of ``repro.dist.sharding`` (its DIN spec tree, ``din_param_specs``,
+waits for ROADMAP Queue 1, item 9d-2b).  The reference runs
 P devices in one process under ``shard_map`` over the mesh axis
 ``"data"``; the port runs one process per rank in a ``torch.distributed``
 process group — gloo on the CPU, NCCL on the card with rank r on
 ``cuda:r`` — and the group plays the mesh's part.  A group is
 one-dimensional, so its one axis is :data:`DATA_AXIS`.  The hybrid scheme
-(paper §6.5) needs the reference's 2-D ``(data, model)`` mesh: a
-:class:`Grid` of subgroups (:func:`make_grid`) plays it.
+(paper §6.5) and the LM cells need the reference's 2-D ``(data, model)``
+mesh: a :class:`Grid` of subgroups (:func:`make_grid`) plays it.
 
 * :class:`ShardLayout` — which steps and vertices a rank owns: inside
   every checkpoint block of ``bsize`` steps, rank p owns the ``bsl =
@@ -31,6 +32,30 @@ Every all-to-all, forward or backward, adds to three ``obs`` counters:
 ``partition.a2a_calls``, ``partition.a2a_bytes`` (the bytes this rank
 hands to the collective) and ``partition.a2a_remote_bytes`` (the
 (P - 1) / P of them that leave the rank).
+
+The LM layouts (the reference's ``PartitionSpec`` trees, one process a
+device):
+
+* a spec is a tuple with one entry a dimension, ``None`` (replicated) or
+  a tuple of axis names (split over their product, the first axis
+  major), the reference's ``PartitionSpec`` with ``dp_axes`` spelled
+  out; :func:`lm_param_specs`, :func:`lm_batch_specs` and :func:`dp_axes`
+  are the reference's (a grid has no ``pod`` axis);
+* :func:`shard_tree` slices a whole tree (tensors or numpy arrays) into
+  this rank's shards and :func:`gather_tree` puts the ranks' shards back
+  together;
+* the collectives a rank program runs over a grid's ``model`` row, its
+  ``data`` column or its whole group, each with the adjoint the layout
+  needs: :func:`copy_to` (identity forward, all-reduce backward: entering
+  a tensor-parallel region), :func:`reduce_from` (all-reduce forward,
+  identity backward: leaving a row-parallel product), :func:`gather_from`
+  (all-gather forward, this rank's slice backward) and
+  :func:`vocab_embedding` (a vocab-split table's lookup: masked local
+  rows, then an all-reduce).  Each counts its calls and the bytes it hands
+  to the collective under the caller's tag (``tp.allreduce_calls``,
+  ``tp.allreduce_bytes``, ``dp.allgather_bytes``, ...); a one-rank group
+  moves nothing and counts nothing.  Sums of bf16 or fp16 partials are
+  taken in fp32.
 """
 
 from __future__ import annotations
@@ -45,6 +70,8 @@ from repro_torch import obs
 
 #: the one axis of a process group: the snapshot-parallel (data) axis
 DATA_AXIS = "data"
+#: a grid's second axis: the tensor-parallel (model) axis
+MODEL_AXIS = "model"
 
 
 def group_size(group) -> int:
@@ -120,13 +147,17 @@ class Grid:
     pm)``.  ``data`` is the rank's grid column (the pd ranks of its model
     index: the snapshot all-to-alls run over it), ``model`` its grid row
     (the pm ranks of its data index: the vertex all-gather and the
-    ``hybrid_spmm`` all-reduce run over it)."""
+    ``hybrid_spmm`` all-reduce run over it), ``whole`` the group of all
+    ``pd x pm`` ranks (``None``: the world).  The LM spec functions read
+    ``pd`` and ``pm`` alone, so a grid of ``None`` groups stands in for a
+    mesh no process group spans."""
 
     pd: int
     pm: int
     rank: int
     data: Any
     model: Any
+    whole: Any = None
 
     @property
     def data_index(self) -> int:
@@ -158,7 +189,8 @@ def make_grid(pd: int, pm: int, group=None) -> Grid:
     columns = [new([ranks[d * pm + m] for d in range(pd)])
                for m in range(pm)]
     rows = [new([ranks[d * pm + m] for m in range(pm)]) for d in range(pd)]
-    return Grid(pd, pm, rank, columns[rank % pm], rows[rank // pm])
+    return Grid(pd, pm, rank, columns[rank % pm], rows[rank // pm],
+                None if group is None else group)
 
 
 def all_gather(x: torch.Tensor, group) -> torch.Tensor:
@@ -260,3 +292,291 @@ def n_to_t(h: torch.Tensor, group) -> torch.Tensor:
     """Vertex-sharded (bsize, N/P, F) -> time-sharded (bsize/P, N, F):
     the inverse of :func:`t_to_n`."""
     return n2t_recv(AllToAll.apply(n2t_send(h, group_size(group)), group))
+
+
+# ------------------------------------------------------------------ LM ------
+
+#: the data-parallel axis names the reference looks for, pod-major; a
+#: grid has ``data`` alone
+_DP_NAMES = ("pod", DATA_AXIS)
+
+
+def axis_sizes(grid) -> dict[str, int]:
+    """{axis name: size} of a grid (the reference's ``mesh.shape``)."""
+    return {DATA_AXIS: grid.pd, MODEL_AXIS: grid.pm}
+
+
+def dp_axes(grid) -> tuple:
+    """Data-parallel axis names present on the grid, pod-major."""
+    return tuple(a for a in _DP_NAMES if a in axis_sizes(grid))
+
+
+def dp_size(grid) -> int:
+    out = 1
+    for a in dp_axes(grid):
+        out *= axis_sizes(grid)[a]
+    return out
+
+
+def spec(*parts) -> tuple:
+    """A spec from the reference's ``P(...)`` arguments: an axis name or a
+    tuple of them becomes a tuple, ``None`` stays."""
+    return tuple(None if p is None else
+                 ((p,) if isinstance(p, str) else tuple(p)) for p in parts)
+
+
+def _model_if_divisible(dim: int, grid):
+    m = grid.pm
+    return MODEL_AXIS if m > 1 and dim % m == 0 else None
+
+
+def lm_param_specs(cfg, grid, mode: str = "tp") -> dict:
+    """Megatron-style TP specs for the stacked-layer LM tree (the
+    reference's): ``d_ff``, the padded vocabulary, the heads and the KV
+    heads split over ``model`` where they divide it; an MoE's experts
+    split over ``model`` when E divides it, else each expert's ``d_ff``.
+    ``launch.steps.lm_param_specs`` replaces ``["layers"]["attn"]`` with
+    the GQA-aware specs."""
+    del mode  # one strategy here; steps.py layers variants on top
+    ff = _model_if_divisible(cfg.d_ff, grid)
+    vocab = _model_if_divisible(cfg.padded_vocab, grid)
+    heads = _model_if_divisible(cfg.num_heads, grid)
+    kv = _model_if_divisible(cfg.num_kv_heads, grid)
+    attn = {"wq": spec(None, None, heads, None),
+            "wk": spec(None, None, kv, None),
+            "wv": spec(None, None, kv, None),
+            "wo": spec(None, heads, None, None)}
+    if cfg.is_moe:
+        ep = _model_if_divisible(cfg.moe_experts, grid)
+        ffn = {"router": spec(),
+               "wi_gate": spec(None, ep, None, None if ep else ff),
+               "wi_up": spec(None, ep, None, None if ep else ff),
+               "wo": spec(None, ep, None if ep else ff, None)}
+    else:
+        ffn = {"wi_gate": spec(None, None, ff),
+               "wi_up": spec(None, None, ff),
+               "wo": spec(None, ff, None)}
+    return {
+        "embed": spec(vocab, None),
+        "layers": {"attn": attn, "ffn": ffn, "ln1": spec(), "ln2": spec()},
+        "final_norm": spec(),
+        "out": spec(None, vocab),
+    }
+
+
+def lm_batch_specs(grid) -> tuple:
+    """(B, S) token batches: batch over DP, sequence replicated."""
+    return spec(dp_axes(grid), None)
+
+
+def data_rows(grid, batch: int) -> slice:
+    """The reference's ``lm_activation_constrainer`` for one process a
+    rank: every activation's leading (batch) dim is this rank's data
+    shard, these rows of the global batch."""
+    n = batch // grid.pd
+    return slice(grid.data_index * n, (grid.data_index + 1) * n)
+
+
+def _block(grid, axes: tuple) -> tuple[int, int]:
+    """(this rank's block index, the number of blocks) of a dimension
+    split over ``axes``, the first axis major."""
+    coord = {DATA_AXIS: grid.data_index, MODEL_AXIS: grid.model_index}
+    size = axis_sizes(grid)
+    idx, n = 0, 1
+    for a in axes:
+        idx, n = idx * size[a] + coord[a], n * size[a]
+    return idx, n
+
+
+def shard_slices(shape: tuple, sp: tuple, grid) -> tuple:
+    """The index (one slice a dimension) of this rank's shard of an array
+    of ``shape`` under spec ``sp``; a dimension must divide its blocks."""
+    out = []
+    for dim, size in enumerate(shape):
+        axes = sp[dim] if dim < len(sp) else None
+        if not axes:
+            out.append(slice(None))
+            continue
+        idx, n = _block(grid, axes)
+        if size % n:
+            raise ValueError(f"dimension {dim} of {tuple(shape)} does not "
+                             f"split over {axes} ({n} blocks)")
+        w = size // n
+        out.append(slice(idx * w, (idx + 1) * w))
+    return tuple(out)
+
+
+def shard(x, sp: tuple, grid):
+    """This rank's shard of ``x`` (a tensor or a numpy array) under ``sp``:
+    a copy when it is a part of ``x`` (so ``x`` can be freed), ``x``
+    itself when the spec keeps it whole."""
+    idx = shard_slices(tuple(x.shape), sp, grid)
+    if all(s == slice(None) for s in idx):
+        return x
+    part = x[idx]
+    return part.clone() if isinstance(part, torch.Tensor) else part.copy()
+
+
+def map_specs(fn, tree, specs, path=()):
+    """``fn(leaf, spec, path)`` over a tree and its spec tree (the spec
+    tree's structure) -> a tree of the same structure."""
+    if isinstance(specs, dict):
+        return {k: map_specs(fn, tree[k], specs[k], path + (k,))
+                for k in specs}
+    return fn(tree, specs, path)
+
+
+def shard_tree(tree, specs, grid):
+    """A whole tree (nested dicts of tensors or numpy arrays) -> this
+    rank's shards, leaf by leaf under the spec tree of the same
+    structure."""
+    return map_specs(lambda x, sp, _: shard(x, sp, grid), tree, specs)
+
+
+def gather_tree(shards: list, specs, grid):
+    """The inverse of :func:`shard_tree`: ``shards`` holds every rank's
+    tree (rank order) -> the whole tree, each block put where its rank's
+    spec places it (ranks holding copies of a block agree; the first
+    rank's copy is kept).  ``grid`` gives ``pd`` and ``pm``."""
+    ranks = [Grid(grid.pd, grid.pm, r, None, None)
+             for r in range(grid.pd * grid.pm)]
+
+    def leaf(_, sp, path):
+        parts = [_leaf_at(t, path) for t in shards]
+        first = parts[0]
+        shape = list(first.shape)
+        for dim in range(len(shape)):
+            axes = sp[dim] if dim < len(sp) else None
+            if axes:
+                shape[dim] *= _block(ranks[0], axes)[1]
+        if isinstance(first, torch.Tensor):
+            out = first.new_empty(shape)
+        else:
+            import numpy as np
+            out = np.empty(shape, first.dtype)
+        for g, part in reversed(list(zip(ranks, parts))):
+            out[shard_slices(tuple(shape), sp, g)] = part
+        return out
+
+    return map_specs(leaf, shards[0], specs)
+
+
+def _leaf_at(tree, path: tuple):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def flat_specs(specs, prefix: str = "") -> dict[str, tuple]:
+    """A spec tree -> {dotted path: spec}, the keys of a ``ParamTree``'s
+    parameters and of AdamW's state."""
+    if not isinstance(specs, dict):
+        return {prefix: specs}
+    out: dict[str, tuple] = {}
+    for k, v in specs.items():
+        out.update(flat_specs(v, f"{prefix}.{k}" if prefix else k))
+    return out
+
+
+# .................................................... collectives .....
+
+def _size(group) -> int:
+    return 1 if group is None else dist.get_world_size(group)
+
+
+def _count(tag: str, op: str, t: torch.Tensor) -> None:
+    obs.inc(f"{tag}.{op}_calls")
+    obs.inc(f"{tag}.{op}_bytes", t.numel() * t.element_size())
+
+
+def all_reduce(x: torch.Tensor, group, tag: str,
+               op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """The sum (or ``op``) of ``x`` over ``group``, a new tensor in ``x``'s
+    type (summed in fp32 when ``x`` is bf16 or fp16); ``x`` itself on a
+    one-rank group."""
+    if _size(group) == 1:
+        return x
+    low = x.dtype in (torch.bfloat16, torch.float16)
+    y = x.to(torch.float32) if low else x.clone()
+    y = y.contiguous()
+    dist.all_reduce(y, op=op, group=group)
+    _count(tag, "allreduce", y)
+    return y.to(x.dtype) if low else y
+
+
+def all_gather_dim(x: torch.Tensor, group, dim: int, tag: str
+                   ) -> torch.Tensor:
+    """``x`` from every rank of ``group`` concatenated along ``dim`` in
+    group-rank order."""
+    if _size(group) == 1:
+        return x
+    out = all_gather(x, group)
+    _count(tag, "allgather", out)
+    return out.movedim(0, dim).flatten(dim, dim + 1)
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, tag):
+        ctx.group, ctx.tag = group, tag
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce(grad, ctx.group, ctx.tag), None, None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, tag):
+        return all_reduce(x, group, tag)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None, None
+
+
+class _GatherFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim, tag):
+        ctx.dim, ctx.n = dim, x.shape[dim]
+        ctx.rank = dist.get_rank(group) if _size(group) > 1 else 0
+        return all_gather_dim(x, group, dim, tag)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.narrow(ctx.dim, ctx.rank * ctx.n, ctx.n), None, None, None
+
+
+def copy_to(x: torch.Tensor, group, tag: str = "tp") -> torch.Tensor:
+    """Enter a region that computes partial results from ``x``, a tensor
+    every rank of ``group`` holds whole: identity forward, the gradient
+    all-reduced over ``group`` backward."""
+    return x if _size(group) == 1 else _CopyTo.apply(x, group, tag)
+
+
+def reduce_from(x: torch.Tensor, group, tag: str = "tp") -> torch.Tensor:
+    """Leave a row-parallel product: the partial results all-reduced over
+    ``group`` forward, the (whole) gradient passed through backward."""
+    return x if _size(group) == 1 else _ReduceFrom.apply(x, group, tag)
+
+
+def gather_from(x: torch.Tensor, group, dim: int, tag: str = "tp"
+                ) -> torch.Tensor:
+    """Each rank's part concatenated along ``dim`` forward; backward, this
+    rank's part of the (whole) gradient."""
+    return x if _size(group) == 1 else _GatherFrom.apply(x, group, dim, tag)
+
+
+def vocab_embedding(table: torch.Tensor, ids: torch.Tensor, group,
+                    vocab_start: int, tag: str = "tp") -> torch.Tensor:
+    """Rows ``ids`` of a table split by rows over ``group`` (this rank's
+    rows ``vocab_start ...``): ids outside them read row 0 and are zeroed,
+    then the ranks' rows are summed (:func:`reduce_from`)."""
+    if _size(group) == 1:
+        return table[ids.long()]
+    local = ids.long() - vocab_start
+    inside = (local >= 0) & (local < table.shape[0])
+    rows = table[torch.where(inside, local, 0)]
+    rows = rows * inside[..., None].to(rows.dtype)
+    return reduce_from(rows, group, tag)

@@ -12,7 +12,12 @@ the wrapper checks what the shapes, types and devices decide once per key
 and caches the answer, checks contiguity and alignment on every call, and
 allocates the fp32 scratch of the partials.  Any S is
 taken; ``cache_len`` above S is clamped to S and ``cache_len <= 0`` gives
-the uniform mean of V, as the reference's -1e30 mask does.
+the uniform mean of V, as the reference's -1e30 mask does.  With
+``return_lse`` the wrapper also returns each head's log-sum-exp (B, Hq)
+fp32, which the combine kernel writes from the splits' merged max and sum:
+a cache split by rows over ranks merges its slices by it
+(:func:`merge_slices`); there ``cache_len <= 0`` means an empty slice,
+output 0 and log-sum-exp -inf.
 
 On a CPU tensor the wrapper runs the plain PyTorch version (``ref.py``);
 on a CUDA tensor it launches the kernel or raises.
@@ -29,7 +34,7 @@ from repro_torch.kernels.build import Kernel
 from repro_torch.kernels.flash_decode.ref import flash_decode_ref
 
 KERNEL = Kernel("flash_decode", "flash_decode.cu", "flash_decode",
-                [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8)
+                [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8)
 
 #: fewest cache rows a split gets, so a short cache is not cut into
 #: splits that cost more to merge than to read (a tile of the tensor-core
@@ -124,12 +129,13 @@ def _checked_cfg(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     cache_len: torch.Tensor) -> torch.Tensor:
+                     cache_len: torch.Tensor, return_lse: bool = False):
     """q (B, Hq, D); k, v (B, S, KVH, D); cache_len (B,) int32 ->
-    (B, Hq, D) in q's type: the kernel on CUDA, the plain version on the
+    (B, Hq, D) in q's type, and with ``return_lse`` the (B, Hq) fp32
+    log-sum-exp beside it: the kernel on CUDA, the plain version on the
     CPU."""
     if q.device.type == "cpu":
-        return flash_decode_ref(q, k, v, cache_len)
+        return flash_decode_ref(q, k, v, cache_len, return_lse)
     key = (q.shape, k.shape, v.shape, cache_len.shape, q.dtype, k.dtype,
            v.dtype, cache_len.dtype, q.device, k.device, v.device,
            cache_len.device)
@@ -150,8 +156,22 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scratch = torch.empty(n_part * (2 + d), dtype=torch.float32,
                           device=q.device)
     out = torch.empty_like(q)
+    lse = (torch.empty((b, hq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     part_ml = scratch.data_ptr()
     KERNEL.launch(q.device, ptrs[0], ptrs[1], ptrs[2], ptrs[3], part_ml,
-                  part_ml + 8 * n_part, out.data_ptr(), b, s, hq, kvh, d,
+                  part_ml + 8 * n_part, out.data_ptr(),
+                  lse.data_ptr() if return_lse else None, b, s, hq, kvh, d,
                   group_tile, splits, bf16)
-    return out
+    return (out, lse) if return_lse else out
+
+
+def merge_slices(outs: torch.Tensor, lses: torch.Tensor) -> torch.Tensor:
+    """The slices' outputs (P, B, Hq, D) and log-sum-exps (P, B, Hq) of one
+    cache split by rows -> (B, Hq, D) in fp32: ``sum_r exp(lse_r - lse)
+    o_r`` with ``lse = logsumexp_r lse_r``; a slice at -inf weighs 0."""
+    top = torch.amax(lses, dim=0)
+    top = torch.where(torch.isinf(top), 0.0, top)
+    w = torch.exp(lses - top)
+    return (torch.einsum("pbh,pbhd->bhd", w, outs.to(torch.float32))
+            / torch.sum(w, dim=0)[..., None])

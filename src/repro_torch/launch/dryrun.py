@@ -5,6 +5,8 @@ and what one step of each costs.
     python -m repro_torch.launch.dryrun --all [--run] [--out DIR]
     python -m repro_torch.launch.dryrun --all --capacity 85000000000 \\
         --device cpu
+    python -m repro_torch.launch.dryrun --all --grid 2x4 --device cpu \\
+        --capacity 85017493504
 
 The torch meaning of ``repro.launch.dryrun``.  For each cell
 (``launch.steps.build_cell`` on a 1 x 1 grid) :func:`reckon` adds up
@@ -31,6 +33,17 @@ for the dyngnn cells; the allocator's segments expandable, see
 and ``max_memory_allocated`` beside the reckoning.  Results go to ``--out``
 (default ``results/dryrun_torch``, which git ignores), one JSON file a
 cell.
+
+``--grid DxM`` reckons each LM cell per rank of a ``D x M`` grid of cards
+(:func:`reckon` with ``grid``): a rank's argument bytes exactly from the
+cell's specs (``in_specs``: each dimension cut by the ranks its axes
+name), its work bytes from the same terms cut as the layouts cut them
+(rows of the batch over data, heads, ``d_ff`` and the vocabulary over
+model; an MoE layer's expert batch is cut by the model axis alone, since
+its slots are the global batch's).  For every LM cell one card cannot
+hold it then prints the smallest power-of-two grid of such cards, model
+at most 8, at which every rank fits (:func:`smallest_grid`).  The other
+families keep the one-card reckoning until ROADMAP Queue 1, item 9d-2b.
 
 The dyngnn cells also get :func:`dyngnn_analytic`, the reference's
 hardware-free flops, bytes and collective bytes (copied), and a roofline
@@ -99,32 +112,113 @@ def _params(cell) -> tuple[int, int]:
             sum(t.numel() * t.element_size() for t in leaves))
 
 
-def _lm_work(cell) -> dict:
+def _lm_work(cell, grid=None) -> dict:
+    """An LM step's work bytes; with ``grid`` (``D x M`` ranks) a rank's:
+    rows over data when the batch is split, query heads, ``d_ff`` (or
+    experts) and the vocabulary over model where the layout splits them,
+    the attention chunk's rows where it splits those."""
     cfg, d = cell.config, cell.shape.dims
     b, s = d["global_batch"], d["seq_len"]
     w = torch.empty((), dtype=cfg.dtype).element_size()
-    dm, qkv = cfg.d_model, (cfg.num_heads + 2 * cfg.num_kv_heads) \
-        * cfg.head_dim
+    lay = cell.layout if grid is not None else None
+    pd, pm = (grid.pd, grid.pm) if lay is not None else (1, 1)
+    rows = b // pd if lay is None or lay.batch else b
+    heads = cfg.num_heads // (pm if lay is not None and lay.heads else 1)
+    kvh = cfg.num_kv_heads // (pm if lay is not None and lay.kv_heads
+                               else 1)
+    cut = pm if lay is not None and (lay.ffn or lay.experts) else 1
+    vp = cfg.padded_vocab // (pm if lay is not None and lay.vocab else 1)
+    dm, qkv = cfg.d_model, (heads + 2 * kvh) * cfg.head_dim
+    # an MoE's expert batch holds the global batch's slots on every rank
+    ffn_rows = b if cfg.is_moe and lay is not None else rows
     ffn = cfg.d_ff * (cfg.moe_top_k * cfg.moe_capacity_factor
-                      if cfg.is_moe else 1)
-    vp = cfg.padded_vocab
+                      if cfg.is_moe else 1) / cut
     if cell.kind == "decode":
-        splits = -(-s // 4096)
-        return {"layer": int(b * (4 * dm + qkv + 3 * ffn) * w),
-                "attention partials": _f32(b, cfg.num_heads, splits,
+        kv_rows = s
+        if lay is not None and lay.kv_seq:
+            kv_rows = s // (pm if lay.kv_seq == "model" else pd * pm)
+        splits = -(-kv_rows // 4096)
+        return {"layer": int((rows * (4 * dm + qkv)
+                              + ffn_rows * 3 * ffn) * w),
+                "attention partials": _f32(rows, cfg.num_heads, splits,
                                            cfg.head_dim + 2),
-                "logits": _f32(b, vp)}
-    layer = int(b * s * (4 * dm + qkv + 3 * ffn) * w)
-    scores = _f32(b, cfg.num_heads, min(cfg.q_chunk, s), s)
+                "logits": _f32(rows, vp)}
+    layer = int((rows * s * (4 * dm + qkv) + ffn_rows * s * 3 * ffn) * w)
+    q_rows = min(cfg.q_chunk, s)
+    if lay is not None and lay.seq_chunks and s > q_rows:
+        q_rows //= pm
+    scores = _f32(rows, heads, q_rows, s)
     if cell.kind == "prefill":
-        return {"output cache": 2 * cfg.num_layers * b * s
-                * cfg.num_kv_heads * cfg.head_dim * w,
-                "layer": layer, "scores": scores, "logits": _f32(b, vp)}
-    n, pb = _params(cell)
-    return {"gradients and AdamW": _train_state_bytes(n, pb),
-            "checkpointed layer inputs": cfg.num_layers * b * s * dm * w,
+        if lay is None:
+            cache = 2 * cfg.num_layers * b * s * cfg.num_kv_heads \
+                * cfg.head_dim * w
+        else:
+            cache = _spec_bytes(_prefill_cache(cell), cell.out_specs[1],
+                                grid)
+        return {"output cache": cache,
+                "layer": layer, "scores": scores, "logits": _f32(rows, vp)}
+    if lay is None:
+        n, pb = _params(cell)
+        state = _train_state_bytes(n, pb)
+    else:
+        leaves = _local_leaves(cell, grid)
+        params = {k: v for k, v in leaves.items() if k.startswith("0.")}
+        pb = sum(params.values())
+        n_p = sum(v // (4 if "router" in k else w)
+                  for k, v in params.items())
+        n_opt = sum(v for k, v in leaves.items()
+                    if k.startswith("1.m.")) // 4
+        # gradients, their fp32 sums over data, the new m, v and master
+        state = pb + (4 * n_p if pd > 1 else 0) + 12 * n_opt
+    return {"gradients and AdamW": state,
+            "checkpointed layer inputs": cfg.num_layers * rows * s * dm * w,
             "layer recompute and gradients": 2 * layer + 2 * scores,
-            "head chunk": 2 * _f32(b, min(cfg.loss_chunk or s, s), vp)}
+            "head chunk": 2 * _f32(rows, min(cfg.loss_chunk or s, s), vp)}
+
+
+def _prefill_cache(cell) -> dict:
+    """A prefill cell's output cache, as meta tensors."""
+    from repro_torch.models import lm
+    return steps_mod._tree_map(steps_mod._meta, lm.init_kv_cache(
+        cell.config, cell.shape.dims["global_batch"],
+        cell.shape.dims["seq_len"], device="meta"))
+
+
+def flat_in_specs(specs) -> dict:
+    """A cell's ``in_specs`` (or any tuple of spec trees) -> {input path
+    (``steps.input_leaves``'): spec}."""
+    from repro_torch.dist.sharding import flat_specs
+    out = {}
+    for i, sp in enumerate(specs):
+        if isinstance(sp, dict):
+            out.update({f"{i}.{k}": v for k, v in flat_specs(sp).items()})
+        else:
+            out[str(i)] = sp
+    return out
+
+
+def _local_bytes(t, sp: tuple, grid) -> int:
+    from repro_torch.dist.sharding import shard_slices
+    n = 1
+    for sl, size in zip(shard_slices(tuple(t.shape), sp, grid), t.shape):
+        n *= (sl.stop - sl.start) if sl.stop is not None else size
+    return n * t.element_size()
+
+
+def _local_leaves(cell, grid) -> dict:
+    """{input path: bytes a rank of ``grid`` holds} of the cell's
+    inputs, from its ``in_specs``."""
+    specs = flat_in_specs(cell.in_specs)
+    return {k: _local_bytes(t, specs[k], grid)
+            for k, t in steps_mod.input_leaves(cell.abstract_inputs)
+            .items()}
+
+
+def _spec_bytes(tree: dict, specs: dict, grid) -> int:
+    from repro_torch.dist.sharding import flat_specs
+    flat = flat_specs(specs)
+    return sum(_local_bytes(t, flat[k], grid)
+               for k, t in steps_mod.input_leaves(tree).items())
 
 
 def _gnn_work(cell) -> dict:
@@ -188,24 +282,75 @@ def _dyngnn_work(cell) -> dict:
                                          * scale)}
 
 
-def work_bytes(cell) -> dict:
-    """{term: bytes} the step holds beside its arguments at its peak."""
-    return {**{"lm": _lm_work, "gnn": _gnn_work, "recsys": _din_work,
-               "dyngnn": _dyngnn_work}[cell.family](cell),
-            "workspace": WORKSPACE}
+def work_bytes(cell, grid=None) -> dict:
+    """{term: bytes} the step holds beside its arguments at its peak (an
+    LM's on one rank of ``grid``)."""
+    if cell.family == "lm":
+        work = _lm_work(cell, grid)
+    else:
+        work = {"gnn": _gnn_work, "recsys": _din_work,
+                "dyngnn": _dyngnn_work}[cell.family](cell)
+    return {**work, "workspace": WORKSPACE}
 
 
-def reckon(cell, capacity: int) -> dict:
-    """The cell's argument and work bytes against ``capacity``."""
-    args = steps_mod.input_bytes(cell.abstract_inputs)
-    work = work_bytes(cell)
+def reckon(cell, capacity: int, grid=None) -> dict:
+    """The cell's argument and work bytes against ``capacity``; with
+    ``grid`` (an LM cell built over it) one rank's."""
+    if grid is not None and cell.family == "lm" and cell.layout is not None:
+        args = sum(_local_leaves(cell, grid).values())
+    else:
+        grid = None
+        args = steps_mod.input_bytes(cell.abstract_inputs)
+    work = work_bytes(cell, grid)
     need = args + sum(work.values()) + RESERVE
     return {"arch": cell.arch_id, "shape": cell.shape_name,
             "family": cell.family, "kind": cell.kind, "arg_bytes": args,
             "work": work, "work_bytes": sum(work.values()),
             "reserve_bytes": RESERVE, "need_bytes": need,
             "capacity_bytes": capacity, "fits": need <= capacity,
+            "grid": [grid.pd, grid.pm] if grid is not None else [1, 1],
             "meta": cell.meta}
+
+
+#: the largest model axis :func:`smallest_grid` tries (one node's cards)
+MAX_MODEL = 8
+
+
+def grid_cell(arch_id: str, shape_name: str, pd: int, pm: int,
+              device: str = "cuda"):
+    """The LM cell over a ``pd x pm`` grid stand-in (no process group:
+    the specs and layout only), or None when its shapes do not split as
+    the reference's specs need."""
+    from repro_torch.dist.sharding import Grid
+    try:
+        return steps_mod.build_cell(arch_id, shape_name,
+                                    Grid(pd, pm, 0, None, None),
+                                    device=device)
+    except ValueError:
+        return None
+
+
+def smallest_grid(arch_id: str, shape_name: str, capacity: int,
+                  device: str = "cuda", most: int = 4096) -> dict | None:
+    """The smallest power-of-two count of cards, model axis at most
+    :data:`MAX_MODEL`, at which every rank of some ``data x model`` grid
+    fits ``capacity``; of the grids at that count, the one whose rank
+    needs least -> its per-rank reckoning (None within ``most`` cards)."""
+    n = 2
+    while n <= most:
+        fits = []
+        m = 1
+        while m <= min(n, MAX_MODEL):
+            cell = grid_cell(arch_id, shape_name, n // m, m, device)
+            if cell is not None:
+                rec = reckon(cell, capacity, cell.layout.grid)
+                if rec["fits"]:
+                    fits.append(rec)
+            m *= 2
+        if fits:
+            return min(fits, key=lambda r: r["need_bytes"])
+        n *= 2
+    return None
 
 
 def dyngnn_analytic(meta: dict, cfg, num_chips: int) -> tuple[dict, dict]:
@@ -324,7 +469,9 @@ def dry_run(cells: list[tuple[str, str]], capacity: int | None = None,
 def summary(rec: dict) -> str:
     gb = 1e9
     top = max(rec["work"].items(), key=lambda kv: kv[1])
-    line = (f"{rec['arch']} x {rec['shape']}: "
+    grid = rec.get("grid", [1, 1])
+    at = f" per rank of {grid[0]} x {grid[1]}" if grid != [1, 1] else ""
+    line = (f"{rec['arch']} x {rec['shape']}{at}: "
             f"{'fits' if rec['fits'] else 'does not fit'}: arguments "
             f"{rec['arg_bytes'] / gb:.2f} GB + work "
             f"{rec['work_bytes'] / gb:.2f} GB (most: {top[0]} "
@@ -356,6 +503,10 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu: reckon without a card "
                          "(needs --capacity; no --run)")
+    ap.add_argument("--grid", default=None, metavar="DxM",
+                    help="reckon each LM cell per rank of a D x M grid of "
+                         "cards, and print the smallest grid for each LM "
+                         "cell one card cannot hold")
     args = ap.parse_args(argv)
     if args.all:
         cells = steps_mod.all_cells()
@@ -366,7 +517,51 @@ def main(argv: list[str] | None = None) -> None:
     if args.device == "cpu" and (args.run or args.capacity is None):
         raise SystemExit("--device cpu reckons without a card: pass "
                          "--capacity BYTES and no --run")
+    if args.grid:
+        if args.run:
+            raise SystemExit("--run steps cells on this card: drop --grid")
+        pd, pm = (int(v) for v in args.grid.lower().split("x"))
+        grid_run(cells, pd, pm, args.capacity, args.device)
+        return
     dry_run(cells, args.capacity, args.run, Path(args.out), args.device)
+
+
+def grid_run(cells: list[tuple[str, str]], pd: int, pm: int,
+             capacity: int | None = None, device: str = "cuda",
+             log=print) -> list[dict]:
+    """``--grid``: each LM cell reckoned per rank of ``pd x pm`` (a cell
+    whose shapes do not split there is named and skipped), and for each
+    LM cell one card cannot hold the smallest grid that holds it; the
+    other families keep the one-card reckoning (``dry_run``)."""
+    if capacity is None:
+        capacity = torch.cuda.get_device_properties(0).total_memory
+    from repro_torch.configs import registry
+    records = []
+    for arch_id, shape_name in cells:
+        if registry.get_arch(arch_id).family != "lm":
+            continue
+        one = reckon(steps_mod.build_cell(arch_id, shape_name,
+                                          device=device), capacity)
+        cell = grid_cell(arch_id, shape_name, pd, pm, device)
+        rec = {"one_card": one}
+        if cell is None:
+            log(f"{arch_id} x {shape_name}: does not split over {pd} x "
+                f"{pm}")
+        else:
+            rec["at_grid"] = reckon(cell, capacity, cell.layout.grid
+                                    if cell.layout is not None else None)
+            log(summary(rec["at_grid"]))
+        if not one["fits"]:
+            best = smallest_grid(arch_id, shape_name, capacity, device)
+            rec["smallest"] = best
+            log(f"{arch_id} x {shape_name}: one card needs "
+                f"{one['need_bytes'] / 1e9:.2f} GB; smallest grid "
+                + (f"{best['grid'][0]} x {best['grid'][1]} "
+                   f"({best['grid'][0] * best['grid'][1]} cards, "
+                   f"{best['need_bytes'] / 1e9:.2f} GB a rank)"
+                   if best else "none within 4096 cards"))
+        records.append(rec)
+    return records
 
 
 if __name__ == "__main__":

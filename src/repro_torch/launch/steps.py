@@ -39,12 +39,20 @@ The per-family steps the cells dispatch to:
 
 A mesh is a ``dist.sharding.Grid`` (``launch.mesh.make_host_mesh``).  The
 dyngnn cell runs over its data group at any width (``make_inputs`` then
-gives the rank's share); the LM, GNN and recsys cells take one rank (a
-1 x 1 grid, or ``None``: no process group) and refuse more: their
-multi-rank layouts (the reference's ``in_shardings`` / ``out_shardings``,
-``din_param_specs``' vocab-sharded tables, the LM tensor-parallel and
-FSDP specs) wait for ROADMAP Queue 1, item 9d-2, so a cell has no
-sharding fields.
+gives the rank's share).  The LM cells run over any ``data x model`` grid
+whose shape divides as the reference's specs require: their layouts are
+the reference's spec functions, ported (:func:`lm_param_specs`,
+:func:`_lm_head_specs`, :func:`_fsdp_opt_specs`, :func:`_chunk_constrainer`,
+:func:`_lm_kv_specs`); ``in_specs`` / ``out_specs`` are the counterparts
+of the reference's ``in_shardings`` / ``out_shardings``, ``make_inputs``
+gives this rank's share of the 1 x 1 ``make_inputs`` (drawn leaf by leaf
+and sliced, the KV cache a layer at a time, so no rank holds the whole
+tree), and the step computes this rank's part of the reference's jitted
+cell on the global batch (``models.lm.Layout``, ``optim.adamw.Zero``).  The
+GNN and recsys cells take one rank (a 1 x 1 grid, or ``None``: no process
+group) and refuse more: their layouts (the GNN edge split and replica
+cells, ``din_param_specs``' vocab-sharded tables) wait for ROADMAP Queue
+1, item 9d-2b.
 """
 
 from __future__ import annotations
@@ -63,7 +71,8 @@ from repro_torch.configs import registry
 from repro_torch.configs.registry import ShapeSpec
 from repro_torch.core import models as dyn_models
 from repro_torch.core.models import ParamTree
-from repro_torch.dist.sharding import ShardLayout
+from repro_torch.dist import sharding as shd
+from repro_torch.dist.sharding import Grid, ShardLayout, spec
 from repro_torch.graph import segment
 from repro_torch.models import din, lm
 from repro_torch.models.gnn import (common, equiformer_v2, gatedgcn, pna,
@@ -89,27 +98,35 @@ def lm_train_state(gen: torch.Generator, cfg: lm.LMConfig
 
 
 def lm_loss_and_grads(cfg: lm.LMConfig, params: nn.Module,
-                      tokens: torch.Tensor, targets: torch.Tensor
+                      tokens: torch.Tensor, targets: torch.Tensor,
+                      layout: lm.Layout | None = None
                       ) -> tuple[torch.Tensor, tuple[torch.Tensor, ...]]:
     """``lm_loss`` of the ``ParamTree`` ``params`` and its gradients, in
-    ``params.named_parameters()`` order."""
-    loss = lm.lm_loss(cfg, lm_tree(params), tokens, targets)
+    ``params.named_parameters()`` order (over a grid: this rank's part of
+    the loss and its shards' gradients from its rows)."""
+    loss = lm.lm_loss(cfg, lm_tree(params), tokens, targets, layout)
     return loss.detach(), torch.autograd.grad(loss, list(params.parameters()))
 
 
-def lm_train_step(cfg: lm.LMConfig, opt_cfg: adamw.AdamWConfig | None = None
-                  ) -> Callable:
+def lm_train_step(cfg: lm.LMConfig, opt_cfg: adamw.AdamWConfig | None = None,
+                  layout: lm.Layout | None = None,
+                  zero: adamw.Zero | None = None) -> Callable:
     """-> ``step(params, opt_state, tokens, targets) -> (params, opt_state,
     loss)``: one AdamW step on ``lm_loss`` (tokens and targets (B, S)).
     ``params`` is updated in place and returned; ``opt_cfg`` defaults to
-    the reference's ``AdamWConfig(schedule=cfg.lr_schedule)``."""
+    the reference's ``AdamWConfig(schedule=cfg.lr_schedule)``.  Over a
+    grid (``layout``, ``zero``) the inputs are this rank's shards and rows
+    and the loss is the global one (summed over the data column)."""
     opt_cfg = opt_cfg or adamw.AdamWConfig(schedule=cfg.lr_schedule)
 
     def train_step(params: ParamTree, opt_state: dict, tokens: torch.Tensor,
                    targets: torch.Tensor):
-        loss, grads = lm_loss_and_grads(cfg, params, tokens, targets)
+        loss, grads = lm_loss_and_grads(cfg, params, tokens, targets,
+                                        layout)
         params, opt_state = adamw.apply_updates(opt_cfg, params, grads,
-                                                opt_state)
+                                                opt_state, zero)
+        if layout is not None:
+            loss = shd.all_reduce(loss, layout.data, "dp")
         return params, opt_state, loss
 
     return train_step
@@ -430,8 +447,14 @@ class Cell:
     ``make_inputs`` draws them (``None`` for a serve cell).
     ``donate`` names the inputs the step may overwrite (the reference's
     donated argnums: the port updates parameters and caches in place),
-    ``meta`` the reference's sizes.  ``in_shardings`` / ``out_shardings``
-    have no counterpart at one rank (ROADMAP Queue 1, item 9d-2)."""
+    ``meta`` the reference's sizes.  An LM cell's ``in_specs`` /
+    ``out_specs`` are the layouts of its inputs and outputs (the
+    reference's ``in_shardings`` / ``out_shardings`` as spec trees,
+    ``dist.sharding.spec``; AdamW's ``m`` / ``v`` / ``master`` keyed by
+    parameter name); ``make_inputs`` gives this rank's share and the step
+    returns this rank's share of the outputs; ``layout`` is the cell's
+    ``models.lm.Layout`` (``None`` on one rank).  Other families have no
+    specs yet (ROADMAP Queue 1, item 9d-2b)."""
 
     arch_id: str
     shape_name: str
@@ -445,6 +468,9 @@ class Cell:
     kind: str = ""
     config: Any = None
     shape: ShapeSpec | None = None
+    in_specs: tuple | None = None
+    out_specs: Any = None
+    layout: Any = None
 
     @functools.cached_property
     def abstract_inputs(self) -> tuple:
@@ -532,8 +558,207 @@ def _ids(rng: np.random.Generator, high: int, shape: tuple,
 
 # .............................................................. LM .....
 
-def _lm_train_cell(arch, shape: ShapeSpec, cfg, device) -> Cell:
+MODEL = shd.MODEL_AXIS
+
+
+def _grid(mesh) -> Grid:
+    """The grid a cell's specs are read at (``None``: one rank)."""
+    return Grid(1, 1, 0, None, None) if mesh is None else mesh
+
+
+def _lm_head_specs(cfg, mesh, mode: str = "gqa_tp") -> dict:
+    """TP specs for attention weights (the reference's).
+
+    'gqa_tp' (default): shard the QUERY heads over 'model' and replicate
+    KV heads when they don't divide the axis -- attention then computes
+    locally per head group, with one output all-reduce per layer.  Heads
+    that don't divide (minicpm's 36 at 16) replicate the attention
+    weights; the attention itself is split by query rows
+    (:func:`_chunk_constrainer`).
+
+    'naive_tp' (the reference's recorded baseline, a spec only: no path
+    runs it): falls back to sharding the head_dim (contraction) axis when
+    head counts don't divide."""
+    m = mesh.pm
+    heads_ok = cfg.num_heads % m == 0
+    kv_ok = cfg.num_kv_heads % m == 0
+    if mode == "naive_tp":
+        if heads_ok and kv_ok:
+            return {"wq": spec(None, None, MODEL, None),
+                    "wk": spec(None, None, MODEL, None),
+                    "wv": spec(None, None, MODEL, None),
+                    "wo": spec(None, MODEL, None, None)}
+        assert cfg.head_dim % m == 0
+        return {"wq": spec(None, None, None, MODEL),
+                "wk": spec(None, None, None, MODEL),
+                "wv": spec(None, None, None, MODEL),
+                "wo": spec(None, None, MODEL, None)}
+    if heads_ok:
+        kv = MODEL if kv_ok else None
+        return {"wq": spec(None, None, MODEL, None),
+                "wk": spec(None, None, kv, None),
+                "wv": spec(None, None, kv, None),
+                "wo": spec(None, MODEL, None, None)}
+    return {"wq": spec(None, None, None, None),
+            "wk": spec(None, None, None, None),
+            "wv": spec(None, None, None, None),
+            "wo": spec(None, None, None, None)}
+
+
+def lm_param_specs(cfg, mesh, mode: str = "gqa_tp") -> dict:
+    specs = shd.lm_param_specs(cfg, mesh, mode="tp")
+    specs["layers"]["attn"] = _lm_head_specs(cfg, mesh, mode)
+    return specs
+
+
+def _fsdp_opt_specs(a_params, p_specs, mesh) -> dict:
+    """ZeRO-style optimizer-state specs (the reference's): m / v / master
+    additionally split their largest unsharded dimension that the data
+    axes divide over the data axes.  ``a_params``: the parameter tree's
+    shapes (tuples) or tensors."""
+    dp = shd.dp_axes(mesh)
+    dp_n = shd.dp_size(mesh)
+
+    def leaf_spec(a, sp: tuple, _path) -> tuple:
+        shape = tuple(a) if isinstance(a, tuple) else tuple(a.shape)
+        parts = list(sp) + [None] * (len(shape) - len(sp))
+        best, best_dim = None, -1
+        for i, (size, p_) in enumerate(zip(shape, parts, strict=True)):
+            if p_ is None and size % dp_n == 0 and size > best_dim:
+                best, best_dim = i, size
+        if best is None:
+            return sp
+        parts[best] = dp
+        return tuple(parts)
+
+    shard2d = shd.map_specs(leaf_spec, a_params, p_specs)
+    return {"m": shard2d, "v": shard2d, "master": shard2d, "step": spec()}
+
+
+def opt_state_specs(o_specs: dict) -> dict:
+    """:func:`_fsdp_opt_specs`' tree in the port's AdamW layout (``m`` /
+    ``v`` / ``master`` keyed by parameter name)."""
+    return {k: (shd.flat_specs(v) if k != "step" else v)
+            for k, v in o_specs.items()}
+
+
+def _chunk_constrainer(cfg, mesh):
+    """The sequence-parallel attention hook (the reference's) for archs
+    whose head count does not divide the model axis (minicpm): each query
+    chunk's rows split over 'model' (``inward``), its output whole again
+    (``outward``) -> the two specs, or None when the heads divide.  A
+    layout with it splits each chunk's rows (``models.lm.Layout
+    .seq_chunks``)."""
+    if cfg.num_heads % mesh.pm == 0:
+        return None
+    dp = shd.dp_axes(mesh)
+    return {"inward": spec(dp, MODEL, None, None),
+            "outward": spec(dp, None, None, None)}
+
+
+def _lm_kv_specs(cfg, mesh, seq_shard: bool) -> dict:
+    """The KV cache's layout (the reference's): KV heads over model; or,
+    when they don't divide it, the cache's rows over model; with
+    ``seq_shard`` (context parallelism, batch 1) the rows over every
+    axis."""
+    m = mesh.pm
+    dp = shd.dp_axes(mesh)
+    if seq_shard:
+        axes = (*dp, MODEL)
+        return {"k": spec(None, None, axes, None, None),
+                "v": spec(None, None, axes, None, None), "len": spec()}
+    if cfg.num_kv_heads % m == 0:
+        return {"k": spec(None, dp, None, MODEL, None),
+                "v": spec(None, dp, None, MODEL, None), "len": spec(dp)}
+    return {"k": spec(None, dp, MODEL, None, None),
+            "v": spec(None, dp, MODEL, None, None), "len": spec(dp)}
+
+
+def _splits(sp: tuple, axis: str) -> bool:
+    return any(a and axis in a for a in sp)
+
+
+def lm_layout(cfg, mesh, p_specs: dict, kv_specs: dict | None = None,
+              batch: bool = True) -> lm.Layout | None:
+    """The ``models.lm.Layout`` the specs give a rank of ``mesh`` (None on
+    one rank, which then runs the one-rank path itself)."""
+    if mesh is None or mesh.pd * mesh.pm == 1:
+        return None
+    m = mesh.pm > 1
+    attn, ffn = p_specs["layers"]["attn"], p_specs["layers"]["ffn"]
+    experts = m and cfg.is_moe and ffn["wi_gate"][1] is not None
+    kv_seq = ""
+    if kv_specs is not None:
+        rows = kv_specs["k"][2]
+        if rows and shd.DATA_AXIS in rows:
+            kv_seq = "all"
+        elif rows and m:
+            kv_seq = "model"
+    return lm.Layout(
+        mesh, vocab=m and _splits(p_specs["embed"], MODEL),
+        heads=m and _splits(attn["wq"], MODEL),
+        kv_heads=m and _splits(attn["wk"], MODEL),
+        ffn=m and not experts and _splits(ffn["wi_gate"], MODEL),
+        experts=experts,
+        seq_chunks=m and _chunk_constrainer(cfg, mesh) is not None,
+        batch=batch, kv_seq=kv_seq)
+
+
+def lm_zero(mesh, p_specs: dict, o_specs: dict) -> adamw.Zero | None:
+    """The ``optim.adamw.Zero`` the specs give a rank of ``mesh`` (None on
+    one rank)."""
+    if mesh is None or mesh.pd * mesh.pm == 1:
+        return None
+    flat_p = shd.flat_specs(p_specs)
+    flat_o = shd.flat_specs(o_specs["m"])
+    split = frozenset(k for k, sp in flat_p.items()
+                      if mesh.pm > 1 and _splits(sp, MODEL))
+    data_dim = {} if mesh.pd == 1 else {
+        k: i for k, sp in flat_o.items() for i, a in enumerate(sp)
+        if a and shd.DATA_AXIS in a}
+    return adamw.Zero(mesh, split, data_dim)
+
+
+def _divides(what: str, size: int, parts: int, cell: str) -> None:
+    if size % parts:
+        raise ValueError(f"{cell}: {what} {size} does not split over "
+                         f"{parts} ranks as the reference's specs need")
+
+
+def _taker(mesh, p_specs: dict) -> Callable | None:
+    """``init_lm_params``' ``take``: each drawn leaf's shard."""
+    if mesh is None or mesh.pd * mesh.pm == 1:
+        return None
+    flat = shd.flat_specs(p_specs)
+    return lambda path, x: shd.shard(x, flat[path], mesh)
+
+
+def _lm_params(cfg, seed: int, dev, mesh, p_specs: dict):
+    """This rank's parameters: ``init_lm_params`` from a generator seeded
+    ``seed``, each leaf sliced as it is drawn -> (tree, the generator)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return lm.init_lm_params(gen, cfg, take=_taker(mesh, p_specs)), gen
+
+
+def _lm_tokens(rng: np.random.Generator, cfg, shape: tuple, sp: tuple,
+               mesh, dev) -> torch.Tensor:
+    """Ids in range from ``rng`` at the global ``shape``, this rank's
+    share on ``dev`` (drawn whole on the host: ids are small)."""
+    ids = rng.integers(0, cfg.vocab_size, shape)
+    return torch.as_tensor(shd.shard(ids, sp, _grid(mesh)),
+                           dtype=torch.int32, device=dev)
+
+
+def _lm_train_cell(arch, shape: ShapeSpec, cfg, mesh, device) -> Cell:
     b, s = shape.dims["global_batch"], shape.dims["seq_len"]
+    grid = _grid(mesh)
+    _divides("global_batch", b, shd.dp_size(grid), arch.arch_id)
+    p_specs = lm_param_specs(cfg, grid)
+    o_specs = _fsdp_opt_specs(lm.lm_param_shapes(cfg), p_specs, grid)
+    b_spec = shd.lm_batch_specs(grid)
+    layout = lm_layout(cfg, mesh, p_specs)
+    zero = lm_zero(mesh, p_specs, o_specs)
+    port_o = opt_state_specs(o_specs)
 
     def abstract():
         a_params, a_opt = _abstract_train(
@@ -542,24 +767,73 @@ def _lm_train_cell(arch, shape: ShapeSpec, cfg, device) -> Cell:
         return a_params, a_opt, a_tok, a_tok
 
     def make_state(seed: int = 0, device=device):
-        return lm_train_state(torch.Generator(
-            device=resolve_device(device)).manual_seed(seed), cfg)
+        params, _ = _lm_params(cfg, seed, resolve_device(device), mesh,
+                               p_specs)
+        params = ParamTree(params)
+        return params, adamw.init_state(params, zero)
 
     def make_inputs(seed: int = 0, device=device):
         dev = resolve_device(device)
         params, opt = make_state(seed, dev)
         rng = np.random.default_rng(seed)
-        tokens, targets = (_ids(rng, cfg.vocab_size, (b, s), dev)
+        tokens, targets = (_lm_tokens(rng, cfg, (b, s), b_spec, mesh, dev)
                            for _ in range(2))
         return params, opt, tokens, targets
 
-    return Cell(arch.arch_id, shape.name, lm_train_step(cfg), abstract,
+    return Cell(arch.arch_id, shape.name,
+                lm_train_step(cfg, layout=layout, zero=zero), abstract,
                 make_inputs, donate=(0, 1), meta={"tokens": b * s},
-                make_state=make_state)
+                make_state=make_state,
+                in_specs=(p_specs, port_o, b_spec, b_spec),
+                out_specs=(p_specs, port_o, spec()), layout=layout)
 
 
-def _lm_decode_cell(arch, shape: ShapeSpec, cfg, device) -> Cell:
+def _lm_cache(cfg, b: int, s: int, kv_specs: dict, mesh, gen, dev
+              ) -> dict:
+    """A decode cell's cache: random values from ``gen`` (the K then the
+    V of each layer, a layer a draw, ``normal_`` as ``torch.randn`` draws)
+    and ``len = s - 1``; a rank keeps its slice of each layer's draw, so
+    no rank holds the whole cache, and a rank that keeps all of it draws
+    in place."""
+    grid = _grid(mesh)
+    whole = (b, s, cfg.num_kv_heads, cfg.head_dim)
+    cache = {}
+    for name in ("k", "v"):
+        sp = kv_specs[name][1:]
+        local = shd.shard(torch.empty(whole, device="meta"), sp, grid).shape
+        out = torch.empty((cfg.num_layers, *local), dtype=cfg.dtype,
+                          device=dev)
+        for i in range(cfg.num_layers):
+            if tuple(local) == whole:
+                out[i].normal_(generator=gen)
+            else:
+                out[i] = shd.shard(torch.empty(
+                    whole, dtype=cfg.dtype, device=dev).normal_(
+                        generator=gen), sp, grid)
+        cache[name] = out
+    cache["len"] = shd.shard(torch.full((b,), s - 1, dtype=torch.int32,
+                                        device=dev), kv_specs["len"], grid)
+    return cache
+
+
+def _lm_decode_cell(arch, shape: ShapeSpec, cfg, mesh, device) -> Cell:
     b, s = shape.dims["global_batch"], shape.dims["seq_len"]
+    seq_shard = bool(shape.dims.get("kv_seq_shard", False))
+    grid = _grid(mesh)
+    dp_n = shd.dp_size(grid)
+    if seq_shard:
+        _divides("seq_len", s, grid.pd * grid.pm, arch.arch_id)
+    else:
+        _divides("global_batch", b, dp_n, arch.arch_id)
+    p_specs = lm_param_specs(cfg, grid)
+    kv_specs = _lm_kv_specs(cfg, grid, seq_shard)
+    if kv_specs["k"][2] == (MODEL,):
+        _divides("seq_len", s, grid.pm, arch.arch_id)
+    dp = shd.dp_axes(grid)
+    split_rows = b >= dp_n
+    tok_spec = spec(dp) if split_rows else spec()
+    logits_spec = spec(dp, MODEL) if split_rows else spec(None, MODEL)
+    layout = lm_layout(cfg, mesh, p_specs, kv_specs, batch=not seq_shard)
 
     def abstract():
         return (abstract_tree(lambda g: lm.init_lm_params(g, cfg)),
@@ -567,43 +841,63 @@ def _lm_decode_cell(arch, shape: ShapeSpec, cfg, device) -> Cell:
                 _sds((b,), torch.int32))
 
     def serve_step(params, cache, token):
-        return lm.decode_step(cfg, params, cache, token)
+        gathered = layout is not None and seq_shard and split_rows
+        if gathered:
+            # the cache holds every row of the batch: so must the step
+            token = shd.all_gather_dim(token, layout.data, 0, "dp")
+        logits, cache = lm.decode_step(cfg, params, cache, token, layout)
+        if gathered:
+            logits = logits[shd.data_rows(grid, b)]
+        if layout is not None and not layout.vocab and grid.pm > 1:
+            logits = shd.shard(logits, spec(None, MODEL), grid)
+        return logits, cache
 
     def make_inputs(seed: int = 0, device=device):
         dev = resolve_device(device)
-        gen = torch.Generator(device=dev).manual_seed(seed)
-        params = lm.init_lm_params(gen, cfg)
-        kv = (cfg.num_layers, b, s, cfg.num_kv_heads, cfg.head_dim)
-        cache = {k: torch.randn(kv, generator=gen, dtype=cfg.dtype,
-                                device=dev) for k in ("k", "v")}
-        cache["len"] = torch.full((b,), s - 1, dtype=torch.int32,
-                                  device=dev)
+        params, gen = _lm_params(cfg, seed, dev, mesh, p_specs)
+        cache = _lm_cache(cfg, b, s, kv_specs, mesh, gen, dev)
         rng = np.random.default_rng(seed)
-        return params, cache, _ids(rng, cfg.vocab_size, (b,), dev)
+        return params, cache, _lm_tokens(rng, cfg, (b,), tok_spec, mesh,
+                                         dev)
 
     return Cell(arch.arch_id, shape.name, serve_step, abstract, make_inputs,
-                donate=(1,), meta={"tokens": b, "kv_len": s})
+                donate=(1,), meta={"tokens": b, "kv_len": s},
+                in_specs=(p_specs, kv_specs, tok_spec),
+                out_specs=(logits_spec, kv_specs), layout=layout)
 
 
-def _lm_prefill_cell(arch, shape: ShapeSpec, cfg, device) -> Cell:
+def _lm_prefill_cell(arch, shape: ShapeSpec, cfg, mesh, device) -> Cell:
     b, s = shape.dims["global_batch"], shape.dims["seq_len"]
+    grid = _grid(mesh)
+    _divides("global_batch", b, shd.dp_size(grid), arch.arch_id)
+    p_specs = lm_param_specs(cfg, grid)
+    kv_specs = _lm_kv_specs(cfg, grid, seq_shard=False)
+    if kv_specs["k"][2] == (MODEL,):
+        _divides("seq_len", s, grid.pm, arch.arch_id)
+    b_spec = shd.lm_batch_specs(grid)
+    logits_spec = spec(shd.dp_axes(grid), MODEL)
+    layout = lm_layout(cfg, mesh, p_specs, kv_specs)
 
     def abstract():
         return (abstract_tree(lambda g: lm.init_lm_params(g, cfg)),
                 _sds((b, s), torch.int32))
 
     def serve_step(params, tokens):
-        return lm.prefill(cfg, params, tokens, max_len=s)
+        logits, cache = lm.prefill(cfg, params, tokens, max_len=s,
+                                   layout=layout)
+        if layout is not None and not layout.vocab and grid.pm > 1:
+            logits = shd.shard(logits, spec(None, MODEL), grid)
+        return logits, cache
 
     def make_inputs(seed: int = 0, device=device):
         dev = resolve_device(device)
-        params = lm.init_lm_params(
-            torch.Generator(device=dev).manual_seed(seed), cfg)
+        params, _ = _lm_params(cfg, seed, dev, mesh, p_specs)
         rng = np.random.default_rng(seed)
-        return params, _ids(rng, cfg.vocab_size, (b, s), dev)
+        return params, _lm_tokens(rng, cfg, (b, s), b_spec, mesh, dev)
 
     return Cell(arch.arch_id, shape.name, serve_step, abstract, make_inputs,
-                meta={"tokens": b * s})
+                meta={"tokens": b * s}, in_specs=(p_specs, b_spec),
+                out_specs=(logits_spec, kv_specs), layout=layout)
 
 
 # ............................................................. GNN .....
@@ -840,8 +1134,9 @@ def build_cell(arch_id: str, shape_name: str, mesh=None,
     ``shape_override``), at the smoke config with ``smoke``, the config's
     fields replaced by ``config_override``; ``make_inputs`` defaults to
     ``device``, which must exist (``device="cpu"`` without a card).  A
-    dyngnn cell runs over ``mesh`` (a ``Grid``); any other family takes a
-    1 x 1 grid or ``None`` and refuses more ranks."""
+    dyngnn or LM cell runs over ``mesh`` (a ``Grid``; an LM cell also on
+    ``None``, one rank); a GNN or recsys cell takes a 1 x 1 grid or
+    ``None`` and refuses more ranks."""
     device = resolve_device(device)
     arch = registry.get_arch(arch_id)
     shape = arch.shapes[shape_name]
@@ -852,16 +1147,16 @@ def build_cell(arch_id: str, shape_name: str, mesh=None,
     if config_override:
         cfg = dataclasses.replace(cfg, **config_override)
     ranks = 1 if mesh is None else mesh.pd * mesh.pm
-    if arch.family != "dyngnn" and ranks != 1:
+    if arch.family in ("gnn", "recsys") and ranks != 1:
         raise ValueError(f"the {arch.family} cells run on one rank; "
                          f"{arch_id} x {shape_name} over {ranks} ranks "
-                         "waits for ROADMAP Queue 1, item 9d-2")
+                         "waits for ROADMAP Queue 1, item 9d-2b")
     if arch.family == "lm" and shape.kind == "train":
-        cell = _lm_train_cell(arch, shape, cfg, device)
+        cell = _lm_train_cell(arch, shape, cfg, mesh, device)
     elif arch.family == "lm" and shape.kind == "prefill":
-        cell = _lm_prefill_cell(arch, shape, cfg, device)
+        cell = _lm_prefill_cell(arch, shape, cfg, mesh, device)
     elif arch.family == "lm" and shape.kind == "decode":
-        cell = _lm_decode_cell(arch, shape, cfg, device)
+        cell = _lm_decode_cell(arch, shape, cfg, mesh, device)
     elif arch.family == "gnn" and shape.kind in ("full_graph", "minibatch",
                                                   "molecule"):
         cell = _gnn_cell(arch, shape, cfg, device)

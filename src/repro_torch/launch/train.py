@@ -32,12 +32,20 @@ features, 2 classes; 128 graphs of 30 nodes and 64 edges with
 loss x`` lines (every ``steps // 10``) and ``done``.  The reference's
 launcher fills the cell's abstract inputs with N(0, 0.1) draws (AdamW's
 second moment included) and its ids with 0 or 1, and its losses go NaN
-after step 0; the port's stay finite.  These families train in one
+after step 0; the port's stay finite.  An LM also trains under
+``torchrun``, as the reference's launcher does: ``make_host_mesh(data=dp,
+model=world // dp)`` (``--data-parallel dp``, default the world size)
+over the global smoke batch of 2 x dp sequences, each rank stepping its
+share of the cell (``launch.steps.build_cell`` over the grid), rank 0
+alone printing; in one process ``--data-parallel dp`` takes the same
+global batch on one rank.  The GNN and recsys families train in one
 process; under ``torchrun`` they are refused until ROADMAP Queue 1, item
-9d-2::
+9d-2b::
 
     python -m repro_torch.launch.train --arch olmoe-1b-7b --steps 10 \
         --device cpu
+    torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train \
+        --arch olmoe-1b-7b --data-parallel 2 --steps 10 --device cpu
     python -m repro_torch.launch.train --arch equiformer-v2 --steps 3 \
         --device cpu
     python -m repro_torch.launch.train --arch din --steps 10 --device cpu
@@ -220,9 +228,6 @@ def main(argv: list[str] | None = None) -> None:
         obs.configure(enabled=True)
     world = int(os.environ.get("WORLD_SIZE", "1"))
     dp = args.data_parallel or world
-    if world > 1 and dp != world:
-        raise SystemExit(f"--data-parallel {dp} under torchrun with "
-                         f"{world} processes: they must agree")
     if args.sampled and args.stream:
         raise SystemExit("--sampled is its own schedule; drop --stream")
     if (args.sample_batch or args.fanout != "10,10") and not args.sampled:
@@ -292,8 +297,11 @@ def _train(args, dp: int, world: int, rescale: tuple) -> None:
 
     arch = registry.get_arch(args.arch)
     if arch.family in SMOKE_SHAPE:
-        _train_cell(args, arch, world)
+        _train_cell(args, arch, world, dp)
         return
+    if world > 1 and dp != world:
+        raise SystemExit(f"--data-parallel {dp} under torchrun with "
+                         f"{world} processes: they must agree")
     cfg = (arch.make_config() if args.full_config
            else arch.make_smoke_config())
     smooth = {"tmgcn": "mproduct", "evolvegcn": "edgelife",
@@ -438,15 +446,21 @@ SMOKE_SHAPE = {"lm": ("train_4k", {"seq_len": LM_SEQ,
                "recsys": ("train_batch", {"batch": DIN_SMOKE_BATCH})}
 
 
-def _one_process(args, family: str, world: int) -> None:
-    """Refuse what the lm, gnn and recsys families do not take: ranks and
-    the dyngnn schedules' flags."""
-    if world > 1:
+def _one_process(args, family: str, world: int, dp: int) -> None:
+    """Refuse what the lm, gnn and recsys families do not take: a GNN or
+    recsys arch over ranks, an LM grid the world does not fill, and the
+    dyngnn schedules' flags (``--data-parallel`` sets an LM's grid and
+    batch)."""
+    if world > 1 and family != "lm":
         raise SystemExit(f"{family.upper()} training runs in one process: "
                          f"training over {world} ranks waits for ROADMAP "
-                         "Queue 1, item 9d-2")
+                         "Queue 1, item 9d-2b")
+    if family == "lm" and world > 1 and world % dp:
+        raise SystemExit(f"--data-parallel {dp} does not divide the "
+                         f"{world} processes into a data x model grid")
     flags = {"--stream": args.stream, "--sampled": args.sampled,
-             "--mesh": args.mesh, "--data-parallel": args.data_parallel,
+             "--mesh": args.mesh,
+             "--data-parallel": args.data_parallel and family != "lm",
              "--ckpt-dir": args.ckpt_dir,
              "--device-budget": args.device_budget,
              "--pipeline-rounds": args.pipeline_rounds,
@@ -459,43 +473,57 @@ def _one_process(args, family: str, world: int) -> None:
                          "at a time on one device")
 
 
-def _train_cell(args, arch, world: int) -> None:
+def _train_cell(args, arch, world: int, dp: int) -> None:
     """``--steps`` steps of the family's train cell (``train_4k``,
     ``molecule`` or ``train_batch``; with the smoke config at the
     reference launcher's smoke override, as an LM's always is) from
-    ``make_inputs(0)``; an LM takes the reference's smoke batch in place
-    of the cell's tokens (module docstring).  Each step is a fenced ``train.step`` span;
-    prints ``step i loss x`` (every ``steps // 10``) and ``done``."""
-    _one_process(args, arch.family, world)
+    ``make_inputs(0)``; an LM takes the reference's smoke batch of 2 x dp
+    sequences in place of the cell's tokens (module docstring), over a
+    ``dp x world / dp`` grid under ``torchrun``.  Each step is a fenced
+    ``train.step`` span; (rank 0) prints ``step i loss x`` (every
+    ``steps // 10``) and ``done``."""
+    _one_process(args, arch.family, world, dp)
     import numpy as np
     import torch
 
     from repro_torch import obs, resolve_device
-    from repro_torch.launch import steps
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch import mesh, steps
 
     dev = resolve_device(args.device)
     shape_name, override = SMOKE_SHAPE[arch.family]
     if args.full_config and arch.family != "lm":
         override = None
-    cell = steps.build_cell(args.arch, shape_name,
+    grid = None
+    if arch.family == "lm":
+        override = dict(override, global_batch=LM_BATCH * dp)
+        if world > 1:
+            _join_group(args.device, world)
+            grid = mesh.make_host_mesh(dp, world // dp)
+            if dev.type == "cuda":
+                dev = torch.device("cuda", torch.cuda.current_device())
+    cell = steps.build_cell(args.arch, shape_name, grid,
                             smoke=not args.full_config,
                             shape_override=override, device=dev)
     inputs = list(cell.make_inputs(0))
     if arch.family == "lm":
         dims = cell.shape.dims
         rng = np.random.default_rng(0)
-        inputs[2:] = [torch.as_tensor(
+        inputs[2:] = [torch.as_tensor(shd.shard(
             rng.integers(0, 2, (dims["global_batch"], dims["seq_len"])),
+            cell.in_specs[2], grid or shd.Grid(1, 1, 0, None, None)),
             dtype=torch.int32, device=dev) for _ in range(2)]
     params, opt_state, *batch = inputs
+    speak = grid is None or grid.rank == 0
     for i in range(args.steps):
         with obs.span("train.step", cat="train", step=i) as sp:
             params, opt_state, loss = cell.step(params, opt_state, *batch)
             sp.fence(loss)
-        if i % max(args.steps // 10, 1) == 0:
+        if i % max(args.steps // 10, 1) == 0 and speak:
             print(f"step {i} loss {float(loss):.4f}")
-    _finish_trace(args.trace, None, 0)
-    print("done")
+    _finish_trace(args.trace, None, 0 if grid is None else grid.rank)
+    if speak:
+        print("done")
 
 
 def _quiet(_msg: str) -> None:

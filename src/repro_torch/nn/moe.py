@@ -19,15 +19,32 @@ The reference sums step 6 with ``jax.ops.segment_sum`` over token ids;
 every token has exactly k assignments, so the port puts them back in
 (token, k) order and sums the k axis (the same sum, with no atomics).
 The reference computes all of this outside any Pallas kernel, so the port
-leaves it to PyTorch (cuBLAS for the products).  The expert-parallel
-sharding hook ``ep_constrain`` has no counterpart here: expert
-parallelism waits for ROADMAP Queue 1, item 9d-2's process groups.
+leaves it to PyTorch (cuBLAS for the products).
+
+Over a grid of ranks (``layout``, a ``models.lm.Layout``) the layer
+computes what the reference's jitted layer computes on the global batch.
+Its expert-parallel hook ``ep_constrain`` is ``None`` on every path of
+the reference (``repro.dist.sharding.lm_activation_constrainer``); the
+port's counterpart is the layout's model group:
+
+* routing is global: each data rank routes its own tokens, all-gathers
+  the expert ids over the data group (k ints a token) and orders the
+  global assignments as the reference does, so capacity (from the global
+  T), which assignments drop and the load-balance fractions are the
+  reference's;
+* the expert FFN runs on this rank's tokens only (it is row-wise): the
+  (E, C, d) batch holds this rank's kept assignments at their global
+  slots, the rest zero;
+* with E dividing the model axis each model rank holds E / M experts and
+  computes their rows; otherwise each expert's ``d_ff`` is split; either
+  way the combined output is all-reduced over the model group.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.dist import sharding as shd
 from repro_torch.nn.layers import ACTIVATIONS, normal
 
 
@@ -69,19 +86,23 @@ def expert_counts(expert_ids: torch.Tensor, num_experts: int
 
 def moe_apply(params: dict, x: torch.Tensor, top_k: int,
               capacity_factor: float = 1.25, activation: str = "silu",
-              capacity: int | None = None
+              capacity: int | None = None, layout=None
               ) -> tuple[torch.Tensor, dict]:
     """x (B, S, d) -> (out (B, S, d), {"lb_loss", "dropped_frac"}).
 
     Differentiable in x and the parameters (the routing decisions are
-    not); assignments past an expert's capacity are dropped."""
+    not); assignments past an expert's capacity are dropped.  Over a grid
+    (``layout``) x holds this rank's rows, ``params`` its experts (or its
+    share of each expert's ``d_ff``); ``lb_loss`` is then this rank's
+    part of the global load-balance loss (their sum over the data group
+    is the reference's) and ``dropped_frac`` the global fraction."""
     b, s, d = x.shape
     e = params["router"].shape[-1]
     t = b * s
     tokens = x.reshape(t, d)
-    if capacity is None:
-        capacity = moe_capacity(t, top_k, e, capacity_factor)
     dev = x.device
+    data = layout.route_group if layout is not None else None
+    model = layout.expert_group if layout is not None else None
 
     logits = tokens.to(torch.float32) @ params["router"]        # (T, E)
     probs = torch.softmax(logits, dim=-1)
@@ -89,47 +110,60 @@ def moe_apply(params: dict, x: torch.Tensor, top_k: int,
     gate_vals = gate_vals / torch.clamp(
         gate_vals.sum(dim=-1, keepdim=True), min=1e-9)
 
-    # ---- flatten (T, k) assignments and order by expert ------------------
+    # ---- the global assignments, ordered by expert ------------------------
     n = t * top_k
     flat_expert = expert_idx.reshape(-1)
+    everyone = shd.all_gather_dim(flat_expert, data, 0, "dp")
+    n_g = everyone.numel()
+    t_g = n_g // top_k
+    if capacity is None:
+        capacity = moe_capacity(t_g, top_k, e, capacity_factor)
+    order = torch.sort(everyone, stable=True).indices
+    counts = expert_counts(everyone, e)
+    expert_start = torch.cumsum(counts, 0) - counts
+    pos = torch.empty_like(order)
+    pos[order] = torch.arange(n_g, device=dev) - expert_start[everyone[order]]
+    first = shd.group_rank(data) * n if n_g > n else 0
+    pos = pos[first:first + n]                   # this rank's, (token, k)
+    keep = pos < capacity
+
+    # ---- gather this rank's kept tokens into the (E, C, d) expert batch ---
+    e_local = params["wi_gate"].shape[-3]
+    e0 = layout.model_index * e_local if e_local < e else 0
+    mine = keep & (flat_expert >= e0) & (flat_expert < e0 + e_local)
     flat_token = torch.arange(t, device=dev)[:, None].expand(
         t, top_k).reshape(-1)
-    order = torch.sort(flat_expert, stable=True).indices
-    se, st = flat_expert[order], flat_token[order]
-    counts = expert_counts(flat_expert, e)
-    expert_start = torch.cumsum(counts, 0) - counts
-    pos_in_expert = torch.arange(n, device=dev) - expert_start[se]
-    keep = pos_in_expert < capacity
-
-    # ---- gather tokens into the (E, C, d) expert batch --------------------
-    slot = torch.where(keep, se * capacity + pos_in_expert, e * capacity)
-    token_for_slot = torch.zeros(e * capacity + 1, dtype=torch.long,
+    slot = torch.where(mine, (flat_expert - e0) * capacity + pos,
+                       e_local * capacity)
+    token_for_slot = torch.zeros(e_local * capacity + 1, dtype=torch.long,
                                  device=dev)
-    token_for_slot[slot] = st
-    slot_filled = torch.zeros(e * capacity + 1, dtype=x.dtype, device=dev)
+    token_for_slot[slot] = flat_token
+    slot_filled = torch.zeros(e_local * capacity + 1, dtype=x.dtype,
+                              device=dev)
     slot_filled[slot] = 1.0
-    expert_in = tokens[token_for_slot[:-1]] * slot_filled[:-1, None]
-    expert_in = expert_in.reshape(e, capacity, d)
+    expert_in = shd.copy_to(tokens, model)[token_for_slot[:-1]] \
+        * slot_filled[:-1, None]
+    expert_in = expert_in.reshape(e_local, capacity, d)
 
     # ---- expert FFNs -------------------------------------------------------
     act = ACTIVATIONS[activation]
     gate = act(torch.bmm(expert_in, params["wi_gate"]))
     up = torch.bmm(expert_in, params["wi_up"])
-    expert_out = torch.bmm(gate * up, params["wo"]).reshape(e * capacity, d)
+    expert_out = torch.bmm(gate * up, params["wo"]).reshape(
+        e_local * capacity, d)
 
     # ---- combine back, in (token, k) order ---------------------------------
-    inverse = torch.empty_like(order)
-    inverse[order] = torch.arange(n, device=dev)
-    slot_tk, keep_tk = slot[inverse], keep[inverse]
-    contrib = expert_out[torch.clamp(slot_tk, max=e * capacity - 1)]
-    weight = gate_vals.reshape(-1) * keep_tk.to(torch.float32)
+    contrib = expert_out[torch.clamp(slot, max=e_local * capacity - 1)]
+    weight = shd.copy_to(gate_vals, model).reshape(-1) \
+        * mine.to(torch.float32)
     contrib = contrib * weight[:, None].to(contrib.dtype)
     out = contrib.reshape(t, top_k, d).sum(dim=1)
-    out = out.reshape(b, s, d).to(x.dtype)
+    out = shd.reduce_from(out, model).reshape(b, s, d).to(x.dtype)
 
     # ---- aux: Switch-style load-balance loss -------------------------------
-    frac_tokens = counts.to(torch.float32) / n
-    frac_probs = probs.mean(dim=0)
+    frac_tokens = counts.to(torch.float32) / n_g
+    frac_probs = probs.mean(dim=0) if n_g == n else probs.sum(dim=0) / t_g
     lb_loss = e * torch.sum(frac_tokens * frac_probs)
-    dropped = torch.sum(~keep).to(torch.float32) / n
+    dropped = torch.sum(counts - torch.clamp(counts, max=capacity)).to(
+        torch.float32) / n_g
     return out, {"lb_loss": lb_loss, "dropped_frac": dropped}

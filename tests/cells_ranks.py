@@ -44,12 +44,13 @@ def rank_main(rank: int, store_path: str, out_dir: str, world: int,
         dist.destroy_process_group()
 
 
-def run_ranks(nprocs: int, args: tuple, deadline_s: float) -> None:
-    """``rank_main`` on ``nprocs`` spawned ranks, joined by
-    ``deadline_s``; a rank's failure, or the deadline, kills the rest and
-    fails."""
-    ctx = mp.start_processes(rank_main, args=args, nprocs=nprocs,
-                             join=False, start_method="spawn")
+def run_ranks(nprocs: int, args: tuple, deadline_s: float,
+              fn=rank_main) -> None:
+    """``fn`` (default ``rank_main``) on ``nprocs`` spawned ranks, joined
+    by ``deadline_s``; a rank's failure, or the deadline, kills the rest
+    and fails."""
+    ctx = mp.start_processes(fn, args=args, nprocs=nprocs, join=False,
+                             start_method="spawn")
     end = time.monotonic() + deadline_s
     try:
         while not ctx.join(timeout=max(end - time.monotonic(), 0.0)):

@@ -164,7 +164,7 @@ def test_abstract_inputs_equal_the_references(grid, arch, shape):
 
 def test_non_dyngnn_cells_take_one_rank(grid):
     wide = Grid(2, 1, 0, None, None)
-    with pytest.raises(ValueError, match="item 9d-2"):
+    with pytest.raises(ValueError, match="item 9d-2b"):
         steps.build_cell("din", "serve_p99", wide, device="cpu")
     steps.build_cell("din", "serve_p99", None, device="cpu")
     with pytest.raises(ValueError, match="process group"):

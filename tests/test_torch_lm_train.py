@@ -224,9 +224,9 @@ def test_launcher_refuses_dyngnn_flags_and_ranks(monkeypatch, capsys):
         launch_train.main(["--arch", "yi-6b", "--device", "cpu",
                            "--ckpt-dir", "x", "--steps", "1"])
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(SystemExit, match="Queue 1, item 9d"):
+    with pytest.raises(SystemExit, match="does not divide the 2 processes"):
         launch_train.main(["--arch", "olmoe-1b-7b", "--device", "cpu",
-                           "--steps", "1"])
+                           "--data-parallel", "3", "--steps", "1"])
     monkeypatch.delenv("WORLD_SIZE")
     capsys.readouterr()
     launch_train.main(["--arch", "din", "--device", "cpu", "--steps", "2"])

@@ -163,7 +163,7 @@ def test_launcher_refusals(monkeypatch):
         launch_train.main(["--arch", "din", "--device", "cpu", "--stream",
                            "--steps", "1"])
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(SystemExit, match="Queue 1, item 9d"):
+    with pytest.raises(SystemExit, match="Queue 1, item 9d-2b"):
         launch_train.main(["--arch", "din", "--device", "cpu", "--steps",
                            "1"])
     monkeypatch.delenv("WORLD_SIZE")
