@@ -351,7 +351,23 @@ which exits non-zero on failure:
    cells with the smallest grid of H100s for each one card cannot hold.
    (The P = 1 check runs in the cells group: each LM cell it steps, built
    over the one-rank NCCL grid, equals the same cell built for no grid,
-   bit for bit.)
+   bit for bit.)  Then the same four ranks run the static GNN and DIN
+   cells at their full configs and widths (``RANKS_STATIC_CELLS``): the
+   four archs' full graphs split by edge lanes over data with node rows a
+   rank's (GatedGCN, PNA and EquiformerV2 at ``full_graph_sm``, SchNet at
+   ``ogb_products`` with its 2,449,029 nodes and 2,000,000 of its
+   edges), EquiformerV2's ``minibatch_lg`` (192 seeds) and SchNet's
+   ``molecule`` one replica a data rank, DIN's ``train_batch`` (65,536),
+   ``serve_p99`` and ``retrieval_cand`` (1,000,000 candidates, 500,000 a
+   data rank, in chunks of 32,768) with the tables split over model;
+   each first at 1 x 1 over the one-rank NCCL group (DIN's serve step
+   also built for no grid, bit for bit), then on the ranks, GatedGCN,
+   PNA and SchNet in float64 (``RANKS_STATIC_F64``: the card's atomics
+   move their f32 steps past the limit run to run), every leaf gathered
+   and held within 1e-4 x its max at 1 x 1, no kernel launched; each
+   rank's peak beside the per-rank reckoning, the step's seconds and the
+   ``dp.*`` / ``gnn.*`` / ``tp.*`` bytes printed; then ``launch.dryrun
+   --grid 2x2`` over the GNN, DIN and dyngnn cells.
 
 Tolerances: the dyngnn cell card against CPU 1e-2 (its bf16 payloads,
 ``tests/test_torch_cells.py``'s); segment SpMM 1e-4 (abs and rel; fp32
@@ -370,7 +386,8 @@ LM logits and ``moe_apply`` outputs 1e-4 (abs and rel; fp32 sums of
 4,096- and 11,008-long products taken in another order, TF32 off); MoE
 training gradients 1e-4 x each leaf's max; GNN and DIN losses 1e-4
 relative and gradients 1e-4 x each leaf's max; DIN logits and retrieval
-scores 1e-4 (abs and rel).
+scores 1e-4 (abs and rel); the GNN and DIN cells over ranks against 1 x
+1, 1e-4 x each leaf's max (``TOL_RANKS_STATIC``).
 Kernel times are device time only (each call queued behind a device
 sleep); ``wrapper_ms`` is the wrapper's host time plus device time.
 
@@ -398,6 +415,7 @@ from __future__ import annotations
 
 import atexit
 import dataclasses
+import functools
 import gc
 import json
 import os
@@ -5920,6 +5938,46 @@ FD_LSE_CASES = [
     ("long_500k slice, empty", 1, 32, 4, 128, 131072, [0]),
 ]
 TOL_LSE = 1e-4              # abs + rel: fp32 sums of the same products
+#: the static-GNN and DIN cells the ranks group runs over the same 2 x 2
+#: grid at their full configs and widths, each held to 1 x 1 on the card
+#: (f32; only the order of the sums differs): (arch, shape, shape
+#: override).  Four ranks share the card, so SchNet's ogb_products keeps
+#: its 2,449,029 nodes (one padding row at 2 data ranks), 100 features,
+#: widths and depth with its edges cut from 61,859,140 to 2,000,000 (the
+#: host moves each gathered (N, 64) tensor through gloo); EquiformerV2's
+#: minibatch_lg has its 1,024 seeds cut to 192 (a rank's replica of 512
+#: reckons 69.2 GB with the reserve, four do not fit; of 96, 15.3 GB);
+#: the rest keep their registry shapes (DIN's retrieval 1,000,000
+#: candidates, 500,000 a data rank, in chunks of RANKS_RETRIEVAL_CHUNK)
+RANKS_STATIC_CELLS = (
+    ("gatedgcn", "full_graph_sm", None),
+    ("pna", "full_graph_sm", None),
+    ("schnet", "ogb_products", {"n_edges": 2_000_000}),
+    ("equiformer-v2", "full_graph_sm", None),
+    ("equiformer-v2", "minibatch_lg", {"batch_nodes": 192}),
+    ("schnet", "molecule", None),
+    ("din", "train_batch", None),
+    ("din", "serve_p99", None),
+    ("din", "retrieval_cand", None),
+)
+#: candidates a rank scores at a time on the shared card (131,072 a chunk
+#: holds 19.5 GB of features: four ranks at once would not fit)
+RANKS_RETRIEVAL_CHUNK = 32_768
+#: each leaf of a GNN or DIN cell within this x its max at 1 x 1 (the side
+#: workloads' limit)
+TOL_RANKS_STATIC = 1e-4
+#: the archs whose ranks and 1 x 1 run step in float64 (parameters, graph
+#: tensors and the steps; AdamW's state stays fp32): in f32 the card's
+#: index_add and scatter atomics sum in another order each run, and two
+#: identical 1 x 1 steps of GatedGCN's 16 layers differ by 1.27e-3 of an
+#: m leaf's max and 2.88e-3 of a leaf that starts at zero (one Adam
+#: update, lr g / (|g| + 1e-8), decided by g's last bits where |g| is
+#: near 1e-8; scripts/gnn_step_spread.py on an H100 80GB HBM3 at 700 W),
+#: PNA's std and SchNet's zero-started biases past 1e-4 too, so no
+#: re-ordered step can be held to TOL_RANKS_STATIC in f32; in f64 the
+#: order moves nothing the check can see and a layout fault still shows.
+#: EquiformerV2 (f32 SO(3) tables) and DIN stay f32: within it as they are
+RANKS_STATIC_F64 = ("gatedgcn", "pna", "schnet")
 
 
 def ranks_cell(steps, arch: str, shape: str, over, layers: int, grid,
@@ -5987,41 +6045,54 @@ def ranks_kind(path: str) -> str:
 
 
 def _ranks_rank(rank: int, src: str, store: str, q_out, q_go) -> None:
-    """A rank of the 2 x 2 grid on cuda:0: each of ``RANKS_CELLS`` when the
-    main process says go, its outputs' shares handed over as CUDA tensors
-    (IPC, no copy) with its launches, peak and seconds; it holds them
-    until the main process has read them."""
+    """A rank of the 2 x 2 grid on cuda:0: each of ``RANKS_CELLS``, then
+    each of ``RANKS_STATIC_CELLS``, when the main process says go, its
+    outputs' shares handed over as CUDA tensors (IPC, no copy) with its
+    launches, peak, seconds and collective bytes (``obs`` counters); it
+    holds them until the main process has read them."""
     torch, dist = _rank_setup(rank, src, store, 4)
     torch.set_num_threads(RANKS_THREADS)
     from repro_torch import kernels as kmod
+    from repro_torch import obs
     from repro_torch.kernels.build import reset_counts
     from repro_torch.launch import mesh, steps
 
+    steps.RETRIEVAL_CHUNK = RANKS_RETRIEVAL_CHUNK
     try:
         grid = mesh.make_host_mesh(*RANKS_GRID)
-        for i, (arch, shape, over, layers) in enumerate(RANKS_CELLS):
+        todo = [functools.partial(ranks_cell, steps, arch, shape, over,
+                                  layers, grid)
+                for arch, shape, over, layers in RANKS_CELLS]
+        todo += [functools.partial(steps.build_cell, arch, shape, grid,
+                                   shape_override=over)
+                 for arch, shape, over in RANKS_STATIC_CELLS]
+        for i, make in enumerate(todo):
             if q_go[rank].get() != i:
                 raise RuntimeError(f"rank {rank}: out of step at cell {i}")
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
-            cell = ranks_cell(steps, arch, shape, over, layers, grid)
-            inputs = ranks_inputs(cell)
+            cell = make()
+            inputs = static_f64(torch, cell, ranks_inputs(cell))
             held = torch.cuda.memory_allocated()
             torch.cuda.synchronize()
             peak_inputs = torch.cuda.max_memory_allocated()
             torch.cuda.reset_peak_memory_stats()
             reset_counts(kmod.ALL)
+            before = obs.metrics_snapshot()
             t1 = time.perf_counter()
             out = ranks_run(cell, inputs)
             torch.cuda.synchronize()
             step_s = time.perf_counter() - t1
             step_peak = torch.cuda.max_memory_allocated()
+            moved = {k: v for k, v in obs.metrics().delta(before)
+                     ["counters"].items() if k.endswith("_bytes")}
             meta = {"launches": {k.name: k.launches for k in kmod.ALL},
                     "peak_bytes": max(peak_inputs, step_peak),
                     "step_peak_bytes": step_peak,
                     "input_bytes": held, "step_s": step_s,
-                    "cell_s": time.perf_counter() - t0}
+                    "cell_s": time.perf_counter() - t0,
+                    "collective_bytes": moved}
             q_out.put((rank, i, {k: v.detach() for k, v in out.items()},
                        meta))
             if q_go[rank].get() != ("done", i):
@@ -6209,6 +6280,237 @@ def lse_checks(torch, timer) -> list[dict]:
     return rows
 
 
+def ranks_exchange(i: int, name: str, procs, q_go, q_out, end: float
+                   ) -> tuple[list, list]:
+    """Tell the four ranks to run cell ``i`` and collect each rank's
+    shares and numbers; a rank's failure or the deadline fails."""
+    import queue
+
+    for q in q_go:
+        q.put(i)
+    shares, metas = [None] * 4, [None] * 4
+    while any(s is None for s in shares):
+        if time.monotonic() > end or any(
+                p.exitcode not in (None, 0) for p in procs.processes):
+            raise SystemExit(f"ranks: cell {i} ({name}): a rank failed or "
+                             "the deadline passed")
+        try:
+            r, j, out, meta = q_out.get(timeout=5)
+        except queue.Empty:
+            continue
+        if j != i:
+            raise SystemExit(f"ranks: rank {r} sent cell {j} at {i}")
+        shares[r], metas[r] = out, meta
+        del out
+    return shares, metas
+
+
+def static_reference(torch, lsteps, arch: str, shape: str, over, grid1
+                     ) -> tuple[dict, float]:
+    """One of ``RANKS_STATIC_CELLS`` at 1 x 1 on the card, over the
+    one-rank NCCL group's grid ``grid1``, on the global batch the 2 x 2
+    ranks hold (a replica cell: its R = 2 replicas stepped in this
+    process, the reference's ``vmap``; in float64 for
+    ``RANKS_STATIC_F64``) -> (its outputs by path, its step's
+    seconds)."""
+    pd = RANKS_GRID[0]
+    cell = lsteps.build_cell(arch, shape, grid1, shape_override=over)
+    if cell.kind in ("minibatch", "molecule"):
+        params, opt = cell.make_state(0)
+        seeds = lsteps.gnn_dims(cell.shape, pd)["seeds"]
+        batches = lsteps.gnn_batches(cell.shape, pd, 0, "cuda")
+        step = lsteps.gnn_train_step(arch, cell.config, cell.kind,
+                                     seeds=seeds)
+        inputs = [params, opt, batches]
+    else:
+        step, inputs = cell.step, list(cell.make_inputs(0))
+    inputs = static_f64(torch, cell, inputs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = lsteps.input_leaves(step(*inputs))
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def static_kind(path: str) -> str:
+    """The kind of an output leaf of a GNN or DIN cell: ``params``,
+    ``m``, ``v``, ``master``, ``step``, ``loss`` or (a serve step's)
+    ``output``."""
+    if path.startswith("1."):
+        return path.split(".")[1]
+    return {"0": "params", "2": "loss", "": "output"}[path.split(".")[0]]
+
+
+def static_worst(ratios: dict) -> dict:
+    worst: dict = {}
+    for path, ratio in ratios.items():
+        kind = static_kind(path)
+        worst[kind] = max(worst.get(kind, 0.0), ratio)
+    return worst
+
+
+def static_f64(torch, cell, inputs: list) -> list:
+    """A cell's inputs in float64 when its arch is in ``RANKS_STATIC_F64``
+    (a ``ParamTree`` converted in place; AdamW's state kept), else as
+    given."""
+    from repro_torch.models.gnn.common import GraphBatch
+
+    if cell.arch_id not in RANKS_STATIC_F64:
+        return inputs
+
+    def f64(x):
+        if isinstance(x, torch.nn.Module):
+            return x.double()
+        if isinstance(x, (list, tuple)):
+            return type(x)(f64(v) for v in x)
+        if isinstance(x, GraphBatch):
+            return dataclasses.replace(x, **{
+                f.name: f64(getattr(x, f.name))
+                for f in dataclasses.fields(x)
+                if isinstance(getattr(x, f.name), torch.Tensor)})
+        if isinstance(x, torch.Tensor) and x.is_floating_point():
+            return x.double()
+        return x
+
+    return [inputs[0].double(), inputs[1]] + [f64(x) for x in inputs[2:]]
+
+
+def static_compare(torch, dryrun, shd, gcell, shares: list, want: dict
+                   ) -> dict:
+    """Each output leaf of the 2 x 2 cell ``gcell`` gathered from the
+    ranks' ``shares`` (by its ``out_specs``) against the 1 x 1 run's
+    ``want``: its max |diff| within ``TOL_RANKS_STATIC`` x its max |value|
+    (integers equal) -> {path: that ratio}."""
+    name = f"{gcell.arch_id} x {gcell.shape_name}"
+    specs = (dryrun.flat_in_specs(gcell.out_specs)
+             if isinstance(gcell.out_specs[0], dict)
+             else {"": gcell.out_specs})
+    grid = shd.Grid(*RANKS_GRID, 0, None, None)
+    ratios, bad = {}, []
+    for path, w in want.items():
+        g = shd.gather_tree([{"x": sh[path]} for sh in shares],
+                            {"x": specs[path]}, grid)["x"]
+        if tuple(g.shape) != tuple(w.shape):
+            raise SystemExit(f"ranks: {name} {path} gathered "
+                             f"{tuple(g.shape)}, 1 x 1 {tuple(w.shape)}")
+        if not w.is_floating_point():
+            if not torch.equal(g, w):
+                raise SystemExit(f"ranks: {name} {path} differs from 1 x 1")
+            continue
+        ratios[path] = rel_diff(g, w)
+        if not ratios[path] <= TOL_RANKS_STATIC:
+            bad.append(f"{path} at {ratios[path]:.3e}")
+        del g
+    if bad:
+        raise SystemExit(f"ranks: {name} against 1 x 1, over "
+                         f"{TOL_RANKS_STATIC} of each leaf's max: "
+                         + "; ".join(bad))
+    return ratios
+
+
+def ranks_static(torch, lsteps, dryrun, shd, procs, q_go, q_out,
+                 end: float, total: int) -> list[dict]:
+    """The GNN and DIN cells over the 2 x 2 ranks (``RANKS_STATIC_CELLS``):
+    each first at 1 x 1 over the one-rank NCCL group (P = 1; DIN's serve
+    step also built for no grid, bit for bit), then on the ranks (both in
+    float64 for ``RANKS_STATIC_F64``), each output leaf gathered and held
+    within ``TOL_RANKS_STATIC`` x its max at 1 x 1 (integers equal); no
+    kernel launches on these paths.  Prints each rank's peak beside the
+    per-rank reckoning, the step's seconds and the collective bytes."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as lmesh
+
+    opened = not dist.is_initialized()
+    grid1 = lmesh.join_one_rank("cuda")
+    chunk, lsteps.RETRIEVAL_CHUNK = lsteps.RETRIEVAL_CHUNK, \
+        RANKS_RETRIEVAL_CHUNK
+    try:
+        return [static_cell(torch, lsteps, dryrun, shd, procs, q_go, q_out,
+                            end, total, grid1, len(RANKS_CELLS) + j, *cell)
+                for j, cell in enumerate(RANKS_STATIC_CELLS)]
+    finally:
+        lsteps.RETRIEVAL_CHUNK = chunk
+        if opened:
+            dist.destroy_process_group()
+
+
+def static_cell(torch, lsteps, dryrun, shd, procs, q_go, q_out, end: float,
+                total: int, grid1, i: int, arch: str, shape: str, over
+                ) -> dict:
+    """One of ``RANKS_STATIC_CELLS`` (cell ``i`` of the ranks): 1 x 1, the
+    ranks, the comparison and the numbers (``ranks_static``)."""
+    t0 = time.perf_counter()
+    want, ref_step_s = static_reference(torch, lsteps, arch, shape, over,
+                                        grid1)
+    p1_equal = None
+    if (arch, shape) == ("din", "serve_p99"):
+        # deterministic (gathers and GEMMs; a GNN step's index_add
+        # atomics are not): the grid code at P = 1 is the one-rank path
+        plain = lsteps.build_cell(arch, shape, None, shape_override=over)
+        again = lsteps.input_leaves(plain.step(*plain.make_inputs(0)))
+        p1_equal = all(torch.equal(again[k], w) for k, w in want.items())
+        if not p1_equal:
+            raise SystemExit(f"ranks: {arch} x {shape} over the one-rank "
+                             "NCCL grid differs from the one-rank path")
+        del plain, again
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref_s = time.perf_counter() - t0
+    shares, metas = ranks_exchange(i, f"{arch} {shape}", procs, q_go,
+                                   q_out, end)
+    grid = shd.Grid(*RANKS_GRID, 0, None, None)
+    gcell = lsteps.build_cell(arch, shape, grid, shape_override=over)
+    worst = static_worst(static_compare(torch, dryrun, shd, gcell, shares,
+                                        want))
+    del shares, want
+    for q in q_go:
+        q.put(("done", i))
+    gc.collect()
+    torch.cuda.empty_cache()
+    for m in metas:
+        if any(m["launches"].values()):
+            raise SystemExit(f"ranks: {arch} x {shape} launched "
+                             f"{m['launches']}; its path has no kernel")
+    rec = dryrun.reckon(gcell, total, grid)
+    # the reckoning is f32's: a float64 step holds about twice its bytes
+    scale = 2 if arch in RANKS_STATIC_F64 else 1
+    moved: dict = {}
+    for m in metas:
+        for k, v in m["collective_bytes"].items():
+            moved[k] = moved.get(k, 0) + v
+    run = {"arch": arch, "shape": shape, "override": over,
+           "dtype": "float64" if scale == 2 else "float32",
+           "ratios_by_kind": worst, "p1_bit_equal": p1_equal,
+           "ranks": metas, "reckoned_bytes": scale * (rec["need_bytes"]
+                                                      - rec["reserve_bytes"]),
+           "reckoned_arg_bytes": scale * rec["arg_bytes"],
+           "reference_step_s": ref_step_s, "reference_s": ref_s,
+           "collective_bytes": moved,
+           "cell_s": time.perf_counter() - t0}
+    log(f"[ranks] {arch} x {shape} ({over or 'registry shape'}, "
+        f"{run['dtype']}) on 2 x 2 gloo ranks of cuda:0 against 1 x 1 (P = 1"
+        " over NCCL"
+        + (f", = the no-grid path bit for bit: {p1_equal}"
+           if p1_equal is not None else "")
+        + "): max |diff| over each leaf's max by kind "
+        + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
+        + f" (limit {TOL_RANKS_STATIC}); peaks a rank (the inputs' draw "
+        f"included) "
+        f"{', '.join(f'{m['peak_bytes'] / 1e9:.3f}' for m in metas)}"
+        f" GB, the step's "
+        f"{', '.join(f'{m['step_peak_bytes'] / 1e9:.3f}' for m in metas)}"
+        f" GB against the reckoned {run['reckoned_bytes'] / 1e9:.3f}"
+        + (" (twice f32's)" if scale == 2 else "")
+        + f" (arguments {run['reckoned_arg_bytes'] / 1e9:.3f}); step "
+        f"{', '.join(f'{m['step_s']:.2f}' for m in metas)} s (1 x 1 "
+        f"{ref_step_s:.2f} s); collective bytes, all ranks: "
+        + ", ".join(f"{k} {v / 1e6:.1f} MB" for k, v in
+                    sorted(moved.items()))
+        + f"; cell {run['cell_s']:.1f} s")
+    return run
+
+
 def ranks_path(torch, kernels, card: str, timer) -> dict:
     """The ranks group: the LM cells over ranks on the one card.
 
@@ -6226,7 +6528,6 @@ def ranks_path(torch, kernels, card: str, timer) -> dict:
     log-sum-exp output is checked and timed (``lse_checks``); each rank's
     bytes and peak are printed beside ``launch.dryrun``'s per-rank
     reckoning, then ``launch.dryrun --grid 2x2`` over the 20 LM cells."""
-    import queue
     import tempfile
 
     import torch.multiprocessing as mp
@@ -6262,22 +6563,8 @@ def ranks_path(torch, kernels, card: str, timer) -> dict:
             gc.collect()
             torch.cuda.empty_cache()
             ref_s = time.perf_counter() - t0
-            for q in q_go:
-                q.put(i)
-            shares, metas = [None] * 4, [None] * 4
-            while any(s is None for s in shares):
-                if time.monotonic() > end or any(
-                        p.exitcode not in (None, 0) for p in procs.processes):
-                    raise SystemExit(f"ranks: cell {i} ({arch} {shape}): "
-                                     "a rank failed or the deadline passed")
-                try:
-                    r, j, out, meta = q_out.get(timeout=5)
-                except queue.Empty:
-                    continue
-                if j != i:
-                    raise SystemExit(f"ranks: rank {r} sent cell {j} at {i}")
-                shares[r], metas[r] = out, meta
-                del out
+            shares, metas = ranks_exchange(i, f"{arch} {shape}", procs,
+                                           q_go, q_out, end)
             grid_cell = ranks_cell(lsteps, arch, shape, over, layers,
                                    shd.Grid(*RANKS_GRID, 0, None, None))
             ratios = ranks_compare(torch, shd, ranks_specs(grid_cell),
@@ -6322,6 +6609,8 @@ def ranks_path(torch, kernels, card: str, timer) -> dict:
                 f"1 x 1 bf16 + fp32 {ref_s:.1f} s, cell {run['cell_s']:.1f}"
                 " s")
             runs.append(run)
+        static_runs = ranks_static(torch, lsteps, dryrun, shd, procs, q_go,
+                                   q_out, end, total)
         join_ranks(procs, "ranks", end)
     finally:
         for p in procs.processes:
@@ -6345,8 +6634,21 @@ def ranks_path(torch, kernels, card: str, timer) -> dict:
     smallest = {f"{r['one_card']['arch']} x {r['one_card']['shape']}":
                 (r["smallest"]["grid"], r["smallest"]["need_bytes"])
                 for r in grid_recs if r.get("smallest")}
-    return {"runs": runs, "lse_rows": lse_rows, "launches": launches,
-            "ranks_s": ranks_s, "smallest_grids": smallest}
+    log(f"[ranks] launch.dryrun --grid 2x2 over the GNN, DIN and dyngnn "
+        f"cells ({card}, capacity {total:,} B):")
+    static_grids = dryrun.grid_run(
+        [c for c in lsteps.all_cells()
+         if c[0] not in ("yi-6b", "gemma-7b", "minicpm-2b", "olmoe-1b-7b",
+                         "moonshot-v1-16b-a3b")], *RANKS_GRID, total, "cuda",
+        log=lambda m: log(f"[ranks]   {m}"))
+    smallest.update({
+        f"{r['one_card']['arch']} x {r['one_card']['shape']}":
+        r["smallest"] and (r["smallest"]["grid"],
+                           r["smallest"]["need_bytes"])
+        for r in static_grids if "smallest" in r})
+    return {"runs": runs, "static_runs": static_runs, "lse_rows": lse_rows,
+            "launches": launches, "ranks_s": ranks_s,
+            "smallest_grids": smallest}
 
 
 

@@ -1,15 +1,14 @@
 """Process-group rank layout: the counted all-to-alls of snapshot
-partitioning (paper §4.2, Fig. 3b) and the LM family's tensor-, expert-
-and data-parallel layouts.
+partitioning (paper §4.2, Fig. 3b) and the cells' tensor-, expert-, data-
+and edge-parallel layouts.
 
-Port of ``repro.dist.sharding`` (its DIN spec tree, ``din_param_specs``,
-waits for ROADMAP Queue 1, item 9d-2b).  The reference runs
+Port of ``repro.dist.sharding``.  The reference runs
 P devices in one process under ``shard_map`` over the mesh axis
 ``"data"``; the port runs one process per rank in a ``torch.distributed``
 process group — gloo on the CPU, NCCL on the card with rank r on
 ``cuda:r`` — and the group plays the mesh's part.  A group is
 one-dimensional, so its one axis is :data:`DATA_AXIS`.  The hybrid scheme
-(paper §6.5) and the LM cells need the reference's 2-D ``(data, model)``
+(paper §6.5) and the cells need the reference's 2-D ``(data, model)``
 mesh: a :class:`Grid` of subgroups (:func:`make_grid`) plays it.
 
 * :class:`ShardLayout` — which steps and vertices a rank owns: inside
@@ -33,14 +32,16 @@ Every all-to-all, forward or backward, adds to three ``obs`` counters:
 hands to the collective) and ``partition.a2a_remote_bytes`` (the
 (P - 1) / P of them that leave the rank).
 
-The LM layouts (the reference's ``PartitionSpec`` trees, one process a
+The cells' layouts (the reference's ``PartitionSpec`` trees, one process a
 device):
 
 * a spec is a tuple with one entry a dimension, ``None`` (replicated) or
   a tuple of axis names (split over their product, the first axis
   major), the reference's ``PartitionSpec`` with ``dp_axes`` spelled
-  out; :func:`lm_param_specs`, :func:`lm_batch_specs` and :func:`dp_axes`
-  are the reference's (a grid has no ``pod`` axis);
+  out; :func:`lm_param_specs`, :func:`lm_batch_specs`,
+  :func:`din_param_specs`, :func:`replicate_specs`,
+  :func:`opt_state_specs` and :func:`dp_axes` are the reference's (a
+  grid has no ``pod`` axis);
 * :func:`shard_tree` slices a whole tree (tensors or numpy arrays) into
   this rank's shards and :func:`gather_tree` puts the ranks' shards back
   together;
@@ -51,11 +52,19 @@ device):
   identity backward: leaving a row-parallel product), :func:`gather_from`
   (all-gather forward, this rank's slice backward) and
   :func:`vocab_embedding` (a vocab-split table's lookup: masked local
-  rows, then an all-reduce).  Each counts its calls and the bytes it hands
-  to the collective under the caller's tag (``tp.allreduce_calls``,
-  ``tp.allreduce_bytes``, ``dp.allgather_bytes``, ...); a one-rank group
-  moves nothing and counts nothing.  Sums of bf16 or fp16 partials are
-  taken in fp32.
+  rows, then an all-reduce); for the static GNNs' edge split over data,
+  :func:`sum_over` (partial per-node sums all-reduced, the gradient
+  all-reduced too: each rank reads the sum at its own edges),
+  :func:`max_over` (no gradient: ``graph.segment`` routes it to the
+  winning lanes; a min is the max of the negation), :func:`gather_rows` (row-split node
+  tensors whole: all-gather forward, reduce-scatter backward) and
+  :func:`scatter_rows` (partial per-node sums onto their owners' rows:
+  reduce-scatter forward, all-gather backward).  Each counts its calls
+  and the bytes it hands to the collective under the caller's tag
+  (``tp.allreduce_calls``, ``tp.allreduce_bytes``,
+  ``dp.allgather_bytes``, ``gnn.reducescatter_bytes``, ...); a one-rank
+  group moves nothing and counts nothing.  Sums of bf16 or fp16 partials
+  are taken in fp32.
 """
 
 from __future__ import annotations
@@ -65,6 +74,7 @@ from typing import Any
 
 import torch
 import torch.distributed as dist
+from torch import nn
 
 from repro_torch import obs
 
@@ -369,6 +379,47 @@ def lm_batch_specs(grid) -> tuple:
     return spec(dp_axes(grid), None)
 
 
+def replicate_specs(tree) -> dict | tuple:
+    """A fully replicated spec tree of ``tree``'s structure (nested dicts,
+    lists or a ``ParamTree``; a list's entries keyed ``"0"``, ``"1"``,
+    ..., as a ``ParamTree`` names them)."""
+    if isinstance(tree, nn.Module):
+        out: dict = {}
+        for name, _ in tree.named_parameters():
+            node = out
+            *parents, leaf = name.split(".")
+            for k in parents:
+                node = node.setdefault(k, {})
+            node[leaf] = spec()
+        return out
+    if isinstance(tree, dict):
+        return {k: replicate_specs(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return {str(i): replicate_specs(v) for i, v in enumerate(tree)}
+    return spec()
+
+
+def opt_state_specs(p_specs: dict) -> dict:
+    """AdamW state specs (the reference's): m / v / master mirror the
+    parameter specs, the step count replicated."""
+    return {"m": p_specs, "v": p_specs, "master": p_specs, "step": spec()}
+
+
+def din_param_specs(grid, cfg) -> dict:
+    """DIN (the reference's): the three embedding tables split by vocab
+    rows over ``model`` when the grid has more than one model rank, the
+    MLP towers replicated; the tree of ``models.din.init_params`` at
+    ``cfg``."""
+    table = spec(MODEL_AXIS, None) if grid.pm > 1 else spec(None, None)
+
+    def tower(n_layers: int) -> dict:
+        return {str(i): {"w": spec(), "b": spec()} for i in range(n_layers)}
+
+    return {"item_table": table, "cate_table": table, "user_table": table,
+            "attn_mlp": tower(len(cfg.attn_hidden) + 1),
+            "mlp": tower(len(cfg.mlp_hidden) + 1)}
+
+
 def data_rows(grid, batch: int) -> slice:
     """The reference's ``lm_activation_constrainer`` for one process a
     rank: every activation's leading (batch) dim is this rank's data
@@ -421,9 +472,20 @@ def map_specs(fn, tree, specs, path=()):
     """``fn(leaf, spec, path)`` over a tree and its spec tree (the spec
     tree's structure) -> a tree of the same structure."""
     if isinstance(specs, dict):
-        return {k: map_specs(fn, tree[k], specs[k], path + (k,))
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(map_specs(fn, tree[int(k)], specs[k],
+                                        path + (k,)) for k in specs)
+        return {k: map_specs(fn, _child(tree, k), specs[k], path + (k,))
                 for k in specs}
     return fn(tree, specs, path)
+
+
+def _child(tree, key: str):
+    """``tree[key]``; a list's (or ``nn.ModuleList``'s) entry by its
+    string index."""
+    if isinstance(tree, (list, tuple, nn.ModuleList)):
+        return tree[int(key)]
+    return tree[key]
 
 
 def shard_tree(tree, specs, grid):
@@ -463,7 +525,7 @@ def gather_tree(shards: list, specs, grid):
 
 def _leaf_at(tree, path: tuple):
     for k in path:
-        tree = tree[k]
+        tree = _child(tree, k)
     return tree
 
 
@@ -580,3 +642,79 @@ def vocab_embedding(table: torch.Tensor, ids: torch.Tensor, group,
     rows = table[torch.where(inside, local, 0)]
     rows = rows * inside[..., None].to(rows.dtype)
     return reduce_from(rows, group, tag)
+
+
+# ......................................... the GNN edge split .....
+
+def _reduce_scatter(x: torch.Tensor, group, tag: str,
+                    op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """Rows of ``x`` (P n, ...) reduced (``op``) over ``group``: this
+    rank's n rows (block ``group rank``), in ``x``'s type (summed in fp32
+    when ``x`` is bf16 or fp16)."""
+    low = x.dtype in (torch.bfloat16, torch.float16)
+    y = (x.to(torch.float32) if low else x).contiguous()
+    out = y.new_empty((y.shape[0] // _size(group),) + tuple(y.shape[1:]))
+    scatter = getattr(dist, "reduce_scatter_single", None) \
+        or dist.reduce_scatter_tensor
+    scatter(out, y, op=op, group=group)
+    _count(tag, "reducescatter", y)
+    return out.to(x.dtype) if low else out
+
+
+class _SumOver(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, tag):
+        ctx.group, ctx.tag = group, tag
+        return all_reduce(x, group, tag)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce(grad, ctx.group, ctx.tag), None, None
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, tag):
+        ctx.group, ctx.tag = group, tag
+        return all_gather_dim(x, group, 0, tag)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _reduce_scatter(grad, ctx.group, ctx.tag), None, None
+
+
+class _ScatterRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, tag):
+        ctx.group, ctx.tag = group, tag
+        return _reduce_scatter(x, group, tag)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_gather_dim(grad, ctx.group, 0, ctx.tag), None, None
+
+
+def sum_over(x: torch.Tensor, group, tag: str = "gnn") -> torch.Tensor:
+    """Partial results (each rank's edges' share) summed over ``group``,
+    every rank holding the whole sum and reading it in its own way (at its
+    own edges): the gradients the ranks hand back are summed too."""
+    return x if _size(group) == 1 else _SumOver.apply(x, group, tag)
+
+
+def max_over(x: torch.Tensor, group, tag: str = "gnn") -> torch.Tensor:
+    """The elementwise max of ``x`` over ``group`` (no gradient)."""
+    return all_reduce(x, group, tag, op=dist.ReduceOp.MAX)
+
+
+def gather_rows(x: torch.Tensor, group, tag: str = "gnn") -> torch.Tensor:
+    """Row-split node tensors (this rank's N / P rows) whole, in group-rank
+    order: all-gather forward; backward, the ranks' gradients of the whole
+    tensor summed onto each rank's rows (reduce-scatter)."""
+    return x if _size(group) == 1 else _GatherRows.apply(x, group, tag)
+
+
+def scatter_rows(x: torch.Tensor, group, tag: str = "gnn") -> torch.Tensor:
+    """Partial per-node results (N, ...) summed over ``group`` onto their
+    owners: this rank's N / P rows (reduce-scatter forward, all-gather
+    backward)."""
+    return x if _size(group) == 1 else _ScatterRows.apply(x, group, tag)

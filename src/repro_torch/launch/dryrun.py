@@ -34,16 +34,21 @@ and ``max_memory_allocated`` beside the reckoning.  Results go to ``--out``
 (default ``results/dryrun_torch``, which git ignores), one JSON file a
 cell.
 
-``--grid DxM`` reckons each LM cell per rank of a ``D x M`` grid of cards
+``--grid DxM`` reckons every cell per rank of a ``D x M`` grid of cards
 (:func:`reckon` with ``grid``): a rank's argument bytes exactly from the
 cell's specs (``in_specs``: each dimension cut by the ranks its axes
-name), its work bytes from the same terms cut as the layouts cut them
-(rows of the batch over data, heads, ``d_ff`` and the vocabulary over
-model; an MoE layer's expert batch is cut by the model axis alone, since
-its slots are the global batch's).  For every LM cell one card cannot
-hold it then prints the smallest power-of-two grid of such cards, model
-at most 8, at which every rank fits (:func:`smallest_grid`).  The other
-families keep the one-card reckoning until ROADMAP Queue 1, item 9d-2b.
+name), its work bytes from the same terms cut as the layouts cut them --
+an LM's rows of the batch over data, heads, ``d_ff`` and the vocabulary
+over model (an MoE layer's expert batch is cut by the model axis alone,
+since its slots are the global batch's); a static GNN's edge lanes and
+checkpointed node rows over data, beside the whole-graph tensors a layer
+gathers (a replica cell: one replica a data rank); DIN's rows or
+candidates over data and its tables over model; a dyngnn cell's steps of
+each block and its vertex-sharded carries over data.  For every cell one
+card cannot hold it then prints the smallest power-of-two grid of such
+cards, model at most 8, at which every rank fits (:func:`smallest_grid`;
+a GNN's model axis holds copies, so its grid is D x 1), and "fits one
+card" for the others.
 
 The dyngnn cells also get :func:`dyngnn_analytic`, the reference's
 hardware-free flops, bytes and collective bytes (copied), and a roofline
@@ -221,82 +226,117 @@ def _spec_bytes(tree: dict, specs: dict, grid) -> int:
                for k, t in steps_mod.input_leaves(tree).items())
 
 
-def _gnn_work(cell) -> dict:
+def _data_ranks(grid) -> int:
+    return 1 if grid is None else grid.pd
+
+
+def _grad_sums(cell, grid) -> int:
+    """The fp32 copies of the gradients a data column sums (none on one
+    data rank)."""
+    if _data_ranks(grid) == 1:
+        return 0
+    return 4 * sum(v // 4 for k, v in _local_leaves(cell, grid).items()
+                   if k.startswith("0."))
+
+
+def _gnn_work(cell, grid=None) -> dict:
+    """A static-GNN step's work bytes; over ``grid`` a rank's: a full
+    graph's edge lanes and checkpointed node rows over data, the node
+    tensors a layer gathers whole; a replica cell's one replica."""
     cfg, arch = cell.config, cell.arch_id
-    dims = steps_mod.gnn_dims(cell.shape)
+    pd = _data_ranks(grid)
+    dims = steps_mod.gnn_dims(cell.shape, pd)
     n, e = dims["nodes"], dims["edges"]
+    rows = n
+    if cell.kind == "full_graph":
+        rows, e = n // pd, e // pd
     npar, pb = _params(cell)
-    out = {"gradients and AdamW": _train_state_bytes(npar, pb),
-           "input layer": 2 * _f32(n, dims["d_in"])}
+    out = {"gradients and AdamW": _train_state_bytes(npar, pb)
+           + _grad_sums(cell, grid),
+           "input layer": 2 * _f32(rows, dims["d_in"])}
     if arch == "gatedgcn":
         d = cfg.d_hidden
-        out["checkpointed layer inputs"] = cfg.n_layers * _f32(n + e, d)
+        out["checkpointed layer inputs"] = cfg.n_layers * _f32(rows + e, d)
         out["layer recompute and gradients"] = 2 * _f32(8 * e + 6 * n, d)
     elif arch == "pna":
         d = cfg.d_hidden
-        out["checkpointed layer inputs"] = cfg.n_layers * _f32(n, d)
+        out["checkpointed layer inputs"] = cfg.n_layers * _f32(rows, d)
         out["layer recompute and gradients"] = 2 * _f32(3 * e + 13 * n, d)
     elif arch == "schnet":
         d = cfg.d_hidden
-        out["checkpointed layer inputs"] = cfg.n_interactions * _f32(n, d)
+        out["checkpointed layer inputs"] = cfg.n_interactions * _f32(rows, d)
         out["layer recompute and gradients"] = 2 * (
             _f32(e, cfg.n_rbf) + _f32(4 * e + 3 * n, d))
     elif arch == "equiformer-v2":
         irreps, c = (cfg.l_max + 1) ** 2, cfg.d_hidden
-        out["checkpointed layer inputs"] = cfg.n_layers * _f32(n, irreps, c)
-        out["layer recompute and gradients"] = 2 * _f32(5 * e + 3 * n,
+        out["checkpointed layer inputs"] = cfg.n_layers * _f32(rows, irreps,
+                                                               c)
+        # six (E, irreps, C) tensors: a rank's 15,840-edge replica peaked
+        # 0.56 GB over five on the H100 (chip_smoke.py's ranks group)
+        out["layer recompute and gradients"] = 2 * _f32(6 * e + 3 * n,
                                                         irreps, c)
     else:
         raise KeyError(arch)
     return out
 
 
-def _din_work(cell) -> dict:
+def _din_work(cell, grid=None) -> dict:
+    """DIN's work bytes; over ``grid`` a rank's: its rows (or candidates)
+    over data, its tables' rows over model."""
     cfg = cell.config
+    pd = _data_ranks(grid)
     p = 2 * cfg.embed_dim                      # an (item, category) pair
     per_row = 4 * p + sum(cfg.attn_hidden) + 1 + 3 * p   # floats
     if cell.kind == "retrieval":
-        rows = min(cell.shape.dims["n_candidates"],
+        rows = min(cell.shape.dims["n_candidates"] // pd,
                    steps_mod.RETRIEVAL_CHUNK) * cfg.seq_len
         return {"one chunk's features": _f32(rows, per_row)}
-    rows = cell.shape.dims["batch"] * cfg.seq_len
+    batch = cell.shape.dims["batch"]
+    rows = (batch // pd if batch >= pd else batch) * cfg.seq_len
     out = {"features and attention": _f32(rows, per_row)}
     if cell.kind == "recsys_train":
-        n, pb = _params(cell)
-        out["gradients and AdamW"] = _train_state_bytes(n, pb)
+        if grid is None:
+            n, pb = _params(cell)
+        else:
+            local = {k: v for k, v in _local_leaves(cell, grid).items()
+                     if k.startswith("0.")}
+            pb = sum(local.values())
+            n = pb // 4
+        out["gradients and AdamW"] = _train_state_bytes(n, pb) \
+            + _grad_sums(cell, grid)
         out["the features' gradient"] = _f32(rows, 4 * p)
     return out
 
 
-def _dyngnn_work(cell) -> dict:
+def _dyngnn_work(cell, grid=None) -> dict:
+    """The dyngnn step's work bytes; over ``grid`` a rank's: its steps'
+    CSR pairs, its vertices' carries, its share of a block's recompute."""
     cfg, m = cell.config, cell.meta
     n, t, e = m["nodes"], m["steps"], m["edges_per_snap"]
+    pd = _data_ranks(grid)
     nb = cfg.checkpoint_blocks
     widths = sum(dout for _, _, dout in cfg.layer_dims())
     carry = {"tmgcn": cfg.window - 1, "cdgcn": 2, "evolvegcn": 0}[cfg.model]
     scale = cfg.hidden / 6
-    return {"CSR pairs": t * 2 * (4 * (n + 1) + 8 * e),
-            "block carries": nb * carry * _f32(n, widths),
+    return {"CSR pairs": t // pd * 2 * (4 * (n + 1) + 8 * e),
+            "block carries": nb * carry * _f32(n // pd, widths),
             "one block's recompute": int(_f32(t // nb, n)
                                          * DYNGNN_BLOCK_FLOATS[cfg.model]
-                                         * scale)}
+                                         * scale) // pd}
 
 
 def work_bytes(cell, grid=None) -> dict:
-    """{term: bytes} the step holds beside its arguments at its peak (an
-    LM's on one rank of ``grid``)."""
-    if cell.family == "lm":
-        work = _lm_work(cell, grid)
-    else:
-        work = {"gnn": _gnn_work, "recsys": _din_work,
-                "dyngnn": _dyngnn_work}[cell.family](cell)
+    """{term: bytes} the step holds beside its arguments at its peak (on
+    one rank of ``grid``)."""
+    work = {"lm": _lm_work, "gnn": _gnn_work, "recsys": _din_work,
+            "dyngnn": _dyngnn_work}[cell.family](cell, grid)
     return {**work, "workspace": WORKSPACE}
 
 
 def reckon(cell, capacity: int, grid=None) -> dict:
     """The cell's argument and work bytes against ``capacity``; with
-    ``grid`` (an LM cell built over it) one rank's."""
-    if grid is not None and cell.family == "lm" and cell.layout is not None:
+    ``grid`` (the cell built over it) one rank's."""
+    if grid is not None and grid.pd * grid.pm > 1:
         args = sum(_local_leaves(cell, grid).values())
     else:
         grid = None
@@ -318,9 +358,9 @@ MAX_MODEL = 8
 
 def grid_cell(arch_id: str, shape_name: str, pd: int, pm: int,
               device: str = "cuda"):
-    """The LM cell over a ``pd x pm`` grid stand-in (no process group:
-    the specs and layout only), or None when its shapes do not split as
-    the reference's specs need."""
+    """The cell over a ``pd x pm`` grid stand-in (no process group: the
+    specs and layout only), or None when its shapes do not split as the
+    reference's specs need."""
     from repro_torch.dist.sharding import Grid
     try:
         return steps_mod.build_cell(arch_id, shape_name,
@@ -328,6 +368,11 @@ def grid_cell(arch_id: str, shape_name: str, pd: int, pm: int,
                                     device=device)
     except ValueError:
         return None
+
+
+def _stand_in(pd: int, pm: int):
+    from repro_torch.dist.sharding import Grid
+    return Grid(pd, pm, 0, None, None)
 
 
 def smallest_grid(arch_id: str, shape_name: str, capacity: int,
@@ -343,7 +388,7 @@ def smallest_grid(arch_id: str, shape_name: str, capacity: int,
         while m <= min(n, MAX_MODEL):
             cell = grid_cell(arch_id, shape_name, n // m, m, device)
             if cell is not None:
-                rec = reckon(cell, capacity, cell.layout.grid)
+                rec = reckon(cell, capacity, _stand_in(n // m, m))
                 if rec["fits"]:
                     fits.append(rec)
             m *= 2
@@ -504,9 +549,9 @@ def main(argv: list[str] | None = None) -> None:
                     help="cuda (default) or cpu: reckon without a card "
                          "(needs --capacity; no --run)")
     ap.add_argument("--grid", default=None, metavar="DxM",
-                    help="reckon each LM cell per rank of a D x M grid of "
-                         "cards, and print the smallest grid for each LM "
-                         "cell one card cannot hold")
+                    help="reckon each cell per rank of a D x M grid of "
+                         "cards, and print the smallest grid for each "
+                         "cell one card cannot hold (or 'fits one card')")
     args = ap.parse_args(argv)
     if args.all:
         cells = steps_mod.all_cells()
@@ -529,29 +574,27 @@ def main(argv: list[str] | None = None) -> None:
 def grid_run(cells: list[tuple[str, str]], pd: int, pm: int,
              capacity: int | None = None, device: str = "cuda",
              log=print) -> list[dict]:
-    """``--grid``: each LM cell reckoned per rank of ``pd x pm`` (a cell
+    """``--grid``: each cell reckoned per rank of ``pd x pm`` (a cell
     whose shapes do not split there is named and skipped), and for each
-    LM cell one card cannot hold the smallest grid that holds it; the
-    other families keep the one-card reckoning (``dry_run``)."""
+    cell one card cannot hold the smallest grid that holds it ("fits one
+    card" for the others)."""
     if capacity is None:
         capacity = torch.cuda.get_device_properties(0).total_memory
-    from repro_torch.configs import registry
     records = []
     for arch_id, shape_name in cells:
-        if registry.get_arch(arch_id).family != "lm":
-            continue
-        one = reckon(steps_mod.build_cell(arch_id, shape_name,
-                                          device=device), capacity)
+        one = reckon(grid_cell(arch_id, shape_name, 1, 1, device), capacity)
         cell = grid_cell(arch_id, shape_name, pd, pm, device)
         rec = {"one_card": one}
         if cell is None:
             log(f"{arch_id} x {shape_name}: does not split over {pd} x "
                 f"{pm}")
         else:
-            rec["at_grid"] = reckon(cell, capacity, cell.layout.grid
-                                    if cell.layout is not None else None)
+            rec["at_grid"] = reckon(cell, capacity, _stand_in(pd, pm))
             log(summary(rec["at_grid"]))
-        if not one["fits"]:
+        if one["fits"]:
+            log(f"{arch_id} x {shape_name}: fits one card "
+                f"({one['need_bytes'] / 1e9:.2f} GB)")
+        else:
             best = smallest_grid(arch_id, shape_name, capacity, device)
             rec["smallest"] = best
             log(f"{arch_id} x {shape_name}: one card needs "
@@ -562,7 +605,6 @@ def grid_run(cells: list[tuple[str, str]], pd: int, pm: int,
                    if best else "none within 4096 cards"))
         records.append(rec)
     return records
-
 
 if __name__ == "__main__":
     main()

@@ -37,22 +37,27 @@ The per-family steps the cells dispatch to:
   (``train.trainer.make_dyngnn_train_step``).  ``paper_dyngnn`` is
   ``tmgcn``'s config.
 
-A mesh is a ``dist.sharding.Grid`` (``launch.mesh.make_host_mesh``).  The
-dyngnn cell runs over its data group at any width (``make_inputs`` then
-gives the rank's share).  The LM cells run over any ``data x model`` grid
-whose shape divides as the reference's specs require: their layouts are
-the reference's spec functions, ported (:func:`lm_param_specs`,
-:func:`_lm_head_specs`, :func:`_fsdp_opt_specs`, :func:`_chunk_constrainer`,
-:func:`_lm_kv_specs`); ``in_specs`` / ``out_specs`` are the counterparts
+A mesh is a ``dist.sharding.Grid`` (``launch.mesh.make_host_mesh``).  Every
+cell runs over any ``data x model`` grid whose shape divides as the
+reference's specs require (refused otherwise, as the reference's sharding
+refuses it): its layouts are the reference's spec functions, ported
+(:func:`lm_param_specs`, :func:`_lm_head_specs`, :func:`_fsdp_opt_specs`,
+:func:`_chunk_constrainer`, :func:`_lm_kv_specs`, :func:`_din_batch_specs`,
+``dist.sharding.din_param_specs`` / ``replicate_specs`` /
+``opt_state_specs``); ``in_specs`` / ``out_specs`` are the counterparts
 of the reference's ``in_shardings`` / ``out_shardings``, ``make_inputs``
-gives this rank's share of the 1 x 1 ``make_inputs`` (drawn leaf by leaf
-and sliced, the KV cache a layer at a time, so no rank holds the whole
-tree), and the step computes this rank's part of the reference's jitted
-cell on the global batch (``models.lm.Layout``, ``optim.adamw.Zero``).  The
-GNN and recsys cells take one rank (a 1 x 1 grid, or ``None``: no process
-group) and refuse more: their layouts (the GNN edge split and replica
-cells, ``din_param_specs``' vocab-sharded tables) wait for ROADMAP Queue
-1, item 9d-2b.
+gives this rank's share of the 1 x 1 ``make_inputs`` (an LM's drawn leaf
+by leaf and sliced, the KV cache a layer at a time; a replica GNN cell's
+one replica; so no rank holds the whole tree where it is large), and the
+step computes this rank's part of the reference's jitted cell on the
+global batch: ``models.lm.Layout`` and ``optim.adamw.Zero`` for the LMs;
+the static GNNs' full graph split by edge lanes over data with node rows
+a rank's (``models.gnn.common.GraphLayout``) and their replica cells one
+replica a data rank, the gradients summed over data only; DIN's tables
+split by vocab over model (``models.din.Layout``) and its rows or
+candidates over data; the dyngnn cell's snapshot partitioning over the
+data column.  At 1 x 1 (or ``None``: no process group, the LM, GNN and
+recsys cells) a cell is its one-rank step, bit for bit.
 """
 
 from __future__ import annotations
@@ -135,17 +140,20 @@ def lm_train_step(cfg: lm.LMConfig, opt_cfg: adamw.AdamWConfig | None = None,
 # ------------------------------------------------------------- GNN -----
 
 def gnn_logits_fn(arch_id: str, cfg) -> Callable:
-    """-> ``logits(params, batch)`` of the arch at ``cfg``."""
+    """-> ``logits(params, batch, layout=None)`` of the arch at ``cfg``
+    (``layout``: a ``common.GraphLayout``, a rank's part of a full
+    graph)."""
     if arch_id == "gatedgcn":
         return gatedgcn.logits
     if arch_id == "pna":
         return pna.logits
     if arch_id == "schnet":
-        return lambda p, b: schnet.logits(p, b, cfg.cutoff)
+        return lambda p, b, layout=None: schnet.logits(p, b, cfg.cutoff,
+                                                       layout)
     if arch_id == "equiformer-v2":
-        return lambda p, b: equiformer_v2.logits(
-            p, b, l_max=cfg.l_max, m_max=cfg.m_max, n_heads=cfg.n_heads,
-            n_rbf=cfg.n_rbf, cutoff=cfg.cutoff)
+        return lambda p, b, layout=None: equiformer_v2.logits(
+            p, b, layout, l_max=cfg.l_max, m_max=cfg.m_max,
+            n_heads=cfg.n_heads, n_rbf=cfg.n_rbf, cutoff=cfg.cutoff)
     raise KeyError(arch_id)
 
 
@@ -206,16 +214,20 @@ def gnn_dims(shape: ShapeSpec, replicas: int = 1) -> dict:
     raise KeyError(shape.kind)
 
 
-def gnn_batch_arrays(shape: ShapeSpec, replicas: int = 1, seed: int = 0
-                     ) -> list[dict]:
-    """Concrete inputs at ``shape``'s dims, one dict of numpy arrays per
-    replica (the ``GraphBatch`` fields), from ``default_rng(seed + r)``:
+def gnn_replica_arrays(shape: ShapeSpec, replicas: int = 1, seed: int = 0,
+                       replica: int = 0) -> dict:
+    """Replica ``replica``'s inputs of a cell over ``replicas`` data ranks
+    (for a full graph, its one graph), as numpy arrays: the
+    ``GraphBatch`` fields, drawn from ``default_rng(seed + replica)``:
 
     * ``molecule``: the reference's ``batch_molecules`` (graphs of the
       shape's nodes and edges, no self-loops, positions in [0, 5)^3);
-    * ``full_graph``: ``n_edges`` random (src, dst) pairs without
-      self-loops, the edge lanes rounded up to 128 as the cell does, each
-      padding lane (0, 1) with mask 0; labels in [0, num_classes);
+    * ``full_graph``: ``n_edges`` random (src, dst) pairs among the
+      ``n_nodes`` nodes without self-loops, the edge lanes rounded up to
+      ``replicas x 128`` and the node rows to ``replicas`` as the cell
+      rounds them, each padding lane (0, 1) with mask 0 and each padding
+      row zero with ``node_mask`` 0 (the real rows and lanes the same at
+      every ``replicas``); labels in [0, num_classes);
     * ``minibatch``: the sampled tree of the cell's dims -- ``seeds`` seed
       rows first, then each hop's ``fanout`` children of every node of the
       hop before, one edge child -> parent each; labels on every row (the
@@ -225,43 +237,58 @@ def gnn_batch_arrays(shape: ShapeSpec, replicas: int = 1, seed: int = 0
     (the cells take them whether or not the arch reads them)."""
     dims = gnn_dims(shape, replicas)
     d = shape.dims
-    out = []
-    for r in range(replicas):
-        if shape.kind == "molecule":
-            out.append(common.molecule_arrays(
-                dims["seeds"], d["n_nodes"], d["n_edges"], d["d_feat"],
-                seed=seed + r))
-            continue
-        rng = np.random.default_rng(seed + r)
-        n, e = dims["nodes"], dims["edges"]
-        if shape.kind == "full_graph":
-            real = d["n_edges"]
-            src = rng.integers(0, n, size=real)
-            dst = (src + rng.integers(1, n, size=real)) % n
-            edges = np.zeros((e, 2), np.int32)
-            edges[:, 1] = 1
-            edges[:real] = np.stack([src, dst], axis=1)
-            emask = np.zeros((e,), np.float32)
-            emask[:real] = 1.0
-        else:
-            edges, lo, width = [], 0, dims["seeds"]
-            for f in d["fanouts"]:
-                child = lo + width + np.arange(width * f)
-                parent = lo + np.arange(width * f) // f
-                edges.append(np.stack([child, parent], axis=1))
-                lo, width = lo + width, width * f
-            edges = np.concatenate(edges).astype(np.int32)
-            emask = np.ones((e,), np.float32)
-        out.append({
-            "edges": edges, "edge_mask": emask,
-            "node_feat": rng.normal(size=(n, d["d_feat"])).astype(
-                np.float32),
-            "node_mask": np.ones((n,), np.float32),
-            "positions": rng.uniform(0, 5, size=(n, 3)).astype(np.float32),
-            "graph_id": None,
-            "labels": rng.integers(0, d["num_classes"], size=(n,)).astype(
-                np.int32)})
-    return out
+    if shape.kind == "molecule":
+        return common.molecule_arrays(dims["seeds"], d["n_nodes"],
+                                      d["n_edges"], d["d_feat"],
+                                      seed=seed + replica)
+    rng = np.random.default_rng(seed + replica)
+    n, e = dims["nodes"], dims["edges"]
+    real_n = n
+    if shape.kind == "full_graph":
+        real, real_n = d["n_edges"], d["n_nodes"]
+        src = rng.integers(0, real_n, size=real)
+        dst = (src + rng.integers(1, real_n, size=real)) % real_n
+        edges = np.zeros((e, 2), np.int32)
+        edges[:, 1] = 1
+        edges[:real] = np.stack([src, dst], axis=1)
+        emask = np.zeros((e,), np.float32)
+        emask[:real] = 1.0
+    else:
+        edges, lo, width = [], 0, dims["seeds"]
+        for f in d["fanouts"]:
+            child = lo + width + np.arange(width * f)
+            parent = lo + np.arange(width * f) // f
+            edges.append(np.stack([child, parent], axis=1))
+            lo, width = lo + width, width * f
+        edges = np.concatenate(edges).astype(np.int32)
+        emask = np.ones((e,), np.float32)
+
+    def rows(a: np.ndarray) -> np.ndarray:
+        out = np.zeros((n,) + a.shape[1:], a.dtype)
+        out[:real_n] = a
+        return out
+
+    nmask = np.zeros((n,), np.float32)
+    nmask[:real_n] = 1.0
+    return {
+        "edges": edges, "edge_mask": emask,
+        "node_feat": rows(rng.normal(size=(real_n, d["d_feat"])).astype(
+            np.float32)),
+        "node_mask": nmask,
+        "positions": rows(rng.uniform(0, 5, size=(real_n, 3)).astype(
+            np.float32)),
+        "graph_id": None,
+        "labels": rows(rng.integers(0, d["num_classes"], size=(real_n,))
+                       .astype(np.int32))}
+
+
+def gnn_batch_arrays(shape: ShapeSpec, replicas: int = 1, seed: int = 0
+                     ) -> list[dict]:
+    """Every replica's :func:`gnn_replica_arrays` (a full graph's one
+    graph, rounded for ``replicas`` data ranks)."""
+    count = 1 if shape.kind == "full_graph" else replicas
+    return [gnn_replica_arrays(shape, replicas, seed, r)
+            for r in range(count)]
 
 
 def gnn_batches(shape: ShapeSpec, replicas: int = 1, seed: int = 0,
@@ -276,15 +303,21 @@ def gnn_batches(shape: ShapeSpec, replicas: int = 1, seed: int = 0,
 
 def gnn_loss(logits_fn: Callable, kind: str, params,
              batches: Sequence[common.GraphBatch],
-             seeds: int | None = None) -> torch.Tensor:
+             seeds: int | None = None,
+             layout: common.GraphLayout | None = None,
+             replicas: int | None = None) -> torch.Tensor:
     """The cell's loss: the mean over the replica batches of the node
     loss over ``node_mask`` (``full_graph``), over the first ``seeds`` rows
-    (``minibatch``) or the graph-level loss (``molecule``)."""
+    (``minibatch``) or the graph-level loss (``molecule``).  Over a grid:
+    a full graph's ``layout`` gives this rank's rows' share of it; a
+    replica cell's ``replicas`` (the global count) gives these batches'
+    share of the mean over all of them."""
     if kind == "minibatch" and not seeds:
         raise ValueError("a minibatch loss needs its seed count")
     losses = []
     for b in batches:
-        out = logits_fn(params, b)
+        out = logits_fn(params, b) if layout is None else \
+            logits_fn(params, b, layout=layout)
         if kind == "molecule":
             losses.append(common.node_ce_loss(
                 out, b.labels, torch.ones_like(out[:, 0])))
@@ -292,20 +325,26 @@ def gnn_loss(logits_fn: Callable, kind: str, params,
             losses.append(common.node_ce_loss(
                 out[:seeds], b.labels[:seeds], b.node_mask[:seeds]))
         elif kind == "full_graph":
-            losses.append(common.node_ce_loss(out, b.labels, b.node_mask))
+            losses.append(common.node_ce_loss(out, b.labels, b.node_mask,
+                                              layout))
         else:
             raise KeyError(kind)
+    if replicas is not None:
+        return torch.stack(losses).sum() / replicas
     return torch.stack(losses).mean()
 
 
 def gnn_loss_and_grads(logits_fn: Callable, kind: str, params: ParamTree,
                        batches: Sequence[common.GraphBatch],
-                       seeds: int | None = None
+                       seeds: int | None = None,
+                       layout: common.GraphLayout | None = None,
+                       replicas: int | None = None
                        ) -> tuple[torch.Tensor, tuple[torch.Tensor, ...]]:
     """:func:`gnn_loss` and its gradients, in ``params.named_parameters()``
     order.  A parameter the loss does not reach (the last GatedGCN layer's
     edge norm) gets a zero gradient, as under ``jax.grad``."""
-    loss = gnn_loss(logits_fn, kind, params, batches, seeds)
+    loss = gnn_loss(logits_fn, kind, params, batches, seeds, layout,
+                    replicas)
     grads = torch.autograd.grad(loss, list(params.parameters()),
                                 allow_unused=True, materialize_grads=True)
     return loss.detach(), grads
@@ -313,21 +352,36 @@ def gnn_loss_and_grads(logits_fn: Callable, kind: str, params: ParamTree,
 
 def gnn_train_step(arch_id: str, cfg, kind: str, *,
                    seeds: int | None = None,
-                   opt_cfg: adamw.AdamWConfig | None = None) -> Callable:
+                   opt_cfg: adamw.AdamWConfig | None = None,
+                   grid: Grid | None = None) -> Callable:
     """-> ``step(params, opt_state, batches) -> (params, opt_state,
     loss)``: one AdamW step on :func:`gnn_loss` over the replica batches
     (one for a full graph).  ``params`` (a ``ParamTree``) is updated in
     place and returned; ``opt_cfg`` defaults to the reference's
-    ``AdamWConfig()``."""
+    ``AdamWConfig()``.  Over a ``grid`` of more than one rank the batches
+    are this rank's part (a full graph's edge lanes and node rows, or its
+    data rank's replica), the gradients are summed over the data column
+    (the model row holds copies) and the loss is the global one."""
     logits_fn = gnn_logits_fn(arch_id, cfg)
     opt_cfg = opt_cfg or adamw.AdamWConfig()
+    if grid is not None and grid.pd * grid.pm == 1:
+        grid = None
+    zero = None if grid is None else adamw.Zero(grid)
 
     def train_step(params: ParamTree, opt_state: dict,
                    batches: Sequence[common.GraphBatch]):
+        layout = replicas = None
+        if grid is not None and kind == "full_graph":
+            layout = common.GraphLayout(grid, grid.pd * batches[0]
+                                        .node_feat.shape[0])
+        elif grid is not None:
+            replicas = grid.pd * len(batches)
         loss, grads = gnn_loss_and_grads(logits_fn, kind, params, batches,
-                                         seeds)
+                                         seeds, layout, replicas)
         params, opt_state = adamw.apply_updates(opt_cfg, params, grads,
-                                                opt_state)
+                                                opt_state, zero)
+        if grid is not None:
+            loss = shd.all_reduce(loss, grid.data, "dp")
         return params, opt_state, loss
 
     return train_step
@@ -343,45 +397,53 @@ def din_train_state(gen: torch.Generator, cfg: din.DINConfig
     return params, adamw.init_state(params)
 
 
-def din_loss_and_grads(params: ParamTree, batch: dict, labels: torch.Tensor
+def din_loss_and_grads(params: ParamTree, batch: dict, labels: torch.Tensor,
+                       layout: din.Layout | None = None
                        ) -> tuple[torch.Tensor, tuple[torch.Tensor, ...]]:
     """``ctr_loss`` and its gradients, in ``params.named_parameters()``
-    order (the tables' gradients dense, as under ``jax.grad``)."""
-    loss = din.ctr_loss(params, batch, labels)
+    order (the tables' gradients dense, as under ``jax.grad``; over a
+    grid this rank's rows' share of both)."""
+    loss = din.ctr_loss(params, batch, labels, layout)
     return loss.detach(), torch.autograd.grad(loss, list(params.parameters()))
 
 
-def din_train_step() -> Callable:
+def din_train_step(layout: din.Layout | None = None,
+                   zero: adamw.Zero | None = None) -> Callable:
     """-> ``step(params, opt_state, batch, labels) -> (params, opt_state,
     loss)``: one AdamW step on ``ctr_loss`` under the reference's
     ``AdamWConfig()``.  ``params`` (a ``ParamTree``) is updated in place
-    and returned."""
+    and returned.  Over a grid (``layout``, ``zero``: the tables' rows
+    this rank's, the gradients summed over the data column) the loss is
+    the global one."""
     opt_cfg = adamw.AdamWConfig()
 
     def train_step(params: ParamTree, opt_state: dict, batch: dict,
                    labels: torch.Tensor):
-        loss, grads = din_loss_and_grads(params, batch, labels)
+        loss, grads = din_loss_and_grads(params, batch, labels, layout)
         params, opt_state = adamw.apply_updates(opt_cfg, params, grads,
-                                                opt_state)
+                                                opt_state, zero)
+        if layout is not None:
+            loss = shd.all_reduce(loss, layout.grid.data, "dp")
         return params, opt_state, loss
 
     return train_step
 
 
 @torch.no_grad()
-def din_serve_step(params, batch: dict) -> torch.Tensor:
+def din_serve_step(params, batch: dict, layout: din.Layout | None = None
+                   ) -> torch.Tensor:
     """The recsys serve cell: ``forward`` -> logits (B, C)."""
-    return din.forward(params, batch)
+    return din.forward(params, batch, layout)
 
 
 @torch.no_grad()
 def din_retrieval_step(params, batch: dict, cand_items: torch.Tensor,
-                       cand_cates: torch.Tensor, chunk: int | None = None
-                       ) -> torch.Tensor:
+                       cand_cates: torch.Tensor, chunk: int | None = None,
+                       layout: din.Layout | None = None) -> torch.Tensor:
     """The retrieval cell: ``score_candidates`` of one user's history
     against (N,) candidates, ``chunk`` at a time -> (N,) scores."""
     return din.score_candidates(params, batch, cand_items, cand_cates,
-                                chunk=chunk)
+                                chunk=chunk, layout=layout)
 
 
 def din_batch_arrays(cfg: din.DINConfig, shape: ShapeSpec, seed: int = 0
@@ -447,14 +509,14 @@ class Cell:
     ``make_inputs`` draws them (``None`` for a serve cell).
     ``donate`` names the inputs the step may overwrite (the reference's
     donated argnums: the port updates parameters and caches in place),
-    ``meta`` the reference's sizes.  An LM cell's ``in_specs`` /
-    ``out_specs`` are the layouts of its inputs and outputs (the
-    reference's ``in_shardings`` / ``out_shardings`` as spec trees,
-    ``dist.sharding.spec``; AdamW's ``m`` / ``v`` / ``master`` keyed by
-    parameter name); ``make_inputs`` gives this rank's share and the step
-    returns this rank's share of the outputs; ``layout`` is the cell's
-    ``models.lm.Layout`` (``None`` on one rank).  Other families have no
-    specs yet (ROADMAP Queue 1, item 9d-2b)."""
+    ``meta`` the reference's sizes.  ``in_specs`` / ``out_specs`` are the
+    layouts of its inputs and outputs (the reference's ``in_shardings`` /
+    ``out_shardings`` as spec trees, ``dist.sharding.spec``; AdamW's ``m``
+    / ``v`` / ``master`` keyed by parameter name); over a grid
+    ``make_inputs`` gives this rank's share and the step returns this
+    rank's share of the outputs; ``layout`` is the cell's rank layout
+    (``models.lm.Layout``, ``models.gnn.common.GraphLayout`` for a full
+    graph, ``models.din.Layout``; ``None`` on one rank)."""
 
     arch_id: str
     shape_name: str
@@ -636,8 +698,9 @@ def _fsdp_opt_specs(a_params, p_specs, mesh) -> dict:
 
 
 def opt_state_specs(o_specs: dict) -> dict:
-    """:func:`_fsdp_opt_specs`' tree in the port's AdamW layout (``m`` /
-    ``v`` / ``master`` keyed by parameter name)."""
+    """:func:`_fsdp_opt_specs`' (or ``dist.sharding.opt_state_specs``')
+    tree in the port's AdamW layout (``m`` / ``v`` / ``master`` keyed by
+    parameter name)."""
     return {k: (shd.flat_specs(v) if k != "step" else v)
             for k, v in o_specs.items()}
 
@@ -902,23 +965,47 @@ def _lm_prefill_cell(arch, shape: ShapeSpec, cfg, mesh, device) -> Cell:
 
 # ............................................................. GNN .....
 
-def _gnn_cell(arch, shape: ShapeSpec, cfg, device) -> Cell:
+@functools.lru_cache(maxsize=64)
+def _gnn_abstract_state(arch_id: str, cfg, d_in: int, n_cls: int) -> tuple:
+    """The arch's meta parameters and AdamW state (traced once a process
+    for each config: the dry run builds a cell at many grids)."""
+    return _abstract_train(
+        lambda g: gnn_init_params(g, arch_id, cfg, d_in, n_cls))
+
+
+def _gnn_cell(arch, shape: ShapeSpec, cfg, mesh, device) -> Cell:
     """``_gnn_full_graph_cell`` (``full_graph``: one graph, no replica
     axis) or ``_gnn_replica_cell`` (``minibatch`` / ``molecule``: a
-    leading axis of R = 1 replica batches, with graph ids)."""
+    leading axis of R replica batches, with graph ids) over ``mesh``.
+
+    A full graph's node rows and edge lanes are rounded up as the
+    reference rounds them (``gnn_dims(shape, dp)``); its edges and edge
+    mask are split over data, its node tensors by rows for EquiformerV2
+    and replicated for the others (the reference's ``node_spec``), and
+    each rank computes its rows (``common.GraphLayout``).  A replica cell
+    has R = dp replicas, one a data rank, each drawn from
+    ``default_rng(seed + r)``.  The parameters and AdamW's state are
+    replicated."""
     kind = shape.kind
-    dims = gnn_dims(shape)
+    grid = _grid(mesh)
+    dp = shd.dp_axes(grid)
+    r_count = shd.dp_size(grid)
+    dims = gnn_dims(shape, r_count)
     d_in, n_cls = dims["d_in"], dims["num_classes"]
     n, e, seeds = dims["nodes"], dims["edges"], dims["seeds"]
     full = kind == "full_graph"
     graph_level = kind == "molecule"
-    inner = gnn_train_step(arch.arch_id, cfg, kind, seeds=seeds or None)
+    over = mesh if mesh is not None and mesh.pd * mesh.pm > 1 else None
+    inner = gnn_train_step(arch.arch_id, cfg, kind, seeds=seeds or None,
+                           grid=over)
+    rows_split = arch.arch_id == "equiformer-v2"
+    node_spec = spec(dp) if rows_split else spec()
 
+    @functools.cache
     def abstract():
-        a_params, a_opt = _abstract_train(
-            lambda g: gnn_init_params(g, arch.arch_id, cfg, d_in, n_cls))
+        a_params, a_opt = _gnn_abstract_state(arch.arch_id, cfg, d_in, n_cls)
         f32, i32 = torch.float32, torch.int32
-        lead = () if full else (1,)
+        lead = () if full else (r_count,)
         lab_n = seeds if graph_level else n
         out = (a_params, a_opt, _sds(lead + (e, 2), i32),
                _sds(lead + (e,), f32), _sds(lead + (n, d_in), f32),
@@ -926,9 +1013,24 @@ def _gnn_cell(arch, shape: ShapeSpec, cfg, device) -> Cell:
                _sds(lead + (n,), f32))
         return out if full else out + (_sds(lead + (n,), i32),)
 
+    p_specs = shd.replicate_specs(abstract()[0])
+    o_specs = opt_state_specs(shd.opt_state_specs(p_specs))
+    if full:
+        batch_specs = (spec(dp, None), spec(dp)) + (node_spec,) * 4
+    else:
+        batch_specs = (spec(dp, None, None), spec(dp, None),
+                       spec(dp, None, None), spec(dp, None, None),
+                       spec(dp, None), spec(dp, None), spec(dp, None))
+
+    layout = None if over is None or not full else \
+        common.GraphLayout(over, n)
+
     def train_step(params, opt_state, edges, emask, feats, pos, labels,
                    nmask, gid=None):
         if full:
+            if layout is not None and not rows_split:
+                feats, pos, labels, nmask = (t[layout.rows] for t in
+                                             (feats, pos, labels, nmask))
             batches = [common.GraphBatch(edges, emask, feats, nmask, pos,
                                          None, 1, labels)]
         else:
@@ -945,23 +1047,33 @@ def _gnn_cell(arch, shape: ShapeSpec, cfg, device) -> Cell:
             cfg, d_in, n_cls)
 
     def make_inputs(seed: int = 0, device=device):
+        """This rank's share: a full graph's edge lanes (and node rows,
+        where split), a replica cell's one replica (at 1 x 1 the whole
+        inputs)."""
         dev = resolve_device(device)
-        a = gnn_batch_arrays(shape, 1, seed)[0]
         params, opt = make_state(seed, dev)
         keys = ["edges", "edge_mask", "node_feat", "positions", "labels",
                 "node_mask"]
-        if not full:
+        if full:
+            a = gnn_replica_arrays(shape, r_count, seed)
+            arrays = [shd.shard(a[k], sp, grid)
+                      for k, sp in zip(keys, batch_specs, strict=True)]
+        else:
+            a = gnn_replica_arrays(shape, r_count, seed, grid.data_index)
             if a["graph_id"] is None:
                 a["graph_id"] = np.zeros((n,), np.int32)
-            keys.append("graph_id")
+            arrays = [a[k][None] for k in keys + ["graph_id"]]
         return (params, opt) + tuple(
-            torch.from_numpy(a[k] if full else a[k][None]).to(dev)
-            for k in keys)
+            torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+            for x in arrays)
 
     meta = ({"edges": e, "nodes": n} if full else
-            {"replicas": 1, "edges_per_replica": e, "nodes_per_replica": n})
+            {"replicas": r_count, "edges_per_replica": e,
+             "nodes_per_replica": n})
     return Cell(arch.arch_id, shape.name, train_step, abstract, make_inputs,
-                donate=(0, 1), meta=meta, make_state=make_state)
+                donate=(0, 1), meta=meta, make_state=make_state,
+                in_specs=(p_specs, o_specs) + batch_specs,
+                out_specs=(p_specs, o_specs, spec()), layout=layout)
 
 
 # .......................................................... recsys .....
@@ -976,62 +1088,123 @@ def _din_batch_abstract(cfg: din.DINConfig, batch: int) -> dict:
             "target_cate": _sds((batch,), i32)}
 
 
-def _din_cell(arch, shape: ShapeSpec, cfg, device) -> Cell:
+def _din_batch_specs(mesh, sharded: bool) -> dict:
+    """The reference's: a request batch's rows over data, or replicated."""
+    dp = shd.dp_axes(mesh)
+    s1 = spec(dp) if sharded else spec()
+    s2 = spec(dp, None) if sharded else spec(None, None)
+    return {"user_id": s1, "hist_items": s2, "hist_cates": s2,
+            "hist_mask": s2, "target_item": s1, "target_cate": s1}
+
+
+#: DIN's embedding tables, split by vocab rows over the model axis
+DIN_TABLES = ("item_table", "cate_table", "user_table")
+
+
+def _din_cell(arch, shape: ShapeSpec, cfg, mesh, device) -> Cell:
+    """``_din_cell`` over ``mesh``: the tables split by vocab over model
+    (``din_param_specs``; AdamW's state mirrors them), a request batch's
+    rows over data when ``batch >= dp`` (a train batch's labels always),
+    a retrieval's candidates over data; the rest replicated.  A rank's
+    ``make_inputs`` is the 1 x 1 draw sliced by ``in_specs``."""
     kind = shape.kind
     batch = shape.dims.get("batch", 1)
     init = lambda g: din.init_params(g, cfg)      # noqa: E731
+    grid = _grid(mesh)
+    dp = shd.dp_axes(grid)
+    dp_n = shd.dp_size(grid)
+    over = mesh if mesh is not None and mesh.pd * mesh.pm > 1 else None
+    sharded = batch >= dp_n
+    if grid.pm > 1:
+        for name, size in (("item_vocab", cfg.item_vocab),
+                           ("cate_vocab", cfg.cate_vocab),
+                           ("user_vocab", cfg.user_vocab)):
+            _divides(name, size, grid.pm, arch.arch_id)
+    if kind == "recsys_train" or (sharded and kind != "retrieval"):
+        _divides("batch", batch, dp_n, arch.arch_id)
+    p_specs = shd.din_param_specs(grid, cfg)
+    b_specs = _din_batch_specs(grid, sharded and kind != "retrieval")
+    layout = None if over is None else din.Layout(
+        over, vocab=over.pm > 1, batch=batch)
+
+    def whole_params(dev: torch.device, seed: int) -> dict:
+        tree = init(torch.Generator(device=dev).manual_seed(seed))
+        return tree if over is None else shd.shard_tree(tree, p_specs, grid)
+
+    def batch_in(seed: int, dev: torch.device) -> dict:
+        arrays = din_batch_arrays(cfg, shape, seed)
+        specs = dict(b_specs, labels=spec(dp), cand_items=spec(dp),
+                     cand_cates=spec(dp))
+        return din.batch_to({k: shd.shard(v, specs[k], grid)
+                             for k, v in arrays.items()}, dev)
 
     if kind == "recsys_train":
+        zero = None if over is None else adamw.Zero(
+            over, frozenset(DIN_TABLES) if over.pm > 1 else frozenset())
+        o_specs = opt_state_specs(shd.opt_state_specs(p_specs))
+
         def abstract():
             return _abstract_train(init) + (_din_batch_abstract(cfg, batch),
                                             _sds((batch,), torch.int32))
 
         def make_state(seed: int = 0, device=device):
-            return din_train_state(torch.Generator(
-                device=resolve_device(device)).manual_seed(seed), cfg)
+            dev = resolve_device(device)
+            if over is None:
+                return din_train_state(torch.Generator(
+                    device=dev).manual_seed(seed), cfg)
+            params = ParamTree(whole_params(dev, seed))
+            return params, adamw.init_state(params)
 
         def make_inputs(seed: int = 0, device=device):
             dev = resolve_device(device)
-            b = din_batch(cfg, shape, seed, dev)
+            b = batch_in(seed, dev)
             labels = b.pop("labels")
             params, opt = make_state(seed, dev)
             return params, opt, b, labels
 
-        return Cell(arch.arch_id, shape.name, din_train_step(), abstract,
-                    make_inputs, donate=(0, 1), meta={"batch": batch},
-                    make_state=make_state)
-
-    def params_and_batch(seed: int, dev: torch.device):
-        b = din_batch(cfg, shape, seed, dev)
-        return init(torch.Generator(device=dev).manual_seed(seed)), b
+        return Cell(arch.arch_id, shape.name,
+                    din_train_step(layout, zero), abstract, make_inputs,
+                    donate=(0, 1), meta={"batch": batch},
+                    make_state=make_state,
+                    in_specs=(p_specs, o_specs, b_specs, spec(dp)),
+                    out_specs=(p_specs, o_specs, spec()), layout=layout)
 
     if kind == "recsys_serve":
         def make_inputs(seed: int = 0, device=device):
-            return params_and_batch(seed, resolve_device(device))
+            dev = resolve_device(device)
+            b = batch_in(seed, dev)
+            return whole_params(dev, seed), b
 
-        return Cell(arch.arch_id, shape.name, din_serve_step,
+        out_spec = spec(dp, None) if sharded else spec(None, None)
+        return Cell(arch.arch_id, shape.name,
+                    functools.partial(din_serve_step, layout=layout),
                     lambda: (abstract_tree(init),
                              _din_batch_abstract(cfg, batch)), make_inputs,
-                    meta={"batch": batch})
+                    meta={"batch": batch}, in_specs=(p_specs, b_specs),
+                    out_specs=out_spec, layout=layout)
 
     if kind != "retrieval":
         raise KeyError(kind)
     n_cand = shape.dims["n_candidates"]
+    _divides("n_candidates", n_cand, dp_n, arch.arch_id)
 
     def retrieval_step(params, batch_in, cand_items, cand_cates):
         return din_retrieval_step(params, batch_in, cand_items, cand_cates,
-                                  chunk=RETRIEVAL_CHUNK)
+                                  chunk=RETRIEVAL_CHUNK, layout=layout)
 
     def make_inputs(seed: int = 0, device=device):
-        params, b = params_and_batch(seed, resolve_device(device))
+        dev = resolve_device(device)
+        b = batch_in(seed, dev)
         items, cates = b.pop("cand_items"), b.pop("cand_cates")
-        return params, b, items, cates
+        return whole_params(dev, seed), b, items, cates
 
     i32 = torch.int32
     return Cell(arch.arch_id, shape.name, retrieval_step,
                 lambda: (abstract_tree(init), _din_batch_abstract(cfg, 1),
                          _sds((n_cand,), i32), _sds((n_cand,), i32)),
-                make_inputs, meta={"candidates": n_cand})
+                make_inputs, meta={"candidates": n_cand},
+                in_specs=(p_specs, b_specs, spec(dp), spec(dp)),
+                out_specs=spec(dp), layout=layout)
 
 
 # .......................................................... dyngnn .....
@@ -1070,7 +1243,8 @@ def dyngnn_blocks(cfg: dyn_models.DynGNNConfig, edges_per_snap: int,
 def _dyngnn_cell(arch, shape: ShapeSpec, cfg, grid, device) -> Cell:
     """The paper's workload: the snapshot-partitioned, checkpointed train
     step over ``grid``'s data group, bf16 payloads and the final layer's
-    loss fused (``trainer.make_dyngnn_train_step``)."""
+    loss fused (``trainer.make_dyngnn_train_step``, built at the first
+    step: a grid of ``None`` groups gives the specs alone)."""
     from repro_torch.train import trainer
 
     if grid is None:
@@ -1084,9 +1258,17 @@ def _dyngnn_cell(arch, shape: ShapeSpec, cfg, grid, device) -> Cell:
     nb = cfg.checkpoint_blocks
     layout = ShardLayout(grid.data_index, grid.pd, nb, t // nb, n)
     fuse = cfg.model != "evolvegcn"
-    step = trainer.make_dyngnn_train_step(
-        cfg, grid.data, adamw.AdamWConfig(), comm_dtype=torch.bfloat16,
-        fuse_final=True)
+
+    @functools.cache
+    def built():
+        return trainer.make_dyngnn_train_step(
+            cfg, grid.data, adamw.AdamWConfig(), comm_dtype=torch.bfloat16,
+            fuse_final=True)
+
+    def step(*inputs):
+        return built()(*inputs)
+
+    @functools.cache
     def abstract():
         a_params = _tree_map(_meta, dyn_models.init_params(
             torch.Generator().manual_seed(0), cfg))
@@ -1118,10 +1300,19 @@ def _dyngnn_cell(arch, shape: ShapeSpec, cfg, grid, device) -> Cell:
                                      layout.local(edges), layout.local(ew),
                                      labels))
 
+    # the reference's shardings: a rank's steps of each block, with the
+    # fused loss its vertices' labels
+    p_specs = shd.replicate_specs(abstract()[0])
+    o_specs = opt_state_specs(shd.opt_state_specs(p_specs))
+    dp = shd.dp_axes(grid)
+    blk = spec(None, dp)
     return Cell(arch.arch_id, shape.name, step, abstract, make_inputs,
                 donate=(0, 1),
                 meta={"edges_per_snap": e_pad, "nodes": n, "steps": t},
-                make_state=make_state)
+                make_state=make_state,
+                in_specs=(p_specs, o_specs, blk, blk, blk,
+                          spec(None, None, dp) if fuse else blk),
+                out_specs=(p_specs, o_specs, spec()))
 
 
 # ........................................................ dispatch .....
@@ -1146,11 +1337,6 @@ def build_cell(arch_id: str, shape_name: str, mesh=None,
     cfg = arch.make_smoke_config() if smoke else arch.make_config()
     if config_override:
         cfg = dataclasses.replace(cfg, **config_override)
-    ranks = 1 if mesh is None else mesh.pd * mesh.pm
-    if arch.family in ("gnn", "recsys") and ranks != 1:
-        raise ValueError(f"the {arch.family} cells run on one rank; "
-                         f"{arch_id} x {shape_name} over {ranks} ranks "
-                         "waits for ROADMAP Queue 1, item 9d-2b")
     if arch.family == "lm" and shape.kind == "train":
         cell = _lm_train_cell(arch, shape, cfg, mesh, device)
     elif arch.family == "lm" and shape.kind == "prefill":
@@ -1159,9 +1345,9 @@ def build_cell(arch_id: str, shape_name: str, mesh=None,
         cell = _lm_decode_cell(arch, shape, cfg, mesh, device)
     elif arch.family == "gnn" and shape.kind in ("full_graph", "minibatch",
                                                   "molecule"):
-        cell = _gnn_cell(arch, shape, cfg, device)
+        cell = _gnn_cell(arch, shape, cfg, mesh, device)
     elif arch.family == "recsys":
-        cell = _din_cell(arch, shape, cfg, device)
+        cell = _din_cell(arch, shape, cfg, mesh, device)
     elif arch.family == "dyngnn":
         cell = _dyngnn_cell(arch, shape, cfg, mesh, device)
         cfg = dataclasses.replace(cfg, num_nodes=shape.dims["n_nodes"],

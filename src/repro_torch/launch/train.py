@@ -32,15 +32,16 @@ features, 2 classes; 128 graphs of 30 nodes and 64 edges with
 loss x`` lines (every ``steps // 10``) and ``done``.  The reference's
 launcher fills the cell's abstract inputs with N(0, 0.1) draws (AdamW's
 second moment included) and its ids with 0 or 1, and its losses go NaN
-after step 0; the port's stay finite.  An LM also trains under
+after step 0; the port's stay finite.  Every family's cell also trains under
 ``torchrun``, as the reference's launcher does: ``make_host_mesh(data=dp,
-model=world // dp)`` (``--data-parallel dp``, default the world size)
-over the global smoke batch of 2 x dp sequences, each rank stepping its
-share of the cell (``launch.steps.build_cell`` over the grid), rank 0
-alone printing; in one process ``--data-parallel dp`` takes the same
-global batch on one rank.  The GNN and recsys families train in one
-process; under ``torchrun`` they are refused until ROADMAP Queue 1, item
-9d-2b::
+model=world // dp)`` (``--data-parallel dp``, default the world size),
+each rank stepping its share of the cell (``launch.steps.build_cell`` over
+the grid), rank 0 alone printing, over the reference's global smoke batch:
+2 x dp sequences for an LM, 2 x dp ``molecule`` graphs for a GNN (dp
+replicas of 2 graphs, one a data rank, replica r drawn from
+``default_rng(r)``), 16 x dp examples for ``din`` (its rows over data, its
+tables over model).  In one process ``--data-parallel dp`` takes the same
+global batch on one rank (a GNN's dp replicas, the reference's ``vmap``)::
 
     python -m repro_torch.launch.train --arch olmoe-1b-7b --steps 10 \
         --device cpu
@@ -48,7 +49,11 @@ process; under ``torchrun`` they are refused until ROADMAP Queue 1, item
         --arch olmoe-1b-7b --data-parallel 2 --steps 10 --device cpu
     python -m repro_torch.launch.train --arch equiformer-v2 --steps 3 \
         --device cpu
+    torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train \
+        --arch gatedgcn --data-parallel 2 --steps 3 --device cpu
     python -m repro_torch.launch.train --arch din --steps 10 --device cpu
+    torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train \
+        --arch din --data-parallel 2 --steps 3 --device cpu
 
 Snapshot-partitioned training runs one process per rank under
 ``torchrun``, which the launcher reads from the environment::
@@ -434,12 +439,14 @@ def _train(args, dp: int, world: int, rescale: tuple) -> None:
 
 
 LM_BATCH, LM_SEQ = 2, 128      # the reference launcher's smoke batch
-#: the reference launcher's smoke override of the ``molecule`` shape
+#: the reference launcher's smoke override of the ``molecule`` shape (its
+#: batch 2 graphs a data rank)
 GNN_SMOKE_SHAPE = {"n_nodes": 16, "n_edges": 32, "batch": 2, "d_feat": 8,
                    "num_classes": 2}
-#: the reference launcher's smoke override of the ``train_batch`` shape
+#: the reference launcher's smoke override of the ``train_batch`` shape (a
+#: data rank's examples)
 DIN_SMOKE_BATCH = 16
-#: each family's train cell and its smoke override (one rank)
+#: each family's train cell and its smoke override at one data rank
 SMOKE_SHAPE = {"lm": ("train_4k", {"seq_len": LM_SEQ,
                                    "global_batch": LM_BATCH}),
                "gnn": ("molecule", GNN_SMOKE_SHAPE),
@@ -447,20 +454,14 @@ SMOKE_SHAPE = {"lm": ("train_4k", {"seq_len": LM_SEQ,
 
 
 def _one_process(args, family: str, world: int, dp: int) -> None:
-    """Refuse what the lm, gnn and recsys families do not take: a GNN or
-    recsys arch over ranks, an LM grid the world does not fill, and the
-    dyngnn schedules' flags (``--data-parallel`` sets an LM's grid and
-    batch)."""
-    if world > 1 and family != "lm":
-        raise SystemExit(f"{family.upper()} training runs in one process: "
-                         f"training over {world} ranks waits for ROADMAP "
-                         "Queue 1, item 9d-2b")
-    if family == "lm" and world > 1 and world % dp:
+    """Refuse what the lm, gnn and recsys families do not take: a grid
+    the world does not fill, and the dyngnn schedules' flags
+    (``--data-parallel`` sets the grid and the global batch)."""
+    if world > 1 and world % dp:
         raise SystemExit(f"--data-parallel {dp} does not divide the "
                          f"{world} processes into a data x model grid")
     flags = {"--stream": args.stream, "--sampled": args.sampled,
              "--mesh": args.mesh,
-             "--data-parallel": args.data_parallel and family != "lm",
              "--ckpt-dir": args.ckpt_dir,
              "--device-budget": args.device_budget,
              "--pipeline-rounds": args.pipeline_rounds,
@@ -470,18 +471,29 @@ def _one_process(args, family: str, world: int, dp: int) -> None:
     if given:
         raise SystemExit(f"{', '.join(given)} configure the dyngnn "
                          f"schedules; the {family} family trains one step "
-                         "at a time on one device")
+                         "at a time")
+
+
+def _global_batch(family: str, override: dict, dp: int) -> dict:
+    """A family's smoke override at ``dp`` data ranks (the reference
+    launcher's: the batch grows with dp)."""
+    if family == "lm":
+        return dict(override, global_batch=LM_BATCH * dp)
+    if family == "gnn":
+        return dict(override, batch=GNN_SMOKE_SHAPE["batch"] * dp)
+    return dict(override, batch=DIN_SMOKE_BATCH * dp)
 
 
 def _train_cell(args, arch, world: int, dp: int) -> None:
     """``--steps`` steps of the family's train cell (``train_4k``,
     ``molecule`` or ``train_batch``; with the smoke config at the
-    reference launcher's smoke override, as an LM's always is) from
-    ``make_inputs(0)``; an LM takes the reference's smoke batch of 2 x dp
-    sequences in place of the cell's tokens (module docstring), over a
-    ``dp x world / dp`` grid under ``torchrun``.  Each step is a fenced
-    ``train.step`` span; (rank 0) prints ``step i loss x`` (every
-    ``steps // 10``) and ``done``."""
+    reference launcher's smoke override at dp data ranks, as an LM's
+    always is) from ``make_inputs(0)``; an LM takes the reference's smoke
+    batch of 2 x dp sequences in place of the cell's tokens (module
+    docstring), over a ``dp x world / dp`` grid under ``torchrun``; in one
+    process a GNN with ``--data-parallel dp`` steps dp replicas at once.
+    Each step is a fenced ``train.step`` span; (rank 0) prints ``step i
+    loss x`` (every ``steps // 10``) and ``done``."""
     _one_process(args, arch.family, world, dp)
     import numpy as np
     import torch
@@ -492,20 +504,20 @@ def _train_cell(args, arch, world: int, dp: int) -> None:
 
     dev = resolve_device(args.device)
     shape_name, override = SMOKE_SHAPE[arch.family]
+    override = _global_batch(arch.family, override, dp)
     if args.full_config and arch.family != "lm":
         override = None
     grid = None
-    if arch.family == "lm":
-        override = dict(override, global_batch=LM_BATCH * dp)
-        if world > 1:
-            _join_group(args.device, world)
-            grid = mesh.make_host_mesh(dp, world // dp)
-            if dev.type == "cuda":
-                dev = torch.device("cuda", torch.cuda.current_device())
+    if world > 1:
+        _join_group(args.device, world)
+        grid = mesh.make_host_mesh(dp, world // dp)
+        if dev.type == "cuda":
+            dev = torch.device("cuda", torch.cuda.current_device())
     cell = steps.build_cell(args.arch, shape_name, grid,
                             smoke=not args.full_config,
                             shape_override=override, device=dev)
     inputs = list(cell.make_inputs(0))
+    step = cell.step
     if arch.family == "lm":
         dims = cell.shape.dims
         rng = np.random.default_rng(0)
@@ -513,11 +525,17 @@ def _train_cell(args, arch, world: int, dp: int) -> None:
             rng.integers(0, 2, (dims["global_batch"], dims["seq_len"])),
             cell.in_specs[2], grid or shd.Grid(1, 1, 0, None, None)),
             dtype=torch.int32, device=dev) for _ in range(2)]
+    elif arch.family == "gnn" and grid is None and dp > 1:
+        # the dp replicas the ranks would hold, stepped on one rank
+        seeds = steps.gnn_dims(cell.shape, dp)["seeds"]
+        inputs[2:] = [steps.gnn_batches(cell.shape, dp, 0, dev)]
+        step = steps.gnn_train_step(args.arch, cell.config, cell.kind,
+                                    seeds=seeds)
     params, opt_state, *batch = inputs
     speak = grid is None or grid.rank == 0
     for i in range(args.steps):
         with obs.span("train.step", cat="train", step=i) as sp:
-            params, opt_state, loss = cell.step(params, opt_state, *batch)
+            params, opt_state, loss = step(params, opt_state, *batch)
             sp.fence(loss)
         if i % max(args.steps // 10, 1) == 0 and speak:
             print(f"step {i} loss {float(loss):.4f}")

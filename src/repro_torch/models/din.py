@@ -20,18 +20,28 @@ then concat(user emb, pooled interest, target emb) -> MLP -> CTR logit.
 ``score_candidates`` serves the retrieval_cand shape: one user history
 scored against N candidates by broadcasting the user tensors.  Its
 ``chunk`` scores the candidates that many at a time (the reference splits
-them over its data-parallel devices instead; one card cannot hold the
-(N, L, 4P) features of N = 1,000,000).
+them over its data-parallel devices; one card cannot hold the (N, L, 4P)
+features of N = 1,000,000, so a rank scores its candidates in chunks
+too).
+
+Over a grid (:class:`Layout`: the reference's cell with
+``din_param_specs``) the three tables are split by vocab rows over the
+grid's model row and every lookup is ``dist.sharding.vocab_embedding``
+(the rank's rows, then a sum over the row); a rank's batch rows are its
+data rank's, and ``ctr_loss`` is its rows' share of the mean over the
+global batch.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Any
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist import sharding as shd
 from repro_torch.nn.embedding import embedding_lookup, init_table
 from repro_torch.nn.layers import init_mlp, mlp_apply
 
@@ -47,6 +57,25 @@ class DINConfig:
     cate_vocab: int = 10_000
     user_vocab: int = 1_000_000
     num_classes: int = 2
+
+
+@dataclass(frozen=True)
+class Layout:
+    """A rank's part of DIN over ``grid``: ``vocab`` the tables split by
+    rows over the model row (this rank's rows from ``model_index x`` its
+    rows), ``batch`` the global batch ``ctr_loss`` averages over."""
+
+    grid: Any
+    vocab: bool = False
+    batch: int = 0
+
+
+def _lookup(table: torch.Tensor, ids: torch.Tensor,
+            layout: Layout | None) -> torch.Tensor:
+    if layout is None or not layout.vocab:
+        return embedding_lookup(table, ids)
+    return shd.vocab_embedding(table, ids, layout.grid.model,
+                               layout.grid.model_index * table.shape[0])
 
 
 def init_params(gen: torch.Generator, cfg: DINConfig,
@@ -68,10 +97,10 @@ def init_params(gen: torch.Generator, cfg: DINConfig,
     }
 
 
-def _pair_embed(params, item_ids: torch.Tensor, cate_ids: torch.Tensor
-                ) -> torch.Tensor:
-    it = embedding_lookup(params["item_table"], item_ids)
-    ct = embedding_lookup(params["cate_table"], cate_ids)
+def _pair_embed(params, item_ids: torch.Tensor, cate_ids: torch.Tensor,
+                layout: Layout | None = None) -> torch.Tensor:
+    it = _lookup(params["item_table"], item_ids, layout)
+    ct = _lookup(params["cate_table"], cate_ids, layout)
     return torch.cat([it, ct], dim=-1)
 
 
@@ -85,28 +114,36 @@ def target_attention(params, hist: torch.Tensor, hist_mask: torch.Tensor,
     return torch.einsum("bl,blp->bp", scores, hist)
 
 
-def forward(params, batch: dict) -> torch.Tensor:
+def forward(params, batch: dict, layout: Layout | None = None
+            ) -> torch.Tensor:
     """batch: user_id (B,), hist_items/hist_cates (B, L), hist_mask (B, L),
     target_item/target_cate (B,) -> logits (B, C)."""
-    hist = _pair_embed(params, batch["hist_items"], batch["hist_cates"])
-    target = _pair_embed(params, batch["target_item"], batch["target_cate"])
-    user = embedding_lookup(params["user_table"], batch["user_id"])
+    hist = _pair_embed(params, batch["hist_items"], batch["hist_cates"],
+                       layout)
+    target = _pair_embed(params, batch["target_item"], batch["target_cate"],
+                         layout)
+    user = _lookup(params["user_table"], batch["user_id"], layout)
     interest = target_attention(params, hist, batch["hist_mask"], target)
     x = torch.cat([user, interest, target], dim=-1)
     return mlp_apply(params["mlp"], x, activation="relu")
 
 
-def ctr_loss(params, batch: dict, labels: torch.Tensor) -> torch.Tensor:
-    """Mean negative log-likelihood of ``labels`` (B,) under the logits."""
-    logits = forward(params, batch)
+def ctr_loss(params, batch: dict, labels: torch.Tensor,
+             layout: Layout | None = None) -> torch.Tensor:
+    """Mean negative log-likelihood of ``labels`` (B,) under the logits
+    (with ``layout``: these rows' share of the mean over
+    ``layout.batch``)."""
+    logits = forward(params, batch, layout)
     logp = F.log_softmax(logits.to(torch.float32), dim=-1)
     nll = -torch.gather(logp, -1, labels.long()[..., None])[..., 0]
+    if layout is not None:
+        return torch.sum(nll) / layout.batch
     return torch.mean(nll)
 
 
 def score_candidates(params, batch: dict, cand_items: torch.Tensor,
-                     cand_cates: torch.Tensor, chunk: int | None = None
-                     ) -> torch.Tensor:
+                     cand_cates: torch.Tensor, chunk: int | None = None,
+                     layout: Layout | None = None) -> torch.Tensor:
     """Retrieval scoring: ONE user vs N candidates (retrieval_cand shape).
 
     batch: single-user history (1, L); cand_*: (N,).  The history embedding
@@ -117,13 +154,14 @@ def score_candidates(params, batch: dict, cand_items: torch.Tensor,
     call.  Run it under ``torch.no_grad()`` to free each chunk's
     intermediates before the next.
     """
-    hist = _pair_embed(params, batch["hist_items"], batch["hist_cates"])
+    hist = _pair_embed(params, batch["hist_items"], batch["hist_cates"],
+                       layout)
     hist = hist[0]                                        # (L, P)
     mask = batch["hist_mask"][0]                          # (L,)
-    user = embedding_lookup(params["user_table"], batch["user_id"])[0]
+    user = _lookup(params["user_table"], batch["user_id"], layout)[0]
 
     def score(items: torch.Tensor, cates: torch.Tensor) -> torch.Tensor:
-        targets = _pair_embed(params, items, cates)       # (n, P)
+        targets = _pair_embed(params, items, cates, layout)  # (n, P)
         n = targets.shape[0]
         t = targets[:, None, :].expand(n, *hist.shape)     # (n, L, P)
         h = hist[None].expand_as(t)

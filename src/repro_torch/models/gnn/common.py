@@ -6,17 +6,24 @@ batched small graphs (disjoint union, the ``molecule`` shape).
 :class:`GraphBatch` is a plain dataclass of tensors; ``.to(device)`` moves
 it.  :func:`batch_molecules` is the reference's numpy generator, copied:
 the same seed gives the same arrays, byte for byte.
+
+:class:`GraphLayout` is how a rank of a grid holds a full graph over the
+grid's data column (the reference's full-graph cell: edges split over
+data, node tensors split by rows or replicated): the archs' ``layout``
+argument, ``None`` on one rank.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+from typing import Any
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist import sharding as shd
 from repro_torch.graph import segment
 
 
@@ -46,6 +53,36 @@ class GraphBatch:
             f.name: getattr(self, f.name).to(device)
             for f in dataclasses.fields(self)
             if isinstance(getattr(self, f.name), torch.Tensor)})
+
+
+@dataclass(frozen=True)
+class GraphLayout:
+    """A rank's part of a full graph split over ``grid``'s data column
+    (``grid.pd`` ranks): its slice of the edge lanes (global node ids) and
+    its ``num_nodes / pd`` node rows, in data-index order.  Every node-side
+    tensor an arch computes is this rank's rows; :meth:`whole` gathers
+    them before the edges read them, and the scatters hand back this
+    rank's rows of the global aggregate (``graph.segment``'s ``group`` and
+    ``rows``), so each rank's gradient is its share of the global one and
+    one sum over the data column gives every leaf's gradient once.  The
+    model axis holds copies."""
+
+    grid: Any
+    num_nodes: int
+
+    @property
+    def group(self):
+        return self.grid.data
+
+    @property
+    def rows(self) -> slice:
+        """This rank's node rows."""
+        n = self.num_nodes // self.grid.pd
+        return slice(self.grid.data_index * n, (self.grid.data_index + 1) * n)
+
+    def whole(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a node tensor -> all N rows."""
+        return shd.gather_rows(x, self.group)
 
 
 def molecule_arrays(n_graphs: int, nodes_per: int, edges_per: int,
@@ -94,7 +131,13 @@ def graph_readout(x: torch.Tensor, graph_id: torch.Tensor, num_graphs: int,
 
 
 def node_ce_loss(logits: torch.Tensor, labels: torch.Tensor,
-                 mask: torch.Tensor) -> torch.Tensor:
+                 mask: torch.Tensor, layout: GraphLayout | None = None
+                 ) -> torch.Tensor:
+    """The masked mean NLL; with ``layout`` this rank's rows' share of
+    the global one (over the global mask's count)."""
     logp = F.log_softmax(logits.to(torch.float32), dim=-1)
     nll = -torch.gather(logp, -1, labels.long()[..., None])[..., 0]
-    return torch.sum(nll * mask) / torch.clamp(mask.sum(), min=1.0)
+    count = mask.sum()
+    if layout is not None:
+        count = shd.all_reduce(count.detach(), layout.group, "gnn")
+    return torch.sum(nll * mask) / torch.clamp(count, min=1.0)

@@ -18,7 +18,11 @@ Port of ``repro.models.gnn.equiformer_v2``, with its simplifications (an
 RMS-style norm, attention logits from input invariants, no S2-grid
 activation).  Each layer is checkpointed under autograd.  The per-edge
 message tensor is (E, (l_max+1)^2, C); ``edge_chunk`` is accepted and
-unused, as in the reference.
+unused, as in the reference.  With a ``layout`` (``common.GraphLayout``)
+the batch is a rank's part of a full graph, its node rows the
+reference's ``P(data)`` split: each layer gathers the normed irreps whole
+for the edges, the attention softmax is over all ranks' lanes, and the
+aggregate comes back onto the rank's rows.
 """
 
 from __future__ import annotations
@@ -29,7 +33,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.graph import segment
 from repro_torch.models.gnn import so3
-from repro_torch.models.gnn.common import GraphBatch, graph_readout
+from repro_torch.models.gnn.common import (GraphBatch, GraphLayout,
+                                           graph_readout)
 from repro_torch.models.gnn.schnet import rbf_expand
 from repro_torch.nn.layers import init_dense, normal
 
@@ -136,16 +141,20 @@ def _so2_conv(so2, feats: torch.Tensor, rbf: torch.Tensor, l_max: int,
 
 def forward(params, batch: GraphBatch, *, l_max: int = 6, m_max: int = 2,
             n_heads: int = 8, n_rbf: int = 16, cutoff: float = 10.0,
-            edge_chunk: int | None = None) -> torch.Tensor:  # noqa: ARG001
+            edge_chunk: int | None = None,  # noqa: ARG001
+            layout: GraphLayout | None = None) -> torch.Tensor:
     """Returns invariant (l=0) node features (N, C)."""
     emask = batch.edge_mask
-    n = batch.node_feat.shape[0]
+    n_rows = batch.node_feat.shape[0]
+    n = n_rows if layout is None else layout.num_nodes
+    group = None if layout is None else layout.group
     c = params["embed"].shape[1]
     dim = so3.irreps_dim(l_max)
     src, dst = batch.edges[:, 0].long(), batch.edges[:, 1].long()
 
-    vec = batch.positions.index_select(0, src) \
-        - batch.positions.index_select(0, dst)
+    pos = batch.positions if layout is None else \
+        layout.whole(batch.positions)
+    vec = pos.index_select(0, src) - pos.index_select(0, dst)
     dist = torch.sqrt(torch.sum(vec * vec, dim=-1) + 1e-12)
     # Degenerate (zero-length) edges have no edge frame -- mask them out.
     emask = emask * (dist > 1e-6).to(emask.dtype)
@@ -154,20 +163,22 @@ def forward(params, batch: GraphBatch, *, l_max: int = 6, m_max: int = 2,
                                        *so3.edge_rotation_angles(vec))
 
     # initial features: invariant l=0 channels from input node features
-    x = batch.node_feat.new_zeros((n, dim, c))
+    x = batch.node_feat.new_zeros((n_rows, dim, c))
     x[:, 0, :] = batch.node_feat @ params["embed"]
 
     ch = c // n_heads
 
     def layer_body(lp, x):
         xn = _equiv_norm(x, lp["norm_scale"], l_max)
+        if layout is not None:
+            xn = layout.whole(xn)
         # attention logits from invariant inputs + rbf (cheap tensors only)
         inv = torch.cat([xn[:, 0, :].index_select(0, dst),
                          xn[:, 0, :].index_select(0, src),
                          rbf.to(x.dtype)], dim=-1)
         att = F.silu(inv @ lp["att_w1"]) @ lp["att_w2"]      # (E, H)
         alpha = segment.scatter_softmax(att.to(torch.float32), dst, n,
-                                        emask)
+                                        emask, group)
 
         # rotate (src, dst) into the edge frame
         f_src = so3.rotate_features(xn.index_select(0, src), d_blocks,
@@ -180,7 +191,7 @@ def forward(params, batch: GraphBatch, *, l_max: int = 6, m_max: int = 2,
         # per-head attention weights, each head's over its ch channels
         w = alpha.repeat_interleave(ch, dim=-1).to(msg.dtype)  # (E, C)
         msg = msg * w[:, None, :] * emask[:, None, None].to(msg.dtype)
-        agg = segment.scatter_sum(msg, dst, n)
+        agg = segment.scatter_sum(msg, dst, n, group=group, rows=True)
         # per-l output projection + residual
         upd = [agg[:, sl, :] @ lp["proj"][l]
                for l, sl in enumerate(so3.block_slices(l_max))]
@@ -205,8 +216,9 @@ def forward(params, batch: GraphBatch, *, l_max: int = 6, m_max: int = 2,
     return x[:, 0, :]   # invariant readout
 
 
-def logits(params, batch: GraphBatch, **kw) -> torch.Tensor:
-    h = forward(params, batch, **kw)
+def logits(params, batch: GraphBatch, layout: GraphLayout | None = None,
+           **kw) -> torch.Tensor:
+    h = forward(params, batch, layout=layout, **kw)
     h = F.silu(h @ params["out1"])
     if batch.graph_id is not None:
         h = graph_readout(h, batch.graph_id, batch.num_graphs,

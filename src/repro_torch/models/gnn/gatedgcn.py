@@ -9,7 +9,9 @@
 Port of ``repro.models.gnn.gatedgcn`` (LayerNorm in place of the paper's
 BatchNorm, as there).  ``params`` is the reference's tree, as nested dicts
 or a ``ParamTree``; each layer is checkpointed under autograd
-(``torch.utils.checkpoint``, the reference's ``jax.checkpoint``).
+(``torch.utils.checkpoint``, the reference's ``jax.checkpoint``).  With a
+``layout`` (``common.GraphLayout``) the batch is a rank's part of a full
+graph: its edge lanes and its node rows.
 """
 
 from __future__ import annotations
@@ -19,7 +21,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.graph import segment
-from repro_torch.models.gnn.common import GraphBatch, graph_readout
+from repro_torch.models.gnn.common import (GraphBatch, GraphLayout,
+                                           graph_readout)
 from repro_torch.nn.layers import init_dense
 
 
@@ -43,7 +46,8 @@ def init_params(gen: torch.Generator, d_in: int, d_hidden: int,
     }
 
 
-def forward(params, batch: GraphBatch, remat: bool = True) -> torch.Tensor:
+def forward(params, batch: GraphBatch, remat: bool = True,
+            layout: GraphLayout | None = None) -> torch.Tensor:
     """Node embeddings (N, d_hidden); the caller applies ``params['out']``.
 
     ``remat``: per-layer activation checkpointing -- the (E, d) edge
@@ -51,20 +55,23 @@ def forward(params, batch: GraphBatch, remat: bool = True) -> torch.Tensor:
     worth stays live.
     """
     emask = batch.edge_mask
-    n = batch.node_feat.shape[0]
+    n = batch.node_feat.shape[0] if layout is None else layout.num_nodes
+    group = None if layout is None else layout.group
     src, dst = batch.edges[:, 0].long(), batch.edges[:, 1].long()
     h = batch.node_feat @ params["embed_h"]
     e = params["embed_e"].expand(src.shape[0], -1)
 
     def layer(lp, h, e):
         d = h.shape[-1]
-        h_src = h.index_select(0, src)
-        h_dst = h.index_select(0, dst)
+        whole = h if layout is None else layout.whole(h)
+        h_src = whole.index_select(0, src)
+        h_dst = whole.index_select(0, dst)
         e_hat = h_dst @ lp["A"] + h_src @ lp["B"] + e @ lp["C"]
         gate = torch.sigmoid(e_hat) * emask[:, None]
-        denom = segment.scatter_sum(gate, dst, n)
+        denom = segment.scatter_sum(gate, dst, n, group=group)
         eta = gate / (denom.index_select(0, dst) + 1e-6)
-        agg = segment.scatter_sum(eta * (h_src @ lp["V"]), dst, n)
+        agg = segment.scatter_sum(eta * (h_src @ lp["V"]), dst, n,
+                                  group=group, rows=True)
         h = h + F.relu(F.layer_norm(h @ lp["U"] + agg, (d,), lp["ln_h_w"],
                                     lp["ln_h_b"], 1e-5))
         e = e + F.relu(F.layer_norm(e_hat, (d,), lp["ln_e_w"],
@@ -80,8 +87,9 @@ def forward(params, batch: GraphBatch, remat: bool = True) -> torch.Tensor:
     return h
 
 
-def logits(params, batch: GraphBatch) -> torch.Tensor:
-    h = forward(params, batch)
+def logits(params, batch: GraphBatch,
+           layout: GraphLayout | None = None) -> torch.Tensor:
+    h = forward(params, batch, layout=layout)
     if batch.graph_id is not None:
         h = graph_readout(h, batch.graph_id, batch.num_graphs,
                           batch.node_mask)

@@ -9,6 +9,9 @@ delta the mean log-degree of the training graph (computed from the batch).
 Port of ``repro.models.gnn.pna``; each layer is checkpointed under
 autograd.  On a node with no in-edge S_att is huge (delta / 1e-3) and
 multiplies a zero aggregate, so the view is 0, as in the reference.
+With a ``layout`` (``common.GraphLayout``) the batch is a rank's part of
+a full graph; the degrees, ``delta`` and the four aggregators are the
+whole graph's.
 """
 
 from __future__ import annotations
@@ -18,7 +21,9 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.graph import segment
-from repro_torch.models.gnn.common import GraphBatch, graph_readout
+from repro_torch.dist import sharding as shd
+from repro_torch.models.gnn.common import (GraphBatch, GraphLayout,
+                                           graph_readout)
 from repro_torch.nn.layers import init_dense
 
 N_AGG = 4
@@ -41,29 +46,35 @@ def init_params(gen: torch.Generator, d_in: int, d_hidden: int,
     }
 
 
-def forward(params, batch: GraphBatch) -> torch.Tensor:
+def forward(params, batch: GraphBatch,
+            layout: GraphLayout | None = None) -> torch.Tensor:
     edges, emask = batch.edges, batch.edge_mask
-    n = batch.node_feat.shape[0]
+    n = batch.node_feat.shape[0] if layout is None else layout.num_nodes
+    group = None if layout is None else layout.group
     src, dst = edges[:, 0].long(), edges[:, 1].long()
-    deg = segment.in_degree(edges, n, emask)
+    deg = segment.in_degree(edges, n, emask, group=group, rows=True)
     log_deg = torch.log(deg + 1.0)
-    delta = torch.clamp(torch.sum(log_deg * batch.node_mask)
-                        / torch.clamp(batch.node_mask.sum(), min=1.0),
-                        min=1e-3)
+    weighted, count = torch.sum(log_deg * batch.node_mask), \
+        batch.node_mask.sum()
+    if layout is not None:
+        weighted = shd.all_reduce(weighted, group, "gnn")
+        count = shd.all_reduce(count, group, "gnn")
+    delta = torch.clamp(weighted / torch.clamp(count, min=1.0), min=1e-3)
     s_amp = (log_deg / delta)[:, None]
     s_att = (delta / torch.clamp(log_deg, min=1e-3))[:, None]
 
     h = batch.node_feat @ params["embed"]
 
     def layer(lp, h):
-        h_src = h.index_select(0, src)
-        h_dst = h.index_select(0, dst)
+        whole = h if layout is None else layout.whole(h)
+        h_src = whole.index_select(0, src)
+        h_dst = whole.index_select(0, dst)
         msg = F.relu(torch.cat([h_dst, h_src], -1) @ lp["pre"])
         aggs = [
-            segment.scatter_mean(msg, dst, n, emask),
-            segment.scatter_max(msg, dst, n, emask),
-            segment.scatter_min(msg, dst, n, emask),
-            segment.scatter_std(msg, dst, n, emask),
+            segment.scatter_mean(msg, dst, n, emask, group, rows=True),
+            segment.scatter_max(msg, dst, n, emask, group, rows=True),
+            segment.scatter_min(msg, dst, n, emask, group, rows=True),
+            segment.scatter_std(msg, dst, n, emask, group=group, rows=True),
         ]
         views = []
         for a in aggs:
@@ -77,8 +88,9 @@ def forward(params, batch: GraphBatch) -> torch.Tensor:
     return h
 
 
-def logits(params, batch: GraphBatch) -> torch.Tensor:
-    h = forward(params, batch)
+def logits(params, batch: GraphBatch,
+           layout: GraphLayout | None = None) -> torch.Tensor:
+    h = forward(params, batch, layout)
     if batch.graph_id is not None:
         h = graph_readout(h, batch.graph_id, batch.num_graphs,
                           batch.node_mask)

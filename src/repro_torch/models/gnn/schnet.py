@@ -8,7 +8,9 @@ cutoff 10 A.
 
 ssp = shifted softplus.  Port of ``repro.models.gnn.schnet``; each block is
 checkpointed under autograd.  ``F.softplus`` returns x above 20 where the
-reference's is exact: they differ by less than 2.1e-9.
+reference's is exact: they differ by less than 2.1e-9.  With a
+``layout`` (``common.GraphLayout``) the batch is a rank's part of a full
+graph: its edge lanes and its node rows (positions gathered whole).
 """
 
 from __future__ import annotations
@@ -20,7 +22,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.graph import segment
-from repro_torch.models.gnn.common import GraphBatch, graph_readout
+from repro_torch.models.gnn.common import (GraphBatch, GraphLayout,
+                                           graph_readout)
 from repro_torch.nn.layers import init_dense
 
 
@@ -63,12 +66,14 @@ def init_params(gen: torch.Generator, d_in: int, d_hidden: int,
     }
 
 
-def forward(params, batch: GraphBatch, cutoff: float = 10.0
-            ) -> torch.Tensor:
+def forward(params, batch: GraphBatch, cutoff: float = 10.0,
+            layout: GraphLayout | None = None) -> torch.Tensor:
     edges, emask = batch.edges, batch.edge_mask
-    n = batch.node_feat.shape[0]
+    n = batch.node_feat.shape[0] if layout is None else layout.num_nodes
+    group = None if layout is None else layout.group
     src, dst = edges[:, 0].long(), edges[:, 1].long()
-    pos = batch.positions
+    pos = batch.positions if layout is None else \
+        layout.whole(batch.positions)
     diff = pos.index_select(0, src) - pos.index_select(0, dst)
     dist = torch.sqrt(torch.sum(diff * diff, dim=-1) + 1e-12)
     n_rbf = params["blocks"][0]["filt1"].shape[0]
@@ -83,8 +88,11 @@ def forward(params, batch: GraphBatch, cutoff: float = 10.0
     def block(bp, x):
         filt = ssp(rbf @ bp["filt1"] + bp["filt1_b"])
         filt = ssp(filt @ bp["filt2"] + bp["filt2_b"]) * w_edge
-        msgs = (x @ bp["w1"]).index_select(0, src) * filt
-        m = segment.scatter_sum(msgs, dst, n)
+        xw = x @ bp["w1"]
+        if layout is not None:
+            xw = layout.whole(xw)
+        msgs = xw.index_select(0, src) * filt
+        m = segment.scatter_sum(msgs, dst, n, group=group, rows=True)
         return x + (ssp(m @ bp["w2"] + bp["w2_b"]) @ bp["w3"] + bp["w3_b"])
 
     remat = torch.is_grad_enabled()
@@ -94,9 +102,9 @@ def forward(params, batch: GraphBatch, cutoff: float = 10.0
     return x
 
 
-def logits(params, batch: GraphBatch, cutoff: float = 10.0
-           ) -> torch.Tensor:
-    h = forward(params, batch, cutoff)
+def logits(params, batch: GraphBatch, cutoff: float = 10.0,
+           layout: GraphLayout | None = None) -> torch.Tensor:
+    h = forward(params, batch, cutoff, layout)
     h = ssp(h @ params["out1"])
     if batch.graph_id is not None:
         h = graph_readout(h, batch.graph_id, batch.num_graphs,

@@ -163,9 +163,15 @@ def test_abstract_inputs_equal_the_references(grid, arch, shape):
 
 
 def test_non_dyngnn_cells_take_one_rank(grid):
-    wide = Grid(2, 1, 0, None, None)
-    with pytest.raises(ValueError, match="item 9d-2b"):
-        steps.build_cell("din", "serve_p99", wide, device="cpu")
+    """The non-dyngnn cells take one rank (``None``) or a grid whose
+    shape divides as the reference's specs need: DIN's vocab over 3 model
+    ranks is refused, over 2 data ranks its cell builds."""
+    with pytest.raises(ValueError, match="does not split over 3 ranks"):
+        steps.build_cell("din", "serve_p99", Grid(1, 3, 0, None, None),
+                         device="cpu")
+    wide = steps.build_cell("din", "serve_p99", Grid(2, 1, 0, None, None),
+                            device="cpu")
+    assert wide.out_specs == (("data",), None)
     steps.build_cell("din", "serve_p99", None, device="cpu")
     with pytest.raises(ValueError, match="process group"):
         steps.build_cell("tmgcn", "dtdg_epinions", None, device="cpu")

@@ -3,7 +3,7 @@
 
 Finite losses for each of the four archs; its losses equal to
 ``launch.steps.gnn_train_step``'s on the reference's smoke batch; the
-refusals (dyngnn flags, ranks naming item 9d-2b; ``din`` now trains); and,
+refusals (dyngnn flags, a grid the ranks do not fill; ``din`` now trains); and,
 pinned, the reference launcher's NaN after step 0, which the port's
 launcher, from a real init and a real batch, does not share.
 """
@@ -58,9 +58,9 @@ def test_launcher_refusals(monkeypatch, capsys):
         launch_train.main(["--arch", "schnet", "--device", "cpu",
                            "--stream", "--steps", "1"])
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(SystemExit, match="Queue 1, item 9d-2b"):
+    with pytest.raises(SystemExit, match="does not divide the 2 processes"):
         launch_train.main(["--arch", "pna", "--device", "cpu",
-                           "--steps", "1"])
+                           "--data-parallel", "3", "--steps", "1"])
     monkeypatch.delenv("WORLD_SIZE")
     capsys.readouterr()
     launch_train.main(["--arch", "din", "--device", "cpu", "--steps", "2"])

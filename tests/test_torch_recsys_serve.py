@@ -163,9 +163,9 @@ def test_launcher_refusals(monkeypatch):
         launch_train.main(["--arch", "din", "--device", "cpu", "--stream",
                            "--steps", "1"])
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(SystemExit, match="Queue 1, item 9d-2b"):
-        launch_train.main(["--arch", "din", "--device", "cpu", "--steps",
-                           "1"])
+    with pytest.raises(SystemExit, match="does not divide the 2 processes"):
+        launch_train.main(["--arch", "din", "--device", "cpu",
+                           "--data-parallel", "3", "--steps", "1"])
     monkeypatch.delenv("WORLD_SIZE")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
