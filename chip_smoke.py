@@ -232,12 +232,15 @@ which exits non-zero on failure:
    D 256 with G 1 (MiniCPM, Gemma), at G 2 (a head tile of 16, 14
    padded), with a ``cache_len = 0`` row, at D 64 with G 4, and at
    OLMoE-1B-7B's decode shape (B 8, S 4,160, 16 heads over 16, D 128: G 1)
-   with the full cache and ragged, each in
-   bf16 (G > 1 on the tensor-core instance) and f32 (CUDA cores); at
-   each, the check is shown to reject zeros and the kernel's output with
-   one split's rows dropped; each timed beside its bound, its plain
-   version and ``scaled_dot_product_attention`` (a yardstick the port
-   never calls);
+   with the full cache, ragged, with a ``cache_len = 0`` row and at
+   ``long_500k``, at MiniCPM-2B's and Gemma-7B's decode shapes (G 1, D 64
+   and 256, B 8, S 4,160), each in bf16 (the tensor-core instance, G 1
+   too) and f32 (CUDA cores), and a ``long_500k`` rank's slice of OLMoE's
+   cache with the log-sum-exp output, full and empty (as phase 12's
+   check); at each, the check is shown to reject zeros and the kernel's
+   output with one split's rows dropped; each row names its instance and
+   is timed beside its bound, its plain version and
+   ``scaled_dot_product_attention`` (a yardstick the port never calls);
 7. Yi-6B's full widths at 2 layers in f32, card (kernel) against a
    ``device="cpu"`` engine's parameters (plain version): prefill logits
    and 8 teacher-forced decode steps' logits;
@@ -248,7 +251,7 @@ which exits non-zero on failure:
    wave (8 prompts of 4,096 tokens, 64 greedy tokens; the prefill's
    capacity 5,120 slots an expert), every count zeroed just before and
    read just after (16 layers x 63 steps = 1,008 ``flash_decode``
-   launches on its CUDA-core G = 1 instance, none of the dyngnn
+   launches on its tensor-core instance at G = 1, none of the dyngnn
    kernels); prefill ms, decode ms p50 / p95, tokens/s, peak memory; one
    decode step profiled (device busy against wall, by kind) beside its
    bound (every weight but the embedding table, of which B rows are read,
@@ -690,7 +693,8 @@ PROFILE_ATTEMPTS = 3
 
 
 def device_profile(torch, fn, ranges: dict | None = None,
-                   host_top: list | None = None, host: bool = True
+                   host_top: list | None = None, host: bool = True,
+                   exclusive: dict | None = None
                    ) -> tuple[float, float, dict]:
     """``fn()`` twice under ``torch.profiler``, the first call in its
     warm-up cycle, the second recorded -> (wall us, device busy us,
@@ -701,9 +705,16 @@ def device_profile(torch, fn, ranges: dict | None = None,
     must bear being called twice, and twice more for each window that
     comes back with no device activity at all (up to
     ``PROFILE_ATTEMPTS`` windows; one did, in a whole run).  Device
-    activities only (kernels,
-    copies, sets): one stream at a time, so their durations add up to the
-    device's busy time without overlap.  The ranges that annotate device
+    activities only (kernels, copies, sets), each with its own duration.
+    Busy is the time the union of their spans covers: activities can
+    overlap (copies on a side stream, NCCL's kernels, and a kernel
+    launched as a programmatic dependent, ``flash_decode``'s combine,
+    which starts while the one before it runs and waits on the SMs), so
+    the durations can add up to more; both sums are logged.
+    ``exclusive``, when given, receives
+    {name: [us, ...]}: each activity's time beyond the spans of those that
+    started before it (these add up to busy; an activity wholly inside
+    another gets 0).  The ranges that annotate device
     work (NCCL's ``nccl:all_to_all`` spans its copy) are not activities:
     they go to ``ranges`` ({name: [us, ...]}) when it is given; the 15
     host operations of most self time to ``host_top`` ([(name, us,
@@ -729,19 +740,35 @@ def device_profile(torch, fn, ranges: dict | None = None,
             prof.step()
         by_name: dict[str, list[float]] = {}
         found: dict[str, list[float]] = {}
+        own: dict[str, list[float]] = {}
+        spans = []
         for e in prof.events():
             if e.device_type == DeviceType.CUDA:
-                annotation = (getattr(e, "is_user_annotation", False)
-                              or e.name.startswith("nccl:"))
-                (found if annotation else by_name).setdefault(
-                    e.name, []).append(e.time_range.elapsed_us())
-        busy = sum(sum(v) for v in by_name.values())
+                if (getattr(e, "is_user_annotation", False)
+                        or e.name.startswith("nccl:")):
+                    found.setdefault(e.name, []).append(
+                        e.time_range.elapsed_us())
+                else:
+                    by_name.setdefault(e.name, []).append(
+                        e.time_range.elapsed_us())
+                    spans.append((e.time_range.start, e.time_range.end,
+                                  e.name))
+        covered = float("-inf")
+        for start, end, name in sorted(spans):
+            own.setdefault(name, []).append(
+                max(0.0, end - max(start, covered)))
+            covered = max(covered, end)
+        busy = sum(sum(v) for v in own.values())
         if busy > 0:
             break
         # the tracer's window once came back empty in a long process
         log(f"profile: attempt {attempt + 1} recorded no device time")
     else:
         raise SystemExit("profile: the trace holds no device time")
+    log(f"profile: device busy {busy / 1e3:.3f} ms (union of the spans), "
+        f"durations summed {sum(map(sum, by_name.values())) / 1e3:.3f} ms")
+    if exclusive is not None:
+        exclusive.update(own)
     if ranges is not None:
         ranges.update(found)
     if host_top is not None:
@@ -773,6 +800,17 @@ def by_kind(by_name: dict) -> dict:
         out[kind]["ms"] += sum(v) / 1e3
         out[kind]["count"] += len(v)
     return out
+
+
+def fd_exclusive_us(by_name: dict, own: dict) -> float:
+    """``flash_decode``'s device us in a profile: its partial kernels' own
+    spans and its combines' time beyond the spans before them (the
+    combine, a programmatic dependent, starts while the partial kernel
+    runs and waits on the SMs until it ends)."""
+    return (sum(sum(v) for k, v in by_name.items()
+                if "flash_decode_partial" in k)
+            + sum(sum(v) for k, v in own.items()
+                  if "flash_decode_combine" in k))
 
 
 # ------------------------------------------------------------ serving ------
@@ -4361,8 +4399,9 @@ def profile_decode(torch, eng, tag: str = "profile-lm",
         routed = [int(torch.unique(top).numel()) for top, _ in rl.calls]
         if len(routed) != cfg.num_layers:
             raise SystemExit(f"{tag}: {len(routed)} MoE calls in a step")
-    wall_us, busy, by_name = device_profile(torch, replay)
-    fd = sum(sum(v) for n, v in by_name.items() if "flash_decode" in n)
+    own = {}
+    wall_us, busy, by_name = device_profile(torch, replay, exclusive=own)
+    fd = fd_exclusive_us(by_name, own)
     embed = params["embed"]
     weight_bytes = sum(t.nbytes for t in _leaves(params)) - embed.nbytes \
         + batch * embed[0].nbytes
@@ -4467,31 +4506,52 @@ FD_CASES = [
     ("cache_len 0", 2, 32, 4, 128, S_PATH, [0, S_PATH]),
     ("D64 G4", 2, 16, 4, 64, 1000, [1000, 77]),
 ]
-#: OLMoE-1B-7B's decode shape (G = 1, D = 128): the last step's full cache,
-#: then ragged, then at long_500k's 524,288 rows
+#: the G = 1 shapes: OLMoE-1B-7B's decode (16 heads over 16, D 128) with
+#: the last step's full cache, ragged, with a cache_len 0 row and at
+#: long_500k's 524,288 rows; MiniCPM-2B's (36 over 36, D 64) and
+#: Gemma-7B's (16 over 16, D 256) decode at their B 8, S 4,160; and, with
+#: the log-sum-exp output ("lse", checked as ``lse_checks`` does), a
+#: long_500k rank's slice of OLMoE's cache, full and empty
 FD_MOE_CASES = [
     ("OLMoE", 8, 16, 16, 128, S_PATH, [S_PATH] * 8),
     ("OLMoE ragged", 8, 16, 16, 128, S_PATH,
      [1, S_PATH, 4097, 2000, 3000, 17, 4100, 9999]),
+    ("OLMoE cache_len 0", 2, 16, 16, 128, S_PATH, [0, S_PATH]),
     # the cells group's OLMoE-1B-7B long_500k decode step
     ("OLMoE long_500k", 1, 16, 16, 128, 524288, [524288]),
+    ("MiniCPM", 8, 36, 36, 64, S_PATH, [S_PATH] * 8),
+    ("Gemma", 8, 16, 16, 256, S_PATH, [S_PATH] * 8),
+    ("OLMoE long_500k slice", 1, 16, 16, 128, 131072, [131072], "lse"),
+    ("OLMoE long_500k slice, empty", 1, 16, 16, 128, 131072, [0], "lse"),
 ]
+
+
+def fd_instance(ops, plan: tuple, d: int) -> str:
+    """The instance ``plan`` picked, by name."""
+    if plan[0] != ops.TC_HEADS:
+        return "CUDA cores"
+    dt = ops.tc_dt(d)
+    stages, ctas = ops.TC_RING[dt]
+    return (f"tensor cores (D {dt}, {stages}-stage ring, {ctas} CTA"
+            f"{'s' if ctas > 1 else ''} an SM)")
 
 
 def check_flash_decode(torch, timer, cases=FD_CASES + FD_MOE_CASES):
     """Phase 6: the kernel against its plain version, and timed.  Each
     case also shows that its check rejects two faulty outputs made on the
     card: zeros, and the kernel's own output with one split's rows
-    dropped."""
+    dropped.  Cases marked "lse" go through ``lse_checks``."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_decode import ops, ref
 
     gen = torch.Generator(device="cuda").manual_seed(3)
     rows, err_all = [], 0.0
+    lse_cases = [c[:7] for c in cases if c[7:] == ("lse",)]
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).split(".")[-1]
-        for name, b, hq, kvh, d, s, lens in cases:
+        for name, b, hq, kvh, d, s, lens in (c for c in cases
+                                             if len(c) == 7):
             q = torch.randn((b, hq, d), generator=gen, device="cuda"
                             ).to(dtype)
             k = torch.randn((b, s, kvh, d), generator=gen, device="cuda"
@@ -4514,8 +4574,7 @@ def check_flash_decode(torch, timer, cases=FD_CASES + FD_MOE_CASES):
             err_all = max(err_all, err)
             pl = ops.plan(b, s, hq, kvh, d, dtype == torch.bfloat16,
                           ops._sm_count(0))
-            instance = "tensor cores" if pl[0] == ops.TC_HEADS \
-                else "CUDA cores"
+            instance = fd_instance(ops, pl, d)
             cut = torch.tensor(dropped_split_lens(lens, s, pl[1]),
                                dtype=torch.int32, device="cuda")
             faults = {
@@ -4583,6 +4642,10 @@ def check_flash_decode(torch, timer, cases=FD_CASES + FD_MOE_CASES):
                 f"{lib_err:.2e}")
             rows.append(row)
             del q, k, v, got, want, want32, kt, vt, lib, kern
+    if lse_cases:
+        lse_rows = lse_checks(torch, timer, lse_cases, "kernel")
+        err_all = max([err_all] + [r["max_abs_err"] for r in lse_rows])
+        rows += lse_rows
     return rows, err_all
 
 
@@ -5580,10 +5643,14 @@ def lm_cell_step(torch, kernels, cell, rec: dict) -> dict:
         torch.cuda.synchronize()
         warm.append((time.perf_counter() - t0) * 1e3)
     peak = torch.cuda.max_memory_allocated()
+    own = {}
     _, busy_us, by_name = device_profile(
-        torch, lambda: cell.step(params, cache, token), host=False)
+        torch, lambda: cell.step(params, cache, token), host=False,
+        exclusive=own)
     fd = [v for k, v in by_name.items() if "flash_decode" in k]
-    fd_ms = sum(sum(v) for v in fd) / 1e3 / layers
+    fd_ms = fd_exclusive_us(by_name, own) / 1e3 / layers
+    part_ms = sum(sum(v) for k, v in by_name.items()
+                  if "flash_decode_partial" in k) / 1e3 / layers
     reckoned = rec["need_bytes"] - rec["reserve_bytes"]
     log(f"[cells] {cell.arch_id} x {cell.shape_name} decode (B 1, {s:,} "
         f"cached rows, bf16): inputs drawn on the card in {inputs_s:.1f} s; "
@@ -5592,7 +5659,9 @@ def lm_cell_step(torch, kernels, cell, rec: dict) -> dict:
         f"reckoned {reckoned / 1e9:.3f} (arguments "
         f"{rec['arg_bytes'] / 1e9:.3f}); profiled step busy "
         f"{busy_us / 1e3:.2f} ms, flash_decode {fd_ms:.4f} ms a launch on "
-        f"the path ({sum(len(v) for v in fd)} device activities)")
+        f"the path: its partial kernel's own span {part_ms:.4f} and the "
+        f"combine's tail {fd_ms - part_ms:.4f} "
+        f"({sum(len(v) for v in fd)} device activities)")
     if peak > reckoned:
         raise SystemExit(f"cells {cell.arch_id}: peak {peak} over the "
                          f"reckoning's {reckoned}")
@@ -5604,6 +5673,7 @@ def lm_cell_step(torch, kernels, cell, rec: dict) -> dict:
             "warm_step_ms": warm, "peak_bytes": peak,
             "reckoned_bytes": reckoned, "arg_bytes": rec["arg_bytes"],
             "busy_ms": busy_us / 1e3, "flash_decode_ms_per_launch": fd_ms,
+            "flash_decode_partial_ms_per_launch": part_ms,
             "launches": launches, "p1_equal_to_one_rank": p1_equal}
 
 
@@ -6190,9 +6260,10 @@ def ranks_floor(want: dict, got32: dict) -> dict:
     return floor
 
 
-def lse_checks(torch, timer) -> list[dict]:
+def lse_checks(torch, timer, cases=FD_LSE_CASES, tag="ranks"
+               ) -> list[dict]:
     """``flash_decode``'s log-sum-exp output (``return_lse``) against the
-    plain version's at ``FD_LSE_CASES`` in bf16: the output as the other
+    plain version's at ``cases`` in bf16: the output as the other
     bf16 checks hold it, the log-sum-exp within ``TOL_LSE`` (abs + rel),
     an empty slice's output exactly 0 and its log-sum-exp exactly -inf;
     each check shown to reject zeros and a dropped split; the output the
@@ -6204,7 +6275,7 @@ def lse_checks(torch, timer) -> list[dict]:
 
     gen = torch.Generator(device="cuda").manual_seed(5)
     rows = []
-    for name, b, hq, kvh, d, s, lens in FD_LSE_CASES:
+    for name, b, hq, kvh, d, s, lens in cases:
         q, k, v = (torch.randn(shape, generator=gen, device="cuda")
                    .to(torch.bfloat16) for shape in
                    ((b, hq, d), (b, s, kvh, d), (b, s, kvh, d)))
@@ -6261,6 +6332,7 @@ def lse_checks(torch, timer) -> list[dict]:
             "no_lse": lambda: ops.decode_attention(q, k, v, cl)})
         row = {"case": name, "dtype": "bfloat16", "B": b, "Hq": hq,
                "KVH": kvh, "D": d, "S": s, "cache_len": lens, "plan": pl,
+               "instance": fd_instance(ops, pl, d),
                "ms": t["lse"], "ms_without_lse": t["no_lse"],
                "plain_ms": timer(lambda: ref.flash_decode_ref(
                    q, k, v, cl, return_lse=True)),
@@ -6268,9 +6340,10 @@ def lse_checks(torch, timer) -> list[dict]:
                "bound_by": b_by, "max_abs_err": err,
                "err_over_limit": ratio, "lse_err": lse_err,
                "fault_over_limit": faults}
-        log(f"[ranks] flash_decode lse {name} (B {b}, Hq {hq}, KVH {kvh}, "
-            f"D {d}, S {s}, cache_len {lens}, plan {pl}): with lse "
-            f"{row['ms']:.4f} ms, without {row['ms_without_lse']:.4f}, "
+        log(f"[{tag}] flash_decode lse {name} (B {b}, Hq {hq}, KVH {kvh}, "
+            f"D {d}, S {s}, cache_len {lens}, plan {pl}, {row['instance']})"
+            f": with lse {row['ms']:.4f} ms, without "
+            f"{row['ms_without_lse']:.4f}, "
             f"plain {row['plain_ms']:.4f}, sdpa {row['library_ms']:.4f}, "
             f"bound {b_ms:.4f} ({b_by}); output max|err| {err:.3e} "
             f"({ratio:.3f} x limit), lse {lse_err:.2e} (limit {TOL_LSE}); "

@@ -5,9 +5,12 @@ Port of ``repro.kernels.flash_decode.ops.decode_attention`` (TPU kernel
 ``flash_decode``).  The kernel is ``csrc/flash_decode.cu``: a partial
 kernel over (splits, KV heads x head groups, B) that streams each split's
 K/V rows once for all the query heads sharing them, then a combine kernel
-that merges the splits.  The partial kernel has two instances: on tensor
-cores (bf16, G > 1, D <= 128: Yi-6B's decode) and on CUDA cores (f32,
-G = 1, larger D).  :func:`plan` picks the instance and the split count;
+that merges the splits.  The partial kernel has two instances, picked by
+the type: every bf16 call runs on tensor cores, K and V streamed through
+a ring in shared memory by TMA tensor copies (G = 1 too, its one head
+zero-padded to the MMA's 16 rows; D up to 256), and f32 on CUDA cores,
+which keep it within 1e-4.  :func:`plan` picks the instance and the
+split count from the instance's CTAs per SM, so the grid is one wave;
 the wrapper checks what the shapes, types and devices decide once per key
 and caches the answer, checks contiguity and alignment on every call, and
 allocates the fp32 scratch of the partials.  Any S is
@@ -41,26 +44,44 @@ KERNEL = Kernel("flash_decode", "flash_decode.cu", "flash_decode",
 #: instance)
 MIN_ROWS_PER_SPLIT = 64
 
-#: the tensor-core instance: query heads per CTA (the MMA's 16 rows), the
-#: cache rows of a tile and the stages of its shared-memory ring, as in
-#: ``csrc/flash_decode.cu``
+#: the tensor-core instance: query heads per CTA (the MMA's 16 rows) and
+#: the cache rows of a tile, as in ``csrc/flash_decode.cu``
 TC_HEADS = 16
 TC_ROWS = 64
-TC_STAGES = 3
-TC_MAX_D = 128
+#: its ring at each padded D: (stages, CTAs an SM holds), the kernel's
+#: ``tc_stages`` and launch bounds; measured on an H100 with
+#: ``scripts/flash_decode_g1_ab.py``
+TC_RING = {64: (2, 4), 128: (3, 1), 256: (3, 1)}
 
-#: CTAs of the partial kernel per SM that ``plan`` fills the card with:
-#: the CUDA-core G = 8 instance needs ~250 registers a thread; the
-#: tensor-core instance 102 KB of shared memory at D 128
-CTAS_PER_SM = 2
+#: CTAs of the CUDA-core instance per SM that ``plan`` fills the card
+#: with: its G = 8 tile needs ~250 registers a thread
+CUDA_CORE_CTAS_PER_SM = 2
+
+
+def tc_dt(d: int) -> int:
+    """The tensor-core instance's padded head dim for D = d."""
+    return 64 if d <= 64 else 128 if d <= 128 else 256
 
 
 def tc_smem_bytes(d: int) -> int:
     """Dynamic shared memory of the tensor-core instance at head dim d:
-    its ring of K and V tiles, rows padded by 8 elements (D is padded to
-    the instance's 64 or 128)."""
-    dt = 64 if d <= 64 else 128
-    return TC_STAGES * 2 * TC_ROWS * (dt + 8) * 2
+    1 KB of slack to align its ring to 1024 bytes, the ring's K and V
+    tiles (64 rows of the padded D, bf16, unpadded: the tensor maps
+    swizzle them), at the padded D of 256 Q's 16 rows padded by 8
+    elements, and an 8-byte mbarrier a stage."""
+    dt = tc_dt(d)
+    stages = TC_RING[dt][0]
+    q_rows = TC_HEADS * (dt + 8) * 2 if dt > 128 else 0
+    return 1024 + stages * 2 * TC_ROWS * dt * 2 + q_rows + stages * 8
+
+
+def ctas_per_sm(group_tile: int, d: int) -> int:
+    """CTAs of the partial kernel an SM holds at once, which ``plan``
+    fills the card with: the tensor-core instance's ``TC_RING`` entry at
+    D's padded width (4, 1, 1 at D 64, 128, 256)."""
+    if group_tile != TC_HEADS:
+        return CUDA_CORE_CTAS_PER_SM
+    return TC_RING[tc_dt(d)][1]
 
 
 @functools.lru_cache(maxsize=None)
@@ -71,18 +92,20 @@ def _sm_count(index: int) -> int:
 def plan(b: int, s: int, hq: int, kvh: int, d: int, bf16: bool,
          sm_count: int) -> tuple[int, int]:
     """-> (group_tile, splits).  group_tile is the instance and the query
-    heads per CTA: 16 for the tensor-core instance (bf16, G > 1,
-    D <= 128; the heads of a group are zero-padded to 16), else the
-    CUDA-core one, 1 for G = 1 and 8 otherwise (heads past G masked).
-    splits cuts each sequence's rows so the partial kernel's grid holds
-    at most ``CTAS_PER_SM`` CTAs per SM: one wave, no tail."""
+    heads per CTA: 16 for the tensor-core instance (bf16; the heads of a
+    group, G = 1 too, are zero-padded to 16), else the CUDA-core one
+    (f32), 1 for G = 1 and 8 otherwise (heads past G masked).  splits
+    cuts each sequence's rows so the partial kernel's grid holds at most
+    :func:`ctas_per_sm` CTAs per SM: one wave, no tail (when the (b, head
+    group) pairs alone are more than that, splits is 1 and the grid takes
+    several waves)."""
     g = hq // kvh
-    if bf16 and g > 1 and d <= TC_MAX_D:
+    if bf16:
         group_tile = TC_HEADS
     else:
         group_tile = 1 if g == 1 else 8
     ctas = b * kvh * -(-g // group_tile)
-    splits = max(1, min(CTAS_PER_SM * sm_count // ctas,
+    splits = max(1, min(ctas_per_sm(group_tile, d) * sm_count // ctas,
                         -(-s // MIN_ROWS_PER_SPLIT)))
     return group_tile, splits
 

@@ -300,56 +300,98 @@ def test_flash_decode_ragged_s_and_edge_lengths(s, lens):
 
 
 @pytest.mark.parametrize("b,s,hq,kvh,d,want_bf16,want_f32", [
-    # Yi-6B decode: 32 x 8 = 256 CTAs, one head group of 8 padded to 16
-    (8, 4160, 32, 4, 128, (16, 8), (8, 8)),
-    (8, 32768, 32, 4, 128, (16, 8), (8, 8)),         # decode_32k
-    (1, 524288, 32, 4, 128, (16, 66), (8, 66)),      # long_500k: 264 CTAs
-    (8, 4160, 36, 36, 64, (1, 1), (1, 1)),           # MiniCPM (G = 1)
-    (8, 4160, 16, 16, 256, (1, 2), (1, 2)),          # Gemma (G = 1)
+    # Yi-6B decode: 32 CTAs a split, one head group of 8 padded to 16
+    (8, 4160, 32, 4, 128, (16, 4), (8, 8)),
+    (8, 32768, 32, 4, 128, (16, 4), (8, 8)),         # decode_32k
+    (1, 524288, 32, 4, 128, (16, 33), (8, 66)),      # long_500k
+    # MiniCPM (G = 1, D 64): 288 CTAs on 4 x 132 slots, not 2 x 132
+    (8, 4160, 36, 36, 64, (16, 1), (1, 1)),
+    # Gemma (G = 1, D 256): one 211 KB ring an SM, 128 CTAs on 132
+    (8, 4160, 16, 16, 256, (16, 1), (1, 2)),
+    (8, 4160, 16, 16, 128, (16, 1), (1, 2)),         # OLMoE decode (G = 1)
+    (1, 524288, 16, 16, 128, (16, 8), (1, 16)),      # OLMoE long_500k
+    (1, 131072, 16, 16, 128, (16, 8), (1, 16)),      # its rank's LSE slice
+    # more (b, head) pairs than slots: 256 pairs at D 128 (one CTA an SM)
+    # run at one split in two waves, the only grid that takes more than one
+    (16, 4160, 16, 16, 128, (16, 1), (1, 1)),
     (2, 100, 4, 2, 128, (16, 2), (8, 2)),            # G = 2; short cache
     (1, 64, 48, 2, 128, (16, 1), (8, 1)),            # G = 24: 2 or 3 groups
     (2, 1000, 16, 4, 64, (16, 16), (8, 16)),         # G = 4 at D 64
     (2, 700, 16, 2, 96, (16, 11), (8, 11)),          # D 96, padded to 128
-    (4, 4160, 32, 4, 256, (8, 16), (8, 16)),         # D > 128: CUDA cores
+    (4, 4160, 32, 4, 256, (16, 8), (8, 16)),         # D 256, G = 8
 ])
 def test_flash_decode_plan_fills_the_card_in_one_wave(b, s, hq, kvh, d,
                                                       want_bf16, want_f32):
-    """The instance by type, G and D (tensor cores: bf16, G > 1,
-    D <= 128), and splits that fill the card in one wave."""
+    """The instance by type (tensor cores for bf16 at any G and D, CUDA
+    cores for f32), and splits that fill the card's slots for that
+    instance (its CTAs per SM x 132) in one wave: a grid leaves no tail
+    wave unless its (b, head group) pairs alone overrun the slots (then
+    splits is 1), and one more split would overrun the slots or cut a
+    split below a tile of rows."""
     for bf16, want in ((True, want_bf16), (False, want_f32)):
         tile, splits = fd_ops.plan(b, s, hq, kvh, d, bf16, sm_count=132)
         assert (tile, splits) == want
-        ctas = b * kvh * -(-(hq // kvh) // tile) * splits
-        assert splits == 1 or ctas <= fd_ops.CTAS_PER_SM * 132
-        assert ctas > 132 or splits == -(-s // fd_ops.MIN_ROWS_PER_SPLIT)
+        assert (tile == fd_ops.TC_HEADS) == bf16
+        slots = fd_ops.ctas_per_sm(tile, d) * 132
+        pairs = b * kvh * -(-(hq // kvh) // tile)
+        ctas = pairs * splits
+        assert ctas <= slots or (splits == 1 and pairs > slots)
+        assert (splits == -(-s // fd_ops.MIN_ROWS_PER_SPLIT)
+                or (splits + 1) * pairs > slots)
 
 
 @pytest.mark.parametrize("d", [64, 96, 128])
 def test_flash_decode_tc_instance_fits_two_ctas_per_sm(d):
     """The tensor-core instance's ring fits a CTA's 227 KB of shared
-    memory, and two CTAs (each with the 1 KB the SM reserves) fit the
-    SM's 228 KB, so ``plan``'s two CTAs per SM are resident at once."""
+    memory, at D <= 128 two of them (each with the 1 KB the SM reserves)
+    fit the SM's 228 KB, and ``plan``'s CTAs per SM (4 at D 64, 1 at
+    D 128, where one CTA an SM measured faster) are resident at once."""
     smem = fd_ops.tc_smem_bytes(d)
     assert smem <= 232_448
-    assert fd_ops.CTAS_PER_SM * (smem + 1024) <= 233_472
-    assert fd_ops.tc_smem_bytes(128) == 3 * 2 * 64 * 136 * 2
+    assert 2 * (smem + 1024) <= 233_472
+    n = fd_ops.ctas_per_sm(fd_ops.TC_HEADS, d)
+    assert n * (smem + 1024) <= 233_472
+    assert fd_ops.tc_smem_bytes(128) == 1024 + 3 * 2 * 64 * 128 * 2 + 3 * 8
 
 
-def _tc_emulation(q, k, v, cache_len, splits, p_precision):
+@pytest.mark.parametrize("d,want_ctas", [(64, 4), (128, 1), (256, 1)])
+def test_flash_decode_g1_ring_fits_and_keeps_bytes_in_flight(d, want_ctas):
+    """The ring G = 1 streams K and V through, at D 64, 128 and 256: its
+    CTAs an SM (4, 1, 1) fit the SM's shared memory (D 256 with Q's 16
+    padded rows beside the ring), and each SM keeps at least 32 KB of K
+    and V in flight (the tiles a CTA has asked for while it computes
+    one), against the ~16 KB an SM the CUDA-core instance held."""
+    smem = fd_ops.tc_smem_bytes(d)
+    stages, n = fd_ops.TC_RING[d]
+    assert smem <= 232_448
+    assert n == fd_ops.ctas_per_sm(fd_ops.TC_HEADS, d) == want_ctas
+    assert n * (smem + 1024) <= 233_472
+    tile_bytes = 2 * fd_ops.TC_ROWS * d * 2           # K and V rows, bf16
+    in_flight = n * (stages - 1) * tile_bytes
+    assert in_flight >= 32 * 1024
+    if d == 256:
+        assert smem == 1024 + 3 * 2 * 64 * 256 * 2 + 16 * 264 * 2 + 3 * 8
+
+
+def _tc_emulation(q, k, v, cache_len, splits, p_precision,
+                  return_lse=False):
     """fp32 emulation of the tensor-core instance on bf16 inputs: exact
     bf16 products summed in fp32, scores in log2 units, a 64-row tile
     per online-softmax rescale, p rounded to bf16 or split hi + lo before
-    the PV product, the splits merged, the output rounded to bf16."""
+    the PV product, the splits merged, the output rounded to bf16.  With
+    ``return_lse`` also the combine's log-sum-exp, (M + log2 L) ln 2, and
+    ``cache_len <= 0`` reads no row: output 0, log-sum-exp -inf."""
     qf, kf, vf = (t.to(torch.float64).to(torch.float32) for t in (q, k, v))
     b, hq, d = q.shape
     s, kvh = k.shape[1], k.shape[2]
     g = hq // kvh
     scale = np.float32(np.log2(np.e) / np.sqrt(d))
     out = torch.zeros((b, hq, d))
+    lse = torch.zeros((b, hq))
     for bi in range(b):
         n = int(cache_len[bi])
         none = n <= 0
-        n = s if none else min(n, s)
+        n = (0 if return_lse else s) if none else min(n, s)
         per = -(-n // splits)
         parts = []
         for sp in range(splits):
@@ -381,8 +423,11 @@ def _tc_emulation(q, k, v, cache_len, splits, p_precision):
         wts = [torch.exp2(p[0] - mx) for p in parts]
         num = sum(p[2] * w[:, None] for p, w in zip(parts, wts))
         den = sum(p[1] * w for p, w in zip(parts, wts))
-        out[bi] = num / den[:, None]
-    return out.to(torch.bfloat16).float()
+        out[bi] = torch.where(den[:, None] > 0, num / den[:, None], 0.0)
+        lse[bi] = torch.where(den > 0, (mx + torch.log2(den)) * np.log(2),
+                              -torch.inf)
+    out = out.to(torch.bfloat16).float()
+    return (out, lse) if return_lse else out
 
 
 @pytest.mark.parametrize("b,hq,kvh,d,s,lens,splits", [
@@ -406,6 +451,47 @@ def test_flash_decode_bf16_card_check_rehearsal(b, hq, kvh, d, s, lens,
         got = _tc_emulation(qb, kb, vb, cl, splits, precision)
         ratio = float(((got - want).abs().flatten(1).amax(1) / limit).max())
         assert ratio <= 0.5, (precision, ratio)
+    assert float((want.abs().flatten(1).amax(1) / limit).min()) >= 10
+
+
+#: chip_smoke.py's log-sum-exp limit (abs + rel)
+FD_TOL_LSE = 1e-4
+
+
+@pytest.mark.parametrize("return_lse", [False, True])
+@pytest.mark.parametrize("d,splits", [(64, 3), (128, 2), (256, 4)])
+def test_flash_decode_g1_card_check_rehearsal(d, splits, return_lse):
+    """The card's G = 1 check, rehearsed on the CPU: the tensor-core
+    instance's arithmetic with one head a CTA (16 heads over 16, its MMA
+    rows 1..15 zero), 64-row tiles, one rescale a tile, p split hi + lo,
+    the splits merged, at D 64, 128 and 256 and cache_len 0, 1, S and
+    > S.  The output stays within half of chip_smoke.py's bf16 limit and,
+    with ``return_lse``, the log-sum-exp within half of its 1e-4; there an
+    empty slice (cache_len 0) gives 0 and -inf exactly, without it the
+    uniform mean of V; zeros fail the check."""
+    s, lens = 1000, [0, 1, 1000, 1150]
+    q, k, v, clen = _decode_inputs(d + splits, len(lens), 16, 16, d, s,
+                                   lens)
+    qb, kb, vb = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
+    cl = torch.from_numpy(clen)
+    want = fd_ops.flash_decode_ref(qb.float(), kb.float(), vb.float(), cl,
+                                   return_lse)
+    got = _tc_emulation(qb, kb, vb, cl, splits, "hi+lo", return_lse)
+    if return_lse:
+        (want, want_lse), (got, got_lse) = want, got
+        assert bool((got[0] == 0).all()) and bool((want[0] == 0).all())
+        assert bool(torch.isneginf(got_lse[0]).all())
+        assert bool(torch.isneginf(want_lse[0]).all())
+        lse_err = ((got_lse[1:] - want_lse[1:]).abs()
+                   / (1.0 + want_lse[1:].abs())).max()
+        assert float(lse_err) <= 0.5 * FD_TOL_LSE, float(lse_err)
+        got, want = got[1:], want[1:]
+    else:
+        mean_v = vb[0].float().mean(0)                 # (KVH, D)
+        torch.testing.assert_close(want[0], mean_v, rtol=1e-5, atol=1e-6)
+    limit = 1e-2 * want.abs().flatten(1).amax(1)
+    ratio = float(((got - want).abs().flatten(1).amax(1) / limit).max())
+    assert ratio <= 0.5, ratio
     assert float((want.abs().flatten(1).amax(1) / limit).min()) >= 10
 
 
