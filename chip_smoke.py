@@ -358,8 +358,9 @@ which exits non-zero on failure:
    cells at their full configs and widths (``RANKS_STATIC_CELLS``): the
    four archs' full graphs split by edge lanes over data with node rows a
    rank's (GatedGCN, PNA and EquiformerV2 at ``full_graph_sm``, SchNet at
-   ``ogb_products`` with its 2,449,029 nodes and 2,000,000 of its
-   edges), EquiformerV2's ``minibatch_lg`` (192 seeds) and SchNet's
+   ``ogb_products`` with its 2,449,029 nodes, 2,000,000 of its
+   edges and 1 of its 3 interactions; EquiformerV2 at 4 of its 12
+   layers), EquiformerV2's ``minibatch_lg`` (192 seeds) and SchNet's
    ``molecule`` one replica a data rank, DIN's ``train_batch`` (65,536),
    ``serve_p99`` and ``retrieval_cand`` (1,000,000 candidates, 500,000 a
    data rank, in chunks of 32,768) with the tables split over model;
@@ -370,7 +371,23 @@ which exits non-zero on failure:
    and held within 1e-4 x its max at 1 x 1, no kernel launched; each
    rank's peak beside the per-rank reckoning, the step's seconds and the
    ``dp.*`` / ``gnn.*`` / ``tp.*`` bytes printed; then ``launch.dryrun
-   --grid 2x2`` over the GNN, DIN and dyngnn cells.
+   --grid 2x2`` over the GNN, DIN and dyngnn cells;
+13. the examples (the examples group, after 4m over the one-rank NCCL
+   group): the five twins under ``examples/torch/`` called in this
+   process at their default sizes on the card (quickstart's 60 eager
+   steps, serve_dyngnn's 2 streamed epochs and 16 served windows,
+   serve_lm's 4 x 32 greedy tokens at Yi-6B's smoke config,
+   partition_compare's loss at P = 1 and its comm-volume table,
+   train_dyngnn_distributed's 300 eager steps, evaluation and 2
+   streamed_mesh epochs), every kernel count zeroed before each and read
+   after: each kernel of a twin's path launched (``EXAMPLE_KERNELS``;
+   segment_spmm's backward counted apart); then each twin at
+   ``device="cpu"`` (the rank twins over a one-rank gloo group) held to
+   its card run (losses relative, parameters and scores x each leaf's
+   max, within ``TOL_EXAMPLES``; tokens, counts and accuracy equal;
+   train_dyngnn_distributed at ``EXAMPLES_PARITY_STEPS`` eager steps on
+   both); ``python examples/torch/quickstart.py`` runs as a user runs
+   it, on the card, beside them all.
 
 Tolerances: the dyngnn cell card against CPU 1e-2 (its bf16 payloads,
 ``tests/test_torch_cells.py``'s); segment SpMM 1e-4 (abs and rel; fp32
@@ -397,7 +414,7 @@ sleep); ``wrapper_ms`` is the wrapper's host time plus device time.
 Prints the card line, the per-phase numbers, one JSON line each of the
 streamed, the partitioned, the distributed-stream, the hybrid, the
 sampled, the fault-tolerance, the trace, the data, the moe, the gnn, the
-recsys, the cells and the ranks phases' numbers,
+recsys, the cells, the ranks and the examples phases' numbers,
 one JSON line of the kernels and, last, ``{"ok": true, "device":
 {...}}``.  Before that line it stops every process it started that is
 still running (the shared sampling pools, ``multiprocessing``'s resource
@@ -406,12 +423,12 @@ subreaper) and fails if any but those two was left; at exit it stops
 them again.  Without a CUDA device, or without the repository around
 it, it exits non-zero and prints no result.  ``--only
 serve,train,stream,partition,dstream,hybrid,sampled,ft,trace,data,lm,moe,\
-gnn,recsys,cells,ranks``
+gnn,recsys,cells,ranks,examples``
 runs the build and the named groups of phases (1–4, 4a–4c, 4d, 4e–4g,
 4h–4i, 4j, 4k, 4l, 4m, 4n, 5–7, 8 with phase 6's OLMoE rows when lm is
-not named, 9, 10, 11, 12; each of partition, dstream, hybrid, sampled and ft with
-its part of 4o; partition and data are held to train's run, so they need
-train) and prints no result line.
+not named, 9, 10, 11, 12, 13; each of partition, dstream, hybrid, sampled
+and ft with its part of 4o; partition and data are held to train's run,
+so they need train) and prints no result line.
 """
 
 from __future__ import annotations
@@ -420,6 +437,7 @@ import atexit
 import dataclasses
 import functools
 import gc
+import importlib.util
 import json
 import os
 import signal
@@ -6011,24 +6029,30 @@ TOL_LSE = 1e-4              # abs + rel: fp32 sums of the same products
 #: the static-GNN and DIN cells the ranks group runs over the same 2 x 2
 #: grid at their full configs and widths, each held to 1 x 1 on the card
 #: (f32; only the order of the sums differs): (arch, shape, shape
-#: override).  Four ranks share the card, so SchNet's ogb_products keeps
-#: its 2,449,029 nodes (one padding row at 2 data ranks), 100 features,
-#: widths and depth with its edges cut from 61,859,140 to 2,000,000 (the
-#: host moves each gathered (N, 64) tensor through gloo); EquiformerV2's
+#: override, config override).  Four ranks share the card, so SchNet's
+#: ogb_products keeps its 2,449,029 nodes (one padding row at 2 data
+#: ranks), 100 features and widths with its edges cut from 61,859,140 to
+#: 2,000,000 and its depth from 3 interactions to 1 (the host moves each
+#: gathered (N, 64) tensor through gloo, 3 x a layer's bytes at depth 3:
+#: ~45-50 s of the script; a step's bytes follow the nodes and the
+#: depth, not the edges); EquiformerV2 keeps 4 of its 12 layers at both
+#: shapes (8-11 s a step at 12); EquiformerV2's
 #: minibatch_lg has its 1,024 seeds cut to 192 (a rank's replica of 512
 #: reckons 69.2 GB with the reserve, four do not fit; of 96, 15.3 GB);
 #: the rest keep their registry shapes (DIN's retrieval 1,000,000
 #: candidates, 500,000 a data rank, in chunks of RANKS_RETRIEVAL_CHUNK)
 RANKS_STATIC_CELLS = (
-    ("gatedgcn", "full_graph_sm", None),
-    ("pna", "full_graph_sm", None),
-    ("schnet", "ogb_products", {"n_edges": 2_000_000}),
-    ("equiformer-v2", "full_graph_sm", None),
-    ("equiformer-v2", "minibatch_lg", {"batch_nodes": 192}),
-    ("schnet", "molecule", None),
-    ("din", "train_batch", None),
-    ("din", "serve_p99", None),
-    ("din", "retrieval_cand", None),
+    ("gatedgcn", "full_graph_sm", None, None),
+    ("pna", "full_graph_sm", None, None),
+    ("schnet", "ogb_products", {"n_edges": 2_000_000},
+     {"n_interactions": 1}),
+    ("equiformer-v2", "full_graph_sm", None, {"n_layers": 4}),
+    ("equiformer-v2", "minibatch_lg", {"batch_nodes": 192},
+     {"n_layers": 4}),
+    ("schnet", "molecule", None, None),
+    ("din", "train_batch", None, None),
+    ("din", "serve_p99", None, None),
+    ("din", "retrieval_cand", None, None),
 )
 #: candidates a rank scores at a time on the shared card (131,072 a chunk
 #: holds 19.5 GB of features: four ranks at once would not fit)
@@ -6134,8 +6158,9 @@ def _ranks_rank(rank: int, src: str, store: str, q_out, q_go) -> None:
                                   layers, grid)
                 for arch, shape, over, layers in RANKS_CELLS]
         todo += [functools.partial(steps.build_cell, arch, shape, grid,
-                                   shape_override=over)
-                 for arch, shape, over in RANKS_STATIC_CELLS]
+                                   shape_override=over,
+                                   config_override=cfg)
+                 for arch, shape, over, cfg in RANKS_STATIC_CELLS]
         for i, make in enumerate(todo):
             if q_go[rank].get() != i:
                 raise RuntimeError(f"rank {rank}: out of step at cell {i}")
@@ -6378,8 +6403,8 @@ def ranks_exchange(i: int, name: str, procs, q_go, q_out, end: float
     return shares, metas
 
 
-def static_reference(torch, lsteps, arch: str, shape: str, over, grid1
-                     ) -> tuple[dict, float]:
+def static_reference(torch, lsteps, arch: str, shape: str, over, cfg,
+                     grid1) -> tuple[dict, float]:
     """One of ``RANKS_STATIC_CELLS`` at 1 x 1 on the card, over the
     one-rank NCCL group's grid ``grid1``, on the global batch the 2 x 2
     ranks hold (a replica cell: its R = 2 replicas stepped in this
@@ -6387,7 +6412,8 @@ def static_reference(torch, lsteps, arch: str, shape: str, over, grid1
     ``RANKS_STATIC_F64``) -> (its outputs by path, its step's
     seconds)."""
     pd = RANKS_GRID[0]
-    cell = lsteps.build_cell(arch, shape, grid1, shape_override=over)
+    cell = lsteps.build_cell(arch, shape, grid1, shape_override=over,
+                             config_override=cfg)
     if cell.kind in ("minibatch", "molecule"):
         params, opt = cell.make_state(0)
         seeds = lsteps.gnn_dims(cell.shape, pd)["seeds"]
@@ -6509,18 +6535,19 @@ def ranks_static(torch, lsteps, dryrun, shd, procs, q_go, q_out,
 
 
 def static_cell(torch, lsteps, dryrun, shd, procs, q_go, q_out, end: float,
-                total: int, grid1, i: int, arch: str, shape: str, over
-                ) -> dict:
+                total: int, grid1, i: int, arch: str, shape: str, over,
+                cfg) -> dict:
     """One of ``RANKS_STATIC_CELLS`` (cell ``i`` of the ranks): 1 x 1, the
     ranks, the comparison and the numbers (``ranks_static``)."""
     t0 = time.perf_counter()
     want, ref_step_s = static_reference(torch, lsteps, arch, shape, over,
-                                        grid1)
+                                        cfg, grid1)
     p1_equal = None
     if (arch, shape) == ("din", "serve_p99"):
         # deterministic (gathers and GEMMs; a GNN step's index_add
         # atomics are not): the grid code at P = 1 is the one-rank path
-        plain = lsteps.build_cell(arch, shape, None, shape_override=over)
+        plain = lsteps.build_cell(arch, shape, None, shape_override=over,
+                                  config_override=cfg)
         again = lsteps.input_leaves(plain.step(*plain.make_inputs(0)))
         p1_equal = all(torch.equal(again[k], w) for k, w in want.items())
         if not p1_equal:
@@ -6533,7 +6560,8 @@ def static_cell(torch, lsteps, dryrun, shd, procs, q_go, q_out, end: float,
     shares, metas = ranks_exchange(i, f"{arch} {shape}", procs, q_go,
                                    q_out, end)
     grid = shd.Grid(*RANKS_GRID, 0, None, None)
-    gcell = lsteps.build_cell(arch, shape, grid, shape_override=over)
+    gcell = lsteps.build_cell(arch, shape, grid, shape_override=over,
+                              config_override=cfg)
     worst = static_worst(static_compare(torch, dryrun, shd, gcell, shares,
                                         want))
     del shares, want
@@ -6553,6 +6581,7 @@ def static_cell(torch, lsteps, dryrun, shd, procs, q_go, q_out, end: float,
         for k, v in m["collective_bytes"].items():
             moved[k] = moved.get(k, 0) + v
     run = {"arch": arch, "shape": shape, "override": over,
+           "config_override": cfg,
            "dtype": "float64" if scale == 2 else "float32",
            "ratios_by_kind": worst, "p1_bit_equal": p1_equal,
            "ranks": metas, "reckoned_bytes": scale * (rec["need_bytes"]
@@ -6561,7 +6590,8 @@ def static_cell(torch, lsteps, dryrun, shd, procs, q_go, q_out, end: float,
            "reference_step_s": ref_step_s, "reference_s": ref_s,
            "collective_bytes": moved,
            "cell_s": time.perf_counter() - t0}
-    log(f"[ranks] {arch} x {shape} ({over or 'registry shape'}, "
+    log(f"[ranks] {arch} x {shape} ({over or 'registry shape'}"
+        + (f", {cfg}" if cfg else "") + ", "
         f"{run['dtype']}) on 2 x 2 gloo ranks of cuda:0 against 1 x 1 (P = 1"
         " over NCCL"
         + (f", = the no-grid path bit for bit: {p1_equal}"
@@ -6745,11 +6775,318 @@ def recsys_path(torch, kernels) -> dict:
             "serve": serve, "retrieval": retrieval, "launches": launches}
 
 
+# ------------------------------------------------------------- examples ----
+
+#: the twins of ``examples/*.py`` under ``examples/torch/``, in run order
+EXAMPLES = ("quickstart", "serve_dyngnn", "serve_lm", "partition_compare",
+            "train_dyngnn_distributed")
+#: the kernels each twin's path launches on the card ("segment_spmm_bwd":
+#: segment_spmm launched by ``SegmentSpmmFn.backward`` on the transposed
+#: CSR); partition_compare computes a loss, no gradient
+_TRAINED = ("segment_spmm", "segment_spmm_bwd", "banded_ttm", "banded_ttm_t")
+EXAMPLE_KERNELS = {"quickstart": _TRAINED, "serve_dyngnn": _TRAINED,
+                   "serve_lm": ("flash_decode",),
+                   "partition_compare": ("segment_spmm", "banded_ttm"),
+                   "train_dyngnn_distributed": _TRAINED}
+EXAMPLES_PARITY_STEPS = 20   # of train_dyngnn_distributed's 300: card vs CPU
+TOL_EXAMPLES = 1e-4          # PERF.md §2: card vs CPU
+EXAMPLE_LINES = (r"graph-difference transfer: [\d,]+ bytes vs naive [\d,]+ "
+                 r"\([\d.]+x less\)$", r"loss: \d\.\d{4} -> \d\.\d{4}$",
+                 r"link-prediction accuracy: \d\.\d{3}$")
+
+
+def load_example(name: str):
+    """``examples/torch/<name>.py`` as a module."""
+    spec = importlib.util.spec_from_file_location(
+        f"torch_example_{name}", ROOT / "examples" / "torch" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+class BackwardLaunches:
+    """Counts the ``segment_spmm`` launches ``SegmentSpmmFn.backward``
+    makes while entered (the kernel's own count holds both directions)."""
+
+    def __enter__(self):
+        from repro_torch.kernels.segment_spmm import ops as spmm_ops
+
+        self.ops, self.n = spmm_ops, 0
+        self.orig = spmm_ops.SegmentSpmmFn.backward
+
+        def backward(ctx, dy):
+            n0 = spmm_ops.KERNEL.launches
+            out = self.orig(ctx, dy)
+            self.n += spmm_ops.KERNEL.launches - n0
+            return out
+
+        spmm_ops.SegmentSpmmFn.backward = staticmethod(backward)
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.SegmentSpmmFn.backward = staticmethod(self.orig)
+
+
+def example_on_card(torch, kernels, name: str, fn):
+    """``fn()`` with every kernel count zeroed just before and read just
+    after -> (its result, {kernel: launches}, seconds); fails when a
+    kernel of the twin's path did not launch."""
+    from repro_torch.kernels.build import reset_counts
+
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    with BackwardLaunches() as bwd:
+        out = fn()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = {k.name: k.launches for k in kernels}
+    counts["segment_spmm_bwd"] = bwd.n
+    missing = [k for k in EXAMPLE_KERNELS[name] if counts[k] < 1]
+    if missing:
+        raise SystemExit(f"examples: {name} on the card launched no "
+                         f"{', '.join(missing)} ({counts})")
+    return out, counts, secs
+
+
+def rel_worst(name: str, got, want, tol: float) -> float:
+    """Max |got - want| / |want| over two loss streams; fails past tol."""
+    worst = worst_rel(list(got), list(want))
+    if not worst <= tol:
+        raise SystemExit(f"examples: {name} card vs CPU {worst:.3e} "
+                         f"relative (limit {tol})")
+    return worst
+
+
+def leaf_worst(name: str, got: dict, want: dict, tol: float) -> float:
+    """Max over ``want``'s leaves of max |got - want| / max |want| (numpy
+    leaves); fails past tol."""
+    import torch
+
+    worst = max(rel_diff(torch.as_tensor(got[k]), torch.as_tensor(v))
+                for k, v in want.items())
+    if not worst <= tol:
+        raise SystemExit(f"examples: {name} card vs CPU {worst:.3e} x the "
+                         f"leaf's max (limit {tol})")
+    return worst
+
+
+def same(name: str, got, want) -> None:
+    """Fails unless the card's value equals the CPU's."""
+    if got != want:
+        raise SystemExit(f"examples: {name}: card {got!r}, CPU {want!r}")
+
+
+class QuickstartScript:
+    """``python examples/torch/quickstart.py`` as a user runs it, on the
+    card (its default device), started now; a thread collects its output
+    and its wall seconds.  It runs on one CPU thread beside this
+    process's twins (on the CPU here, two pools of intra-op threads on the
+    host's cores slowed both ~20x)."""
+
+    def __init__(self):
+        import threading
+
+        t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable,
+             str(ROOT / "examples" / "torch" / "quickstart.py")],
+            cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(SRC),
+                               OMP_NUM_THREADS="1"),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        self.out = self.err = ""
+        self.seconds = None
+
+        def collect():
+            self.out, self.err = self.proc.communicate()
+            self.seconds = time.perf_counter() - t0
+
+        self.thread = threading.Thread(target=collect, daemon=True)
+        self.thread.start()
+
+    def check(self) -> dict:
+        """Waits for it; fails unless it exited 0 and printed each of the
+        example's three lines once."""
+        import re
+
+        self.thread.join(timeout=300)
+        lines = self.out.splitlines()
+        if self.proc.returncode != 0 or not all(
+                sum(1 for ln in lines if re.match(p, ln)) == 1
+                for p in EXAMPLE_LINES):
+            raise SystemExit(f"examples: python examples/torch/quickstart.py"
+                             f" exited {self.proc.returncode}:\n"
+                             f"{self.out[-2000:]}\n{self.err[-2000:]}")
+        return {"returncode": self.proc.returncode, "lines": lines[-3:],
+                "seconds": self.seconds}
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.thread.join(timeout=60)
+
+
+def example_runs(torch, mod, name: str, group, gloo, echo):
+    """-> (the twin's run on the card at its default sizes, a thunk of its
+    CPU run, a thunk of the card run its CPU run is held to, or None for
+    the default run itself).  The rank twins take ``group`` (the one-rank
+    NCCL group) on the card and ``gloo`` on the CPU; serve_lm's parameters
+    are drawn once on the host for both; train_dyngnn_distributed is held
+    to the CPU at ``EXAMPLES_PARITY_STEPS``."""
+    def quiet(_msg):
+        return None
+
+    if name == "serve_lm":
+        from repro_torch.configs import registry
+        from repro_torch.models import lm
+
+        params = lm.init_lm_params(
+            torch.Generator().manual_seed(0),
+            registry.get_arch("yi-6b").make_smoke_config())
+        return (lambda: mod.run(device="cuda", params=params, echo=echo),
+                lambda: mod.run(device="cpu", params=params, echo=quiet),
+                None)
+    if name == "partition_compare":
+        return (lambda: mod.run("cuda", echo=echo),
+                lambda: dict(zip(("loss_sp", "loss_ref"),
+                                 mod.losses(gloo, torch.device("cpu")))),
+                None)
+    if name == "train_dyngnn_distributed":
+        return (lambda: mod.run(device="cuda", echo=echo),
+                lambda: mod.train(gloo, EXAMPLES_PARITY_STEPS, "cpu",
+                                  echo=quiet),
+                lambda: mod.train(group, EXAMPLES_PARITY_STEPS, "cuda",
+                                  echo=quiet))
+    return (lambda: mod.run(device="cuda", echo=echo),
+            lambda: mod.run(device="cpu", echo=quiet), None)
+
+
+def example_compare(name: str, card: dict, ref: dict) -> dict:
+    """The twin ``name``'s card run against its CPU run, at
+    ``TOL_EXAMPLES`` -> the worst distance of each kind; fails past it."""
+    from repro_torch import convert
+
+    worst = {}
+    for k in ("losses", "stream_losses"):
+        if k in ref:
+            worst[f"{k}_rel"] = rel_worst(f"{name} {k}", card[k], ref[k],
+                                          TOL_EXAMPLES)
+    if "loss_sp" in ref:
+        worst["losses_rel"] = rel_worst(
+            name, [card["loss_sp"], card["loss_ref"]],
+            [ref["loss_sp"], ref["loss_ref"]], TOL_EXAMPLES)
+    for k in ("params", "stream_params"):
+        if k in ref:
+            worst[k] = leaf_worst(f"{name} {k}",
+                                  convert.params_to_numpy(card[k]),
+                                  convert.params_to_numpy(ref[k]),
+                                  TOL_EXAMPLES)
+    if "node_scores" in ref:
+        worst["scores"] = leaf_worst(
+            name, {k: card[k] for k in ("node_scores", "link_scores")},
+            {k: ref[k] for k in ("node_scores", "link_scores")},
+            TOL_EXAMPLES)
+    if "tokens" in ref:
+        same(f"{name} tokens", card["tokens"].tolist(),
+             ref["tokens"].tolist())
+    for k in ("graph_diff", "naive", "accuracy", "ratio", "steps", "rounds",
+              "events", "windows", "resyncs", "queries", "query_batches",
+              "tokens_generated"):
+        if k in ref:
+            same(f"{name} {k}", card[k], ref[k])
+    return worst
+
+
+#: what the group reports of each twin's card run at its default sizes
+EXAMPLE_NUMBERS = ("p", "steps", "rounds", "accuracy", "graph_diff",
+                   "naive", "events", "windows", "resyncs", "queries",
+                   "tokens_generated", "loss_sp", "loss_ref", "identical",
+                   "volume")
+
+
+def example_numbers(card: dict) -> dict:
+    """``EXAMPLE_NUMBERS`` of a twin's card run, JSON-ready."""
+    out = {k: card[k] for k in EXAMPLE_NUMBERS if k in card}
+    for k in ("losses", "stream_losses"):
+        if k in card:
+            out[f"{k}_first_last"] = [card[k][0], card[k][-1]]
+    if "tokens" in card:
+        out["tokens_shape"] = list(card["tokens"].shape)
+        out["request0"] = card["tokens"][0][:12].tolist()
+    return {k: float(v) if hasattr(v, "dtype") else v
+            for k, v in out.items()}
+
+
+def examples_path(torch, kernels, group) -> dict:
+    """The examples group: the quickstart script started on the card as
+    a subprocess (a fresh process takes ~25 s to its last line, most of
+    it start-up, hidden behind the rest), each twin of ``EXAMPLES`` on the
+    card at its default sizes (the rank twins over ``group``, the
+    one-rank NCCL group) with its kernels' launches, then each twin on
+    the CPU (the rank twins over a one-rank gloo group), held to its card
+    run."""
+    import torch.distributed as dist
+
+    gloo = dist.new_group(backend="gloo")
+    script = QuickstartScript()
+    runs, launches, cpu_runs = {}, {}, {}
+    try:
+        for name in EXAMPLES:
+            mod = load_example(name)
+
+            def echo(msg, name=name):
+                for line in msg.splitlines():
+                    log(f"[examples] {name}: {line}")
+
+            on_card, on_cpu, parity = example_runs(torch, mod, name, group,
+                                                   gloo, echo)
+            card, n, secs = example_on_card(torch, kernels, name, on_card)
+            rec = {"card_s": secs, "launches": n, **example_numbers(card)}
+            if name == "partition_compare" and not card["identical"]:
+                raise SystemExit("examples: partition_compare: the "
+                                 "partitioned loss differs from the "
+                                 "one-device loss on the card")
+            if parity is not None:
+                t0 = time.perf_counter()
+                card = parity()
+                rec["parity_steps"] = EXAMPLES_PARITY_STEPS
+                rec["parity_card_s"] = time.perf_counter() - t0
+            cpu_runs[name] = (card, on_cpu)
+            runs[name] = rec
+            for k, v in n.items():
+                launches[k] = launches.get(k, 0) + v
+        for name, (card, on_cpu) in cpu_runs.items():
+            t0 = time.perf_counter()
+            ref = on_cpu()
+            rec = runs[name]
+            rec["cpu_s"] = time.perf_counter() - t0
+            rec["card_vs_cpu"] = example_compare(name, card, ref)
+            log(f"[examples] {name}: {rec['card_s']:.1f} s on the card, "
+                f"{rec['cpu_s']:.1f} s on the CPU; launches "
+                + ", ".join(f"{k} {v}" for k, v in rec["launches"].items()
+                            if v)
+                + "; card vs CPU "
+                + (", ".join(f"{k} {v:.2e}"
+                             for k, v in rec["card_vs_cpu"].items())
+                   or "equal"))
+        cpu_runs.clear()
+        gc.collect()
+        t0 = time.perf_counter()
+        runs["quickstart_script"] = script.check()
+        log(f"[examples] python examples/torch/quickstart.py on the card: "
+            f"exit 0 in {runs['quickstart_script']['seconds']:.1f} s, its "
+            f"lines {runs['quickstart_script']['lines']} (waited "
+            f"{time.perf_counter() - t0:.1f} s after the CPU runs)")
+    finally:
+        script.stop()
+        dist.destroy_process_group(gloo)
+    return {"runs": runs, "launches": launches}
+
+
 # ---------------------------------------------------------------- main -----
 
 GROUPS = ("serve", "train", "stream", "partition", "dstream", "hybrid",
           "sampled", "ft", "trace", "data", "lm", "moe", "gnn", "recsys",
-          "cells", "ranks")
+          "cells", "ranks", "examples")
 
 
 def kernel_entry(name: str, source: str, replaces: str, launches: dict,
@@ -6870,8 +7207,8 @@ def main(argv: list[str] | None = None) -> int:
         stream_stats["parity"] = phase("stream parity", stream_parity,
                                        torch)
         stream_stats.update(stream_checks)
-    if {"partition", "dstream", "hybrid", "sampled", "ft", "trace"} \
-            & set(groups):
+    if {"partition", "dstream", "hybrid", "sampled", "ft", "trace",
+            "examples"} & set(groups):
         import torch.distributed as dist
         group = nccl_group(torch)
         try:
@@ -6977,6 +7314,12 @@ def main(argv: list[str] | None = None) -> int:
                                     kernels, obs, train_ds, stream_pipe,
                                     group)
                 launches["trace"] = trace_stats["launches"]
+            if "examples" in groups:
+                gc.collect()
+                torch.cuda.empty_cache()
+                examples_stats = phase("examples", examples_path, torch,
+                                       kernels, group)
+                launches["examples"] = examples_stats["launches"]
         finally:
             dist.destroy_process_group()
     if "data" in groups:
@@ -7145,6 +7488,8 @@ def main(argv: list[str] | None = None) -> int:
         log(json.dumps({"cells_path": cells_stats}))
     if "ranks" in groups:
         log(json.dumps({"ranks_path": ranks_stats}))
+    if "examples" in groups:
+        log(json.dumps({"examples_path": examples_stats}))
     if {"lm", "moe"} & set(groups):
         report.append(kernel_entry(
             "flash_decode", "src/repro_torch/csrc/flash_decode.cu",

@@ -10,12 +10,27 @@ zero, and divides once by min(w, t + t_offset + 1); a row whose band is
 empty is zero.  ``banded_ttm_t_ref`` is the plain version of the
 transposed band over the kept rows (the backward kernel): input row k
 receives dZ[t - lead] / min(w, t + t_offset + 1) from every kept output
-row t (t >= lead) whose band holds it.
+row t (t >= lead) whose band holds it.  ``m_matrix`` is the dense M of
+a slice, the reference's oracle for both.
 """
 
 from __future__ import annotations
 
 import torch
+
+
+def m_matrix(num_steps: int, window: int, t_offset: int = 0
+             ) -> torch.Tensor:
+    """Dense (T_s, T_s) f32 M of a slice whose row 0 is global index
+    ``t_offset``: M[t, k] = 1 / min(w, g) for the band's columns k at or
+    after global step 1, g = t + t_offset + 1; a column before the slice
+    is dropped (port of ``repro.kernels.mproduct.ref.m_matrix``)."""
+    g = torch.arange(num_steps, dtype=torch.float64) + t_offset + 1
+    band = ((g[None, :] <= g[:, None]) & (g[None, :] >= 1)
+            & (g[None, :] > g[:, None] - window))
+    denom = torch.clamp(torch.minimum(g, torch.tensor(float(window))),
+                        min=1.0)
+    return torch.where(band, 1.0 / denom[:, None], 0.0).to(torch.float32)
 
 
 def _denominators(lead: int, rows: int, window: int, t_offset: int,

@@ -11,6 +11,8 @@ devices).
 * :func:`join_one_rank` -- a one-rank process group of this process when
   none is open (NCCL on ``cuda:0``, gloo on the CPU; an in-memory store,
   no port), the group a cell on one card runs over;
+* :func:`join_world` -- the process group ``torchrun`` describes in the
+  environment, or a one-rank group of this process without it;
 * :func:`mesh_device_count` -- the number of ranks of a grid.
 
 ``make_production_mesh`` (the TPU pods of 256 and 512 chips, 16 x 16 and
@@ -19,6 +21,8 @@ card.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 import torch.distributed as dist
@@ -57,6 +61,27 @@ def join_one_rank(device: str | torch.device = "cuda") -> Grid:
         else:
             dist.init_process_group("gloo", **alone)
     return make_host_mesh(1, 1)
+
+
+def join_world(device: str | torch.device = "cuda") -> bool:
+    """Join the process group ``torchrun`` describes in the environment
+    (``WORLD_SIZE`` ranks), or a one-rank group of this process when it
+    describes none: gloo on the CPU, NCCL with this rank on
+    ``cuda:LOCAL_RANK``.  Returns False, joining nothing, when a group is
+    already open; True when it opened one, which the caller then ends
+    (``dist.destroy_process_group``)."""
+    dev = resolve_device(device)
+    if dist.is_initialized():
+        return False
+    alone = ({"store": dist.HashStore(), "rank": 0, "world_size": 1}
+             if int(os.environ.get("WORLD_SIZE", "1")) == 1 else {})
+    if dev.type == "cpu":
+        dist.init_process_group("gloo", **alone)
+        return True
+    local = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+    torch.cuda.set_device(local)
+    dist.init_process_group("nccl", device_id=local, **alone)
+    return True
 
 
 def mesh_device_count(grid: Grid) -> int:

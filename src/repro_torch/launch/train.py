@@ -277,26 +277,10 @@ def main(argv: list[str] | None = None) -> None:
             dist.destroy_process_group()
 
 
-def _join_group(device: str, world: int) -> None:
-    """Join the process group torchrun describes in the environment, or a
-    one-rank group of this process when there is none (``world`` 1): gloo
-    on the CPU, NCCL with this rank on ``cuda:LOCAL_RANK``."""
-    import torch
-    import torch.distributed as dist
-
-    alone = ({"store": dist.HashStore(), "rank": 0, "world_size": 1}
-             if world == 1 else {})
-    if device == "cpu":
-        dist.init_process_group("gloo", **alone)
-        return
-    local = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
-    torch.cuda.set_device(local)
-    dist.init_process_group("nccl", device_id=local, **alone)
-
-
 def _train(args, dp: int, world: int, rescale: tuple) -> None:
     from repro_torch import resolve_device
     from repro_torch.configs import registry
+    from repro_torch.launch import mesh
     from repro_torch.run import CheckpointSpec, DeviceBudgetError, Engine, \
         ExecutionPlan, RunConfig, SamplingSpec, SyntheticTrace
 
@@ -368,7 +352,7 @@ def _train(args, dp: int, world: int, rescale: tuple) -> None:
         ckpt = CheckpointSpec(args.ckpt_dir) if args.ckpt_dir else None
     if world > 1 or args.sampled:
         resolve_device(args.device)       # no card: raise before joining
-        _join_group(args.device, world)
+        mesh.join_world(args.device)
     rank = int(os.environ.get("RANK", "0"))
     lead = rank == 0
     try:
@@ -509,7 +493,7 @@ def _train_cell(args, arch, world: int, dp: int) -> None:
         override = None
     grid = None
     if world > 1:
-        _join_group(args.device, world)
+        mesh.join_world(args.device)
         grid = mesh.make_host_mesh(dp, world // dp)
         if dev.type == "cuda":
             dev = torch.device("cuda", torch.cuda.current_device())

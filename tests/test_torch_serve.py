@@ -280,9 +280,13 @@ _FORBIDDEN = re.compile(
 
 def test_port_imports_neither_jax_nor_repro():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    files += sorted((ROOT / "examples" / "torch").glob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20
     scanned = {f.relative_to(ROOT).as_posix() for f in files}
+    assert {f"examples/torch/{m}.py" for m in (
+        "quickstart", "partition_compare", "serve_dyngnn", "serve_lm",
+        "train_dyngnn_distributed")} <= scanned
     assert {f"src/repro_torch/{m}.py" for m in (
         "graph/segment", "models/gnn/common", "models/gnn/gatedgcn",
         "models/gnn/pna", "models/gnn/schnet", "models/gnn/so3",

@@ -172,6 +172,27 @@ def test_segment_spmm_fn_launches_no_backward_for_an_input_without_grad(
                               pairs[0][0])
 
 
+@pytest.mark.parametrize("t,w", [(1, 1), (5, 1), (8, 3), (12, 5), (6, 9),
+                                 (16, 4)])
+def test_m_matrix_equals_the_reference_oracle(t, w):
+    """``m_matrix`` byte for byte against the reference's dense oracle
+    over offsets before, at and past step 1, and its product against the
+    band's plain version."""
+    from repro.kernels.mproduct.ref import m_matrix as jm_matrix
+
+    x = torch.from_numpy(np.random.default_rng(t + w).normal(
+        size=(t, 5)).astype(np.float32))
+    for t_offset in (-t - 2, -3, -1, 0, 2, 7):
+        got = mp_ref.m_matrix(t, w, t_offset)
+        assert got.dtype == torch.float32
+        np.testing.assert_array_equal(got.numpy(),
+                                      jm_matrix(t, w, t_offset))
+        np.testing.assert_allclose(
+            (got @ x).numpy(),
+            mp_ref.banded_ttm_ref(x[:0], x, w, t_offset).numpy(),
+            rtol=1e-6, atol=1e-6)
+
+
 def _band_matrix(t, w, t_offset):
     """Dense M of ``banded_ttm`` (rows of the slice, global offset)."""
     m = np.zeros((t, t), np.float64)
