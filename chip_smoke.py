@@ -40,7 +40,8 @@ which exits non-zero on failure:
 4a. the training path: ``paper_dyngnn`` (TM-GCN) at the full config's
    widths trained through ``repro_torch.run.Engine(device="cuda")`` — a
    synthetic trace at N = 755,200 with T = 32 steps (cut from epinions'
-   512; density 1.25, M-transform smoothed, ~2.1 M edge slots), 10 AdamW
+   512; density 1.25, M-transform smoothed, ~2.1 M edge slots; made on
+   the host by a child process started before phase 2), 10 AdamW
    steps of the blocked-checkpoint trainer (nb 4), then link-prediction
    evaluation; every kernel's count is zeroed just before the fit and
    read just after (per step: 160 ``segment_spmm`` — 64 forward, 64 in
@@ -197,7 +198,10 @@ which exits non-zero on failure:
    the step; the calibration report's 8 rows; the probe's seconds and the
    observer effect; the spans exported as ``.json`` and ``.jsonl``, each
    valid; the launcher with ``--trace`` on the card (eager, smoke
-   config), its ``trace:`` line and a valid file;
+   config), its ``trace:`` line and a valid file; the port's trace
+   checker (``python -m repro_torch.obs.check``) passing the exported
+   ``.json`` and ``.jsonl`` with ``--phases`` and the launcher's file
+   with ``--require train.step``;
 4n. edge-list data (the data group): the train trace's raw snapshots
    (30,207,991 rows, kept by the train phase, which made the trace in its
    two stages) written as ``.npz`` by ``write_edgelist``, read back
@@ -387,7 +391,20 @@ which exits non-zero on failure:
    max, within ``TOL_EXAMPLES``; tokens, counts and accuracy equal;
    train_dyngnn_distributed at ``EXAMPLES_PARITY_STEPS`` eager steps on
    both); ``python examples/torch/quickstart.py`` runs as a user runs
-   it, on the card, beside them all.
+   it, on the card, beside them all;
+14. the API docs (the docs group, after 13 over the one-rank NCCL
+   group): every ```python fence of the five twins under ``docs/torch/``
+   run through the port's docs checker (``tools/torch/check_docs.py``)
+   in this process on the card, every kernel count zeroed before and
+   read after: segment_spmm (and its backward), banded_ttm and
+   banded_ttm_t launched; at one rank, run_api.md's two fences guarded
+   by a group of 4 skip and compression.md's 4-rank fence is passed by,
+   each named in the log (the CPU tests run them on 4 gloo ranks); then
+   the checker as a user runs it, ``--device cpu --no-links`` in a
+   subprocess started before the examples group and run beside it and
+   the card run, and each fence's values on the card held to
+   the CPU's (``TOL_EXAMPLES``: losses and scores relative, counts,
+   bytes and the rest equal).
 
 Tolerances: the dyngnn cell card against CPU 1e-2 (its bf16 payloads,
 ``tests/test_torch_cells.py``'s); segment SpMM 1e-4 (abs and rel; fp32
@@ -414,7 +431,7 @@ sleep); ``wrapper_ms`` is the wrapper's host time plus device time.
 Prints the card line, the per-phase numbers, one JSON line each of the
 streamed, the partitioned, the distributed-stream, the hybrid, the
 sampled, the fault-tolerance, the trace, the data, the moe, the gnn, the
-recsys, the cells, the ranks and the examples phases' numbers,
+recsys, the cells, the ranks, the examples and the docs phases' numbers,
 one JSON line of the kernels and, last, ``{"ok": true, "device":
 {...}}``.  Before that line it stops every process it started that is
 still running (the shared sampling pools, ``multiprocessing``'s resource
@@ -423,10 +440,10 @@ subreaper) and fails if any but those two was left; at exit it stops
 them again.  Without a CUDA device, or without the repository around
 it, it exits non-zero and prints no result.  ``--only
 serve,train,stream,partition,dstream,hybrid,sampled,ft,trace,data,lm,moe,\
-gnn,recsys,cells,ranks,examples``
+gnn,recsys,cells,ranks,examples,docs``
 runs the build and the named groups of phases (1–4, 4a–4c, 4d, 4e–4g,
 4h–4i, 4j, 4k, 4l, 4m, 4n, 5–7, 8 with phase 6's OLMoE rows when lm is
-not named, 9, 10, 11, 12, 13; each of partition, dstream, hybrid, sampled
+not named, 9, 10, 11, 12, 13, 14; each of partition, dstream, hybrid, sampled
 and ft with its part of 4o; partition and data are held to train's run,
 so they need train) and prints no result line.
 """
@@ -1264,6 +1281,94 @@ def train_trace(n_nodes: int, window: int):
                           smoothing_mode="mproduct", window=window, seed=0)
 
 
+TRACE_CHILD = """
+import json, sys, time
+import numpy as np
+sys.path.insert(0, sys.argv[1])
+from repro_torch.data.dyngnn import dataset_from_snapshots
+from repro_torch.graph.generate import evolving_dynamic_graph
+spec = json.loads(sys.argv[3])
+t0 = time.perf_counter()
+raw = evolving_dynamic_graph(spec["num_nodes"], spec["num_steps"],
+                             spec["density"], spec["churn"], spec["seed"])
+t1 = time.perf_counter()
+ds = dataset_from_snapshots(raw, spec["num_nodes"],
+                            smoothing_mode=spec["smoothing_mode"],
+                            window=spec["window"],
+                            edge_life=spec["edge_life"])
+t2 = time.perf_counter()
+arrays = {"frames": ds.frames, "labels": ds.labels}
+for key, seq in (("raw", raw), ("snap", ds.snapshots), ("val", ds.values)):
+    arrays.update({f"{key}{i}": a for i, a in enumerate(seq)})
+np.savez(sys.argv[2], **arrays)
+print(json.dumps({"generate_s": t1 - t0, "dataset_s": t2 - t1,
+                  "write_s": time.perf_counter() - t2}))
+"""
+
+
+class TrainTraceJob:
+    """``train_trace``'s raw snapshots and dataset made on the host in a
+    child process (``TRACE_CHILD``: the same generator and smoothing, so
+    the same arrays as made here) that the script starts before the serve
+    group, so that the host's numpy work runs beside the serve group's
+    card work; ``train_path`` reads them.  A process and not a thread: a
+    thread would share this process's interpreter lock with the kernel
+    timings of the serve group."""
+
+    def __init__(self, n_nodes: int, window: int):
+        import tempfile
+
+        self.spec = train_trace(n_nodes, window)
+        self.dir = Path(tempfile.mkdtemp(prefix="chip_smoke_trace_"))
+        self.out = self.dir / "trace.npz"
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", TRACE_CHILD, str(SRC), str(self.out),
+             json.dumps(dataclasses.asdict(self.spec))],
+            cwd=ROOT, env=dict(os.environ, OMP_NUM_THREADS="1"),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    def result(self):
+        """-> (raw snapshots, ``DTDGDataset``, seconds: the child's
+        stages, its whole run and what this process waited and read)."""
+        import shutil
+
+        import numpy as np
+
+        from repro_torch.data.dyngnn import DTDGDataset
+
+        t1 = time.perf_counter()
+        try:
+            stdout, stderr = self.proc.communicate(timeout=900)
+            if self.proc.returncode != 0:
+                raise SystemExit(f"train trace: the child exited "
+                                 f"{self.proc.returncode}:\n"
+                                 f"{stderr[-2000:]}")
+            waited = time.perf_counter() - t1
+            seconds = json.loads(stdout.strip().splitlines()[-1])
+            seconds["child_s"] = time.perf_counter() - self.t0
+            with np.load(self.out) as z:
+                arrays = {k: z[k] for k in z.files}
+        finally:
+            if self.proc.poll() is None:
+                self.proc.kill()
+                self.proc.communicate()
+            shutil.rmtree(self.dir, ignore_errors=True)
+        t = self.spec.num_steps
+
+        def seq(key):
+            return [arrays.pop(f"{key}{i}") for i in range(t)]
+
+        raw, snaps, vals = seq("raw"), seq("snap"), seq("val")
+        ds = DTDGDataset(snapshots=snaps, values=vals,
+                         frames=arrays.pop("frames"),
+                         labels=arrays.pop("labels"),
+                         num_nodes=self.spec.num_nodes)
+        seconds.update(waited_s=waited,
+                       read_s=time.perf_counter() - t1 - waited)
+        return raw, ds, seconds
+
+
 def train_launches(layers: int, t: int, nb: int) -> dict:
     """Launches of ``TRAIN_STEPS`` blocked TM-GCN steps: per step the
     aggregate forward (L T), again in each block's recompute (L T) and
@@ -1275,7 +1380,7 @@ def train_launches(layers: int, t: int, nb: int) -> dict:
             "banded_ttm_t": TRAIN_STEPS * layers * nb, "flash_decode": 0}
 
 
-def train_path(torch, kernels, obs, n_nodes: int):
+def train_path(torch, kernels, obs, n_nodes: int, trace: TrainTraceJob):
     """The training path: ``paper_dyngnn`` (TM-GCN) at the full config's
     widths through ``repro_torch.run.Engine(device="cuda")`` — 10 AdamW
     steps of the blocked-checkpoint trainer (nb 4) over a T = 32 synthetic
@@ -1283,34 +1388,35 @@ def train_path(torch, kernels, obs, n_nodes: int):
     batch, the path's numbers, the trace's dataset, which the streamed
     phase trains on again, and its raw snapshots, which the data group
     writes).  The trace is ``train_trace``'s, made in its two stages so
-    the raw snapshots are kept."""
+    the raw snapshots are kept, by ``trace`` beside the serve group."""
     import numpy as np
 
     from repro_torch.configs import registry
     from repro_torch.core import checkpoint as ckpt
-    from repro_torch.data.dyngnn import dataset_from_snapshots
-    from repro_torch.graph.generate import evolving_dynamic_graph
     from repro_torch.kernels.build import reset_counts
     from repro_torch.kernels.segment_spmm import ops as spmm_ops
     from repro_torch.run import Engine, ExecutionPlan, InMemoryDTDG, \
         RunConfig
 
     cfg = registry.get_arch("paper_dyngnn").make_config()
-    spec = train_trace(n_nodes, cfg.window)
+    if (trace.spec.num_nodes, trace.spec.window) != (n_nodes, cfg.window):
+        raise SystemExit(f"train trace: made for {trace.spec}, not N "
+                         f"{n_nodes}, w {cfg.window}")
+    raw, ds, made = trace.result()
     t0 = time.perf_counter()
-    raw = evolving_dynamic_graph(spec.num_nodes, spec.num_steps,
-                                 spec.density, spec.churn, spec.seed)
-    data = InMemoryDTDG(dataset_from_snapshots(
-        raw, spec.num_nodes, smoothing_mode=spec.smoothing_mode,
-        window=spec.window, edge_life=spec.edge_life))
-    eng = Engine(RunConfig(model=cfg, data=data,
+    eng = Engine(RunConfig(model=cfg, data=InMemoryDTDG(ds),
                            plan=ExecutionPlan(num_steps=TRAIN_STEPS),
                            log_fn=log), device="cuda")
     rr = eng.resolve()
     pipe, nb = rr.pipeline, rr.cfg.checkpoint_blocks
     log(f"[train] {cfg.model}: trace N={n_nodes}, T={TRAIN_T}, density "
         f"{TRAIN_DENSITY} + M-transform (w {cfg.window}) + self-loops, made "
-        f"on the host in {time.perf_counter() - t0:.1f} s: max_edges "
+        f"on the host in a child process beside the serve group in "
+        f"{made['child_s']:.1f} s (generate {made['generate_s']:.1f}, "
+        f"smooth and features {made['dataset_s']:.1f}, write "
+        f"{made['write_s']:.1f}; waited {made['waited_s']:.1f}, read "
+        f"{made['read_s']:.1f} here), pipeline resolved in "
+        f"{time.perf_counter() - t0:.1f} s: max_edges "
         f"{pipe.max_edges} (DATASETS['epinions']: 2,097,152), graph-diff "
         f"bytes {pipe.transfer_bytes()['ratio']:.3f} of naive")
     t0 = time.perf_counter()
@@ -4033,6 +4139,11 @@ def trace_path(torch, kernels, obs, ds, pipe, group) -> dict:
                              f"{launched.returncode}, {line}, {steps} "
                              f"train.step spans\n{launched.stderr[-2000:]}")
         launch_bytes = out.stat().st_size
+        checked = check_traces([
+            (Path(d) / "trace.json", ["--phases"], rounds),
+            (Path(d) / "trace.jsonl", ["--phases"], rounds),
+            (out, ["--require", "train.step"], 0)])
+    log("[trace] python -m repro_torch.obs.check: " + "; ".join(checked))
     log(f"[trace] exported {sizes['.json']} B (.json), {sizes['.jsonl']} B "
         "(.jsonl), both valid with every phase of every round; the "
         f"launcher on the card: '{line[0].split(' -> ')[0]}', "
@@ -4053,7 +4164,32 @@ def trace_path(torch, kernels, obs, ds, pipe, group) -> dict:
                             "predicted_s": [row.predicted_s
                                             for row in rep.rows]},
             "export_bytes": sizes, "launcher_trace_bytes": launch_bytes,
-            "launcher_s": launch_s}
+            "launcher_s": launch_s, "checked": checked}
+
+
+def check_traces(jobs) -> list[str]:
+    """``python -m repro_torch.obs.check PATH FLAGS`` for each (path,
+    flags, rounds) of ``jobs``, all started together -> each one's line;
+    fails unless each exits 0 with ``PATH: OK (N events, rounds
+    rounds)``."""
+    from repro_torch import obs
+
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    procs = [(path, flags, rounds, subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.obs.check", str(path), *flags],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)) for path, flags, rounds in jobs]
+    lines = []
+    for path, flags, rounds, proc in procs:
+        out, err = proc.communicate(timeout=120)
+        n = len(obs.load_trace(path)[0])
+        want = f"{path}: OK ({n} events, {rounds} rounds)"
+        if proc.returncode != 0 or out.strip() != want:
+            raise SystemExit(f"trace: the port's checker {flags} on "
+                             f"{path.name} exited {proc.returncode}: "
+                             f"{out[-1000:]}{err[-2000:]}")
+        lines.append(f"{path.name} {' '.join(flags)}: {want.split(': ')[1]}")
+    return lines
 
 
 # ------------------------------------------------------------- data path ---
@@ -6827,10 +6963,11 @@ class BackwardLaunches:
         self.ops.SegmentSpmmFn.backward = staticmethod(self.orig)
 
 
-def example_on_card(torch, kernels, name: str, fn):
+def example_on_card(torch, kernels, name: str, fn, needed=None):
     """``fn()`` with every kernel count zeroed just before and read just
     after -> (its result, {kernel: launches}, seconds); fails when a
-    kernel of the twin's path did not launch."""
+    kernel of the path (``needed``, else the twin's ``EXAMPLE_KERNELS``)
+    did not launch."""
     from repro_torch.kernels.build import reset_counts
 
     reset_counts(kernels)
@@ -6841,7 +6978,9 @@ def example_on_card(torch, kernels, name: str, fn):
     secs = time.perf_counter() - t0
     counts = {k.name: k.launches for k in kernels}
     counts["segment_spmm_bwd"] = bwd.n
-    missing = [k for k in EXAMPLE_KERNELS[name] if counts[k] < 1]
+    if needed is None:
+        needed = EXAMPLE_KERNELS[name]
+    missing = [k for k in needed if counts[k] < 1]
     if missing:
         raise SystemExit(f"examples: {name} on the card launched no "
                          f"{', '.join(missing)} ({counts})")
@@ -7082,11 +7221,167 @@ def examples_path(torch, kernels, group) -> dict:
     return {"runs": runs, "launches": launches}
 
 
+# ----------------------------------------------------------------- docs ----
+
+#: the kernels the twin docs' fences launch on the card: their dyngnn
+#: runs train (``_TRAINED``), and no fence serves an LM
+DOCS_KERNELS = _TRAINED
+#: the card's fence values against the CPU's, every kind relative
+DOCS_TOLS = {"loss": TOL_EXAMPLES, "score": TOL_EXAMPLES,
+             "int8": TOL_EXAMPLES}
+DOCS_CPU_THREADS = "2"      # the CPU run's threads, beside the card run
+
+
+def load_docs_checker():
+    """``tools/torch/check_docs.py`` as a module."""
+    spec = importlib.util.spec_from_file_location(
+        "torch_check_docs", ROOT / "tools" / "torch" / "check_docs.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def docs_worst(tool, card: dict, cpu: dict) -> dict:
+    """The largest relative distance of each inexact kind, card vs CPU."""
+    import numpy as np
+
+    worst: dict = {}
+    for doc, fences in cpu.items():
+        for i, vals in enumerate(fences):
+            for expr, want in (vals or {}).items():
+                kind = tool.FENCE_VALUES[doc][i][expr]
+                if kind == "exact":
+                    continue
+                a = np.asarray(card[doc][i][expr], dtype=np.float64)
+                b = np.asarray(want, dtype=np.float64)
+                scale = (np.abs(b) if kind != "score"
+                         else np.abs(b).max()) + 1e-30
+                worst[kind] = max(worst.get(kind, 0.0),
+                                  float(np.max(np.abs(a - b) / scale)))
+    return worst
+
+
+class DocsCpuRun:
+    """``tools/torch/check_docs.py --device cpu --no-links --values``
+    started as a subprocess (the checker's fences as a user runs them, on
+    the host; the link check reads files, not the card, and
+    ``tests/test_torch_docs.py`` holds it, so a checkout that leaves out
+    a linked file does not fail here).  The script starts it before the
+    examples group, so that it runs beside that group's card runs, and
+    the docs group reads it."""
+
+    def __init__(self):
+        import tempfile
+
+        self.dir = Path(tempfile.mkdtemp(prefix="chip_smoke_docs_"))
+        self.out = self.dir / "cpu.json"
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, str(ROOT / "tools" / "torch" / "check_docs.py"),
+             "--device", "cpu", "--no-links", "--values", str(self.out)],
+            cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(SRC),
+                               TMPDIR=str(self.dir),
+                               OMP_NUM_THREADS=DOCS_CPU_THREADS),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    def result(self) -> tuple[dict, float, float]:
+        """-> (each fence's values on the CPU, the run's seconds, the
+        seconds waited for it here); raises if the checker failed."""
+        t1 = time.perf_counter()
+        try:
+            stdout, stderr = self.proc.communicate(timeout=600)
+        finally:
+            if self.proc.poll() is None:
+                self.proc.kill()
+                self.proc.communicate()
+        waited = time.perf_counter() - t1
+        if self.proc.returncode != 0 or not self.out.exists():
+            raise SystemExit(f"docs: tools/torch/check_docs.py --device cpu "
+                             f"--no-links exited {self.proc.returncode}:\n"
+                             f"{stdout[-2000:]}\n{stderr[-2000:]}")
+        return (json.loads(self.out.read_text()),
+                time.perf_counter() - self.t0, waited)
+
+    def close(self) -> None:
+        import shutil
+
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.communicate()
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def docs_path(torch, kernels, cpu_run: DocsCpuRun) -> dict:
+    """The docs group: every fence of the five twins under
+    ``docs/torch/`` through the docs checker in this process on the card
+    (the one-rank NCCL group open, as a lone process's: run_api.md's
+    fences guarded by a group of 4 skip, compression.md's 4-rank fence is
+    passed by) with every kernel launch counted, and each fence's values
+    on the card held to those of ``cpu_run``, the same checker's run on
+    the host."""
+    import tempfile
+
+    tool = load_docs_checker()
+    seconds: dict = {}
+
+    def run_docs():
+        values = {}
+        for name in tool.EXAMPLE_DOCS:
+            t1 = time.perf_counter()
+            values[name] = tool.run_examples(
+                tool.DOCS / name, "cuda", echo=lambda m: log(f"[docs] {m}"))
+            seconds[name] = time.perf_counter() - t1
+        return values
+
+    try:
+        saved, tempfile.tempdir = tempfile.tempdir, str(cpu_run.dir)
+        try:
+            card, launches, card_s = example_on_card(
+                torch, kernels, "docs", run_docs, DOCS_KERNELS)
+        finally:
+            tempfile.tempdir = saved
+        cpu, cpu_s, waited = cpu_run.result()
+    finally:
+        cpu_run.close()
+    card = json.loads(json.dumps(card))        # the CPU's JSON types
+    problems = tool.compare_values(card, cpu, DOCS_TOLS)
+    if problems:
+        raise SystemExit("docs: card vs CPU:\n" + "\n".join(problems[:20]))
+    guarded = [f"{doc} block {i + 1}" for doc, fs in card.items()
+               for i, v in enumerate(fs) if v == {}]
+    cpu_only = [f"{doc} block {i + 1}" for doc, fs in card.items()
+                for i, v in enumerate(fs) if v is None]
+    worst = docs_worst(tool, card, cpu)
+    n_fences = sum(len(fs) for fs in card.values())
+    log(f"[docs] {n_fences} fences: {n_fences - len(cpu_only)} run on the "
+        f"card in {card_s:.1f} s ("
+        + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
+        + "); launches " + ", ".join(f"{k} {v}" for k, v in launches.items()
+                                     if v))
+    log(f"[docs] skipped by their guard at 1 rank, as in a lone process "
+        f"(4 gloo ranks run them in tests/test_torch_docs_ranks.py): "
+        f"{', '.join(guarded)}")
+    log(f"[docs] run on the CPU only (it needs 4 ranks, one card here; 4 "
+        f"gloo ranks in tests/test_torch_docs_ranks.py): "
+        f"{', '.join(cpu_only)}")
+    log(f"[docs] tools/torch/check_docs.py --device cpu --no-links: exit 0 "
+        f"in {cpu_s:.1f} s ({DOCS_CPU_THREADS} threads, started before the "
+        f"examples and docs groups, beside their card runs; waited {waited:.1f} s "
+        f"after the card run); card vs CPU: every exact value "
+        "equal, worst relative " + (", ".join(f"{k} {v:.2e}" for k, v in
+                                              worst.items()) or "-")
+        + f" (limit {TOL_EXAMPLES})")
+    return {"launches": launches, "card_s": card_s, "doc_s": seconds,
+            "cpu_s": cpu_s, "cpu_wait_s": waited, "fences": n_fences,
+            "guarded": guarded, "cpu_only": cpu_only,
+            "card_vs_cpu": worst}
+
+
 # ---------------------------------------------------------------- main -----
 
 GROUPS = ("serve", "train", "stream", "partition", "dstream", "hybrid",
           "sampled", "ft", "trace", "data", "lm", "moe", "gnn", "recsys",
-          "cells", "ranks", "examples")
+          "cells", "ranks", "examples", "docs")
 
 
 def kernel_entry(name: str, source: str, replaces: str, launches: dict,
@@ -7157,6 +7452,8 @@ def main(argv: list[str] | None = None) -> int:
         return out
 
     n_nodes, _, max_edges = DATASETS["epinions"]
+    # the train group's trace is made on the host beside the serve group
+    train_job = TrainTraceJob(n_nodes, 5) if "train" in groups else None
     timer = Timer(torch)
     launches, report = {}, []
     if "serve" in groups:
@@ -7177,7 +7474,8 @@ def main(argv: list[str] | None = None) -> int:
     train_ds = stream_pipe = None
     if "train" in groups:
         batch, train_stats, train_ds, stream_pipe, train_raw = phase(
-            "train path", train_path, torch, kernels, obs, n_nodes)
+            "train path", train_path, torch, kernels, obs, n_nodes,
+            train_job)
         launches["train"] = train_stats["launches"]
         spmm_bwd, ttm_train_rows, ttm_t_rows, ttm_sweep, ttm_t_sweep = \
             phase("train-shape kernel checks", check_backward, torch, batch,
@@ -7208,7 +7506,7 @@ def main(argv: list[str] | None = None) -> int:
                                        torch)
         stream_stats.update(stream_checks)
     if {"partition", "dstream", "hybrid", "sampled", "ft", "trace",
-            "examples"} & set(groups):
+            "examples", "docs"} & set(groups):
         import torch.distributed as dist
         group = nccl_group(torch)
         try:
@@ -7314,12 +7612,19 @@ def main(argv: list[str] | None = None) -> int:
                                     kernels, obs, train_ds, stream_pipe,
                                     group)
                 launches["trace"] = trace_stats["launches"]
+            docs_cpu = DocsCpuRun() if "docs" in groups else None
             if "examples" in groups:
                 gc.collect()
                 torch.cuda.empty_cache()
                 examples_stats = phase("examples", examples_path, torch,
                                        kernels, group)
                 launches["examples"] = examples_stats["launches"]
+            if "docs" in groups:
+                gc.collect()
+                torch.cuda.empty_cache()
+                docs_stats = phase("docs", docs_path, torch, kernels,
+                                   docs_cpu)
+                launches["docs"] = docs_stats["launches"]
         finally:
             dist.destroy_process_group()
     if "data" in groups:
@@ -7490,6 +7795,8 @@ def main(argv: list[str] | None = None) -> int:
         log(json.dumps({"ranks_path": ranks_stats}))
     if "examples" in groups:
         log(json.dumps({"examples_path": examples_stats}))
+    if "docs" in groups:
+        log(json.dumps({"docs_path": docs_stats}))
     if {"lm", "moe"} & set(groups):
         report.append(kernel_entry(
             "flash_decode", "src/repro_torch/csrc/flash_decode.cu",

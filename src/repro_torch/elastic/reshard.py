@@ -56,12 +56,28 @@ def width_groups(widths, pool) -> dict:
     return out
 
 
+def own_rank_group(pool):
+    """This rank's one-rank group of the pool.  ``dist.new_group`` is
+    collective over the whole world, so every rank makes the one-rank
+    group of each rank of the pool, in rank order, and keeps its own;
+    made once a process and reused, like the width groups."""
+    key = (id(pool), "own")
+    if key not in _GROUPS or _GROUPS[key][0] is not pool:
+        me = dist.get_rank()
+        own = None
+        for r in dist.get_process_group_ranks(pool):
+            g = dist.new_group([r])
+            own = g if r == me else own
+        _GROUPS[key] = (pool, own)
+    return _GROUPS[key][1]
+
+
 def drop_width_groups() -> None:
-    """Forget every cached width group.  Call it before
-    ``dist.destroy_process_group()``: a group the cache kept alive past
-    that teardown is destroyed at interpreter exit instead, where gloo can
-    abort a process whose run succeeded (``terminate called without an
-    active exception``, exit -6)."""
+    """Forget every cached group (``width_groups``', ``own_rank_group``'s).
+    Call it before ``dist.destroy_process_group()``: a group the cache
+    kept alive past that teardown is destroyed at interpreter exit
+    instead, where gloo can abort a process whose run succeeded
+    (``terminate called without an active exception``, exit -6)."""
     _GROUPS.clear()
 
 

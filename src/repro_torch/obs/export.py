@@ -18,7 +18,7 @@ https://ui.perfetto.dev open directly.  Two file shapes:
 Spans nest by containment on each thread track — Perfetto stacks
 duration events that lie inside each other on the same ``tid``, so the
 tracer does not store parent links.  ``validate_trace`` is the schema
-gate CI's trace-smoke step runs (via ``tools/check_trace.py``).
+gate the port's trace checker runs (``python -m repro_torch.obs.check``).
 """
 
 from __future__ import annotations

@@ -181,15 +181,22 @@ class ExecutionPlan:
     def build_mesh(self):
         """The plan's process group, or None for one device: ``mesh``
         when given; else, for P > 1 shards, the default group, which must
-        be initialized with P ranks.  An elastic plan takes the default
-        group as its pool (at least as many ranks as its widest width)
-        and makes every width's group of it at once; its group is the
-        width-``shards`` one."""
+        be initialized with P ranks; for one fixed shard under a larger
+        default group, this rank's one-rank group of it.  An elastic plan
+        takes the default group as its pool (at least as many ranks as its
+        widest width) and makes every width's group of it at once; its
+        group is the width-``shards`` one."""
         if self.mesh is not None:
             return self.mesh
         if not self.wants_mesh:
             return None
         p = self.num_shards
+        if (p == 1 and not self.is_elastic and dist.is_initialized()
+                and dist.get_world_size() > 1):
+            # every rank of a larger group runs its own one-shard plan
+            # (as each JAX process does on one of its devices)
+            from repro_torch.elastic.reshard import own_rank_group
+            return own_rank_group(dist.group.WORLD)
         if self.is_elastic and dist.is_initialized() \
                 and dist.get_world_size() >= max((p,) + self.rescale_widths):
             from repro_torch.elastic.reshard import width_groups

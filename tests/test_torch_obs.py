@@ -25,6 +25,12 @@ held to the JAX package's (``repro.obs``).
   (``tests/test_obs.py``); each rank's exported file passes the
   reference's ``tools/check_trace.py --phases --require prefetch.stage
   --require prefetch.wait``.
+* The port's trace checker (``python -m repro_torch.obs.check``) gives
+  the reference checker's exit code, stdout and stderr on the same files:
+  the pool's rank 0 and rank 1 traces, a round missing ``round.a2a``, a
+  final round missing a phase (with and without spans lost to the ring),
+  one cut-short round, a missing ``--require``d span, a malformed event,
+  a trace with no rounds under ``--phases``, and a ``.jsonl`` file.
 
 The ranks are spawned and import this module for their program, so it
 imports no JAX at its top: the reference is the ``ref`` fixture's.
@@ -462,3 +468,103 @@ def test_exported_traces_pass_the_reference_checker(pool):
             "rounds)" in out.stdout
     pids = {obs.load_trace(p)[0][0]["pid"] for p in paths}
     assert len(pids) == P
+
+
+# ------------------------------------------ the trace checker's port ------
+
+def _reference_checker():
+    """``tools/check_trace.py`` as a module (it imports ``repro.obs``)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "check_trace", ROOT / "tools" / "check_trace.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _reference_check(capsys, monkeypatch, args: list[str]):
+    """The reference checker's (exit code, stdout, stderr) on ``args``."""
+    monkeypatch.setattr(sys, "argv", ["check_trace.py", *args])
+    capsys.readouterr()
+    rc = _reference_checker().main()
+    out = capsys.readouterr()
+    return rc, out.out, out.err
+
+
+def _checked_trace(path: Path, rounds: int = 3, drop=(), dropped: int = 0,
+                   phases: bool = True, bad: bool = False) -> str:
+    """A traced run's file: ``rounds`` rounds of the four phases and a
+    prefetch span; ``drop`` ((round, phase), ...) taken out, ``dropped``
+    spans said lost to the ring, ``bad`` adds a malformed event."""
+    trc = Tracer(enabled=True)
+    for r in range(rounds if phases else 0):
+        trc.add_span("round", float(r), 0.07, cat="round", round=r)
+        for k, name in enumerate(("transfer", "spatial", "a2a", "temporal")):
+            if (r, name) not in drop:
+                trc.add_span(f"round.{name}", r + 0.01 * k, 0.01, round=r)
+    trc.add_span("prefetch.stage", 0.5, 0.002, cat="prefetch", tid=7)
+    if not phases:
+        trc.add_span("serve.advance", 0.1, 0.01, cat="serve")
+    obs.export_trace(path, tracer=trc, metrics={"counters": {}, "gauges": {}})
+    if path.suffix == ".json":
+        doc = json.loads(path.read_text())
+        doc["repro"]["dropped_spans"] = dropped
+        if bad:
+            doc["traceEvents"].append({"name": "x", "ph": "X", "ts": -1,
+                                       "pid": 1, "tid": 1})
+        path.write_text(json.dumps(doc))
+    return str(path)
+
+
+CHECKER_CASES = {
+    "whole": ({}, ["--phases", "--require", "prefetch.stage"]),
+    "whole_jsonl": ({"suffix": ".jsonl"}, ["--phases"]),
+    "round_missing_a2a": ({"drop": ((1, "a2a"),)}, ["--phases"]),
+    "final_round_missing_a_phase": ({"drop": ((2, "temporal"),)},
+                                    ["--phases"]),
+    "final_round_cut_short": ({"drop": ((2, "temporal"),), "dropped": 5},
+                              ["--phases"]),
+    "one_round_cut_short": ({"rounds": 1, "drop": ((0, "a2a"),)},
+                            ["--phases"]),
+    "missing_required_span": ({}, ["--require", "prefetch.stage",
+                                   "--require", "prefetch.wait"]),
+    "malformed_event": ({"bad": True}, ["--phases"]),
+    "no_rounds": ({"phases": False}, ["--phases"]),
+    "no_rounds_without_phases": ({"phases": False}, []),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CHECKER_CASES))
+def test_port_checker_prints_the_reference_s_lines(case, tmp_path, capsys,
+                                                   monkeypatch):
+    from repro_torch.obs import check
+
+    kw, flags = CHECKER_CASES[case]
+    kw = dict(kw)
+    path = _checked_trace(tmp_path / f"t{kw.pop('suffix', '.json')}", **kw)
+    want = _reference_check(capsys, monkeypatch, [path, *flags])
+    capsys.readouterr()
+    rc = check.main([path, *flags])
+    out = capsys.readouterr()
+    assert (rc, out.out, out.err) == want
+    expect_ok = case.startswith(("whole", "final_round_cut", "one_round",
+                                 "no_rounds_without"))
+    assert rc == (0 if expect_ok else 1), out
+    assert (out.out.endswith("rounds)\n") and not out.err) == expect_ok
+
+
+def test_port_checker_cli_on_the_pool_s_traces(pool, capsys, monkeypatch):
+    """``python -m repro_torch.obs.check`` on rank 0's and rank 1's
+    exported files: the reference checker's exit code and lines."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    flags = ["--phases", "--require", "prefetch.stage", "--require",
+             "prefetch.wait"]
+    for res in pool[:2]:
+        path = res["traced"]["trace"]
+        want = _reference_check(capsys, monkeypatch, [path, *flags])
+        got = subprocess.run(
+            [sys.executable, "-m", "repro_torch.obs.check", path, *flags],
+            capture_output=True, text=True, timeout=120, env=env, cwd=ROOT)
+        assert (got.returncode, got.stdout, got.stderr) == want
+        assert want[0] == 0 and f"OK ({len(obs.load_trace(path)[0])} " \
+            f"events, {ROUNDS} rounds)" in got.stdout

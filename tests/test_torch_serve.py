@@ -281,12 +281,25 @@ _FORBIDDEN = re.compile(
 def test_port_imports_neither_jax_nor_repro():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files += sorted((ROOT / "examples" / "torch").glob("*.py"))
+    files += sorted((ROOT / "tools" / "torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20
     scanned = {f.relative_to(ROOT).as_posix() for f in files}
     assert {f"examples/torch/{m}.py" for m in (
         "quickstart", "partition_compare", "serve_dyngnn", "serve_lm",
         "train_dyngnn_distributed")} <= scanned
+    assert {"tools/torch/check_docs.py",
+            "src/repro_torch/obs/check.py"} <= scanned
+    # the docs' runnable fences (```python and ```sh) count as code
+    fences = [(md, code) for md in sorted((ROOT / "docs" / "torch").glob(
+        "*.md")) for code in re.findall(r"^```(?:python|sh)[^\n]*\n(.*?)^```",
+                                        md.read_text(), re.M | re.S)]
+    assert len(fences) >= 22
+    hits = [f"{md.relative_to(ROOT)}: {m.group(0).strip()}"
+            for md, code in fences for m in _FORBIDDEN.finditer(code)]
+    hits += [f"{md.relative_to(ROOT)}: runs the reference's checker"
+             for md, code in fences if "tools/check_trace.py" in code]
+    assert hits == []
     assert {f"src/repro_torch/{m}.py" for m in (
         "graph/segment", "models/gnn/common", "models/gnn/gatedgcn",
         "models/gnn/pna", "models/gnn/schnet", "models/gnn/so3",
